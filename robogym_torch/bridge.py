@@ -1,0 +1,152 @@
+"""Carry a compiled model and a simulation state across packages.
+
+`model_to_numpy` and `data_to_numpy` read any object whose fields carry the
+`Model`/`Data` field names (the JAX package's pytrees or this port's
+dataclasses) through `dataclasses.fields` and `np.asarray`; they are
+duck-typed and import neither JAX nor the JAX package. The result is a flat
+dict of numpy arrays that `np.savez` can store:
+
+  * `model.<field>`, `opt.<field>`, `const.<field>` for a model, with the
+    const's `body_tree` and `names` as JSON text;
+  * `<field>` and `contact.<field>` for a state, each with its leading
+    env axis.
+
+`model_from_numpy` and `data_from_numpy` build the port's `Model`/`Data` on
+a device from such a dict.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict
+
+import numpy as np
+import torch
+
+from robogym_torch.mjcf.model import (
+    OPTION_STATIC, OPTION_TENSORS, Contact, Data, Model, ModelConst, Option,
+)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _fields(obj):
+    return [f.name for f in dataclasses.fields(obj)]
+
+
+def model_to_numpy(model) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for name in _fields(model):
+        if name in ("const", "opt"):
+            continue
+        v = getattr(model, name)
+        if v is not None:
+            out["model." + name] = _np(v)
+    for name in OPTION_TENSORS:
+        out["opt." + name] = _np(getattr(model.opt, name))
+    for name in OPTION_STATIC:
+        out["opt." + name] = np.asarray(getattr(model.opt, name))
+    const = model.const
+    for name in _fields(ModelConst):
+        v = getattr(const, name)
+        if name == "body_tree":
+            out["const.body_tree"] = np.asarray(json.dumps([list(map(int, lvl)) for lvl in v]))
+        elif name == "names":
+            out["const.names"] = np.asarray(json.dumps(v, sort_keys=True))
+        elif v is not None:
+            out["const." + name] = np.asarray(v)
+    return out
+
+
+def const_from_numpy(arrays, cls=ModelConst):
+    """A `ModelConst` from a `model_to_numpy` dict. `cls` may be any
+    dataclass with the same field names (the JAX package's `ModelConst`)."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        key = "const." + f.name
+        if key not in arrays:
+            continue
+        v = np.asarray(arrays[key])
+        if f.name == "body_tree":
+            kw[f.name] = tuple(tuple(lvl) for lvl in json.loads(str(v)))
+        elif f.name == "names":
+            kw[f.name] = json.loads(str(v))
+        elif f.type in ("int", int):
+            kw[f.name] = int(v)
+        else:
+            kw[f.name] = np.array(v)
+    return cls(**kw)
+
+
+def option_static(arrays) -> Dict:
+    """The static (non-tensor) `Option` fields of a `model_to_numpy` dict."""
+    out = {}
+    for name in OPTION_STATIC:
+        v = np.asarray(arrays["opt." + name])
+        out[name] = str(v) if v.dtype.kind == "U" else v.item()
+    return out
+
+
+def model_from_numpy(arrays, device="cuda") -> Model:
+    """The port's Model on `device` from a `model_to_numpy` dict (or an
+    opened npz)."""
+    device = torch.device(device)
+
+    def t(key):
+        return torch.as_tensor(np.array(arrays[key]), device=device)
+
+    opt_kw = {name: t("opt." + name) for name in OPTION_TENSORS}
+    opt_kw.update(option_static(arrays))
+    kw = {}
+    for f in dataclasses.fields(Model):
+        if f.name in ("const", "opt"):
+            continue
+        key = "model." + f.name
+        if key in arrays:
+            kw[f.name] = t(key)
+    return Model(const=const_from_numpy(arrays), opt=Option(**opt_kw), **kw)
+
+
+def model_to(model: Model, device) -> Model:
+    """The same model with every tensor on `device`."""
+    device = torch.device(device)
+    if model.device == device:
+        return model
+    kw = {}
+    for name in _fields(model):
+        v = getattr(model, name)
+        if isinstance(v, torch.Tensor):
+            kw[name] = v.to(device)
+    opt = dataclasses.replace(
+        model.opt, **{n: getattr(model.opt, n).to(device) for n in OPTION_TENSORS})
+    return dataclasses.replace(model, opt=opt, **kw)
+
+
+def data_to_numpy(data) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for name in _fields(data):
+        v = getattr(data, name)
+        if name == "contact":
+            for cname in _fields(v):
+                out["contact." + cname] = _np(getattr(v, cname))
+        else:
+            out[name] = _np(v)
+    return out
+
+
+def data_from_numpy(arrays, device="cuda") -> Data:
+    """The port's Data on `device`; every array keeps its leading env axis
+    and its dtype."""
+    device = torch.device(device)
+
+    def t(key):
+        return torch.as_tensor(np.array(arrays[key]), device=device)
+
+    contact = Contact(**{f.name: t("contact." + f.name) for f in dataclasses.fields(Contact)})
+    kw = {f.name: t(f.name) for f in dataclasses.fields(Data) if f.name != "contact"}
+    return Data(contact=contact, **kw)

@@ -1,0 +1,42 @@
+"""Batched SPD inverse: M^-1 and (M + dt*damping)^-1, twice per substep.
+
+Counterpart of `robogym_tpu/physics/factor_kernel.py`. `spd_inverse` is
+the wrapper: on a CUDA tensor it launches the hand-written kernel in
+`robogym_torch/csrc/spd_inverse.cu` (one thread block per env:
+right-looking Cholesky, forward substitution for L^-1, A^-1 = L^-T L^-1,
+with identity on the dofs padded up to a multiple of 8); on a CPU tensor it
+runs `spd_inverse_plain`, the PyTorch transcription of the JAX reference
+`_spd_inverse_ref`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_V = 64
+
+
+def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
+    """(B, V, V) SPD -> (B, V, V) inverse via Cholesky and a triangular
+    solve (the JAX package's `_spd_inverse_ref`)."""
+    L = torch.linalg.cholesky_ex(A).L
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.matmul(Linv.transpose(-1, -2), Linv)
+
+
+def spd_inverse(A: torch.Tensor) -> torch.Tensor:
+    """(B, V, V) float32 SPD matrices -> their inverses."""
+    if A.device.type == "cpu":
+        return spd_inverse_plain(A)
+    from robogym_torch import cuda
+
+    if A.dim() != 3 or A.shape[1] != A.shape[2] or A.dtype != torch.float32 or not A.is_contiguous():
+        raise ValueError(f"spd_inverse takes a contiguous (B, V, V) float32 tensor, got "
+                         f"{tuple(A.shape)} {A.dtype}")
+    B, V, _ = A.shape
+    if V > MAX_V:
+        raise ValueError(f"spd_inverse kernel takes V <= {MAX_V}, got {V}")
+    out = torch.empty_like(A)
+    cuda.launch("spd_inverse", A, out, B, V)
+    return out

@@ -62,6 +62,8 @@ FAST_FILES = {
 def pytest_configure(config):
     config.addinivalue_line("markers", "fast: per-commit gate (<10 min warm)")
     config.addinivalue_line("markers", "slow: env-zoo/vision/distributed tier")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with a reason where there is none")
 
 
 def pytest_collection_modifyitems(config, items):
@@ -69,5 +71,6 @@ def pytest_collection_modifyitems(config, items):
 
     for item in items:
         fname = os.path.basename(str(item.fspath))
-        tier = pytest.mark.fast if fname in FAST_FILES else pytest.mark.slow
+        fast = fname in FAST_FILES or fname.startswith("test_torch_")
+        tier = pytest.mark.fast if fast else pytest.mark.slow
         item.add_marker(tier)

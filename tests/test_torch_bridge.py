@@ -1,0 +1,76 @@
+"""The port's model bridge: the committed locked-like snapshot against a
+fresh compile, bit-equal round trips, and the port's import isolation."""
+
+import os
+import subprocess
+import sys
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from _torch_common import (ball_box_models, jax_data_from_numpy, jax_model_from_numpy,
+                           locked_like_arrays)
+from robogym_torch import bridge
+from robogym_torch.worlds import locked_like
+from robogym_tpu.mjcf.compiler import compile_xml
+from robogym_tpu.mjcf.model import make_data as jax_make_data
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _assert_same(a, b):
+    assert sorted(a) == sorted(b), set(a) ^ set(b)
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        assert x.dtype == y.dtype and x.shape == y.shape, (k, x.dtype, y.dtype, x.shape, y.shape)
+        assert np.array_equal(x, y), k
+
+
+def test_snapshot_matches_fresh_compile():
+    """The committed npz equals a fresh JAX compile of locked_like.py field
+    by field, so it cannot drift from its source (exact: same compiler,
+    same float32 casts)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        model = compile_xml(locked_like.write(tmp), dtype=jnp.float32)
+    fresh = bridge.model_to_numpy(model)
+    _assert_same(fresh, locked_like_arrays())
+    c = model.const
+    assert (c.nq, c.nv, c.nu, c.ntendon) == (31, 30, 20, 4)
+
+
+def test_model_round_trip_is_bit_equal():
+    """JAX -> numpy -> torch -> numpy, and numpy -> JAX -> numpy."""
+    arrays = locked_like_arrays()
+    tm = bridge.model_from_numpy(arrays, "cpu")
+    _assert_same(bridge.model_to_numpy(tm), arrays)
+    _assert_same(bridge.model_to_numpy(jax_model_from_numpy(arrays)), arrays)
+
+
+def test_data_round_trip_is_bit_equal():
+    jmod, _ = ball_box_models()
+    rng = np.random.default_rng(0)
+    d0 = jax_make_data(jmod, dtype=jnp.float32)
+    d = jax.tree_util.tree_map(lambda x: jnp.stack([x] * 3), d0)
+    d = d.replace(qpos=jnp.asarray(rng.standard_normal(d.qpos.shape).astype(np.float32)),
+                  qvel=jnp.asarray(rng.standard_normal(d.qvel.shape).astype(np.float32)))
+    arrays = bridge.data_to_numpy(d)
+    td = bridge.data_from_numpy(arrays, "cpu")
+    _assert_same(bridge.data_to_numpy(td), arrays)
+    _assert_same(bridge.data_to_numpy(jax_data_from_numpy(bridge.data_to_numpy(td))), arrays)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "import robogym_torch, robogym_torch.bridge, robogym_torch.cuda\n"
+        "import robogym_torch.physics.step, robogym_torch.physics.cg_kernel\n"
+        "import robogym_torch.physics.factor_kernel, robogym_torch.physics.setconst\n"
+        "import robogym_torch.physics.collision.convex_kernel\n"
+        "import robogym_torch.worlds.locked_like\n"
+        "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
