@@ -34,6 +34,7 @@ constexpr int kRed = 64;          // floats of reduction scratch
 constexpr int kEq = 0;
 constexpr int kOneSided = 1;
 constexpr int kFriction = 2;
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory one block may opt into on Hopper
 
 struct Params {
   const float* Js;        // (B, n_s, V)
@@ -389,6 +390,13 @@ __global__ void __launch_bounds__(kThreads) cg_full_kernel(Params p) {
 
 }  // namespace
 
+// Dynamic shared memory one block of the kernel takes for E rows and V dofs.
+extern "C" long long robogym_cg_full_smem_bytes(int E, int V) {
+  return (long long)(smem_floats(E, V) * sizeof(float));
+}
+
+// Returns cudaErrorInvalidValue, and launches nothing, when V > 256 or the
+// system does not fit in one block's shared memory.
 extern "C" int robogym_cg_full(
     const float* Js, const float* off1, const float* off2, const float* frame, const float* fric,
     const float* m1, const float* m2, const float* cdof, const float* pos, const float* kimp,
@@ -400,7 +408,7 @@ extern "C" int robogym_cg_full(
   if (V < 1 || V > kThreads || S < 0 || n_s < 0) return (int)cudaErrorInvalidValue;
   const int E = n_s + S * F;
   const size_t smem = smem_floats(E, V) * sizeof(float);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(cg_full_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -87,11 +87,20 @@ def build() -> str:
         _lib = ctypes.CDLL(lib)
         _lib.robogym_error_string.restype = ctypes.c_char_p
         _lib.robogym_error_string.argtypes = [ctypes.c_int]
+        _lib.robogym_cg_full_smem_bytes.restype = ctypes.c_longlong
+        _lib.robogym_cg_full_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         for name, (n_ptr, n_int) in SIGNATURES.items():
             fn = getattr(_lib, "robogym_" + name)
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         return _build_log
+
+
+def cg_full_smem_bytes(E: int, V: int) -> int:
+    """Dynamic shared memory of one block of the `cg_full` kernel for a
+    system of E rows and V dofs, as the library computes it."""
+    build()
+    return int(_lib.robogym_cg_full_smem_bytes(E, V))
 
 
 def launch(name: str, *args) -> None:

@@ -27,9 +27,6 @@ import torch
 from robogym_torch.physics import constraint as cl
 from robogym_torch.utils.rotation import cross
 
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-
-
 def contact_rows(off1, off2, frame, fric, m1, m2, cdof, nfacet: int) -> torch.Tensor:
     """Pyramidal facet rows (B, S*F, V) of the contact Jacobian, contact-
     major and facet-minor (`_contact_rows_single`)."""
@@ -89,15 +86,6 @@ def cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
     return x, f, qfrc, qvel_new, qs
 
 
-def smem_bytes(E: int, V: int) -> int:
-    """Dynamic shared memory of one block of the CUDA kernel (the
-    `smem_floats` of cg_full.cu): J (E, V) and four (V, V) matrices with an
-    odd row stride, 6 row vectors, 10 dof vectors, the J^T partial sums and
-    the reduction scratch."""
-    Vs = V + 1 if V % 2 == 0 else V
-    return 4 * (E * Vs + 4 * V * Vs + 6 * E + 10 * V + 256 + 64)
-
-
 @functools.lru_cache(maxsize=64)
 def _kind_tensor(kind_key: bytes, device: str) -> torch.Tensor:
     return torch.as_tensor(np.frombuffer(kind_key, np.int32).copy(), device=device)
@@ -105,7 +93,9 @@ def _kind_tensor(kind_key: bytes, device: str) -> torch.Tensor:
 
 def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
             qvel, qfrc_smooth, qacc_prev, dt):
-    """The fused constraint solve; the CUDA kernel on CUDA tensors."""
+    """The fused constraint solve; the CUDA kernel on CUDA tensors. The
+    launch raises when V > 256 or when J and the four (V, V) matrices do not
+    fit in one block's shared memory (227 KB; `cuda.cg_full_smem_bytes`)."""
     if M.device.type == "cpu":
         return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
                              qvel, qfrc_smooth, qacc_prev, dt)
@@ -134,10 +124,6 @@ def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
         raise ValueError(f"cg_full: {len(kind)} row kinds for {E} rows")
     if nfacet not in (1, 4, 6, 10):
         raise ValueError(f"cg_full: nfacet {nfacet}")
-    smem = smem_bytes(E, V)
-    if smem > SMEM_LIMIT or V > 256:
-        raise ValueError(f"cg_full: a system of E={E} rows and V={V} dofs needs {smem} bytes "
-                         f"of shared memory, more than a block has ({SMEM_LIMIT})")
     kind_t = _kind_tensor(np.asarray(kind, np.int32).tobytes(), str(dev))
     dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev).reshape(1)
     x = torch.empty((B, V), dtype=torch.float32, device=dev)

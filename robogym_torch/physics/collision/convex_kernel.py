@@ -94,6 +94,26 @@ def _bf_dots(ds_bf, cv):
     )
 
 
+def _sep_sel(ds, cv1, cv2, dc):
+    """Selection separation along directions ds (..., D, 3): the bf16 support
+    dots of the centered verts cv1/cv2 plus the f32 center term -> (..., D)."""
+    dsb = _bf(ds)
+    m1 = torch.max(_bf_dots(dsb, cv1), dim=-1).values
+    m2 = torch.max(-_bf_dots(dsb, cv2), dim=-1).values
+    return (m1 + m2) + _dot3(ds, dc[..., None, :])
+
+
+def selection_score(v1, v2, c1, c2, n):
+    """The sweep's selection separation of world verts (..., 3, V) along one
+    direction n (..., 3) per pair, and its bf16 part |m1| + |m2|, whose
+    rounding decides near-ties: (score (...), scale (...))."""
+    cv1, cv2 = _bf(v1 - c1[..., None]), _bf(v2 - c2[..., None])
+    nb = _bf(n)[..., None, :]
+    m1 = torch.max(_bf_dots(nb, cv1), dim=-1).values[..., 0]
+    m2 = torch.max(-_bf_dots(nb, cv2), dim=-1).values[..., 0]
+    return _sep_sel(n[..., None, :], cv1, cv2, c1 - c2)[..., 0], m1.abs() + m2.abs()
+
+
 def _sweep(v1, v2, c1, c2, xd, DX):
     """Shared plain sweep on world verts (B, K, 3, V): returns
     (dist, pos, n, p2) each batched over (B, K)."""
@@ -111,10 +131,7 @@ def _sweep(v1, v2, c1, c2, xd, DX):
     dc = c1 - c2
 
     def sep_sel(ds):
-        dsb = _bf(ds)
-        m1 = torch.max(_bf_dots(dsb, cv1), dim=-1).values
-        m2 = torch.max(-_bf_dots(dsb, cv2), dim=-1).values
-        return (m1 + m2) + _dot3(ds, dc[..., None, :])
+        return _sep_sel(ds, cv1, cv2, dc)
 
     def take(x, k):
         return torch.gather(x, -2, k[..., None, None].expand(k.shape + (1, 3)))[..., 0, :]

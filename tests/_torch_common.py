@@ -18,6 +18,11 @@ from robogym_torch.mjcf.model import OPTION_TENSORS, make_data
 from robogym_torch.physics import step as torch_step
 from robogym_torch.worlds import locked_like
 
+# The port's tensors here are a few envs wide: one thread per test process
+# runs them fastest, and keeps parallel test workers from oversubscribing
+# the cores.
+torch.set_num_threads(1)
+
 BALL_BOX = """
 <mujoco>
   <compiler angle="radian"/>

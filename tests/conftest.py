@@ -71,6 +71,5 @@ def pytest_collection_modifyitems(config, items):
 
     for item in items:
         fname = os.path.basename(str(item.fspath))
-        fast = fname in FAST_FILES or fname.startswith("test_torch_")
-        tier = pytest.mark.fast if fast else pytest.mark.slow
+        tier = pytest.mark.fast if fname in FAST_FILES else pytest.mark.slow
         item.add_marker(tier)

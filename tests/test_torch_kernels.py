@@ -165,12 +165,15 @@ def test_hull_plain_matches_jax(world, name):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions(world):
     """Each CUDA kernel against its plain version on the card, at the
-    world's shapes: A <= 1e-5 rel; B, whose kernel sums in another order
-    through 15 unconverged CG iterations, as chip_smoke.py holds it: the
-    JAX package's kernel-vs-reference tolerance (3e-2 rel,
-    tests/test_constraint_batched.py) on qacc, qfrc and efc_force, 1e-3 on
-    qvel_new, 1e-5 on qacc_smooth; C and D <= 1e-5 where the directions
-    agree, with at most 1 in 10 pairs on a near-tie."""
+    world's shapes: A <= 1e-5 rel. B (through the fused core, with A) as
+    chip_smoke.py holds it: after 1 and 2 CG iterations, before float32
+    noise has grown, <= 1e-4 rel on every output; after all 15, each
+    output's error against a float64 run of the plain version at most 2
+    times the float32 plain version's (the kernel sums in another order, and
+    15 unconverged iterations with a discrete line search carry that
+    last-bit noise into the result). C and D <= 1e-5 where the directions
+    agree, with at most 1 in 10 pairs on a near-tie. The readings are
+    printed (`-s`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     tm, d = world
@@ -180,10 +183,23 @@ def test_cuda_kernels_match_plain_versions(world):
 
     kind_s, iterations, nfacet, args = core_inputs(tm, d)
     cargs = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    names = ("qacc", "efc_force", "qfrc", "qvel_new", "qacc_smooth")
+    for its in (1, 2):
+        got = constraint_batched.fused_step_core(kind_s, its, nfacet, *cargs)
+        want = constraint_batched.reference(kind_s, its, nfacet, *cargs)
+        errs = {n: _rel(_np(g), _np(w)) for n, g, w in zip(names, got, want)}
+        print(f"cg_full after {its} iteration(s), rel err kernel vs plain: {errs}")
+        assert max(errs.values()) <= 1e-4, errs
     got = constraint_batched.fused_step_core(kind_s, iterations, nfacet, *cargs)
     want = constraint_batched.reference(kind_s, iterations, nfacet, *cargs)
-    for tol, g, w in zip((3e-2, 3e-2, 3e-2, 1e-3, 1e-5), got, want):
-        assert _rel(_np(g), _np(w)) <= tol
+    exact = constraint_batched.reference(
+        kind_s, iterations, nfacet, *[a.double() if isinstance(a, torch.Tensor) and
+                                      a.is_floating_point() else a for a in cargs])
+    for name, g, w, x in zip(names, got, want, exact):
+        e_k, e_p = _rel(_np(g), _np(x)), _rel(_np(w), _np(x))
+        print(f"cg_full {name}: kernel vs plain {_rel(_np(g), _np(w)):.3g}, "
+              f"vs float64: kernel {e_k:.3g}, plain {e_p:.3g}")
+        assert e_k <= 2 * e_p + 1e-6, (name, e_k, e_p)
 
     for name, hargs, DX in _hull_cases(tm, d):
         cargs = [a.to(dev) for a in hargs]
