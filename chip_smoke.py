@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's physics step on one NVIDIA GPU and hold every
+"""Drive the PyTorch port's physics on one NVIDIA GPU and hold every
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--profile PATH]
@@ -9,30 +9,46 @@ Phases, in order; any failure ends the script with a non-zero exit:
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the CUDA kernels from `robogym_torch/csrc/` and prints
    what `nvcc -Xptxas -v` reports per kernel.
-3. State: the locked-like world (`robogym_torch/worlds/locked_like.npz`),
-   B=1024 start states from seed 0, settled for 20 substeps so contacts are
-   live.
-4. One phase per kernel: its inputs are captured from one substep of the
-   main path; the kernel and its plain version run on the same inputs on
-   the card, and are compared and timed (CUDA events over 50 launches,
-   after a warm-up), with a library call beside them where one computes
-   the same function.
-5. Main path: `step_n` for 20 env steps of 10 substeps; every qpos and qvel
-   finite; every kernel's launch count grew by its count per substep;
-   env-steps/s on the host clock.
+3. State, B=1024 from seed 0 on three worlds: the locked-like world
+   (`robogym_torch/worlds/locked_like.npz`) settled for 20 substeps so
+   contacts are live; the rearrange goal-settle world
+   (`blocks_settle_like.npz`) settled for 40 substeps so the blocks rest on
+   the table and on each other; the hand-only world (`locked_like_hand.npz`)
+   with hinges started past their limits so joint-limit rows are live.
+4. One phase per kernel: its inputs are captured from one substep or call
+   of the path that runs it; the kernel and its plain version run on the
+   same inputs on the card, and are compared and timed (CUDA events over 50
+   launches, after a warm-up), with a library call beside them where one
+   computes the same function. A (SPD inverse), B (fused CG solve), C and D
+   (hull kernels) from a locked-like substep; B again (E=192, no scalar
+   row) and E (box-box) from a settle-world substep; A again (V=24) and F
+   (CG on a prebuilt J) from a hand-world substep; B without the Euler
+   update from one `forward()` of the locked-like world.
+5. Paths, each driven with every launch count set to 0 just before it and
+   read just after; every qpos, qvel and qacc finite; every kernel's count
+   equal to its count per substep or call times their number:
+   the locked-like world, `step_n` for 20 env steps of 10 substeps
+   (env-steps/s); one goal settle, 200 substeps of 1 ms on the settle world
+   (substeps/s, settles/s); one env step of 10 substeps on the hand world;
+   10 `forward()` calls on the locked-like world.
 6. Whole-step agreement: one substep through the kernels against one
-   through the plain versions, at B=64.
-7. Summary: a `kernels` line and a `main_path` line of JSON, the card's
-   name and power limit, and last `{"ok": true, "device": {...}}`.
+   through the plain versions, at B=64, on the locked-like, settle and hand
+   worlds; every kernel routed to its plain version by name.
+7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
+   and power limit, and last `{"ok": true, "device": {...}}`. The kernels
+   line has an entry per phase of step 4: `k` for kernel k at the shapes
+   of its first phase, `k@p` for its phase on path p's shapes; each entry
+   counts the kernel's launches on the paths it stands for.
 
-`--profile PATH` also writes a device-time breakdown of three substeps,
-with their wall time and the device's busy share, to PATH.
+`--profile PATH` also writes a device-time breakdown of three locked-like
+substeps, with their wall time and the device's busy share, to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -43,28 +59,50 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-BATCH = 1024                      # envs of the main path
-ENV_STEPS = 20                    # env steps the main path runs
+BATCH = 1024                      # envs of every path
+ENV_STEPS = 20                    # env steps of the locked-like path
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
+SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
+FORWARD_CALLS = 10
 SEED = 0
 REPS = 50                         # launches per kernel timing
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
-CG_EARLY_TOL = 1e-4               # kernel B vs plain after 1 and 2 iterations, relative
-NOISE_RATIO = 2                   # kernel B's float32 error vs the plain version's, both vs float64
+CG_EARLY_TOL = 1e-4               # a CG kernel vs plain after 1 and 2 iterations, relative
+NOISE_RATIO = 2                   # a CG kernel's float32 error vs the plain version's, both vs float64
 NEAR_TIE_TOL = 5e-3               # witness check of a hull pair on a bf16 near-tie (m)
-PER_SUBSTEP = {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 1, "hull_pair": 1}
-TPU_KERNELS = {
-    "spd_inverse": "robogym_tpu/physics/factor_kernel.py:37 _spd_inverse_kernel",
-    "cg_full": "robogym_tpu/physics/cg_kernel.py:320 _cg_full_kernel",
-    "hull_manifold": "robogym_tpu/physics/collision/convex_kernel.py:240 _manifold_kernel_loc",
-    "hull_pair": "robogym_tpu/physics/collision/convex_kernel.py:215 _hull_kernel_loc",
+SAT_TIE_TOL = 1e-6                # box-box: plain SAT depth along the kernel's axis vs its own (m)
+_TPU = "robogym_tpu/physics/"
+# Every kernel: the module of its wrapper (named as the kernel; its plain
+# version is `<name>_plain` beside it), its source in robogym_torch/csrc/,
+# the TPU kernel it replaces, and for a CG kernel the outputs its check
+# compares.
+KERNELS = {
+    "cg_full": dict(module="robogym_torch.physics.cg_kernel", source="cg_full.cu",
+                    replaces=_TPU + "cg_kernel.py:320 _cg_full_kernel",
+                    outputs=("qacc", "efc_force", "qfrc", "qvel_new", "qacc_smooth")),
+    "cg_full_noeuler": dict(module="robogym_torch.physics.cg_kernel", source="cg_full.cu",
+                            replaces=_TPU + "cg_kernel.py:320 _cg_full_kernel (with_euler=False)",
+                            outputs=("qacc", "efc_force", "qfrc")),
+    "spd_inverse": dict(module="robogym_torch.physics.factor_kernel", source="spd_inverse.cu",
+                        replaces=_TPU + "factor_kernel.py:37 _spd_inverse_kernel"),
+    "hull_manifold": dict(module="robogym_torch.physics.collision.convex_kernel",
+                          source="hull_sweep.cu",
+                          replaces=_TPU + "collision/convex_kernel.py:240 _manifold_kernel_loc"),
+    "hull_pair": dict(module="robogym_torch.physics.collision.convex_kernel",
+                      source="hull_sweep.cu",
+                      replaces=_TPU + "collision/convex_kernel.py:215 _hull_kernel_loc"),
+    "boxbox": dict(module="robogym_torch.physics.collision.boxbox_kernel", source="boxbox.cu",
+                   replaces=_TPU + "collision/boxbox_kernel.py:47 _boxbox_kernel"),
+    "cg": dict(module="robogym_torch.physics.cg_kernel", source="cg.cu",
+               replaces=_TPU + "cg_kernel.py:93 _cg_kernel", outputs=("qacc", "efc_force")),
 }
-SOURCES = {
-    "spd_inverse": "robogym_torch/csrc/spd_inverse.cu",
-    "cg_full": "robogym_torch/csrc/cg_full.cu",
-    "hull_manifold": "robogym_torch/csrc/hull_sweep.cu",
-    "hull_pair": "robogym_torch/csrc/hull_sweep.cu",
+# launches per substep (per call for forward) of each path; kernels not named launch 0 times
+PER_CALL = {
+    "locked_like": {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 1, "hull_pair": 1},
+    "settle": {"boxbox": 1, "spd_inverse": 2, "cg_full": 1},
+    "hand": {"cg": 1, "spd_inverse": 2},
+    "forward": {"spd_inverse": 1, "cg_full_noeuler": 1, "hull_manifold": 1, "hull_pair": 1},
 }
 
 
@@ -111,59 +149,62 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
+def wrapper(name: str, plain: bool = False):
+    """Kernel `name`'s wrapper, or its plain version."""
+    module = importlib.import_module(KERNELS[name]["module"])
+    return getattr(module, name + "_plain" if plain else name)
+
+
 @contextlib.contextmanager
-def capture_hull_inputs(store):
-    """Record the hull kernels' arguments as the collision driver passes them."""
-    from robogym_torch.physics.collision import convex_kernel
-
-    orig = {n: getattr(convex_kernel, n) for n in ("hull_pair", "hull_manifold")}
-
-    def recorder(name):
-        def fn(*args):
-            store[name] = (tuple(a.clone() for a in args[:-1]), args[-1])
-            return orig[name](*args)
-        return fn
-
+def patched(subs):
+    """Set `module.<name>` to `fn` for each ((module, name), fn) of `subs`
+    while inside."""
+    orig = [(module, name, getattr(module, name)) for (module, name), _ in subs]
     try:
-        for n in orig:
-            setattr(convex_kernel, n, recorder(n))
+        for (module, name), fn in subs:
+            setattr(module, name, fn)
         yield
     finally:
-        for n, f in orig.items():
-            setattr(convex_kernel, n, f)
+        for module, name, fn in orig:
+            setattr(module, name, fn)
 
 
-@contextlib.contextmanager
+def recording(module, names, store):
+    """Record the arguments of `module.<name>` calls (tensors cloned) into
+    store[name], the last call's kept."""
+    def recorder(name, fn):
+        def rec(*args):
+            store[name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            return fn(*args)
+        return rec
+
+    return patched([((module, n), recorder(n, getattr(module, n))) for n in names])
+
+
 def plain_versions():
-    """Route one substep through the kernels' plain versions, by name."""
-    from robogym_torch.physics import constraint_batched
-    from robogym_torch.physics.collision import convex_kernel
-
-    saved = [(convex_kernel, "hull_pair", convex_kernel.hull_pair_plain),
-             (convex_kernel, "hull_manifold", convex_kernel.hull_manifold_plain),
-             (constraint_batched, "fused_step_core", constraint_batched.reference)]
-    orig = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
-    try:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-        yield
-    finally:
-        for mod, name, fn in orig:
-            setattr(mod, name, fn)
+    """Route the paths through every kernel's plain version."""
+    return patched([((importlib.import_module(k["module"]), name), wrapper(name, plain=True))
+                    for name, k in KERNELS.items()])
 
 
-def cg_flops(E: int, V: int, S: int, F: int, iterations: int) -> float:
-    """Operations of the fused solve: building J (each contact's relative
-    Jacobian once, 33 per dof, and its 3 frame projections, 15 per dof,
-    then 2 per facet entry), aref and the warmstart, per CG iteration J p,
-    J^T f, three (V, V) matvecs, about 100 per row of forces, costs and
-    line search, and the final J^T f and four (V, V) matvecs of the Euler
-    update."""
-    build = S * V * (33 + 15) + 2 * S * F * V
-    setup = 4 * E * V + 2 * E * V + 6 * V * V + 20 * E
-    per_it = 4 * E * V + 6 * V * V + 100 * E + 20 * V
-    final = 2 * E * V + 8 * V * V
-    return build + setup + iterations * per_it + final
+def cg_flops(E: int, V: int, iterations: int, build: int = 0, aref: bool = True,
+             qs: bool = False, qfrc: bool = True, euler: bool = False) -> float:
+    """Operations of a CG solve: building J (`build`), aref (2 per entry of
+    J), qacc_smooth (a (V, V) matvec), jar, the first gradient and its
+    preconditioned step (two J and two (V, V) passes, 20 per row), per
+    iteration J p, J^T f, three (V, V) matvecs, about 100 per row of
+    forces, costs and line search and 20 per dof, then J^T f and the four
+    (V, V) matvecs of the Euler update."""
+    n = build + (2 * E * V if aref else 0) + (2 * V * V if qs else 0) + 4 * E * V + 4 * V * V
+    n += 20 * E + iterations * (4 * E * V + 6 * V * V + 100 * E + 20 * V)
+    return n + (2 * E * V if qfrc else 0) + (8 * V * V if euler else 0)
+
+
+def contact_build_flops(S: int, F: int, V: int) -> int:
+    """Building the contact rows of J: each contact's relative Jacobian once
+    (33 per dof) and its 3 frame projections (15 per dof), then 2 per facet
+    entry."""
+    return S * V * (33 + 15) + 2 * S * F * V
 
 
 def hull_flops(K: int, V1: int, V2: int, ndir: int, manifold: bool) -> float:
@@ -177,10 +218,15 @@ def hull_flops(K: int, V1: int, V2: int, ndir: int, manifold: bool) -> float:
     return K * per
 
 
-def phase_spd(ci, reps):
+# per box-box pair: 15 SAT depths of 6 dots (5 each) and 9 more (about 50),
+# 9 cross axes (20), 16 corner candidates (62 each), the witness (60)
+BOXBOX_FLOPS = 15 * 50 + 9 * 20 + 16 * 62 + 60
+
+
+def phase_spd(label, A, reps):
+    """Kernel A on the matrices A (B, V, V) that one of its paths gave it."""
     from robogym_torch.physics import factor_kernel as fk
 
-    A = ci["qM"]
     got, want = fk.spd_inverse(A), fk.spd_inverse_plain(A)
     torch.cuda.synchronize()
     err = rel_err(got, want)
@@ -192,7 +238,7 @@ def phase_spd(ci, reps):
     lib_ms = timed_ms(lambda: torch.linalg.inv(A), reps)
     chol_ms = timed_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(A)), reps)
     b_ms, b_by = bound(2 * nbytes(A), B * V ** 3)
-    print(f"[A spd_inverse] B={B} V={V} rel err {err:.3g} (tol 1e-5, ref |max| "
+    print(f"[{label}] B={B} V={V} rel err {err:.3g} (tol 1e-5, ref |max| "
           f"{float(want.abs().max()):.4g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"linalg.inv {lib_ms:.4f} ms, cholesky_inverse {chol_ms:.4f} ms, bound {b_ms:.5f} ms")
     return dict(max_abs_err=float((got - want).abs().max()), max_err=err, ms=ms,
@@ -210,9 +256,6 @@ def to_float64(x):
     return x
 
 
-CG_OUTPUTS = ("qacc", "efc_force", "qfrc", "qvel_new", "qacc_smooth")
-
-
 def cg_args(ci, iterations, nfacet):
     """Kernel B's arguments from the fused core's captured inputs, with the
     plain SPD inverses."""
@@ -223,12 +266,12 @@ def cg_args(ci, iterations, nfacet):
             Minv_imp, ci["qvel"], ci["qfrc_smooth"], ci["qacc_prev"], ci["dt"])
 
 
-def cg_readings(ci, iterations, nfacet):
-    """Kernel B against its plain version on the same inputs. Returns
-    (errs, early, noise, failures): the full solve's relative errors
-    kernel vs plain; the same after 1 and 2 iterations; and per output
-    (kernel vs float64, plain vs float64), the float64 run being the plain
-    version's.
+def cg_readings(name, args_of, iterations):
+    """CG kernel `name` against its plain version on the same inputs
+    (`args_of(iterations)` gives them). Returns (errs, early, noise,
+    failures): the full solve's relative errors kernel vs plain; the same
+    after 1 and 2 iterations; and per output (kernel vs float64, plain vs
+    float64), the float64 run being the plain version's.
 
     The kernel sums in another order than the plain version, and 15
     unconverged CG iterations with a discrete line search carry float32's
@@ -237,59 +280,171 @@ def cg_readings(ci, iterations, nfacet):
     float32's own noise, its error against the float64 run at most
     NOISE_RATIO times the plain version's, and the first two iterations,
     before the noise has grown, to CG_EARLY_TOL."""
-    from robogym_torch.physics import cg_kernel
-
+    kern, plain, outputs = wrapper(name), wrapper(name, plain=True), KERNELS[name]["outputs"]
     failures, early = [], {}
     for its in (1, 2):
-        a = cg_args(ci, its, nfacet)
-        got, want = cg_kernel.cg_full(*a), cg_kernel.cg_full_plain(*a)
-        early[its] = {n: rel_err(g, w) for n, g, w in zip(CG_OUTPUTS, got, want)}
+        a = args_of(its)
+        got, want = kern(*a), plain(*a)
+        early[its] = {n: rel_err(g, w) for n, g, w in zip(outputs, got, want)}
         failures += [f"{n} after {its} iteration(s): rel err {e:.3g} > {CG_EARLY_TOL}"
                      for n, e in early[its].items() if not e <= CG_EARLY_TOL]
-    a = cg_args(ci, iterations, nfacet)
-    got, want = cg_kernel.cg_full(*a), cg_kernel.cg_full_plain(*a)
-    exact = cg_kernel.cg_full_plain(*to_float64(a))
+    a = args_of(iterations)
+    got, want = kern(*a), plain(*a)
+    exact = plain(*to_float64(a))
     errs, noise = {}, {}
-    for name, g, w, x in zip(CG_OUTPUTS, got, want, exact):
+    for out, g, w, x in zip(outputs, got, want, exact):
         if not bool(torch.isfinite(g).all()):
-            failures.append(f"non-finite {name}")
-        errs[name] = rel_err(g, w)
-        e_k, e_p = noise[name] = (rel_err(g.double(), x), rel_err(w.double(), x))
+            failures.append(f"non-finite {out}")
+        errs[out] = rel_err(g, w)
+        e_k, e_p = noise[out] = (rel_err(g.double(), x), rel_err(w.double(), x))
         if not e_k <= NOISE_RATIO * e_p + 1e-6:
-            failures.append(f"{name} err vs float64 {e_k:.3g} > {NOISE_RATIO} x plain's {e_p:.3g}")
+            failures.append(f"{out} err vs float64 {e_k:.3g} > {NOISE_RATIO} x plain's {e_p:.3g}")
     torch.cuda.synchronize()
     return errs, early, noise, failures
 
 
-def phase_cg(ci, iterations, nfacet, reps):
-    from robogym_torch import cuda
-    from robogym_torch.physics import cg_kernel
-
-    errs, early, noise, failures = cg_readings(ci, iterations, nfacet)
+def phase_cg(name, label, args_of, iterations, n_bytes_in, flops, reps):
+    """A CG kernel's phase: `cg_readings`, then the kernel's and the plain
+    version's times and the bound."""
+    errs, early, noise, failures = cg_readings(name, args_of, iterations)
     for its, e in early.items():
-        print(f"[B cg_full] after {its} iteration(s), rel err kernel vs plain (tol "
+        print(f"[{label}] after {its} iteration(s), rel err kernel vs plain (tol "
               f"{CG_EARLY_TOL}): " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
-    print(f"[B cg_full] after {iterations}, rel err kernel vs plain (kernel vs float64, plain vs "
+    print(f"[{label}] after {iterations}, rel err kernel vs plain (kernel vs float64, plain vs "
           "float64): " + ", ".join(f"{k} {errs[k]:.3g} ({noise[k][0]:.3g}, {noise[k][1]:.3g})"
-                                   for k in CG_OUTPUTS))
-    check(not failures, "cg_full: " + "; ".join(failures))
-    args = cg_args(ci, iterations, nfacet)
-    got, want = cg_kernel.cg_full(*args), cg_kernel.cg_full_plain(*args)
-    ms = timed_ms(lambda: cg_kernel.cg_full(*args), reps)
-    plain_ms = timed_ms(lambda: cg_kernel.cg_full_plain(*args), max(2, reps // 10))
+                                   for k in errs))
+    check(not failures, f"{name}: " + "; ".join(failures))
+    kern, plain = wrapper(name), wrapper(name, plain=True)
+    args = args_of(iterations)
+    got, want = kern(*args), plain(*args)
+    ms = timed_ms(lambda: kern(*args), reps)
+    plain_ms = timed_ms(lambda: plain(*args), max(2, reps // 10))
+    b_ms, b_by = bound(n_bytes_in + nbytes(*got), flops)
+    print(f"[{label}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                max_err=max(errs.values()), errs=errs, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_cg_full(label, ci, iterations, nfacet, reps):
+    """Kernel B on the fused core's inputs `ci` from one substep of a path."""
+    from robogym_torch import cuda
+
     rows = ci["rows"]
     B, n_s, V = rows["Js"].shape
     S = rows["off1"].shape[1]
     E = n_s + S * nfacet
-    ins = list(rows.values()) + list(ci["maps"].values()) + list(args[5:12])
-    n_b = nbytes(*ins) + 4 * E + 4 + nbytes(*got)
-    b_ms, b_by = bound(n_b, B * cg_flops(E, V, S, nfacet, iterations))
-    print(f"[B cg_full] B={B} E={E} V={V} S={S} F={nfacet}: "
-          + f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-          f"smem/block {cuda.cg_full_smem_bytes(E, V)} B")
-    return dict(max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
-                max_err=max(errs.values()), errs=errs, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    args = cg_args(ci, iterations, nfacet)
+    n_in = nbytes(*rows.values(), *ci["maps"].values(), *args[5:12]) + 4 * E + 4
+    flops = B * cg_flops(E, V, iterations, build=contact_build_flops(S, nfacet, V), qs=True,
+                         euler=True)
+    print(f"[{label}] B={B} E={E} V={V} S={S} F={nfacet}, smem/block "
+          f"{cuda.cg_smem_bytes(E, V, 4)} B")
+    return phase_cg("cg_full", label, lambda its: cg_args(ci, its, nfacet), iterations,
+                    n_in, flops, reps)
+
+
+def phase_cg_noeuler(si, reps):
+    """Kernel B without the Euler update, on the inputs `solve_core` took
+    in one forward()."""
+    from robogym_torch import cuda
+    from robogym_torch.physics import constraint_batched
+
+    kind_s, iterations, nfacet, *args = si
+    *head, Minv, qs, x0 = args
+    ci = constraint_batched.row_inputs(kind_s, nfacet, *head)
+    rows = ci["rows"]
+    B, n_s, V = rows["Js"].shape
+    S = rows["off1"].shape[1]
+    E = n_s + S * nfacet
+
+    def args_of(its):
+        return (ci["kind"], its, nfacet, rows, ci["maps"], ci["qM"], Minv, ci["qvel"], qs, x0)
+
+    n_in = nbytes(*rows.values(), *ci["maps"].values(), ci["qM"], Minv, ci["qvel"], qs, x0)
+    n_in += 4 * E
+    flops = B * cg_flops(E, V, iterations, build=contact_build_flops(S, nfacet, V))
+    print(f"[B cg_full_noeuler] B={B} E={E} V={V} S={S} F={nfacet}, smem/block "
+          f"{cuda.cg_smem_bytes(E, V, 2)} B")
+    return phase_cg("cg_full_noeuler", "B cg_full_noeuler", args_of, iterations, n_in, flops,
+                    reps)
+
+
+def phase_cg_prebuilt(fa, reps):
+    """Kernel F on the inputs `cg` took in one hand-world substep."""
+    from robogym_torch import cuda
+
+    *ins, iterations = fa
+    B, E, V = ins[0].shape
+    print(f"[F cg] B={B} E={E} V={V}, smem/block {cuda.cg_smem_bytes(E, V, 2)} B, live rows "
+          f"per env: mean {float((ins[3] > 0).sum(1).float().mean()):.2f}")
+    check(bool((ins[3] > 0).any()), "cg: no live row in the captured inputs")
+    return phase_cg("cg", "F cg", lambda its: (*ins, its), iterations, nbytes(*ins),
+                    B * cg_flops(E, V, iterations, aref=False, qfrc=False), reps)
+
+
+def boxbox_readings(args, got, want):
+    """The box-box kernel's outputs against its plain version's. Returns
+    (max abs err where both chose the same axis, pairs on another axis,
+    pairs, failures). Where the kernel chose another axis than the plain
+    version (a near-tie of the SAT depth), the plain version's depth along
+    the kernel's axis must equal its own within SAT_TIE_TOL, and the
+    kernel's candidates must equal those the plain version computes for
+    that axis (`boxbox_kernel.along`)."""
+    from robogym_torch.physics.collision import boxbox_kernel as bb
+
+    failures = []
+    n_k, n_p = got[2][:, :, 0], want[2][:, :, 0]
+    same = (n_k - n_p).abs().amax(-1) <= 1e-6                        # (B, K)
+    ties, total = int((~same).sum()), same.numel()
+    if ties > total // 100:
+        failures.append(f"{ties} of {total} pairs chose another axis")
+    for name, g, w in zip(("dist", "pos", "normal"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            failures.append(f"non-finite {name}")
+    sentinel = (got[0] >= 1e9) != (want[0] >= 1e9)
+    if bool(sentinel[same].any()):
+        failures.append(f"{int(sentinel[same].sum())} candidates differ in being sentinels")
+    live = (want[0] < 1e9) & same[..., None]
+    err = max(float((got[0] - want[0]).abs()[live].max()) if bool(live.any()) else 0.0,
+              float((got[1] - want[1]).abs()[live].max()) if bool(live.any()) else 0.0,
+              float((n_k - n_p).abs()[same].max()) if bool(same.any()) else 0.0)
+    if not err <= 1e-5:
+        failures.append(f"max abs err {err:.3g} > 1e-5 where the axes agree")
+    if ties:
+        depth, dist_t, pos_t = bb.along(*args, n_k)
+        gap = float((depth + want[0][..., 16]).abs()[~same].max())
+        if not gap <= SAT_TIE_TOL:
+            failures.append(f"a near-tie's SAT depths differ by {gap:.3g} > {SAT_TIE_TOL}")
+        tied = ~same[..., None] & (dist_t < 1e9)
+        if bool(((got[0] >= 1e9) != (dist_t >= 1e9))[~same].any()):
+            failures.append("a near-tie's candidates differ in being sentinels")
+        e_t = max(float((got[0] - dist_t).abs()[tied].max()) if bool(tied.any()) else 0.0,
+                  float((got[1] - pos_t).abs()[tied].max()) if bool(tied.any()) else 0.0)
+        if not e_t <= 1e-5:
+            failures.append(f"a near-tie's candidates differ from the plain version's along "
+                            f"the kernel's axis by {e_t:.3g} > 1e-5")
+    return err, ties, total, failures
+
+
+def phase_boxbox(args, reps):
+    from robogym_torch.physics.collision import boxbox_kernel as bb
+
+    got, want = bb.boxbox(*args), bb.boxbox_plain(*args)
+    torch.cuda.synchronize()
+    err, ties, total, failures = boxbox_readings(args, got, want)
+    live = int((want[0] < 0).sum())
+    print(f"[E boxbox] B={args[0].shape[0]} K={args[0].shape[1]}: max abs err {err:.3g} (tol "
+          f"1e-5), pairs on another axis {ties}/{total}, penetrating candidates {live}")
+    check(not failures, "boxbox: " + "; ".join(failures))
+    check(live > 0, "boxbox: no penetrating candidate in the captured inputs")
+    ms = timed_ms(lambda: bb.boxbox(*args), reps)
+    plain_ms = timed_ms(lambda: bb.boxbox_plain(*args), max(2, reps // 10))
+    n_out = got[0].numel() + got[1].numel() + got[2][:, :, 0].numel()
+    b_ms, b_by = bound(nbytes(*args) + 4 * n_out, total * BOXBOX_FLOPS)
+    print(f"[E boxbox] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=err, max_err=err, ties=ties, pairs=total, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
 
 
 def check_near_ties(name, args, got, n_plain, tied):
@@ -356,39 +511,94 @@ def phase_hull(name, args, DX, reps):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
 
 
-def load_world():
-    """The locked-like world's Model on the card, and its snapshot arrays."""
+def load_world(snapshot=None):
+    """A world's Model on the card and its snapshot arrays (the locked-like
+    world by default)."""
     from robogym_torch import bridge
     from robogym_torch.worlds import locked_like
 
-    with np.load(locked_like.SNAPSHOT) as z:
+    with np.load(snapshot or locked_like.SNAPSHOT) as z:
         arrays = {k: z[k] for k in z.files}
     return bridge.model_from_numpy(arrays, "cuda"), arrays
 
 
-def capture_inputs(m, d):
-    """Every kernel's inputs as one substep of the main path from state d
-    gives them: (the fused core's inputs, CG iterations, facets per
-    contact, {"hull_pair": (args, DX), "hull_manifold": (args, DX)})."""
-    from robogym_torch.physics import constraint, constraint_batched, step
-
-    hull_args = {}
-    with capture_hull_inputs(hull_args):
-        d1, qfrc_smooth = step.forward_smooth(m, d)
-    kind_s, iterations, nfacet, args, _, _ = constraint.fused_core_inputs(m, d1, qfrc_smooth)
-    check(set(hull_args) == {"hull_pair", "hull_manifold"}, f"hull kernels seen: {set(hull_args)}")
-    return constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet, hull_args
+def capture_call(module, name, run):
+    """The arguments of the last `module.<name>` call while `run()` runs."""
+    store = {}
+    with recording(module, (name,), store):
+        run()
+    check(name in store, f"{name} was not called")
+    return store[name]
 
 
-def start_states(m, arrays, batch, seed, settle):
+def capture_core(m, d):
+    """The fused core's inputs as one substep of `step` from state d gives
+    them: (`constraint_batched.core_inputs`, CG iterations, facets per
+    contact)."""
+    from robogym_torch.physics import constraint_batched, step
+
+    kind_s, iterations, nfacet, *args = capture_call(constraint_batched, "fused_step_core",
+                                                     lambda: step.step(m, d))
+    return constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet
+
+
+def start_states(m, arrays, batch, seed, settle, world=None, **kw):
+    """Seeded start states of `world` (a module of `robogym_torch.worlds`,
+    the locked-like world by default), settled for `settle` substeps."""
     from robogym_torch.mjcf.model import make_data
     from robogym_torch.physics import step
     from robogym_torch.worlds import locked_like
 
-    qpos, ctrl = locked_like.initial_state(arrays, batch, seed)
+    qpos, ctrl = (world or locked_like).initial_state(arrays, batch, seed, **kw)
     d = make_data(m, batch, torch.as_tensor(qpos, device=m.device))
     d = d.replace(ctrl=torch.as_tensor(ctrl, device=m.device))
     return step.step_n(m, d, settle)
+
+
+def worlds():
+    """{name: (Model on the card, arrays, start-state keywords)} of the
+    three worlds."""
+    from robogym_torch.worlds import blocks_settle_like, locked_like
+
+    out = {}
+    for name, snap, kw in (("locked_like", locked_like.SNAPSHOT, dict(settle=20)),
+                           ("settle", blocks_settle_like.SNAPSHOT,
+                            dict(settle=40, world=blocks_settle_like)),
+                           ("hand", locked_like.HAND_SNAPSHOT, dict(settle=5, reach=1.1))):
+        m, arrays = load_world(snap)
+        out[name] = (m, arrays, kw)
+    return out
+
+
+def drive(name, run, calls):
+    """Run a path with every launch count set to 0 just before it and read
+    just after; check finiteness and the launch counts. Returns (final
+    state, seconds, launches)."""
+    from robogym_torch import cuda
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    d = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    for k in ("qpos", "qvel", "qacc"):
+        check(bool(torch.isfinite(getattr(d, k)).all()), f"{name} path: non-finite {k}")
+    for kernel, n in launches.items():
+        want = PER_CALL[name].get(kernel, 0) * calls
+        check(n == want, f"{name} path: {kernel} launched {n} times, want {want}")
+    return d, wall, launches
+
+
+def entry_launches(entry, entries, paths):
+    """Launches of a kernels-line entry: for `k@p`, kernel k's launches on
+    path p; for `k`, its launches on every path that no `k@...` entry
+    stands for."""
+    kernel, _, at = entry.partition("@")
+    claimed = {e.partition("@")[2] for e in entries if e.startswith(kernel + "@")}
+    return sum(p["launches"].get(kernel, 0) for name, p in paths.items()
+               if (name == at if at else name not in claimed))
 
 
 def profile_substeps(m, d, path):
@@ -430,7 +640,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from robogym_torch import cuda
-    from robogym_torch.physics import step
+    from robogym_torch.physics import cg_kernel, constraint_batched, factor_kernel, step
+    from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -441,83 +652,126 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     log = cuda.build()
-    print(f"[build] nvcc sm_90a, {time.perf_counter() - t0:.1f} s")
+    print(f"[build] nvcc sm_90a, one process per source, {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling entry" in line) or "spill" in line:
             print("  " + line.strip())
 
     # 3. state
-    m, arrays = load_world()
     B = BATCH
-    t0 = time.perf_counter()
-    d = start_states(m, arrays, B, SEED, settle=20)
-    torch.cuda.synchronize()
-    live = d.contact.active.sum(1)
-    print(f"[state] B={B} settled 20 substeps in {time.perf_counter() - t0:.2f} s; live contacts "
-          f"per env: mean {float(live.float().mean()):.2f}, envs with none "
-          f"{int((live == 0).sum())}")
-    check(bool(live.sum() > 0), "no live contact after settling")
+    world = worlds()
+    state = {}
+    for name, (m, arrays, kw) in world.items():
+        t0 = time.perf_counter()
+        state[name] = d = start_states(m, arrays, B, SEED, **kw)
+        torch.cuda.synchronize()
+        live = d.contact.active.sum(1) if d.contact.dist.shape[1] else torch.zeros(1)
+        print(f"[state] {name}: B={B} settled {kw['settle']} substeps in "
+              f"{time.perf_counter() - t0:.2f} s; live contacts per env: mean "
+              f"{float(live.float().mean()):.2f}")
+    for name in ("locked_like", "settle"):
+        check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
 
-    # 4. one phase per kernel, on inputs captured from one substep
-    ci, iterations, nfacet, hull_args = capture_inputs(m, d)
-    res = {"spd_inverse": phase_spd(ci, REPS),
-           "cg_full": phase_cg(ci, iterations, nfacet, REPS)}
+    # 4. one phase per kernel, on inputs captured from one substep or call
+    # of a path; B and A also at the settle and hand worlds' shapes
+    m, d = world["locked_like"][0], state["locked_like"]
+    ci, iterations, nfacet = capture_core(m, d)
+    res = {"spd_inverse": phase_spd("A spd_inverse", ci["qM"], REPS),
+           "cg_full": phase_cg_full("B cg_full", ci, iterations, nfacet, REPS)}
     for name in ("hull_manifold", "hull_pair"):
-        res[name] = phase_hull(name, *hull_args[name], REPS)
+        args = capture_call(convex_kernel, name, lambda: step.fwd_position(m, d))
+        res[name] = phase_hull(name, args[:-1], args[-1], REPS)
+    ms, ds = world["settle"][0], state["settle"]
+    ci_s, its_s, nfacet_s = capture_core(ms, ds)
+    check(ci_s["rows"]["Js"].shape[1] == 0, "settle world: scalar rows, want none")
+    res["cg_full@settle"] = phase_cg_full("B cg_full@settle", ci_s, its_s, nfacet_s, REPS)
+    res["boxbox"] = phase_boxbox(
+        capture_call(boxbox_kernel, "boxbox", lambda: step.fwd_position(ms, ds)), REPS)
+    mh, dh = world["hand"][0], state["hand"]
+    res["spd_inverse@hand"] = phase_spd(
+        "A spd_inverse@hand", capture_call(factor_kernel, "spd_inverse",
+                                           lambda: step.step(mh, dh))[0], REPS)
+    res["cg"] = phase_cg_prebuilt(capture_call(cg_kernel, "cg", lambda: step.step(mh, dh)), REPS)
+    res["cg_full_noeuler"] = phase_cg_noeuler(
+        capture_call(constraint_batched, "solve_core", lambda: step.forward(m, d)), REPS)
 
-    # 5. main path
-    dm = d
-    torch.cuda.synchronize()
-    cuda.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(ENV_STEPS):
-        dm = step.step_n(m, dm, SUBSTEPS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(cuda.LAUNCHES)
-    n_sub = ENV_STEPS * SUBSTEPS
-    check(bool(torch.isfinite(dm.qpos).all() and torch.isfinite(dm.qvel).all()),
-          "main path: non-finite qpos/qvel")
-    for name, per in PER_SUBSTEP.items():
-        check(launches[name] == per * n_sub,
-              f"main path: {name} launched {launches[name]} times, want {per * n_sub}")
+    # 5. paths
+    paths = {}
+
+    def record(name, wall, counts, **extra):
+        paths[name] = dict(seconds=wall, batch=B, launches=counts, **extra)
+
+    dm, wall, counts = drive("locked_like", lambda: step.step_n(m, d, ENV_STEPS * SUBSTEPS),
+                             ENV_STEPS * SUBSTEPS)
     sps = B * ENV_STEPS / wall
-    print(f"[main path] {ENV_STEPS} env steps x {SUBSTEPS} substeps at B={B}: {wall:.3f} s, "
-          f"{sps:.1f} env-steps/s; launches {launches}; live contacts per env "
+    record("locked_like", wall, counts, env_steps=ENV_STEPS, substeps=SUBSTEPS,
+           env_steps_per_s=sps)
+    print(f"[path locked_like] {ENV_STEPS} env steps x {SUBSTEPS} substeps at B={B}: {wall:.3f} s, "
+          f"{sps:.1f} env-steps/s; launches {counts}; live contacts per env "
           f"{float(dm.contact.active.sum(1).float().mean()):.2f}")
+
+    out, wall, counts = drive("settle", lambda: step.step_n(ms, ds, SETTLE_SUBSTEPS),
+                              SETTLE_SUBSTEPS)
+    record("settle", wall, counts, substeps=SETTLE_SUBSTEPS,
+           substeps_per_s=SETTLE_SUBSTEPS / wall, settles_per_s=B / wall)
+    print(f"[path settle] one goal settle, {SETTLE_SUBSTEPS} substeps of 1 ms at B={B}: "
+          f"{wall:.3f} s, {SETTLE_SUBSTEPS / wall:.1f} substeps/s, {B / wall:.1f} settles/s; "
+          f"launches {counts}; live contacts per env "
+          f"{float(out.contact.active.sum(1).float().mean()):.2f}")
+
+    out, wall, counts = drive("hand", lambda: step.step_n(mh, dh, SUBSTEPS), SUBSTEPS)
+    record("hand", wall, counts, env_steps=1, substeps=SUBSTEPS, env_steps_per_s=B / wall)
+    print(f"[path hand] one env step, {SUBSTEPS} substeps at B={B}: {wall:.3f} s, "
+          f"{B / wall:.1f} env-steps/s; launches {counts}")
+
+    def forward_calls():
+        for _ in range(FORWARD_CALLS):
+            out = step.forward(m, d)
+        return out
+
+    out, wall, counts = drive("forward", forward_calls, FORWARD_CALLS)
+    record("forward", wall, counts, calls=FORWARD_CALLS, calls_per_s=FORWARD_CALLS / wall)
+    print(f"[path forward] {FORWARD_CALLS} forward() calls on the locked-like world at B={B}: "
+          f"{wall:.3f} s, {FORWARD_CALLS / wall:.2f} calls/s; launches {counts}")
+    launches = {entry: entry_launches(entry, res, paths) for entry in res}
+    for k in KERNELS:
+        check(sum(p["launches"].get(k, 0) for p in paths.values()) > 0,
+              f"{k} was launched on no path")
+    for entry, n in launches.items():
+        check(n > 0, f"{entry}: no launch on the paths it stands for")
 
     # 6. whole-step agreement at B=64: one substep through the kernels
     # against one through the plain versions; qpos to 1e-4 abs, qvel to
     # 1e-3 of its largest value (the CG's float32 noise, phase B)
-    ds = start_states(m, arrays, 64, SEED + 1, settle=20)
-    got = step.step(m, ds)
-    with plain_versions():
-        want = step.step(m, ds)
-    torch.cuda.synchronize()
-    for k in ("qpos", "qvel"):
-        g, w = getattr(got, k), getattr(want, k)
-        e = float((g - w).abs().max())
-        tol = 1e-4 if k == "qpos" else 1e-3 * float(w.abs().max())
-        print(f"[whole step] B=64 one substep, kernels vs plain versions: {k} max abs err "
-              f"{e:.3g} (tol {tol:.3g})")
-        check(bool(torch.isfinite(g).all()) and e <= tol,
-              f"whole step: {k} differs by {e:.3g} > {tol:.3g}")
+    for name, (mw, arrays, kw) in world.items():
+        dw = start_states(mw, arrays, 64, SEED + 1, **kw)
+        got = step.step(mw, dw)
+        with plain_versions():
+            want = step.step(mw, dw)
+        torch.cuda.synchronize()
+        for k in ("qpos", "qvel"):
+            g, w = getattr(got, k), getattr(want, k)
+            e = float((g - w).abs().max())
+            tol = 1e-4 if k == "qpos" else 1e-3 * float(w.abs().max())
+            print(f"[whole step] {name}, B=64 one substep, kernels vs plain versions: {k} max "
+                  f"abs err {e:.3g} (tol {tol:.3g})")
+            check(bool(torch.isfinite(g).all()) and e <= tol,
+                  f"whole step {name}: {k} differs by {e:.3g} > {tol:.3g}")
 
     if opts.profile:
         profile_substeps(m, dm, opts.profile)
 
     # 7. summary
     kernels = []
-    for name in ("cg_full", "spd_inverse", "hull_manifold", "hull_pair"):
-        r = res[name]
+    for entry, r in res.items():
+        k = KERNELS[entry.partition("@")[0]]
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],
-            launches=launches[name], max_abs_err=r["max_abs_err"], max_err=r["max_err"],
+            name=entry, route="cuda", source="robogym_torch/csrc/" + k["source"],
+            replaces=k["replaces"], launches=launches[entry], max_abs_err=r["max_abs_err"], max_err=r["max_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"main_path": dict(env_steps_per_s=sps, batch=B, env_steps=ENV_STEPS,
-                                        substeps=SUBSTEPS, seconds=wall, card=card)}))
+    print(json.dumps({"paths": paths, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -4,7 +4,11 @@
 // Euler velocity update with one refinement step.
 //
 // Replaces robogym_tpu/physics/cg_kernel.py:_cg_full_kernel (with
-// _build_rows and _line_search_step).
+// _build_rows and _line_search_step) in its two variants: with the Euler
+// update, qacc_smooth and the warmstart (step's fused solve, entry point
+// robogym_cg_full), and without them, qacc_smooth and the warmstart given
+// (forward()'s solve, robogym_cg_full_noeuler). The CG loop itself is in
+// cg_common.cuh, which kernel F (cg.cu) shares.
 //
 // Bound on this card: per env the kernel reads about 40 KB (the four
 // (V, V) matrices, the gathered contact data, the row maps) and writes a
@@ -15,26 +19,20 @@
 //
 // Design: one thread block per env. J (E x V, built here from the gathered
 // contact data exactly as the plain version builds it, contact-major and
-// facet-minor), M, M^-1, M + dt*D and its inverse stay in shared memory for
-// the whole solve, with an odd row stride so that one thread per row reads
-// without bank conflicts. J x and M x take a thread per row; J^T f splits
-// the rows over thread groups and sums the partials; the dot products and
-// the five line-search costs are block reductions that every thread reads
-// back, so the line search and the Polak-Ribiere step run uniformly in
-// every thread. The order of the arithmetic inside each row and dof follows
-// the plain version; only the order of the sums differs.
+// facet-minor; a model with no scalar rows has n_s = 0), M, M^-1 and, with
+// the Euler update, M + dt*D and its inverse stay in shared memory for the
+// whole solve, with an odd row stride so that one thread per row reads
+// without bank conflicts.
 
-#include <cuda_runtime.h>
+#include "cg_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRed = 64;          // floats of reduction scratch
+using namespace cg_common;
+
 constexpr int kEq = 0;
 constexpr int kOneSided = 1;
 constexpr int kFriction = 2;
-constexpr size_t kMaxSmem = 232448;  // bytes of shared memory one block may opt into on Hopper
 
 struct Params {
   const float* Js;        // (B, n_s, V)
@@ -53,106 +51,22 @@ struct Params {
   const float* floss;
   const float* M;         // (B, V, V)
   const float* Minv;
-  const float* Mimp;
+  const float* Mimp;      // with the Euler update only
   const float* Minv_imp;
   const float* qvel;      // (B, V)
-  const float* qfrc_smooth;
+  const float* qfrc_smooth;  // with the Euler update
   const float* qacc_prev;
+  const float* qs_in;        // without it: qacc_smooth and the warmstart
+  const float* x0;
   const int* kind;        // (E,) row kinds
   const float* dt;        // (1,)
   float* x;               // (B, V) qacc
   float* f;               // (B, E) efc force
   float* qfrc;            // (B, V) J^T f
-  float* qvel_new;        // (B, V)
-  float* qs;              // (B, V) qacc_smooth
+  float* qvel_new;        // (B, V), with the Euler update
+  float* qs;              // (B, V) qacc_smooth, with the Euler update
   int n_s, S, F, V, iterations;
 };
-
-__host__ __device__ inline int row_stride(int V) { return (V % 2 == 0) ? V + 1 : V; }
-
-__host__ inline size_t smem_floats(int E, int V) {
-  const int Vs = row_stride(V);
-  return (size_t)E * Vs + 4 * (size_t)V * Vs + 6 * (size_t)E + 10 * (size_t)V + kThreads + kRed;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sums N values over the block; every thread gets the totals.
-template <int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const float s = warp_sum(v[k]);
-    if (lane == 0) red[k * kWarps + warp] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[k * kWarps + w];
-    v[k] = s;
-  }
-  __syncthreads();
-}
-
-struct RowW {
-  float deq, done, dfr, floss;
-};
-
-__device__ __forceinline__ RowW row_weights(int kind, float D, float floss) {
-  RowW w;
-  w.deq = kind == kEq ? D : 0.0f;
-  w.done = kind == kOneSided ? D : 0.0f;
-  w.dfr = kind == kFriction ? D : 0.0f;
-  w.floss = floss;
-  return w;
-}
-
-__device__ __forceinline__ float force_of(float jar, const RowW& w) {
-  const float neg = jar < 0.0f ? 1.0f : 0.0f;
-  return w.deq * jar + w.done * jar * neg + fminf(fmaxf(w.dfr * jar, -w.floss), w.floss);
-}
-
-__device__ __forceinline__ float penalty_of(float jar, const RowW& w) {
-  const float neg = jar < 0.0f ? 1.0f : 0.0f;
-  const float c_quad = 0.5f * (w.deq + w.done * neg) * jar * jar;
-  const float inside = fabsf(w.dfr * jar) < w.floss ? 1.0f : 0.0f;
-  const float quad_f = 0.5f * w.dfr * jar * jar;
-  const float lin_f = w.floss * fabsf(jar) - 0.5f * w.floss * w.floss / fmaxf(w.dfr, 1e-12f);
-  const float c_fric = inside * quad_f + (1.0f - inside) * lin_f;
-  return c_quad + c_fric;
-}
-
-__device__ __forceinline__ float dotn(const float* a, const float* x, int n) {
-  float s = 0.0f;
-  for (int j = 0; j < n; ++j) s += a[j] * x[j];
-  return s;
-}
-
-// out[v] = sum_r J[r, v] * fvec[r]; rows split over groups of V threads.
-// Ends with out written; the caller syncs before reading it.
-__device__ void jt_apply(const float* J, const float* fvec, float* out, float* partial,
-                         int E, int V, int Vs) {
-  const int t = threadIdx.x;
-  const int nparts = kThreads / V;
-  if (t < nparts * V) {
-    const int v = t % V, part = t / V;
-    float s = 0.0f;
-    for (int r = part; r < E; r += nparts) s += J[r * Vs + v] * fvec[r];
-    partial[part * V + v] = s;
-  }
-  __syncthreads();
-  if (t < V) {
-    float s = 0.0f;
-    for (int q = 0; q < nparts; ++q) s += partial[q * V + t];
-    out[t] = s;
-  }
-}
 
 // One pyramid facet entry of the contact rows (the plain contact_rows).
 __device__ float facet_entry(const Params& p, int b, int s, int k, int v) {
@@ -190,44 +104,29 @@ __device__ float facet_entry(const Params& p, int b, int s, int k, int v) {
   return (k % 2 == 0) ? Jn + mu * Jr : Jn - mu * Jr;
 }
 
+template <bool kEuler>
 __global__ void __launch_bounds__(kThreads) cg_full_kernel(Params p) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, t = threadIdx.x;
   const int V = p.V, F = p.F, n_s = p.n_s;
   const int E = n_s + p.S * F;
   const int Vs = row_stride(V);
-
-  float* J = sm;
-  float* M = J + (size_t)E * Vs;
+  const Smem s = carve(sm, E, V, kEuler ? 4 : 2);
+  float* J = s.J;
+  float* M = s.mat;
   float* Minv = M + V * Vs;
   float* Mimp = Minv + V * Vs;
   float* Minvimp = Mimp + V * Vs;
-  float* Dv = Minvimp + V * Vs;    // per row: D, floss, jar, Jp, force, kind
-  float* fl = Dv + E;
-  float* jar = fl + E;
-  float* Jp = jar + E;
-  float* fr = Jp + E;
-  int* kd = reinterpret_cast<int*>(fr + E);
-  float* x = reinterpret_cast<float*>(kd + E);   // per dof
-  float* qs = x + V;
-  float* pd = qs + V;
-  float* g = pd + V;
-  float* Mg = g + V;
-  float* gn = Mg + V;
-  float* Mgn = gn + V;
-  float* Mp = Mgn + V;
-  float* dx = Mp + V;
-  float* qv = dx + V;
-  float* partial = qv + V;
-  float* red = partial + kThreads;
 
   const size_t bVV = (size_t)b * V * V;
   for (int idx = t; idx < V * V; idx += kThreads) {
     const int i = idx / V, j = idx % V;
     M[i * Vs + j] = p.M[bVV + idx];
     Minv[i * Vs + j] = p.Minv[bVV + idx];
-    Mimp[i * Vs + j] = p.Mimp[bVV + idx];
-    Minvimp[i * Vs + j] = p.Minv_imp[bVV + idx];
+    if (kEuler) {
+      Mimp[i * Vs + j] = p.Mimp[bVV + idx];
+      Minvimp[i * Vs + j] = p.Minv_imp[bVV + idx];
+    }
   }
   for (int idx = t; idx < n_s * V; idx += kThreads) {
     J[(idx / V) * Vs + idx % V] = p.Js[(size_t)b * n_s * V + idx];
@@ -238,165 +137,98 @@ __global__ void __launch_bounds__(kThreads) cg_full_kernel(Params p) {
   }
   const size_t bE = (size_t)b * E;
   for (int r = t; r < E; r += kThreads) {
-    kd[r] = p.kind[r];
-    Dv[r] = p.active[bE + r] > 0.0f ? 1.0f / p.rcoef[bE + r] : 0.0f;
-    fl[r] = p.floss[bE + r];
+    const int kd = p.kind[r];
+    const float D = p.active[bE + r] > 0.0f ? 1.0f / p.rcoef[bE + r] : 0.0f;
+    s.deq[r] = kd == kEq ? D : 0.0f;
+    s.done[r] = kd == kOneSided ? D : 0.0f;
+    s.dfr[r] = kd == kFriction ? D : 0.0f;
+    s.fl[r] = p.floss[bE + r];
   }
   const size_t bV = (size_t)b * V;
   for (int i = t; i < V; i += kThreads) {
-    qv[i] = p.qvel[bV + i];
-    gn[i] = p.qfrc_smooth[bV + i];
-    dx[i] = p.qacc_prev[bV + i];
+    s.qv[i] = p.qvel[bV + i];
+    if (kEuler) {
+      s.gn[i] = p.qfrc_smooth[bV + i];
+      s.dx[i] = p.qacc_prev[bV + i];
+    } else {
+      s.qs[i] = p.qs_in[bV + i];
+      s.x[i] = p.x0[bV + i];
+    }
   }
   __syncthreads();
 
-  // qacc_smooth = M^-1 qfrc_smooth; warmstart from qacc_prev when finite
-  float bad[1] = {0.0f};
-  for (int i = t; i < V; i += kThreads) {
-    qs[i] = dotn(Minv + i * Vs, gn, V);
-    p.qs[bV + i] = qs[i];
-    if (!(fabsf(dx[i]) < 1e10f)) bad[0] += 1.0f;
+  if (kEuler) {
+    // qacc_smooth = M^-1 qfrc_smooth; warmstart from qacc_prev when finite
+    float bad[1] = {0.0f};
+    for (int i = t; i < V; i += kThreads) {
+      s.qs[i] = dotn(Minv + i * Vs, s.gn, V);
+      p.qs[bV + i] = s.qs[i];
+      if (!(fabsf(s.dx[i]) < 1e10f)) bad[0] += 1.0f;
+    }
+    block_sum<1>(bad, s.red);
+    const bool finite = bad[0] == 0.0f;
+    for (int i = t; i < V; i += kThreads) s.x[i] = finite ? s.dx[i] : s.qs[i];
+    __syncthreads();
   }
-  block_sum<1>(bad, red);
-  const bool finite = bad[0] == 0.0f;
-  for (int i = t; i < V; i += kThreads) x[i] = finite ? dx[i] : qs[i];
-  __syncthreads();
 
   // jar = J x0 - aref, aref = -bref * J qvel - kimp * pos
   for (int r = t; r < E; r += kThreads) {
     const float* Jr = J + r * Vs;
-    const float aref = -p.bref[bE + r] * dotn(Jr, qv, V) - p.kimp[bE + r] * p.pos[bE + r];
-    jar[r] = dotn(Jr, x, V) - aref;
+    const float aref = -p.bref[bE + r] * dotn(Jr, s.qv, V) - p.kimp[bE + r] * p.pos[bE + r];
+    s.jar[r] = dotn(Jr, s.x, V) - aref;
   }
   __syncthreads();
 
-  // g = M (x - qs) + J^T force(jar); Mg = M^-1 g; p = -Mg
-  for (int r = t; r < E; r += kThreads) fr[r] = force_of(jar[r], row_weights(kd[r], Dv[r], fl[r]));
-  for (int i = t; i < V; i += kThreads) dx[i] = x[i] - qs[i];
-  __syncthreads();
-  jt_apply(J, fr, gn, partial, E, V, Vs);
-  __syncthreads();
-  for (int i = t; i < V; i += kThreads) g[i] = dotn(M + i * Vs, dx, V) + gn[i];
-  __syncthreads();
-  for (int i = t; i < V; i += kThreads) {
-    Mg[i] = dotn(Minv + i * Vs, g, V);
-    pd[i] = -Mg[i];
-  }
-  __syncthreads();
-
-  const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};
-  for (int it = 0; it < p.iterations; ++it) {
-    for (int r = t; r < E; r += kThreads) Jp[r] = dotn(J + r * Vs, pd, V);
-    for (int i = t; i < V; i += kThreads) Mp[i] = dotn(M + i * Vs, pd, V);
-    __syncthreads();
-
-    // c1, c2, f0.Jp, deff.Jp.Jp, penalty at a = 0
-    float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int i = t; i < V; i += kThreads) {
-      acc[0] += (x[i] - qs[i]) * Mp[i];
-      acc[1] += pd[i] * Mp[i];
-    }
-    for (int r = t; r < E; r += kThreads) {
-      const RowW w = row_weights(kd[r], Dv[r], fl[r]);
-      const float j = jar[r], jp = Jp[r];
-      const float neg = j < 0.0f ? 1.0f : 0.0f;
-      const float inside = fabsf(w.dfr * j) < w.floss ? 1.0f : 0.0f;
-      const float deff = (w.deq + w.done * neg) + w.dfr * inside;
-      acc[2] += force_of(j, w) * jp;
-      acc[3] += deff * jp * jp;
-      acc[4] += penalty_of(j, w);
-    }
-    block_sum<5>(acc, red);
-    const float c1 = acc[0], c2 = acc[1];
-    const float phi_p = c1 + acc[2];
-    const float phi_pp = fmaxf(c2 + acc[3], 1e-12f);
-    const float a1 = fminf(fmaxf(-phi_p / phi_pp, 0.0f), 2.0f);
-    const float pen0 = acc[4];
-
-    float pen[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int r = t; r < E; r += kThreads) {
-      const RowW w = row_weights(kd[r], Dv[r], fl[r]);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) pen[s] += penalty_of(jar[r] + (a1 * scales[s]) * Jp[r], w);
-    }
-    block_sum<4>(pen, red);
-    float best_cost = 0.0f, best_a = 0.0f;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const float a = a1 * scales[s];
-      const float dcost = a * c1 + 0.5f * a * a * c2 + pen[s] - pen0;
-      if (dcost < best_cost) {
-        best_cost = dcost;
-        best_a = a;
-      }
-    }
-
-    for (int i = t; i < V; i += kThreads) {
-      x[i] = x[i] + best_a * pd[i];
-      dx[i] = x[i] - qs[i];
-    }
-    for (int r = t; r < E; r += kThreads) {
-      jar[r] = jar[r] + best_a * Jp[r];
-      fr[r] = force_of(jar[r], row_weights(kd[r], Dv[r], fl[r]));
-    }
-    __syncthreads();
-    jt_apply(J, fr, Mgn, partial, E, V, Vs);
-    __syncthreads();
-    for (int i = t; i < V; i += kThreads) gn[i] = dotn(M + i * Vs, dx, V) + Mgn[i];
-    __syncthreads();
-    float nd[2] = {0.0f, 0.0f};
-    for (int i = t; i < V; i += kThreads) {
-      Mgn[i] = dotn(Minv + i * Vs, gn, V);
-      nd[0] += gn[i] * (Mgn[i] - Mg[i]);
-      nd[1] += g[i] * Mg[i];
-    }
-    block_sum<2>(nd, red);
-    const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);
-    for (int i = t; i < V; i += kThreads) {
-      pd[i] = -Mgn[i] + beta * pd[i];
-      g[i] = gn[i];
-      Mg[i] = Mgn[i];
-    }
-    __syncthreads();
-  }
+  cg_iterate(s, E, V, p.iterations);
 
   // f = -force(jar), qfrc = J^T f
-  for (int r = t; r < E; r += kThreads) {
-    const float fv = -force_of(jar[r], row_weights(kd[r], Dv[r], fl[r]));
-    fr[r] = fv;
-    p.f[bE + r] = fv;
-  }
-  for (int i = t; i < V; i += kThreads) p.x[bV + i] = x[i];
+  write_solution(s, E, V, p.f + bE, p.x + bV);
   __syncthreads();
-  jt_apply(J, fr, gn, partial, E, V, Vs);
+  jt_apply(J, s.fr, s.gn, s.partial, E, V, Vs);
   __syncthreads();
+  for (int i = t; i < V; i += kThreads) p.qfrc[bV + i] = s.gn[i];
 
-  // implicit-damping Euler: qacc = Mimp^-1 M x with one refinement step
-  for (int i = t; i < V; i += kThreads) {
-    p.qfrc[bV + i] = gn[i];
-    Mp[i] = dotn(M + i * Vs, x, V);
+  if (kEuler) {
+    // implicit-damping Euler: qacc = Mimp^-1 M x with one refinement step
+    for (int i = t; i < V; i += kThreads) s.Mp[i] = dotn(M + i * Vs, s.x, V);
+    __syncthreads();
+    for (int i = t; i < V; i += kThreads) s.Mg[i] = dotn(Minvimp + i * Vs, s.Mp, V);
+    __syncthreads();
+    for (int i = t; i < V; i += kThreads) s.dx[i] = s.Mp[i] - dotn(Mimp + i * Vs, s.Mg, V);
+    __syncthreads();
+    const float dt = p.dt[0];
+    for (int i = t; i < V; i += kThreads) {
+      const float qacc_imp = s.Mg[i] + dotn(Minvimp + i * Vs, s.dx, V);
+      p.qvel_new[bV + i] = s.qv[i] + dt * qacc_imp;
+    }
   }
-  __syncthreads();
-  for (int i = t; i < V; i += kThreads) Mg[i] = dotn(Minvimp + i * Vs, Mp, V);
-  __syncthreads();
-  for (int i = t; i < V; i += kThreads) dx[i] = Mp[i] - dotn(Mimp + i * Vs, Mg, V);
-  __syncthreads();
-  const float dt = p.dt[0];
-  for (int i = t; i < V; i += kThreads) {
-    const float qacc_imp = Mg[i] + dotn(Minvimp + i * Vs, dx, V);
-    p.qvel_new[bV + i] = qv[i] + dt * qacc_imp;
+}
+
+template <bool kEuler>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  if (p.V < 1 || p.V > kThreads || p.S < 0 || p.n_s < 0) return (int)cudaErrorInvalidValue;
+  const int E = p.n_s + p.S * p.F;
+  const size_t smem = smem_floats(E, p.V, kEuler ? 4 : 2) * sizeof(float);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(cg_full_kernel<kEuler>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  cg_full_kernel<kEuler><<<B, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory one block of the kernel takes for E rows and V dofs.
-extern "C" long long robogym_cg_full_smem_bytes(int E, int V) {
-  return (long long)(smem_floats(E, V) * sizeof(float));
+// Dynamic shared memory one block of a CG kernel takes for E rows, V dofs
+// and nmat (V, V) matrices: 4 for cg_full, 2 for cg_full_noeuler and cg.
+extern "C" long long robogym_cg_smem_bytes(int E, int V, int nmat) {
+  return (long long)(smem_floats(E, V, nmat) * sizeof(float));
 }
 
-// Returns cudaErrorInvalidValue, and launches nothing, when V > 256 or the
-// system does not fit in one block's shared memory.
+// Both entry points return cudaErrorInvalidValue, and launch nothing, when
+// V > 256 or the system does not fit in one block's shared memory.
 extern "C" int robogym_cg_full(
     const float* Js, const float* off1, const float* off2, const float* frame, const float* fric,
     const float* m1, const float* m2, const float* cdof, const float* pos, const float* kimp,
@@ -405,18 +237,21 @@ extern "C" int robogym_cg_full(
     const float* qvel, const float* qfrc_smooth, const float* qacc_prev, const int* kind,
     const float* dt, float* x, float* f, float* qfrc, float* qvel_new, float* qs,
     int B, int n_s, int S, int F, int V, int iterations, cudaStream_t stream) {
-  if (V < 1 || V > kThreads || S < 0 || n_s < 0) return (int)cudaErrorInvalidValue;
-  const int E = n_s + S * F;
-  const size_t smem = smem_floats(E, V) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(cg_full_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
-           M, Minv, Mimp, Minv_imp, qvel, qfrc_smooth, qacc_prev, kind, dt,
+           M, Minv, Mimp, Minv_imp, qvel, qfrc_smooth, qacc_prev, nullptr, nullptr, kind, dt,
            x, f, qfrc, qvel_new, qs, n_s, S, F, V, iterations};
-  cg_full_kernel<<<B, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch<true>(p, B, stream);
+}
+
+extern "C" int robogym_cg_full_noeuler(
+    const float* Js, const float* off1, const float* off2, const float* frame, const float* fric,
+    const float* m1, const float* m2, const float* cdof, const float* pos, const float* kimp,
+    const float* bref, const float* rcoef, const float* active, const float* floss,
+    const float* M, const float* Minv, const float* qvel, const float* qs, const float* x0,
+    const int* kind, float* x, float* f, float* qfrc,
+    int B, int n_s, int S, int F, int V, int iterations, cudaStream_t stream) {
+  Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
+           M, Minv, nullptr, nullptr, qvel, nullptr, nullptr, qs, x0, kind, nullptr,
+           x, f, qfrc, nullptr, nullptr, n_s, S, F, V, iterations};
+  return launch<false>(p, B, stream);
 }

@@ -1,10 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Every source under `robogym_torch/csrc/` is compiled by one `nvcc` call, for
-`sm_90a`, into one shared library with a plain C interface, which is loaded
-with `ctypes`. The build happens at the first launch in a process (or at an
-explicit `build()`), into `build/kernels/` at the root of the checkout; a
-library whose sources and flags are unchanged is reused.
+Every source under `robogym_torch/csrc/` is compiled for `sm_90a` by its own
+`nvcc` process, all started together, and the objects are linked into one
+shared library with a plain C interface, which is loaded with `ctypes`. The
+build happens at the first launch in a process (or at an explicit
+`build()`), into `build/kernels/` at the root of the checkout; a library
+whose sources, headers and flags are unchanged is reused.
 
 `launch(name, *args)` calls the C entry point `robogym_<name>` with each
 tensor's data pointer and each int as a C int, on PyTorch's current stream,
@@ -27,15 +28,18 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "build", "kernels")
-SOURCES = ("spd_inverse.cu", "cg_full.cu", "hull_sweep.cu")
+SOURCES = ("spd_inverse.cu", "cg_full.cu", "cg.cu", "hull_sweep.cu", "boxbox.cu")
+HEADERS = ("cg_common.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: float32 expressions round as PyTorch's elementwise operations
-# do, so the hull kernels pick the plain version's directions
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# do, so the hull kernels pick the plain version's directions and the
+# box-box kernel its SAT axis
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
 
 # C entry points `robogym_<name>`: (device pointers, ints) before the stream
-SIGNATURES = {"spd_inverse": (2, 2), "cg_full": (28, 6), "hull_pair": (14, 5),
-              "hull_manifold": (13, 5)}
+SIGNATURES = {"spd_inverse": (2, 2), "cg_full": (28, 6), "cg_full_noeuler": (23, 6),
+              "cg": (12, 4), "hull_pair": (14, 5), "hull_manifold": (13, 5), "boxbox": (9, 1)}
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lock = threading.Lock()
@@ -57,6 +61,31 @@ def _nvcc() -> str:
     return path
 
 
+def _compile(srcs, lib: str) -> str:
+    """One `nvcc -c` per source, all running at once, then one link into
+    `lib`; returns the compilers' reports."""
+    tmp = f"{lib}.{os.getpid()}"
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for s, o in zip(srcs, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    try:
+        failed = [s for s, p in zip(srcs, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", tmp + ".so", *objs],
+                              capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    os.replace(tmp + ".so", lib)
+    return log
+
+
 def build() -> str:
     """Compile and load the kernel library once per process; returns the
     report of `nvcc -Xptxas -v` (registers, shared memory, spills)."""
@@ -66,29 +95,24 @@ def build() -> str:
             return _build_log
         srcs = [os.path.join(CSRC, s) for s in SOURCES]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
+        for s in srcs + [os.path.join(CSRC, x) for x in HEADERS]:
             with open(s, "rb") as f:
                 h.update(f.read())
         os.makedirs(BUILD_DIR, exist_ok=True)
         lib = os.path.join(BUILD_DIR, f"librobogym_kernels_{h.hexdigest()[:16]}.so")
         log = lib[:-3] + ".log"
         if not (os.path.exists(lib) and os.path.exists(log)):
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                                  capture_output=True, text=True)
-            if proc.returncode:
-                raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+            text = _compile(srcs, lib)
             with open(log + f".{os.getpid()}.tmp", "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, lib)
+                f.write(text)
             os.replace(log + f".{os.getpid()}.tmp", log)
         with open(log) as f:
             _build_log = f.read()
         _lib = ctypes.CDLL(lib)
         _lib.robogym_error_string.restype = ctypes.c_char_p
         _lib.robogym_error_string.argtypes = [ctypes.c_int]
-        _lib.robogym_cg_full_smem_bytes.restype = ctypes.c_longlong
-        _lib.robogym_cg_full_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        _lib.robogym_cg_smem_bytes.restype = ctypes.c_longlong
+        _lib.robogym_cg_smem_bytes.argtypes = [ctypes.c_int] * 3
         for name, (n_ptr, n_int) in SIGNATURES.items():
             fn = getattr(_lib, "robogym_" + name)
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -96,11 +120,12 @@ def build() -> str:
         return _build_log
 
 
-def cg_full_smem_bytes(E: int, V: int) -> int:
-    """Dynamic shared memory of one block of the `cg_full` kernel for a
-    system of E rows and V dofs, as the library computes it."""
+def cg_smem_bytes(E: int, V: int, nmat: int) -> int:
+    """Dynamic shared memory of one block of a CG kernel for a system of E
+    rows, V dofs and nmat (V, V) matrices (4 for `cg_full`, 2 for
+    `cg_full_noeuler` and `cg`), as the library computes it."""
     build()
-    return int(_lib.robogym_cg_full_smem_bytes(E, V))
+    return int(_lib.robogym_cg_smem_bytes(E, V, nmat))
 
 
 def launch(name: str, *args) -> None:

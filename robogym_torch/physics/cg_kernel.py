@@ -1,20 +1,29 @@
-"""The fused constraint solve: contact rows of J, aref, the regularizer,
-M^-1-preconditioned nonlinear CG with the frozen-active-set Newton line
-search, J^T f, and the implicit-damping Euler velocity update.
+"""The constraint solves: M^-1-preconditioned nonlinear CG with the
+frozen-active-set Newton line search, on a Jacobian built in the kernel
+from gathered contact data (kernel B) or given whole (kernel F).
 
-Counterpart of `robogym_tpu/physics/cg_kernel.py::_cg_full_kernel` (with
-`_build_rows` and `_line_search_step`). `cg_full` is the wrapper: on CUDA
-tensors it launches the hand-written kernel in
-`robogym_torch/csrc/cg_full.cu` (one thread block per env, J and the four
-mass-matrix tiles in shared memory); on CPU tensors it runs `cg_full_plain`,
-the PyTorch transcription of the JAX reference
-(`constraint_batched._make_core(...).reference` with `_scan_cg_solve`).
+Counterpart of `robogym_tpu/physics/cg_kernel.py`. Three wrappers, each
+launching a hand-written kernel on CUDA tensors and running its plain
+PyTorch version (the JAX reference transcribed) on CPU tensors:
 
-Shapes (per env, leading B): scalar rows Js (n_s, V); contact offsets
-off1/off2 (S, 3); frames (S, 9) as [normal | tangent1 | tangent2]; friction
-(S, 5); dof path masks m1/m2 (S, V); cdof (V, 6); row maps (E,) with
-E = n_s + S*F; M, Minv, Mimp, Minv_imp (V, V); qvel, qfrc_smooth,
-qacc_prev (V,); dt a 0-dim tensor.
+  * `cg_full` (replaces `_cg_full_kernel` with the Euler update and
+    `with_smooth`; `robogym_torch/csrc/cg_full.cu`): contact rows of J,
+    aref, the regularizer, qacc_smooth, the warmstart, the solve, J^T f and
+    the implicit-damping Euler velocity update. Plain version
+    `cg_full_plain` (`constraint_batched._make_core(..., True, True)
+    .reference`).
+  * `cg_full_noeuler` (`_cg_full_kernel` without them; the same source):
+    the same up to J^T f, with qacc_smooth and the warmstart given. Plain
+    version `cg_full_noeuler_plain` (`_make_core(..., False).reference`).
+  * `cg` (replaces `_cg_kernel`; `robogym_torch/csrc/cg.cu`): the solve on
+    a prebuilt J with its row weights. Plain version `cg_plain`
+    (`constraint._scan_cg_solve`).
+
+Shapes (per env, leading B): scalar rows Js (n_s, V), n_s may be 0; contact
+offsets off1/off2 (S, 3); frames (S, 9) as [normal | tangent1 | tangent2];
+friction (S, 5); dof path masks m1/m2 (S, V); cdof (V, 6); row maps (E,)
+with E = n_s + S*F; M, Minv, Mimp, Minv_imp (V, V); qvel, qfrc_smooth,
+qacc_prev, qs, x0 (V,); dt a 0-dim tensor.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from robogym_torch.physics import constraint as cl
+from robogym_torch.physics.smooth import mv
 from robogym_torch.utils.rotation import cross
 
 def contact_rows(off1, off2, frame, fric, m1, m2, cdof, nfacet: int) -> torch.Tensor:
@@ -60,28 +70,95 @@ def contact_rows(off1, off2, frame, fric, m1, m2, cdof, nfacet: int) -> torch.Te
     return torch.stack(facets, dim=2).reshape(B, S * nfacet, -1)
 
 
-def _mv(A, x):
-    return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
+    """M^-1-preconditioned Polak-Ribière+ nonlinear CG on the soft-
+    constraint cost with a frozen-active-set Newton line search (the JAX
+    package's reference solve, `constraint._scan_cg_solve`), batched over a
+    leading env axis: J (B, E, V), row vectors (B, E), M/Minv (B, V, V),
+    qs/x0 (B, V). Returns (qacc (B, V), efc_force (B, E))."""
+
+    def force(jar):
+        neg = (jar < 0).to(jar.dtype)
+        return Deq * jar + Done * jar * neg + torch.minimum(torch.maximum(Dfr * jar, -floss), floss)
+
+    def penalty_cost(jar):
+        neg = (jar < 0).to(jar.dtype)
+        c_quad = 0.5 * (Deq + Done * neg) * jar * jar
+        inside = (torch.abs(Dfr * jar) < floss).to(jar.dtype)
+        quad_f = 0.5 * Dfr * jar * jar
+        lin_f = floss * torch.abs(jar) - 0.5 * floss * floss / torch.clamp(Dfr, min=1e-12)
+        c_fric = inside * quad_f + (1.0 - inside) * lin_f
+        return torch.sum(c_quad + c_fric, dim=-1)
+
+    def grad(x, jar):
+        return mv(M, x - qs) + mv(J.transpose(-1, -2), force(jar))
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=-1)
+
+    x = x0
+    jar = mv(J, x0) - aref
+    g = grad(x0, jar)
+    Mg = mv(Minv, g)
+    p = -Mg
+    for _ in range(iterations):
+        Jp = mv(J, p)
+        dx0 = x - qs
+        Mp = mv(M, p)
+        c1 = dot(dx0, Mp)
+        c2 = dot(p, Mp)
+        f0 = force(jar)
+        neg = (jar < 0).to(x.dtype)
+        inside = (torch.abs(Dfr * jar) < floss).to(x.dtype)
+        deff = Deq + Done * neg + Dfr * inside
+        phi_p = c1 + dot(f0, Jp)
+        phi_pp = torch.clamp(c2 + dot(deff * Jp, Jp), min=1e-12)
+        a1 = torch.clamp(-phi_p / phi_pp, 0.0, 2.0)
+        pen0 = penalty_cost(jar)
+        best_cost = torch.zeros_like(c1)
+        best_a = torch.zeros_like(c1)
+        for s in cl.LS_SCALES:
+            a = a1 * s
+            dcost = a * c1 + 0.5 * a * a * c2 + penalty_cost(jar + a[:, None] * Jp) - pen0
+            take = dcost < best_cost
+            best_cost = torch.where(take, dcost, best_cost)
+            best_a = torch.where(take, a, best_a)
+        x = x + best_a[:, None] * p
+        jar = jar + best_a[:, None] * Jp
+        g_new = grad(x, jar)
+        Mg_new = mv(Minv, g_new)
+        num = dot(g_new, Mg_new - Mg)
+        den = torch.clamp(dot(g, Mg), min=1e-12)
+        beta = torch.clamp(num / den, min=0.0)
+        p = -Mg_new + beta[:, None] * p
+        g, Mg = g_new, Mg_new
+    return x, -force(jar)
+
+
+def cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0):
+    """Plain version of the CG kernel without the Euler update. Returns
+    (x, f, qfrc)."""
+    Jc = contact_rows(rows["off1"], rows["off2"], rows["frame"], rows["fric"],
+                      rows["m1"], rows["m2"], rows["cdof"], nfacet)
+    J = torch.cat([rows["Js"], Jc], dim=1)
+    aref = -maps["bref"] * mv(J, qvel) - maps["kimp"] * maps["pos"]
+    D = torch.where(maps["active"] > 0, 1.0 / maps["rcoef"], torch.zeros_like(maps["rcoef"]))
+    Deq, Done, Dfr = cl.kind_masked_D(kind, D)
+    x, f = cg_plain(J, aref, Deq, Done, Dfr, maps["floss"], M, Minv, qs, x0, iterations)
+    return x, f, mv(J.transpose(-1, -2), f)
 
 
 def cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
                   qvel, qfrc_smooth, qacc_prev, dt):
     """Plain version of the fused CG kernel. Returns (x, f, qfrc, qvel_new,
     qacc_smooth)."""
-    qs = _mv(Minv, qfrc_smooth)
+    qs = mv(Minv, qfrc_smooth)
     finite = torch.all(torch.abs(qacc_prev) < 1e10, dim=-1, keepdim=True)
     x0 = torch.where(finite, qacc_prev, qs)
-    Jc = contact_rows(rows["off1"], rows["off2"], rows["frame"], rows["fric"],
-                      rows["m1"], rows["m2"], rows["cdof"], nfacet)
-    J = torch.cat([rows["Js"], Jc], dim=1)
-    aref = -maps["bref"] * _mv(J, qvel) - maps["kimp"] * maps["pos"]
-    D = torch.where(maps["active"] > 0, 1.0 / maps["rcoef"], torch.zeros_like(maps["rcoef"]))
-    Deq, Done, Dfr = cl.kind_masked_D(kind, D)
-    x, f = cl._scan_cg_solve(J, aref, Deq, Done, Dfr, maps["floss"], M, Minv, qs, x0, iterations)
-    qfrc = _mv(J.transpose(-1, -2), f)
-    qfrc_total = _mv(M, x)
-    qacc1 = _mv(Minv_imp, qfrc_total)
-    qacc_imp = qacc1 + _mv(Minv_imp, qfrc_total - _mv(Mimp, qacc1))
+    x, f, qfrc = cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
+    qfrc_total = mv(M, x)
+    qacc1 = mv(Minv_imp, qfrc_total)
+    qacc_imp = qacc1 + mv(Minv_imp, qfrc_total - mv(Mimp, qacc1))
     qvel_new = qvel + dt * qacc_imp
     return x, f, qfrc, qvel_new, qs
 
@@ -91,46 +168,104 @@ def _kind_tensor(kind_key: bytes, device: str) -> torch.Tensor:
     return torch.as_tensor(np.frombuffer(kind_key, np.int32).copy(), device=device)
 
 
-def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
-            qvel, qfrc_smooth, qacc_prev, dt):
-    """The fused constraint solve; the CUDA kernel on CUDA tensors. The
-    launch raises when V > 256 or when J and the four (V, V) matrices do not
-    fit in one block's shared memory (227 KB; `cuda.cg_full_smem_bytes`)."""
-    if M.device.type == "cpu":
-        return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
-                             qvel, qfrc_smooth, qacc_prev, dt)
-    from robogym_torch import cuda
+def _check(kernel: str, ops, dev) -> None:
+    """Raise unless every (name, tensor, shape) is a contiguous float32
+    tensor of that shape on `dev`."""
+    for name, t, shape in ops:
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{kernel} operand {name}: {tuple(t.shape)} {t.dtype} {t.device}, "
+                             f"want a contiguous {shape} float32 tensor on {dev}")
 
-    dev = M.device
+
+def _row_operands(kernel, kind, nfacet, rows, maps):
+    """The row-build and row-map operands of kernel B, checked, with
+    (B, n_s, S, E, V) and the row kinds on the device."""
     B, n_s, V = rows["Js"].shape
     S = rows["off1"].shape[1]
     E = n_s + S * nfacet
+    dev = rows["off1"].device
     want = {
         "Js": (B, n_s, V), "off1": (B, S, 3), "off2": (B, S, 3), "frame": (B, S, 9),
         "fric": (B, S, 5), "m1": (B, S, V), "m2": (B, S, V), "cdof": (B, V, 6),
     }
     ops = [(k, rows[k], s) for k, s in want.items()]
     ops += [(k, maps[k], (B, E)) for k in ("pos", "kimp", "bref", "rcoef", "active", "floss")]
-    ops += [(k, t, (B, V, V)) for k, t in (("M", M), ("Minv", Minv), ("Mimp", Mimp),
-                                           ("Minv_imp", Minv_imp))]
+    _check(kernel, ops, dev)
+    if len(kind) != E:
+        raise ValueError(f"{kernel}: {len(kind)} row kinds for {E} rows")
+    if nfacet not in (1, 4, 6, 10):
+        raise ValueError(f"{kernel}: nfacet {nfacet}")
+    kind_t = _kind_tensor(np.asarray(kind, np.int32).tobytes(), str(dev))
+    return [t for _, t, _ in ops], kind_t, (B, n_s, S, E, V)
+
+
+def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
+            qvel, qfrc_smooth, qacc_prev, dt):
+    """The fused constraint solve; the CUDA kernel on CUDA tensors. The
+    launch raises when V > 256 or when J and the four (V, V) matrices do not
+    fit in one block's shared memory (227 KB; `cuda.cg_smem_bytes`)."""
+    if M.device.type == "cpu":
+        return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
+                             qvel, qfrc_smooth, qacc_prev, dt)
+    from robogym_torch import cuda
+
+    row_ops, kind_t, (B, n_s, S, E, V) = _row_operands("cg_full", kind, nfacet, rows, maps)
+    dev = M.device
+    ops = [(k, t, (B, V, V)) for k, t in (("M", M), ("Minv", Minv), ("Mimp", Mimp),
+                                          ("Minv_imp", Minv_imp))]
     ops += [(k, t, (B, V)) for k, t in (("qvel", qvel), ("qfrc_smooth", qfrc_smooth),
                                         ("qacc_prev", qacc_prev))]
-    for name, t, shape in ops:
-        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"cg_full operand {name}: {tuple(t.shape)} {t.dtype} {t.device}, "
-                             f"want a contiguous {shape} float32 tensor on {dev}")
-    if len(kind) != E:
-        raise ValueError(f"cg_full: {len(kind)} row kinds for {E} rows")
-    if nfacet not in (1, 4, 6, 10):
-        raise ValueError(f"cg_full: nfacet {nfacet}")
-    kind_t = _kind_tensor(np.asarray(kind, np.int32).tobytes(), str(dev))
+    _check("cg_full", ops, dev)
     dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev).reshape(1)
     x = torch.empty((B, V), dtype=torch.float32, device=dev)
     f = torch.empty((B, E), dtype=torch.float32, device=dev)
     qfrc = torch.empty_like(x)
     qvel_new = torch.empty_like(x)
     qs = torch.empty_like(x)
-    cuda.launch("cg_full", *[t for _, t, _ in ops], kind_t, dt_t, x, f, qfrc, qvel_new, qs,
-                B, n_s, S, nfacet, V, iterations)
+    cuda.launch("cg_full", *row_ops, *[t for _, t, _ in ops], kind_t, dt_t, x, f, qfrc,
+                qvel_new, qs, B, n_s, S, nfacet, V, iterations)
     return x, f, qfrc, qvel_new, qs
+
+
+def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0):
+    """The constraint solve of `forward()`: kernel B without the Euler
+    update, qacc_smooth `qs` and the warmstart `x0` given. Returns (x, f,
+    qfrc); the CUDA kernel on CUDA tensors, with `cg_full`'s limits (two
+    (V, V) matrices in shared memory)."""
+    if M.device.type == "cpu":
+        return cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
+    from robogym_torch import cuda
+
+    row_ops, kind_t, (B, n_s, S, E, V) = _row_operands("cg_full_noeuler", kind, nfacet, rows,
+                                                       maps)
+    ops = [("M", M, (B, V, V)), ("Minv", Minv, (B, V, V)), ("qvel", qvel, (B, V)),
+           ("qs", qs, (B, V)), ("x0", x0, (B, V))]
+    _check("cg_full_noeuler", ops, M.device)
+    x = torch.empty((B, V), dtype=torch.float32, device=M.device)
+    f = torch.empty((B, E), dtype=torch.float32, device=M.device)
+    qfrc = torch.empty_like(x)
+    cuda.launch("cg_full_noeuler", *row_ops, *[t for _, t, _ in ops], kind_t, x, f, qfrc,
+                B, n_s, S, nfacet, V, iterations)
+    return x, f, qfrc
+
+
+def cg(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
+    """The CG solve on a prebuilt J (B, E, V) with row weights Deq, Done,
+    Dfr and friction losses (B, E): `cg_plain`'s arguments and returns; the
+    CUDA kernel on CUDA tensors. The launch raises when V > 256 or J and two
+    (V, V) matrices do not fit in one block's shared memory."""
+    if M.device.type == "cpu":
+        return cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations)
+    from robogym_torch import cuda
+
+    B, E, V = J.shape
+    ops = [("J", J, (B, E, V))]
+    ops += [(k, t, (B, E)) for k, t in (("aref", aref), ("Deq", Deq), ("Done", Done),
+                                        ("Dfr", Dfr), ("floss", floss))]
+    ops += [("M", M, (B, V, V)), ("Minv", Minv, (B, V, V)), ("qs", qs, (B, V)), ("x0", x0, (B, V))]
+    _check("cg", ops, M.device)
+    x = torch.empty((B, V), dtype=torch.float32, device=M.device)
+    f = torch.empty((B, E), dtype=torch.float32, device=M.device)
+    cuda.launch("cg", *[t for _, t, _ in ops], x, f, B, E, V, iterations)
+    return x, f

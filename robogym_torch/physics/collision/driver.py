@@ -4,8 +4,9 @@ Counterpart of `robogym_tpu/physics/collision/driver.py`, batched over
 envs. Pairs are grouped at model-build time by (collider kind, geom types,
 contacts per pair); per group a bounding-capsule broadphase scores every
 pair, the deepest K are kept, and the narrowphase runs on those winners
-only. The slot layout is static, so the constraint stage knows each slot's
-facet structure.
+only: the analytic primitives, the box-box kernel, or the hull kernels.
+The slot layout is static, so the constraint stage knows each slot's facet
+structure.
 
 Where the JAX package gathers through one-hot matmuls (a TPU workaround),
 this port indexes directly; the values are the same. The broadphase ranks
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from robogym_torch.mjcf.model import Contact, Data, GeomType, JointType, Model, ModelConst
-from robogym_torch.physics.collision import convex_kernel
+from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 from robogym_torch.physics.collision import primitives as prim
 from robogym_torch.physics.tables import on_device
 from robogym_torch.utils.rotation import cross
@@ -43,7 +44,9 @@ _PRIM = {
     (GeomType.SPHERE, GeomType.BOX): (prim.sphere_box, 1),
     (GeomType.CAPSULE, GeomType.CAPSULE): (prim.capsule_capsule, 1),
     (GeomType.CAPSULE, GeomType.BOX): (prim.capsule_box, 2),
-    (GeomType.BOX, GeomType.BOX): (prim.box_box, 17),
+    # the 17-slot SAT manifold in one kernel, looked up when called (as the
+    # hull kernels are) so that a caller may route it to its plain version
+    (GeomType.BOX, GeomType.BOX): (lambda *sides: boxbox_kernel.boxbox(*sides), 17),
 }
 _CONVEX_TYPES = (
     GeomType.SPHERE, GeomType.CAPSULE, GeomType.CYLINDER,
@@ -441,9 +444,6 @@ def collision(m: Model, d: Data, group_cap: int = DEFAULT_GROUP_CAP) -> Data:
 
         t1, t2 = grp["t1"], grp["t2"]
         if grp["kind"] in ("plane_prim", "prim"):
-            if t1 == GeomType.BOX and t2 == GeomType.BOX:
-                raise NotImplementedError(
-                    "box-box pairs need the box-box kernel, which this port does not have yet")
             d1, d2 = _side(m, d, G1, t1, cache), _side(m, d, G2, t2, cache)
             dist, pos, normal = grp["fn"](d1["xpos"], d1["xmat"], d1["size"],
                                           d2["xpos"], d2["xmat"], d2["size"])

@@ -196,57 +196,6 @@ def capsule_capsule(xp1, xm1, s1, xp2, xm2, s2):
 # --- box functions -------------------------------------------------------------
 
 
-def box_box(xp1, xm1, s1, xp2, xm2, s2):
-    """Multi-point box-box manifold: SAT over the 15 axes picks the normal;
-    the 17 slots are 8+8 corner-in-box candidates plus the SAT witness."""
-    dtype = xp1.dtype
-    eps = 1e-9
-    axes1 = xm1.transpose(-1, -2)
-    axes2 = xm2.transpose(-1, -2)
-    crs = cross(axes1[..., :, None, :], axes2[..., None, :, :])
-    crs = crs.reshape(crs.shape[:-3] + (9, 3))
-    axes = torch.cat([axes1, axes2, crs], dim=-2)                     # (..., 15, 3)
-    norms = _norm(axes)[..., None]
-    valid = norms[..., 0] > 1e-6
-    axes = axes / torch.clamp(norms, min=eps)
-    t = xp2 - xp1
-
-    proj1 = torch.sum(torch.abs(torch.matmul(axes, xm1)) * s1[..., None, :], dim=-1)
-    proj2 = torch.sum(torch.abs(torch.matmul(axes, xm2)) * s2[..., None, :], dim=-1)
-    depths = proj1 + proj2 - torch.abs(_dot(t[..., None, :], axes))
-    depths = torch.where(valid, depths, torch.full_like(depths, BIG))
-    ramp = torch.arange(15, dtype=dtype, device=xp1.device) * 1e-7
-    dsel = depths + ramp
-    w = (dsel <= torch.min(dsel, dim=-1, keepdim=True).values).to(dtype)
-    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1.0)
-    sat_depth = torch.sum(depths * w, dim=-1)
-    n = torch.sum(axes * w[..., None], dim=-2)
-    n = n / torch.clamp(_norm(n), min=1e-12)[..., None]
-    n = torch.where((_dot(n, t) < 0)[..., None], -n, n)
-
-    def corner_candidates(xp_a, xm_a, s_a, xp_b, xm_b, s_b, sign):
-        corners = _box_corners(xp_b, xm_b, s_b)
-        local = torch.matmul(corners - xp_a[..., None, :], xm_a)
-        over = torch.abs(local) - s_a[..., None, :]
-        dist = torch.max(over, dim=-1).values
-        inside = torch.all(over < 1e-3, dim=-1)
-        dist = torch.where(inside, dist, torch.full_like(dist, BIG))
-        pos = corners - (0.5 * dist)[..., None] * (sign * n)[..., None, :]
-        return dist, pos
-
-    d2, p2 = corner_candidates(xp1, xm1, s1, xp2, xm2, s2, 1.0)
-    d1, p1 = corner_candidates(xp2, xm2, s2, xp1, xm1, s1, -1.0)
-
-    def dsign(x):
-        return torch.where(torch.abs(x) > 1e-6, torch.sign(x), torch.zeros_like(x))
-
-    sup1 = xp1 + _rot(xm1, dsign(_rot_t(xm1, n)) * s1)
-    sup2 = xp2 + _rot(xm2, dsign(_rot_t(xm2, -n)) * s2)
-    dist_all = torch.cat([d2, d1, (-sat_depth)[..., None]], dim=-1)
-    pos_all = torch.cat([p2, p1, (0.5 * (sup1 + sup2))[..., None, :]], dim=-2)
-    return dist_all, pos_all, _tile(n, 17)
-
-
 def capsule_box(xp1, xm1, s1, xp2, xm2, s2):
     """Capsule (geom1) vs box (geom2): the 2 deepest of the two endpoint
     spheres and the point nearest the box center."""

@@ -1,12 +1,20 @@
-"""Soft-constraint assembly and the fused hot-path solve.
+"""Soft-constraint assembly and the constraint solves.
 
-Counterpart of `robogym_tpu/physics/constraint.py` for the path
-`step` takes: MuJoCo's constraint model (solref/solimp impedances,
-pyramidal friction cones, joint and tendon limits, dof friction loss)
-minimized over qacc by preconditioned nonlinear CG. `solve_fused_step`
-picks the `opt.ncon_active` deepest contact slots, gathers their data and
-hands everything to `constraint_batched.fused_step_core`, which runs the two
-SPD-inverse kernels and the fused CG kernel.
+Counterpart of `robogym_tpu/physics/constraint.py`: MuJoCo's constraint
+model (solref/solimp impedances, pyramidal friction cones, joint and tendon
+limits, dof friction loss) minimized over qacc by preconditioned nonlinear
+CG. Two entry points:
+
+  * `solve_fused_step`, step's hot path: picks the `opt.ncon_active`
+    deepest contact slots, gathers their data and hands everything to
+    `constraint_batched.fused_step_core` (the two SPD-inverse kernels and
+    the fused CG kernel with the Euler update);
+  * `solve`, forward()'s and the unfused step's: the same gather into
+    `constraint_batched.solve_core` (the CG kernel without the Euler
+    update) where the model has contact slots; otherwise `make_efc`
+    assembles J, aref and the row weights and `cg_kernel.cg` solves.
+
+The Newton solver and equality constraints are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ import torch
 from robogym_torch.mjcf.model import Data, Model
 from robogym_torch.physics import tables
 from robogym_torch.physics.collision import driver as collision_driver
+from robogym_torch.physics.smooth import mv
 from robogym_torch.physics.tables import on_device
+from robogym_torch.utils.rotation import cross
 
 BIG = 1e10
 
@@ -58,6 +68,26 @@ def _ref_kb(solref: torch.Tensor, solimp: torch.Tensor) -> Tuple[torch.Tensor, t
     b = torch.where(standard, b_std, -dampratio)
     k = torch.where(standard, k_std, -timeconst)
     return k, b
+
+
+def _point_jac_batch(m: Model, d: Data, points: torch.Tensor, bodyids: torch.Tensor):
+    """Translational point Jacobians of (B, S) points (B, S, 3) on bodies
+    `bodyids` (B, S): (B, S, nv, 3)."""
+    c = m.const
+    dev, dtype = d.qpos.device, d.qpos.dtype
+    rootid = on_device(c, "body_rootid", np.asarray(c.body_rootid, np.int64), dev, torch.long)
+    rc = _take(d.subtree_com, rootid[bodyids])
+    offset = points - rc
+    jac = d.cdof[:, None, :, 3:] + cross(d.cdof[:, None, :, :3], offset[:, :, None, :])
+    mask = on_device(c, "body_dof_mask", c.body_dof_mask, dev, dtype)[bodyids]   # (B, S, nv)
+    return jac * mask[..., None]
+
+
+def _rot_jac_batch(m: Model, d: Data, bodyids: torch.Tensor):
+    """Rotational Jacobians of bodies `bodyids` (B, S): (B, S, nv, 3)."""
+    c = m.const
+    mask = on_device(c, "body_dof_mask", c.body_dof_mask, d.qpos.device, d.qpos.dtype)[bodyids]
+    return d.cdof[:, None, :, :3] * mask[..., None]
 
 
 def scalar_blocks(m: Model, d: Data):
@@ -151,57 +181,65 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[bi, idx]
 
 
-def _post_gather_prelude(m: Model, d: Data):
-    """Contact-slot selection and gather for the fused core. Returns None
-    when the model has no contact slots."""
+def _gather_slots(m: Model, d: Data):
+    """The `opt.ncon_active` deepest contact slots (sel (B, S)) and their
+    data, gathered: pos, frame (B, S, 3, 3), dist, margin, condim, active,
+    body ids b1/b2, the winner's solref/solimp/friction and the contact
+    diagApprox iw; nfacet from the slot layout. None when the model has no
+    contact slots."""
     c = m.const
     con = d.contact
     ncon = con.dist.shape[1]
     S = min(m.opt.ncon_active, ncon)
     if ncon == 0 or S <= 0:
         return None
-    dev, dtype = d.qpos.device, d.qpos.dtype
+    dev = d.qpos.device
     condims = np.asarray(collision_driver.contact_slot_layout(c, m.opt.group_cap), np.int32)
-    nfacet = {1: 1, 3: 4, 4: 6, 6: 10}[int(condims.max())]
-
-    J_s, pos_s, solref_s, solimp_s, floss_s, active_s, kind_s, diagA_s = scalar_blocks(m, d)
-
     # the S deepest slots; inactive slots score BIG and ties go to the lower
     # slot index, as lax.top_k does
     score = torch.where(con.active, con.dist - con.includemargin,
                         torch.full_like(con.dist, BIG))
     sel = torch.sort(score, dim=-1, stable=True).indices[:, :S]
-    pos_c = _take(con.pos, sel)
-    normal_c = _take(con.normal, sel)
-    dist_c = _take(con.dist, sel)
-    margin_c = _take(con.includemargin, sel)
-    cd_sel = _take(con.condim, sel)
-    act_c = _take(con.active, sel)
     b1 = _take(con.body1, sel).long()
     b2 = _take(con.body2, sel).long()
     wrow = on_device(c, "slot_winner_rows",
                      collision_driver.slot_winner_rows(c, m.opt.group_cap), dev, torch.long)
     wg = _take(con.wtab, wrow[sel])                                    # (B, S, 12)
-    solref_c, solimp_c, fric_c = wg[..., 0:2], wg[..., 2:7], wg[..., 7:12]
-    frame_c = collision_driver.contact_frame(normal_c)                 # (B, S, 3, 3)
+    from robogym_torch.physics.setconst import invweight0_tensors
 
+    bw_trn = invweight0_tensors(m)[1][:, 0]
+    return dict(
+        sel=sel, nfacet={1: 1, 3: 4, 4: 6, 6: 10}[int(condims.max())],
+        pos=_take(con.pos, sel), frame=collision_driver.contact_frame(_take(con.normal, sel)),
+        dist=_take(con.dist, sel), margin=_take(con.includemargin, sel),
+        condim=_take(con.condim, sel), active=_take(con.active, sel), b1=b1, b2=b2,
+        solref=wg[..., 0:2], solimp=wg[..., 2:7], fric=wg[..., 7:12],
+        iw=4.0 / torch.clamp(m.opt.impratio, min=1e-6) * (bw_trn[b1] + bw_trn[b2]),
+    )
+
+
+def _post_gather_prelude(m: Model, d: Data):
+    """Contact-slot selection and gather for the post-gather cores. Returns
+    None when the model has no contact slots."""
+    c = m.const
+    g = _gather_slots(m, d)
+    if g is None:
+        return None
+    dev, dtype = d.qpos.device, d.qpos.dtype
+    J_s, pos_s, solref_s, solimp_s, floss_s, active_s, kind_s, diagA_s = scalar_blocks(m, d)
     dofmask = on_device(c, "body_dof_mask", c.body_dof_mask, dev, dtype)
     rootcom = d.subtree_com[:, on_device(c, "body_rootid", np.asarray(c.body_rootid, np.int64),
                                          dev, torch.long)]
-    from robogym_torch.physics.setconst import invweight0_tensors
-
-    _, body_iw0, _ = invweight0_tensors(m)
-    bw_trn = body_iw0[:, 0]
-    scale = 4.0 / torch.clamp(m.opt.impratio, min=1e-6)
-    iw_c = scale * (bw_trn[b1] + bw_trn[b2])
+    b1, b2 = g["b1"], g["b2"]
     head = (
         J_s, pos_s, solref_s, solimp_s, floss_s, active_s.to(dtype),
         torch.as_tensor(diagA_s, dtype=dtype, device=dev),
-        pos_c, frame_c, dist_c, margin_c, fric_c, act_c, cd_sel, iw_c,
+        g["pos"], g["frame"], g["dist"], g["margin"], g["fric"], g["active"], g["condim"], g["iw"],
         dofmask[b1], dofmask[b2], _take(rootcom, b1), _take(rootcom, b2),
-        solref_c, solimp_c, d.cdof, d.qvel, d.qM,
+        g["solref"], g["solimp"], d.cdof, d.qvel, d.qM,
     )
-    return head, sel, S, nfacet, np.asarray(kind_s, np.int32), J_s.shape[1]
+    sel = g["sel"]
+    return head, sel, sel.shape[1], g["nfacet"], np.asarray(kind_s, np.int32), J_s.shape[1]
 
 
 def kind_masked_D(kind: np.ndarray, D: torch.Tensor):
@@ -212,75 +250,6 @@ def kind_masked_D(kind: np.ndarray, D: torch.Tensor):
         mask = torch.as_tensor(kind == want, device=D.device)
         outs.append(torch.where(mask, D, torch.zeros_like(D)))
     return tuple(outs)
-
-
-def _mv(A, x):
-    return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
-
-
-def _scan_cg_solve(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
-    """M^-1-preconditioned Polak-Ribière+ nonlinear CG on the soft-
-    constraint cost with a frozen-active-set Newton line search (the JAX
-    package's reference solve), batched over a leading env axis:
-    J (B, E, V), row vectors (B, E), M/Minv (B, V, V), qs/x0 (B, V).
-    Returns (qacc (B, V), efc_force (B, E))."""
-
-    def force(jar):
-        neg = (jar < 0).to(jar.dtype)
-        return Deq * jar + Done * jar * neg + torch.minimum(torch.maximum(Dfr * jar, -floss), floss)
-
-    def penalty_cost(jar):
-        neg = (jar < 0).to(jar.dtype)
-        c_quad = 0.5 * (Deq + Done * neg) * jar * jar
-        inside = (torch.abs(Dfr * jar) < floss).to(jar.dtype)
-        quad_f = 0.5 * Dfr * jar * jar
-        lin_f = floss * torch.abs(jar) - 0.5 * floss * floss / torch.clamp(Dfr, min=1e-12)
-        c_fric = inside * quad_f + (1.0 - inside) * lin_f
-        return torch.sum(c_quad + c_fric, dim=-1)
-
-    def grad(x, jar):
-        return _mv(M, x - qs) + _mv(J.transpose(-1, -2), force(jar))
-
-    def dot(a, b):
-        return torch.sum(a * b, dim=-1)
-
-    x = x0
-    jar = _mv(J, x0) - aref
-    g = grad(x0, jar)
-    Mg = _mv(Minv, g)
-    p = -Mg
-    for _ in range(iterations):
-        Jp = _mv(J, p)
-        dx0 = x - qs
-        Mp = _mv(M, p)
-        c1 = dot(dx0, Mp)
-        c2 = dot(p, Mp)
-        f0 = force(jar)
-        neg = (jar < 0).to(x.dtype)
-        inside = (torch.abs(Dfr * jar) < floss).to(x.dtype)
-        deff = Deq + Done * neg + Dfr * inside
-        phi_p = c1 + dot(f0, Jp)
-        phi_pp = torch.clamp(c2 + dot(deff * Jp, Jp), min=1e-12)
-        a1 = torch.clamp(-phi_p / phi_pp, 0.0, 2.0)
-        pen0 = penalty_cost(jar)
-        best_cost = torch.zeros_like(c1)
-        best_a = torch.zeros_like(c1)
-        for s in LS_SCALES:
-            a = a1 * s
-            dcost = a * c1 + 0.5 * a * a * c2 + penalty_cost(jar + a[:, None] * Jp) - pen0
-            take = dcost < best_cost
-            best_cost = torch.where(take, dcost, best_cost)
-            best_a = torch.where(take, a, best_a)
-        x = x + best_a[:, None] * p
-        jar = jar + best_a[:, None] * Jp
-        g_new = grad(x, jar)
-        Mg_new = _mv(Minv, g_new)
-        num = dot(g_new, Mg_new - Mg)
-        den = torch.clamp(dot(g, Mg), min=1e-12)
-        beta = torch.clamp(num / den, min=0.0)
-        p = -Mg_new + beta[:, None] * p
-        g, Mg = g_new, Mg_new
-    return x, -force(jar)
 
 
 def fused_core_inputs(m: Model, d: Data, qfrc_smooth: torch.Tensor):
@@ -310,11 +279,141 @@ def solve_fused_step(m: Model, d: Data, qfrc_smooth: torch.Tensor):
     if inp is None:
         return None
     kind_s, iterations, nfacet, args, sel, n_s = inp
-    B, S = sel.shape
     x, qfrc, f, qvel_new, qs = constraint_batched.fused_step_core(kind_s, iterations, nfacet,
                                                                   *args)
-    block = f[:, n_s:].reshape(B, S, nfacet).sum(dim=-1)
-    efc_force_contact = torch.zeros_like(d.contact.dist).scatter(1, sel, block)
     d_out = d.replace(qacc=x, qacc_smooth=qs, qfrc_constraint=qfrc,
-                      efc_force_contact=efc_force_contact)
+                      efc_force_contact=_contact_forces(d, f, sel, n_s, nfacet))
     return d_out, qvel_new
+
+
+def make_efc(m: Model, d: Data):
+    """Assemble the constraint rows: J (B, E, nv), aref, D, floss (B, E),
+    the static row kinds, and where the model has contact slots the
+    selected slots (B, S). Row layout: [dof friction | joint limits |
+    tendon limits | contact facets, contact-major]. Returns None when the
+    model has no constraint row."""
+    dev, dtype = d.qpos.device, d.qpos.dtype
+    B, nv = d.qpos.shape[0], m.const.nv
+    J, pos, solref, solimp, floss, active, kind, diagA_s = scalar_blocks(m, d)
+    n_s = J.shape[1]
+    diagA = torch.as_tensor(diagA_s, dtype=dtype, device=dev).expand(B, n_s)
+    g = _gather_slots(m, d)
+    if g is None and n_s == 0:
+        return None
+    sel, nfacet = (None, 0) if g is None else (g["sel"], g["nfacet"])
+    if g is not None:
+        S, cd = sel.shape[1], g["condim"]
+        Jrel = _point_jac_batch(m, d, g["pos"], g["b2"]) - _point_jac_batch(m, d, g["pos"], g["b1"])
+
+        def project(row, J3):
+            return torch.einsum("bsi,bsvi->bsv", g["frame"][:, :, row], J3)
+
+        Jn = project(0, Jrel)
+        fric = g["fric"]
+        facets, facet_ok = [Jn], [cd >= 1]
+        if nfacet >= 4:
+            Jt1, Jt2 = project(1, Jrel), project(2, Jrel)
+            f0, f1 = fric[..., 0:1], fric[..., 1:2]
+            facets = [Jn + f0 * Jt1, Jn - f0 * Jt1, Jn + f1 * Jt2, Jn - f1 * Jt2]
+            facet_ok = [cd >= 3] * 4
+        if nfacet >= 6:
+            Jr = _rot_jac_batch(m, d, g["b2"]) - _rot_jac_batch(m, d, g["b1"])
+            Jtn = project(0, Jr)
+            f2 = fric[..., 2:3]
+            facets += [Jn + f2 * Jtn, Jn - f2 * Jtn]
+            facet_ok += [cd >= 4] * 2
+        if nfacet == 10:
+            Jr1, Jr2 = project(1, Jr), project(2, Jr)
+            f3, f4 = fric[..., 3:4], fric[..., 4:5]
+            facets += [Jn + f3 * Jr1, Jn - f3 * Jr1, Jn + f4 * Jr2, Jn - f4 * Jr2]
+            facet_ok += [cd >= 6] * 4
+        # condim-1 slots keep only the normal row
+        ok = torch.stack(facet_ok, dim=-1) | (torch.arange(nfacet, device=dev) == 0)
+        rep = lambda x: torch.repeat_interleave(x, nfacet, dim=1)
+        J = torch.cat([J, torch.stack(facets, dim=2).reshape(B, S * nfacet, nv)], dim=1)
+        pos = torch.cat([pos, rep(g["dist"] - g["margin"])], dim=1)
+        solref = torch.cat([solref, rep(g["solref"])], dim=1)
+        solimp = torch.cat([solimp, rep(g["solimp"])], dim=1)
+        floss = torch.cat([floss, torch.zeros((B, S * nfacet), dtype=dtype, device=dev)], dim=1)
+        active = torch.cat([active, (g["active"][..., None] & ok).reshape(B, S * nfacet)], dim=1)
+        kind = np.concatenate([kind, np.full(S * nfacet, ONESIDED, np.int32)])
+        diagA = torch.cat([diagA, rep(g["iw"])], dim=1)
+
+    imp = _impedance(solimp, pos)
+    k_ref, b_ref = _ref_kb(solref, solimp)
+    aref = -b_ref * mv(J, d.qvel) - k_ref * imp * pos
+    R = torch.clamp(torch.clamp((1.0 - imp) / imp, min=1e-8) * diagA, min=1e-12)
+    D = torch.where(active, 1.0 / R, torch.zeros_like(R))
+    return dict(J=J, aref=aref, D=D, floss=floss, kind=np.asarray(kind, np.int32), n_scalar=n_s,
+                contact_sel=sel, nfacet=nfacet)
+
+
+def _warmstart(d: Data) -> torch.Tensor:
+    """qacc where every entry of an env's qacc is finite, else
+    qacc_smooth: per env, as the JAX package's test runs under vmap."""
+    finite = torch.isfinite(d.qacc).all(dim=-1, keepdim=True)
+    return torch.where(finite, d.qacc, d.qacc_smooth)
+
+
+def _contact_forces(d: Data, f: torch.Tensor, sel, n_s: int, nfacet: int) -> torch.Tensor:
+    """Normal force per contact slot: the sum of its facet forces, zero in
+    the slots not selected."""
+    out = torch.zeros_like(d.contact.dist)
+    if sel is None:
+        return out
+    B, S = sel.shape
+    return out.scatter(1, sel, f[:, n_s:n_s + S * nfacet].reshape(B, S, nfacet).sum(dim=-1))
+
+
+def solve(m: Model, d: Data, Minv: torch.Tensor = None) -> Data:
+    """The constraint solve for qacc (d.qacc_smooth filled): fills qacc,
+    qfrc_constraint and the contact forces. Where the model has contact
+    slots, the post-gather CG core without the Euler update; otherwise
+    `make_efc` and the CG kernel on its J."""
+    if Minv is None:
+        from robogym_torch.physics import factor_kernel
+
+        Minv = factor_kernel.spd_inverse(d.qM)
+    if m.opt.solver == "cg":
+        out = _solve_cg_post_gather(m, d, Minv)
+        if out is not None:
+            return out
+    efc = make_efc(m, d)
+    if efc is None:
+        return d.replace(qacc=d.qacc_smooth, qfrc_constraint=torch.zeros_like(d.qacc_smooth))
+    if m.opt.solver != "cg":
+        raise NotImplementedError(
+            "constraint.solve: the Newton solver branch is not ported; only the CG solver "
+            f"(the default) is, and this model sets solver={m.opt.solver!r}")
+    return _solve_cg(m, d, efc, Minv)
+
+
+def _solve_cg_post_gather(m: Model, d: Data, Minv: torch.Tensor):
+    """The CG solve through `constraint_batched.solve_core`: contact slots
+    selected and gathered here, the rows built and solved by the kernel.
+    Returns None when the model has no contact slots."""
+    from robogym_torch.physics import constraint_batched
+
+    pre = _post_gather_prelude(m, d)
+    if pre is None:
+        return None
+    head, sel, _, nfacet, kind_s, n_s = pre
+    x, qfrc, f = constraint_batched.solve_core(kind_s, int(m.opt.cg_iterations), nfacet, *head,
+                                               Minv, d.qacc_smooth, _warmstart(d))
+    return d.replace(qacc=x, qfrc_constraint=qfrc,
+                     efc_force_contact=_contact_forces(d, f, sel, n_s, nfacet))
+
+
+def _solve_cg(m: Model, d: Data, efc, Minv: torch.Tensor) -> Data:
+    """Preconditioned nonlinear CG on `make_efc`'s rows, warmstarted from
+    the previous qacc, through the CG kernel (`cg_kernel.cg`)."""
+    from robogym_torch.physics import cg_kernel
+
+    J = efc["J"].contiguous()
+    Deq, Done, Dfr = kind_masked_D(efc["kind"], efc["D"])
+    x, f = cg_kernel.cg(J, efc["aref"], Deq, Done, Dfr, efc["floss"], d.qM.contiguous(),
+                        Minv.contiguous(), d.qacc_smooth, _warmstart(d),
+                        int(m.opt.cg_iterations))
+    return d.replace(qacc=x, qfrc_constraint=mv(J.transpose(-1, -2), f),
+                     efc_force_contact=_contact_forces(d, f, efc["contact_sel"],
+                                                       efc["n_scalar"], efc["nfacet"]))

@@ -57,12 +57,11 @@ def row_maps(nfacet, pos_s, solref_s, solimp_s, floss_s, active_s, diagA_s,
     return pos, kimp, b_ref, rdiag, active, floss
 
 
-def core_inputs(kind_s, nfacet, J_s, pos_s, solref_s, solimp_s, floss_s, active_s, diagA_s,
-                pos_c, frame_c, dist_c, margin_c, fric_c, act_c, cd_sel, iw_c, mask1, mask2,
-                rc1, rc2, solref_c, solimp_c, cdof, qvel, qM, qfrc_smooth, qacc_prev, damp, dt):
-    """What the kernels of the core take: the full row kinds, the contact
-    row data and per-row maps of the CG kernel, qM and M + dt*diag(damp)
-    for the SPD inverses, and the dof vectors."""
+def row_inputs(kind_s, nfacet, J_s, pos_s, solref_s, solimp_s, floss_s, active_s, diagA_s,
+               pos_c, frame_c, dist_c, margin_c, fric_c, act_c, cd_sel, iw_c, mask1, mask2,
+               rc1, rc2, solref_c, solimp_c, cdof, qvel, qM):
+    """What the CG kernel takes of the gathered data: the full row kinds,
+    the contact row data and per-row maps, qM and qvel."""
     S, B = pos_c.shape[1], pos_c.shape[0]
     active_cf = facet_active(act_c, cd_sel, nfacet)
     pos, kimp, bref, rdiag, active, floss = row_maps(
@@ -77,9 +76,20 @@ def core_inputs(kind_s, nfacet, J_s, pos_s, solref_s, solimp_s, floss_s, active_
         kind=np.concatenate([kind_s, np.full(S * nfacet, cl.ONESIDED, np.int32)]),
         rows=rows, maps=dict(pos=pos, kimp=kimp, bref=bref, rcoef=rdiag, active=active,
                              floss=floss),
-        qM=qM.contiguous(), Mimp=(qM + dt * torch.diag_embed(damp)).contiguous(),
-        qvel=qvel, qfrc_smooth=qfrc_smooth, qacc_prev=qacc_prev, dt=dt,
+        qM=qM.contiguous(), qvel=qvel,
     )
+
+
+def core_inputs(kind_s, nfacet, *args):
+    """What the kernels of the fused core take: `row_inputs`, and M +
+    dt*diag(damp) for the second SPD inverse and the dof vectors. `args`
+    are `row_inputs`' after `nfacet`, then qfrc_smooth, qacc_prev, damp,
+    dt."""
+    *head, qfrc_smooth, qacc_prev, damp, dt = args
+    ci = row_inputs(kind_s, nfacet, *head)
+    ci.update(Mimp=(ci["qM"] + dt * torch.diag_embed(damp)).contiguous(),
+              qfrc_smooth=qfrc_smooth, qacc_prev=qacc_prev, dt=dt)
+    return ci
 
 
 def _core(kind_s, iterations, nfacet, args, spd_inverse, cg_full):
@@ -104,3 +114,23 @@ def reference(kind_s, iterations, nfacet, *args):
     versions): the same arguments and returns as `fused_step_core`."""
     return _core(kind_s, iterations, nfacet, args, factor_kernel.spd_inverse_plain,
                  cg_kernel.cg_full_plain)
+
+
+def _solve(kind_s, iterations, nfacet, args, cg_full_noeuler):
+    *head, Minv, qs, x0 = args
+    ci = row_inputs(kind_s, nfacet, *head)
+    x, f, qfrc = cg_full_noeuler(ci["kind"], iterations, nfacet, ci["rows"], ci["maps"],
+                                 ci["qM"], Minv.contiguous(), ci["qvel"], qs, x0)
+    return x, qfrc, f
+
+
+def solve_core(kind_s, iterations, nfacet, *args):
+    """The core without the Euler update, through the kernel wrapper.
+    `args` are `row_inputs`' after `nfacet`, then Minv (B, V, V), qacc_smooth
+    and the warmstart (B, V). Returns (qacc, qfrc_constraint, efc_force)."""
+    return _solve(kind_s, iterations, nfacet, args, cg_kernel.cg_full_noeuler)
+
+
+def solve_reference(kind_s, iterations, nfacet, *args):
+    """`solve_core` in plain PyTorch on any device."""
+    return _solve(kind_s, iterations, nfacet, args, cg_kernel.cg_full_noeuler_plain)

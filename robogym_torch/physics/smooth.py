@@ -58,7 +58,7 @@ def force_cross(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return torch.stack([t1[i] + t2[i] for i in range(3)] + force, dim=-1)
 
 
-def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(..., n, k) x (..., k) -> (..., n)."""
     return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
 
@@ -342,7 +342,7 @@ def tendon(m: Model, d: Data) -> Data:
         ten_length[:, t] = L
         ten_J[:, t] = J
 
-    ten_velocity = _mv(ten_J, d.qvel)
+    ten_velocity = mv(ten_J, d.qvel)
     return d.replace(ten_length=ten_length, ten_J=ten_J, ten_velocity=ten_velocity)
 
 
@@ -496,7 +496,7 @@ def transmission(m: Model, d: Data) -> Tuple[Data, torch.Tensor]:
         gt = gear[ut]
         lengths[:, ut] = gt * d.ten_length[:, ut_t]
         moment[:, ut] = gt[:, None] * d.ten_J[:, ut_t]
-    d = d.replace(actuator_length=lengths, actuator_velocity=_mv(moment, d.qvel))
+    d = d.replace(actuator_length=lengths, actuator_velocity=mv(moment, d.qvel))
     return d, moment
 
 

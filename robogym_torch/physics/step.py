@@ -1,11 +1,13 @@
-"""step() / step_n(): one physics substep and a run of them, batched over
-envs.
+"""forward(), step() and step_n(): forward dynamics, one physics substep and
+a run of them, batched over envs.
 
 Counterpart of `robogym_tpu/physics/step.py`. Per substep (MuJoCo's Euler
 pipeline): kinematics -> com quantities -> CRB -> tendons -> collision ->
 transmission -> velocity pass -> RNE bias -> actuation -> passive ->
 the fused constraint solve with the implicit-damping Euler velocity update
--> qpos integration.
+-> qpos integration. A model that cannot take the fused solve (no contact
+slots) runs the unfused sequence instead: `forward_tail` (M^-1,
+qacc_smooth, the constraint solve) and `euler`.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from robogym_torch.mjcf.model import Data, JointType, Model
 from robogym_torch.physics import actuation as actuation_lib
 from robogym_torch.physics import constraint as constraint_lib
-from robogym_torch.physics import smooth, tables
+from robogym_torch.physics import factor_kernel, smooth, tables
 from robogym_torch.physics.collision import driver as collision_driver
 from robogym_torch.physics.tables import on_device
 from robogym_torch.utils import rotation as rot
@@ -99,15 +101,43 @@ def forward_smooth(m: Model, d: Data):
     return d, qfrc_smooth
 
 
+def forward_tail(m: Model, d: Data, qfrc_smooth: torch.Tensor) -> Data:
+    """The unfused dynamics tail: M^-1 (one SPD-inverse kernel),
+    qacc_smooth and the constraint solve."""
+    Minv = factor_kernel.spd_inverse(d.qM.contiguous())
+    return constraint_lib.solve(m, d.replace(qacc_smooth=smooth.mv(Minv, qfrc_smooth)), Minv)
+
+
+def forward(m: Model, d: Data) -> Data:
+    """Forward dynamics (mj_forward): fills every derived field, qacc
+    included, without advancing the state."""
+    d, qfrc_smooth = forward_smooth(m, d)
+    return forward_tail(m, d, qfrc_smooth)
+
+
+def euler(m: Model, d: Data) -> Data:
+    """Semi-implicit Euler with implicit joint damping (mj_Euler):
+    qvel += dt * (M + dt*diag(damping))^-1 M qacc, the inverse applied with
+    one refinement step, then qpos integration."""
+    dt = m.opt.timestep
+    qfrc_total = smooth.mv(d.qM, d.qacc)
+    M_imp = d.qM + dt * torch.diag_embed(m.dof_damping + d.act_vel_damping)
+    Minv_imp = factor_kernel.spd_inverse(M_imp.contiguous())
+    qacc_imp = smooth.mv(Minv_imp, qfrc_total)
+    qacc_imp = qacc_imp + smooth.mv(Minv_imp, qfrc_total - smooth.mv(M_imp, qacc_imp))
+    qvel_new = d.qvel + dt * qacc_imp
+    return d.replace(qpos=integrate_pos(m, d.qpos, qvel_new, dt), qvel=qvel_new, time=d.time + dt)
+
+
 def step(m: Model, d: Data) -> Data:
     """One physics substep: forward dynamics, the fused constraint + Euler
-    velocity solve, and qpos integration."""
+    velocity solve, and qpos integration; without contact slots,
+    `forward_tail` and `euler`."""
     d, qfrc_smooth = forward_smooth(m, d)
     dt = m.opt.timestep
     res = constraint_lib.solve_fused_step(m, d, qfrc_smooth)
     if res is None:
-        raise NotImplementedError(
-            "this port steps only models on the fused CG path (solver 'cg' with contact slots)")
+        return euler(m, forward_tail(m, d, qfrc_smooth))
     d, qvel_new = res
     qpos_new = integrate_pos(m, d.qpos, qvel_new, dt)
     return d.replace(qpos=qpos_new, qvel=qvel_new, time=d.time + dt)

@@ -10,8 +10,9 @@ Shadow Hand's do), a free cube of half-size 0.0285 m and a floor plane.
 
 Pure Python and numpy: `write(directory)` writes the STL files and returns
 the MJCF text. The compiled model ships as `locked_like.npz` next to this
-file (see `tools/build_locked_like_snapshot.py`); `initial_state` draws
-seeded start states for it.
+file, and the hand-only variant (`write(directory, hand_only=True)`) as
+`locked_like_hand.npz` (see `tools/build_locked_like_snapshot.py`);
+`initial_state` draws seeded start states for either.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ CUBE_HALF = 0.0285
 PALM_HALF = (0.045, 0.045, 0.01)
 HAND_HEIGHT = 0.25
 SNAPSHOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "locked_like.npz")
+HAND_SNAPSHOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "locked_like_hand.npz")
 
 # (name, parent, pos in parent, joint axis, joint range, hull axis, length, radius)
 _FINGER_Y = {"FF": 0.036, "MF": 0.012, "RF": -0.012}
@@ -141,9 +143,13 @@ def _stl(verts: np.ndarray) -> str:
     return "\n".join(lines) + "\n"
 
 
-def write(directory: str) -> str:
+def write(directory: str, hand_only: bool = False) -> str:
     """Write the link hulls as ASCII STL into `directory` and return the
-    MJCF text (mesh paths are absolute)."""
+    MJCF text (mesh paths are absolute).
+
+    `hand_only` writes the hand without the cube and with every geom at
+    contype="0" conaffinity="0": a world with no collision pair, whose only
+    constraint rows are the joint limits."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     links = _links()
@@ -151,6 +157,7 @@ def write(directory: str) -> str:
     for link in links:
         children.setdefault(link[1], []).append(link)
     assets = []
+    nocollide = ' contype="0" conaffinity="0"' if hand_only else ""
 
     def body_xml(link, indent):
         name, _, pos, axis, rng, hull_axis, length, radius = link
@@ -164,7 +171,7 @@ def write(directory: str) -> str:
             f'{pad}<body name="{name}" pos="{pos[0]} {pos[1]} {pos[2]}">',
             f'{pad}  <joint name="{_joint_name(name)}" type="hinge" axis="{axis}" '
             f'range="{rng[0]} {rng[1]}" damping="{damping}" armature="{armature}"/>',
-            f'{pad}  <geom name="{name}" type="mesh" mesh="{name}" density="1000"/>',
+            f'{pad}  <geom name="{name}" type="mesh" mesh="{name}" density="1000"{nocollide}/>',
         ]
         for child in children.get(name, []):
             out += body_xml(child, indent + 2)
@@ -197,6 +204,12 @@ def write(directory: str) -> str:
                       ("THJ1", -0.524, 0.524), ("THJ0", -1.571, 0.0)):
         actuators.append(f'    <position name="A_{j}" joint="{j}" kp="1" ctrlrange="{lo} {hi}"/>')
     cube_z = HAND_HEIGHT + PALM_HALF[2] + CUBE_HALF + 0.003
+    cube = [] if hand_only else [
+        f'    <body name="cube" pos="{PALM_HALF[0]} 0 {cube_z}">',
+        '      <freejoint name="cube_j"/>',
+        f'      <geom name="cube" type="box" size="{CUBE_HALF} {CUBE_HALF} {CUBE_HALF}" density="500"/>',
+        "    </body>",
+    ]
     return "\n".join([
         "<mujoco>",
         f'  <compiler angle="radian" meshdir="{directory}"/>',
@@ -205,12 +218,9 @@ def write(directory: str) -> str:
         *assets,
         "  </asset>",
         "  <worldbody>",
-        '    <geom name="floor" type="plane" size="1 1 0.1" pos="0 0 0"/>',
+        f'    <geom name="floor" type="plane" size="1 1 0.1" pos="0 0 0"{nocollide}/>',
         *hand,
-        f'    <body name="cube" pos="{PALM_HALF[0]} 0 {cube_z}">',
-        '      <freejoint name="cube_j"/>',
-        f'      <geom name="cube" type="box" size="{CUBE_HALF} {CUBE_HALF} {CUBE_HALF}" density="500"/>',
-        "    </body>",
+        *cube,
         "  </worldbody>",
         "  <contact>",
         *excludes,
@@ -225,14 +235,17 @@ def write(directory: str) -> str:
     ]) + "\n"
 
 
-def initial_state(arrays, batch: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+def initial_state(arrays, batch: int, seed: int,
+                  reach: float = 0.3) -> Tuple[np.ndarray, np.ndarray]:
     """Seeded start states from the snapshot's arrays (`np.load` of
-    `SNAPSHOT`): (qpos (B, nq), ctrl (B, nu)), float32.
+    `SNAPSHOT` or `HAND_SNAPSHOT`): (qpos (B, nq), ctrl (B, nu)), float32.
 
-    Each hinge starts at 0.3 times a uniform draw from its range (every
-    range holds 0, so the draw stays inside it); the cube sits 3 mm above
-    the palm at a random yaw and a few mm off the palm's centre, so it
-    lands within a few substeps; each control is uniform in its range."""
+    Each hinge starts at `reach` times a uniform draw from its range (every
+    range holds 0, so at a reach below 1 the draw stays inside it; at 1.1
+    about one hinge in eleven starts past a limit, whose row is then live);
+    the cube sits 3 mm above the palm at a random yaw and a few mm off the
+    palm's centre, so it lands within a few substeps; each control is
+    uniform in its range."""
     rng = np.random.default_rng(seed)
     qpos = np.tile(np.asarray(arrays["model.qpos0"], np.float32), (batch, 1))
     jtype = np.asarray(arrays["const.jnt_type"])
@@ -241,7 +254,7 @@ def initial_state(arrays, batch: int, seed: int) -> Tuple[np.ndarray, np.ndarray
     for j in range(len(jtype)):
         if jtype[j] == _HINGE:
             lo, hi = rng_lim[j]
-            qpos[:, qadr[j]] = 0.3 * rng.uniform(lo, hi, batch)
+            qpos[:, qadr[j]] = reach * rng.uniform(lo, hi, batch)
         elif jtype[j] == _FREE:
             a = qadr[j]
             qpos[:, a:a + 2] += rng.uniform(-0.004, 0.004, (batch, 2))

@@ -7,16 +7,19 @@ imported inside the functions that need it, so the tests that need the card
 run where JAX is not installed.
 """
 
+import contextlib
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
 
+import chip_smoke
 from robogym_torch import bridge
 from robogym_torch.mjcf.model import OPTION_TENSORS, make_data
 from robogym_torch.physics import step as torch_step
-from robogym_torch.worlds import locked_like
+from robogym_torch.worlds import blocks_settle_like, locked_like
 
 # The port's tensors here are a few envs wide: one thread per test process
 # runs them fastest, and keeps parallel test workers from oversubscribing
@@ -40,6 +43,37 @@ BALL_BOX = """
   </worldbody>
 </mujoco>
 """
+
+
+@contextlib.contextmanager
+def jax_boxbox_kernel():
+    """Inside, the JAX package's collision runs box-box pairs through its
+    Pallas kernel in interpret mode (as tests/test_boxbox_kernel.py runs
+    it), not through `primitives.box_box`, which its CPU dispatch takes
+    otherwise. The port's box-box kernel transcribes the Pallas kernel, and
+    the two differ on near-ties of the SAT depth (see
+    `robogym_torch.physics.collision.boxbox_kernel`). Only the box-box
+    dispatch is switched: the flags are set while its batching rule traces
+    the kernel."""
+    from robogym_tpu.physics.collision import boxbox_kernel as j_bb
+
+    make_core = j_bb.make_core
+
+    def forced(*args):
+        old = j_bb.INTERPRET
+        j_bb.INTERPRET = True
+        os.environ["ROBOGYM_TPU_FORCE_PALLAS"] = "1"
+        try:
+            return make_core()(*args)
+        finally:
+            j_bb.INTERPRET = old
+            os.environ.pop("ROBOGYM_TPU_FORCE_PALLAS", None)
+
+    j_bb.make_core = lambda: forced
+    try:
+        yield
+    finally:
+        j_bb.make_core = make_core
 
 
 def jax_model_from_numpy(arrays):
@@ -100,6 +134,46 @@ def locked_like_state(tm, batch: int, seed: int = 0, settle: int = 20):
     return torch_step.step_n(tm, d, settle)
 
 
+@functools.lru_cache(maxsize=4)
+def snapshot_arrays(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+@functools.lru_cache(maxsize=4)
+def snapshot_model(path):
+    """The port's Model of a committed snapshot, on the CPU."""
+    return bridge.model_from_numpy(snapshot_arrays(path), "cpu")
+
+
+@functools.lru_cache(maxsize=4)
+def snapshot_jax_model(path):
+    """The JAX package's Model of a committed snapshot."""
+    return jax_model_from_numpy(snapshot_arrays(path))
+
+
+def hand_state(batch: int, seed: int = 0, settle: int = 5):
+    """The hand-only world (no collision pair) from seeded start states
+    with about one hinge in eleven past a limit, so that joint-limit rows
+    are live; settled by the port's step. Returns (port Model, Data)."""
+    tm = snapshot_model(locked_like.HAND_SNAPSHOT)
+    qpos, ctrl = locked_like.initial_state(snapshot_arrays(locked_like.HAND_SNAPSHOT), batch,
+                                           seed, reach=1.1)
+    d = make_data(tm, batch, torch.as_tensor(qpos)).replace(ctrl=torch.as_tensor(ctrl))
+    return tm, torch_step.step_n(tm, d, settle)
+
+
+def settle_state(batch: int, seed: int = 0, settle: int = 40):
+    """The goal-settle world from seeded start states (blocks 1 to 5 mm
+    above the table, block 1 stacked on block 0 in the odd envs), settled by
+    the port's step for `settle` 1 ms substeps so that the blocks rest on
+    the table and on each other. Returns (port Model, Data)."""
+    tm = snapshot_model(blocks_settle_like.SNAPSHOT)
+    qpos, _ = blocks_settle_like.initial_state(snapshot_arrays(blocks_settle_like.SNAPSHOT),
+                                               batch, seed)
+    return tm, torch_step.step_n(tm, make_data(tm, batch, torch.as_tensor(qpos)), settle)
+
+
 @functools.lru_cache(maxsize=1)
 def ball_box_models():
     import jax.numpy as jnp
@@ -126,22 +200,9 @@ def hull_inputs(tm, d):
     from robogym_torch.physics.collision import convex_kernel
 
     got = {}
-    orig = {name: getattr(convex_kernel, name) for name in ("hull_pair", "hull_manifold")}
-
-    def recorder(name):
-        def fn(*args):
-            got[name] = (tuple(a.clone() for a in args[:-1]), args[-1])
-            return orig[name](*args)
-        return fn
-
-    try:
-        for name in orig:
-            setattr(convex_kernel, name, recorder(name))
+    with chip_smoke.recording(convex_kernel, ("hull_pair", "hull_manifold"), got):
         torch_step.fwd_position(tm, d)
-    finally:
-        for name, fn in orig.items():
-            setattr(convex_kernel, name, fn)
-    return got
+    return {name: (args[:-1], args[-1]) for name, args in got.items()}
 
 
 def core_inputs(tm, d):

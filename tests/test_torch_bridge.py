@@ -1,6 +1,7 @@
-"""The port's model bridge: the committed locked-like snapshot against a
-fresh compile, bit-equal round trips, and the port's import isolation."""
+"""The port's model bridge: the committed snapshots against a fresh
+compile, bit-equal round trips, and the port's import isolation."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -9,11 +10,13 @@ import tempfile
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from _torch_common import (ball_box_models, jax_data_from_numpy, jax_model_from_numpy,
                            locked_like_arrays)
 from robogym_torch import bridge
-from robogym_torch.worlds import locked_like
+from robogym_torch.worlds import blocks_settle_like, locked_like
+from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
 from robogym_tpu.mjcf.compiler import compile_xml
 from robogym_tpu.mjcf.model import make_data as jax_make_data
 
@@ -38,6 +41,36 @@ def test_snapshot_matches_fresh_compile():
     _assert_same(fresh, locked_like_arrays())
     c = model.const
     assert (c.nq, c.nv, c.nu, c.ntendon) == (31, 30, 20, 4)
+
+
+def _snapshot_tool():
+    spec = importlib.util.spec_from_file_location(
+        "build_locked_like_snapshot", os.path.join(REPO, "tools", "build_locked_like_snapshot.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like"])
+def test_world_snapshot_matches_fresh_compile(world):
+    """The hand-only and goal-settle snapshots equal what
+    tools/build_locked_like_snapshot.py compiles now, field by field. The
+    hand has no collision pair and 24 hinges; the settle world carries the
+    contact budgets of `scale_contact_budgets(model, 5)`, 15 box-box and 5
+    plane-box pairs."""
+    tool = _snapshot_tool()
+    model, fresh = tool.compile_snapshot(world)
+    with np.load(tool.snapshot_path(world)) as z:
+        _assert_same(fresh, {k: z[k] for k in z.files})
+    c = model.const
+    if world == "locked_like_hand":
+        assert (c.nq, c.nv, len(c.collision_pairs)) == (24, 24, 0)
+        return
+    raw = compile_xml(blocks_settle_like.write(), dtype=jnp.float32)
+    scaled = scale_contact_budgets(raw, blocks_settle_like.N_BLOCKS)
+    assert (scaled.opt.ncon_active, scaled.opt.group_cap) == (48, 56)
+    assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (48, 56)
+    assert (c.nq, c.nv, len(c.collision_pairs)) == (35, 30, 20)
 
 
 def test_model_round_trip_is_bit_equal():
@@ -68,7 +101,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import robogym_torch.physics.step, robogym_torch.physics.cg_kernel\n"
         "import robogym_torch.physics.factor_kernel, robogym_torch.physics.setconst\n"
         "import robogym_torch.physics.collision.convex_kernel\n"
-        "import robogym_torch.worlds.locked_like\n"
+        "import robogym_torch.physics.collision.boxbox_kernel\n"
+        "import robogym_torch.physics.constraint, robogym_torch.physics.constraint_batched\n"
+        "import robogym_torch.worlds.locked_like, robogym_torch.worlds.blocks_settle_like\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
         "assert not bad, bad\n"
     )

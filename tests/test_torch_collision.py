@@ -123,8 +123,7 @@ def test_contact_pick_breaks_ties_as_top_k():
 
 
 PRIMITIVES = ["plane_sphere", "plane_capsule", "plane_box", "plane_cylinder", "plane_ellipsoid",
-              "sphere_sphere", "sphere_capsule", "sphere_box", "capsule_capsule", "capsule_box",
-              "box_box"]
+              "sphere_sphere", "sphere_capsule", "sphere_box", "capsule_capsule", "capsule_box"]
 
 
 def _rotations(rng, n):

@@ -1,6 +1,6 @@
-"""Kernels A-D of the port: each plain version against the JAX package's
-reference on seeded inputs at the locked-like world's shapes (B=4), and,
-on a machine with an NVIDIA GPU, each CUDA kernel against its plain
+"""Kernels A-F of the port: each plain version against the JAX package's
+reference on seeded inputs at the shapes of the worlds that run it (B=4),
+and, on a machine with an NVIDIA GPU, each CUDA kernel against its plain
 version. These tests hold the math that the CUDA kernels reproduce.
 
 JAX is imported inside the tests that compare with it: the card's machine
@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import core_inputs, hull_inputs, locked_like_model, locked_like_state
-from robogym_torch.physics import constraint_batched, factor_kernel
+from _torch_common import (core_inputs, hand_state, hull_inputs, jax_boxbox_kernel,
+                           locked_like_model, locked_like_state, settle_state)
+from robogym_torch.physics import cg_kernel, constraint_batched, factor_kernel
+from robogym_torch.physics import step as t_step
+from robogym_torch.physics.collision import boxbox_kernel as t_bb
 from robogym_torch.physics.collision import convex_kernel as t_ck
 
 B = 4
@@ -164,42 +167,39 @@ def test_hull_plain_matches_jax(world, name):
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions(world):
-    """Each CUDA kernel against its plain version on the card, at the
-    world's shapes: A <= 1e-5 rel. B (through the fused core, with A) as
-    chip_smoke.py holds it: after 1 and 2 CG iterations, before float32
-    noise has grown, <= 1e-4 rel on every output; after all 15, each
-    output's error against a float64 run of the plain version at most 2
-    times the float32 plain version's (the kernel sums in another order, and
-    15 unconverged iterations with a discrete line search carry that
-    last-bit noise into the result). C and D <= 1e-5 where the directions
-    agree, with at most 1 in 10 pairs on a near-tie. The readings are
-    printed (`-s`)."""
+    """Each CUDA kernel against its plain version on the card, at B=4, as
+    chip_smoke.py holds it. A <= 1e-5 rel on random SPD matrices (V=30) and
+    on the matrices of one hand-world substep (V=24). B on the inputs of one
+    locked-like substep (24 scalar rows) and one settle-world substep (no
+    scalar row), F on one hand-world substep, B without the Euler update on
+    one `forward()` of the locked-like world (`cg_readings`): after 1 and 2
+    CG iterations, before float32 noise has grown, <= 1e-4 rel on every
+    output; after all 15, each output's error against a float64 run of the
+    plain version at most 2 times the float32 plain version's (the kernel
+    sums in another order, and 15 unconverged iterations with a discrete
+    line search carry that last-bit noise into the result). C and D <= 1e-5
+    where the directions agree, with at most 1 in 10 pairs on a near-tie. E
+    (`boxbox_readings`) on the inputs of one settle-world substep and the
+    box cases of the plain version's test. The readings are printed
+    (`-s`)."""
+    import chip_smoke
+    from robogym_torch import bridge
+
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     tm, d = world
     dev = "cuda"
-    A = torch.as_tensor(_spd(np.random.default_rng(0), 64, 30), device=dev)
-    assert _rel(_np(factor_kernel.spd_inverse(A)), _np(factor_kernel.spd_inverse_plain(A))) <= 1e-5
 
-    kind_s, iterations, nfacet, args = core_inputs(tm, d)
-    cargs = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
-    names = ("qacc", "efc_force", "qfrc", "qvel_new", "qacc_smooth")
-    for its in (1, 2):
-        got = constraint_batched.fused_step_core(kind_s, its, nfacet, *cargs)
-        want = constraint_batched.reference(kind_s, its, nfacet, *cargs)
-        errs = {n: _rel(_np(g), _np(w)) for n, g, w in zip(names, got, want)}
-        print(f"cg_full after {its} iteration(s), rel err kernel vs plain: {errs}")
-        assert max(errs.values()) <= 1e-4, errs
-    got = constraint_batched.fused_step_core(kind_s, iterations, nfacet, *cargs)
-    want = constraint_batched.reference(kind_s, iterations, nfacet, *cargs)
-    exact = constraint_batched.reference(
-        kind_s, iterations, nfacet, *[a.double() if isinstance(a, torch.Tensor) and
-                                      a.is_floating_point() else a for a in cargs])
-    for name, g, w, x in zip(names, got, want, exact):
-        e_k, e_p = _rel(_np(g), _np(x)), _rel(_np(w), _np(x))
-        print(f"cg_full {name}: kernel vs plain {_rel(_np(g), _np(w)):.3g}, "
-              f"vs float64: kernel {e_k:.3g}, plain {e_p:.3g}")
-        assert e_k <= 2 * e_p + 1e-6, (name, e_k, e_p)
+    def on_card(tm, d):
+        return bridge.model_to(tm, dev), bridge.data_from_numpy(bridge.data_to_numpy(d), dev)
+
+    mc, dc = on_card(tm, d)
+    ms, ds = on_card(*settle_state(B))
+    mh, dh = on_card(*hand_state(B))
+    for A in (torch.as_tensor(_spd(np.random.default_rng(0), 64, 30), device=dev),
+              chip_smoke.capture_call(factor_kernel, "spd_inverse", lambda: t_step.step(mh, dh))[0]):
+        assert _rel(_np(factor_kernel.spd_inverse(A)),
+                    _np(factor_kernel.spd_inverse_plain(A))) <= 1e-5
 
     for name, hargs, DX in _hull_cases(tm, d):
         cargs = [a.to(dev) for a in hargs]
@@ -211,4 +211,220 @@ def test_cuda_kernels_match_plain_versions(world):
         assert (~same).sum() <= same.size // 10
         for g, w in zip(got, want):
             np.testing.assert_allclose(g[same], w[same], rtol=1e-5, atol=1e-5)
+
+    cases = [chip_smoke.capture_call(t_bb, "boxbox", lambda: t_step.fwd_position(ms, ds))]
+    cases += [tuple(torch.as_tensor(a, device=dev) for a in c) for c in _box_cases().values()]
+    for args in cases:
+        got, want = t_bb.boxbox(*args), t_bb.boxbox_plain(*args)
+        err, ties, total, failures = chip_smoke.boxbox_readings(args, got, want)
+        print(f"boxbox: max abs err {err:.3g}, {ties} of {total} pairs on another axis")
+        assert not failures, failures
+
+    runs = {}
+    for world_name, (m_, d_) in (("locked-like", (mc, dc)), ("settle", (ms, ds))):
+        ci, its, nfacet = chip_smoke.capture_core(m_, d_)
+        runs[f"cg_full on the {world_name} world"] = (
+            "cg_full", lambda k, ci=ci, nfacet=nfacet: chip_smoke.cg_args(ci, k, nfacet), its)
+    fa = chip_smoke.capture_call(cg_kernel, "cg", lambda: t_step.step(mh, dh))
+    runs["cg"] = ("cg", lambda k: (*fa[:-1], k), fa[-1])
+    kind_s, its_f, nfacet_f, *sargs = chip_smoke.capture_call(
+        constraint_batched, "solve_core", lambda: t_step.forward(mc, dc))
+    *head, Minv, qs, x0 = sargs
+    ci_f = constraint_batched.row_inputs(kind_s, nfacet_f, *head)
+    runs["cg_full_noeuler"] = (
+        "cg_full_noeuler", lambda k: (ci_f["kind"], k, nfacet_f, ci_f["rows"], ci_f["maps"],
+                                      ci_f["qM"], Minv, ci_f["qvel"], qs, x0), its_f)
+    for label, (name, args_of, its) in runs.items():
+        errs, early, noise, failures = chip_smoke.cg_readings(name, args_of, its)
+        print(f"{label}: early {early}, after {its} {errs}, vs float64 {noise}")
+        assert not failures, failures
     torch.cuda.synchronize()
+
+
+def _rand_rot(rng, n):
+    q = rng.standard_normal((n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], axis=-2).astype(np.float32)
+
+
+def _yaw(angles):
+    c, s = np.cos(angles), np.sin(angles)
+    z, o = np.zeros_like(c), np.ones_like(c)
+    return np.stack([np.stack([c, -s, z], -1), np.stack([s, c, z], -1),
+                     np.stack([z, z, o], -1)], -2).astype(np.float32)
+
+
+def _box_cases():
+    """Box-box inputs (xp1, xm1, s1, xp2, xm2, s2), each (B, K, ...):
+    "random", touching and overlapping boxes at random poses (the cases of
+    tests/test_boxbox_kernel.py); "stack", block-sized boxes resting on a
+    table-sized one and on each other at random yaws, 0 to 1 mm deep, as on
+    the settle world (the table's z axis ties with each block's); "tie",
+    axis-aligned boxes overlapping by the same depth along x, y and z, an
+    exact three-way tie of the SAT depth."""
+    rng = np.random.default_rng(7)
+    Bc, K = 4, 6
+    xp1 = (rng.standard_normal((Bc, K, 3)) * 0.02).astype(np.float32)
+    random = (xp1, _rand_rot(rng, Bc * K).reshape(Bc, K, 3, 3),
+              (0.02 + rng.random((Bc, K, 3)) * 0.04).astype(np.float32),
+              xp1 + (rng.standard_normal((Bc, K, 3)) * 0.04).astype(np.float32),
+              _rand_rot(rng, Bc * K).reshape(Bc, K, 3, 3),
+              (0.02 + rng.random((Bc, K, 3)) * 0.04).astype(np.float32))
+    half, table = 0.0254, np.array([0.4, 0.4, 0.2], np.float32)
+    below = np.zeros((Bc, K, 3), np.float32)
+    xy = rng.uniform(-0.2, 0.2, (Bc, K, 2))
+    depth = rng.uniform(0.0, 0.001, (Bc, K))
+    on_table = np.concatenate([xy, (0.2 + half - depth)[..., None]], -1).astype(np.float32)
+    below[:, 1::2] = on_table[:, 0::2]          # odd pairs: a block on a block
+    xm_below = np.tile(np.eye(3, dtype=np.float32), (Bc, K, 1, 1))
+    xm_below[:, 1::2] = _yaw(rng.uniform(-np.pi, np.pi, (Bc, K // 2)))
+    s_below = np.tile(table, (Bc, K, 1))
+    s_below[:, 1::2] = half
+    above = on_table.copy()
+    above[:, 1::2, 2] = below[:, 1::2, 2] + 2 * half - depth[:, 1::2]
+    stack = (below, xm_below, s_below, above, _yaw(rng.uniform(-np.pi, np.pi, (Bc, K))),
+             np.full((Bc, K, 3), half, np.float32))
+    eye = np.tile(np.eye(3, dtype=np.float32), (Bc, K, 1, 1))
+    s = np.full((Bc, K, 3), 0.05, np.float32)
+    tie = (np.zeros((Bc, K, 3), np.float32), eye, s, np.full((Bc, K, 3), 0.099, np.float32),
+           eye.copy(), s.copy())
+    return {"random": random, "stack": stack, "tie": tie}
+
+
+def _jax_boxbox_kernel(args):
+    """The JAX package's box-box kernel in Pallas interpret mode."""
+    import jax
+    import jax.numpy as jnp
+    from robogym_tpu.physics.collision import boxbox_kernel as j_bb
+
+    with jax_boxbox_kernel():
+        out = jax.jit(jax.vmap(j_bb.make_core()))(*[jnp.asarray(a) for a in args])
+    return [np.asarray(x, np.float64) for x in out]
+
+
+def _assert_same_manifold(got, want, atol=2e-5):
+    """Equal sentinel masks; dist, pos and normal within atol on the
+    candidates that are not sentinels."""
+    gd, gp, gn = (np.asarray(x, np.float64) for x in got)
+    wd, wp, wn = want
+    valid = wd < 1e9
+    np.testing.assert_array_equal(gd < 1e9, valid)
+    np.testing.assert_allclose(gd[valid], wd[valid], rtol=0, atol=atol)
+    np.testing.assert_allclose(gp[valid], wp[valid], rtol=0, atol=atol)
+    np.testing.assert_allclose(gn[valid], wn[valid], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("case", ["random", "stack", "tie"])
+def test_boxbox_plain_matches_jax_kernel(case):
+    """E: `boxbox_plain` against the Pallas kernel it transcribes, 2e-5
+    abs, on random poses, resting stacks and an exact tie (where both keep
+    the first tied axis)."""
+    args = _box_cases()[case]
+    got = t_bb.boxbox_plain(*[torch.as_tensor(a) for a in args])
+    _assert_same_manifold(got, _jax_boxbox_kernel(args))
+    if case != "random":
+        assert (np.asarray(got[0]) < 1e9).sum() >= 4 * args[0].shape[1], "too few contacts"
+
+
+def test_boxbox_plain_matches_jax_primitive():
+    """E away from ties: `boxbox_plain` against `primitives.box_box` on
+    random poses, where no two SAT depths are within the primitive's 1e-7
+    tie-break ramp of each other, 2e-5 abs."""
+    import jax
+    import jax.numpy as jnp
+    from robogym_tpu.physics.collision import primitives as j_prim
+
+    args = _box_cases()["random"]
+    got = t_bb.boxbox_plain(*[torch.as_tensor(a) for a in args])
+    want = jax.jit(jax.vmap(jax.vmap(j_prim.box_box)))(*[jnp.asarray(a) for a in args])
+    _assert_same_manifold(got, [np.asarray(x, np.float64) for x in want])
+
+
+@pytest.mark.parametrize("shape", [(4, 11, 5), (8, 24, 16)])
+def test_cg_plain_matches_jax(shape):
+    """F: `cg_plain` against the JAX package's scan solve
+    (`_make_cg_core`) and its Pallas kernel in interpret mode
+    (`solve_cg_batched`) on tests/test_cg_kernel.py's random problems, with
+    that test's tolerances (float32 sums in other orders over 12
+    iterations): x to 2e-3 rel + 5e-4 abs, f to 5e-3."""
+    import jax
+    import jax.numpy as jnp
+    from robogym_tpu.physics import cg_kernel as j_ck
+    from robogym_tpu.physics import constraint as j_con
+    from test_cg_kernel import _random_problem
+
+    J, aref, D, floss, M, Minv, qs, x0, kind = _random_problem(np.random.default_rng(0), *shape)
+    iters = 12
+    Deq, Done, Dfr = j_con.kind_masked_D(kind, jnp.asarray(D))
+    jargs = (jnp.asarray(J), jnp.asarray(aref), Deq, Done, Dfr, jnp.asarray(floss),
+             jnp.asarray(M), jnp.asarray(Minv), jnp.asarray(qs), jnp.asarray(x0))
+    scan = jax.vmap(j_con._make_cg_core(iters))(*jargs)
+    old = j_ck.INTERPRET
+    j_ck.INTERPRET = True
+    try:
+        pallas = j_ck.solve_cg_batched(iters, *jargs)
+    finally:
+        j_ck.INTERPRET = old
+    targs = [torch.as_tensor(np.array(a)) for a in jargs]
+    x, f = cg_kernel.cg_plain(*targs, iters)
+    for want in (scan, pallas):
+        np.testing.assert_allclose(_np(x), np.asarray(want[0]), rtol=2e-3, atol=5e-4)
+        np.testing.assert_allclose(_np(f), np.asarray(want[1]), rtol=5e-3, atol=5e-3)
+
+
+def _solve_core_inputs(tm, d):
+    """The no-Euler core's arguments as one `forward()` from state `d`
+    passes them: (kind_s, iterations, nfacet, args)."""
+    import chip_smoke
+
+    kind_s, iterations, nfacet, *args = chip_smoke.capture_call(
+        constraint_batched, "solve_core", lambda: t_step.forward(tm, d))
+    return kind_s, iterations, nfacet, args
+
+
+def test_solve_core_plain_matches_jax(world):
+    """B without the Euler update: `solve_reference` against the JAX
+    package's `_make_core(..., with_euler=False)` on the inputs of one
+    `forward()` of the locked-like world, with the fused core's tolerances
+    (qacc and efc_force 1e-4, qfrc 1e-2 relative)."""
+    import jax
+    import jax.numpy as jnp
+    from robogym_tpu.physics import constraint_batched as j_cb
+
+    tm, d = world
+    kind_s, iterations, nfacet, args = _solve_core_inputs(tm, d)
+    got = constraint_batched.solve_reference(kind_s, iterations, nfacet, *args)
+    core = j_cb._make_core(kind_s.tobytes(), iterations, nfacet, False)
+    jargs = [jnp.asarray(_np(a)) for a in args]
+    in_axes = [None if a.ndim == 0 or k == 6 else 0 for k, a in enumerate(jargs)]
+    want = jax.jit(jax.vmap(core, in_axes=in_axes))(*jargs)
+    for (name, tol), g, w in zip(dict(qacc=1e-4, qfrc=1e-2, efc_force=1e-4).items(), got, want):
+        assert _rel(_np(g), w) <= tol, (name, _rel(_np(g), w))
+    assert (_np(got[2]) != 0).any(), "no constraint force: the state has no live rows"
+
+
+def test_fused_core_plain_matches_jax_without_scalar_rows():
+    """B with n_s = 0: the fused core on the settle world (48 contacts, 4
+    facets, no scalar row) against the JAX package's reference, with the
+    tolerances of test_fused_core_plain_matches_jax."""
+    import jax
+    import jax.numpy as jnp
+    from robogym_tpu.physics import constraint_batched as j_cb
+
+    tm, d = settle_state(B)
+    kind_s, iterations, nfacet, args = core_inputs(tm, d)
+    assert len(kind_s) == 0 and args[0].shape[1] == 0
+    got = constraint_batched.reference(kind_s, iterations, nfacet, *args)
+    core = j_cb._make_core(kind_s.tobytes(), iterations, nfacet, True, True)
+    jargs = [jnp.asarray(_np(a)) for a in args]
+    in_axes = [None if a.ndim == 0 or k == 6 else 0 for k, a in enumerate(jargs)]
+    want = jax.jit(jax.vmap(core, in_axes=in_axes))(*jargs)
+    tols = dict(qacc=1e-4, qfrc=1e-2, efc_force=1e-4, qvel_new=1e-4, qacc_smooth=1e-4)
+    for (name, tol), g, w in zip(tols.items(), got, want):
+        assert _rel(_np(g), w) <= tol, (name, _rel(_np(g), w))
+    assert (_np(got[2]) != 0).any(), "no contact force: the state has no live contact"

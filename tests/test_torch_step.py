@@ -1,16 +1,21 @@
 """The port's physics substep against the JAX package's: one substep on
-the locked-like world and on BALL_BOX (<= 1e-4 abs on qpos and qvel), and a
-10-substep env step on the locked-like world at B=4, which must stay inside
-a stated envelope."""
+the locked-like world, on BALL_BOX, on the goal-settle world (box-box pairs,
+no scalar row) and on the hand-only world (no contact slot: the unfused
+`forward_tail` and `euler`), <= 1e-4 abs on qpos and qvel; a 10-substep env
+step on the locked-like world and a 40-substep env step on the settle world
+at B=4, which must stay inside stated envelopes."""
 
 import jax
 import numpy as np
 import pytest
+import torch
 
-from _torch_common import (ball_box_models, ball_box_state, locked_like_models,
-                           locked_like_state, to_jax)
+from _torch_common import (ball_box_models, ball_box_state, hand_state, jax_boxbox_kernel,
+                           locked_like_models, locked_like_state, settle_state,
+                           snapshot_jax_model, to_jax)
 from robogym_torch import bridge
 from robogym_torch.physics import step as t_step
+from robogym_torch.worlds import blocks_settle_like, locked_like
 from robogym_tpu.physics import step as j_step
 
 B = 4
@@ -21,19 +26,26 @@ _JAX_STEPS = {}
 
 
 def _jax_step(jmod):
-    """The JAX package's jitted, vmapped substep, compiled once per model."""
+    """The JAX package's jitted, vmapped substep, compiled once per model,
+    with box-box pairs through its Pallas kernel (`jax_boxbox_kernel`)."""
     if id(jmod) not in _JAX_STEPS:
-        _JAX_STEPS[id(jmod)] = jax.jit(jax.vmap(lambda x: j_step.step(jmod, x)))
+        step = jax.jit(jax.vmap(lambda x: j_step.step(jmod, x)))
+
+        def run(x):
+            with jax_boxbox_kernel():
+                return step(x)
+
+        _JAX_STEPS[id(jmod)] = run
     return _JAX_STEPS[id(jmod)]
 
 
-def _one_substep(jmod, tm, d):
+def _one_substep(jmod, tm, d, contacts=True):
     jd = bridge.data_to_numpy(_jax_step(jmod)(to_jax(d)))
     td = bridge.data_to_numpy(t_step.step(tm, d))
     for k in ("qpos", "qvel"):
         assert np.isfinite(td[k]).all()
         np.testing.assert_allclose(td[k], jd[k], rtol=0, atol=1e-4, err_msg=k)
-    assert td["contact.active"].any()
+    assert td["contact.active"].any() == contacts
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -68,3 +80,64 @@ def test_env_step_matches_jax_locked_like():
     np.testing.assert_allclose(cube_t[:, :3], cube_j[:, :3], rtol=0, atol=2e-4)
     np.testing.assert_allclose(td["qpos"], jd["qpos"], rtol=0, atol=1e-3)
     np.testing.assert_allclose(td["qvel"], jd["qvel"], rtol=0, atol=5e-2)
+
+
+def test_one_substep_matches_jax_settle():
+    _one_substep(snapshot_jax_model(blocks_settle_like.SNAPSHOT), *settle_state(B))
+
+
+def test_one_substep_matches_jax_hand():
+    _one_substep(snapshot_jax_model(locked_like.HAND_SNAPSHOT), *hand_state(B), contacts=False)
+
+
+def test_env_step_matches_jax_settle():
+    """One env step of the goal settle: 40 substeps of 1 ms (a fifth of
+    blocks.py's 5 x 40), from blocks still landing, for seeds 0 to 2. The
+    one-substep test above is what holds the port's arithmetic to JAX (at
+    1e-4): box-box contact points moved by a tenth of their depth fail it
+    and pass this test. This one bounds the drift of a whole env step.
+    Over 40 substeps the blocks' rocking on the table and on each other is
+    chaotic (the table blocks' angular velocities drift by as much as
+    they are), so the
+    port is also run from start qvels nudged by 1e-6 (three draws), and
+    the drift from JAX is held to what a nudge gives: per seed, for the
+    blocks on the table and for the stacked top block, the largest error
+    in quaternion, linear and angular velocity at most twice the largest
+    nudged run's. Beside that, absolute envelopes: every block's position
+    2e-4 m; the blocks on the table: quaternion entries 1e-3, linear
+    velocity 1e-2 m/s, angular 0.4 rad/s; the stacked top block: 5e-3,
+    0.1 m/s and 5 rad/s. The drifts are printed (`-s`)."""
+    jmod = snapshot_jax_model(blocks_settle_like.SNAPSHOT)
+    top = np.zeros((B, 5), bool)
+    top[1::2, 1] = True                       # block 1 of the odd envs starts on block 0
+    envelope = {"on the table": (~top, (1e-3, 1e-2, 0.4)), "stacked top": (top, (5e-3, 0.1, 5.0))}
+    for seed in (0, 1, 2):
+        tm, d = settle_state(B, seed=seed, settle=10)
+        jd = to_jax(d)
+        for _ in range(40):
+            jd = _jax_step(jmod)(jd)
+        runs = {"JAX": bridge.data_to_numpy(jd)}
+        td = bridge.data_to_numpy(t_step.step_n(tm, d, 40))
+        assert np.isfinite(td["qpos"]).all() and np.isfinite(td["qvel"]).all()
+        assert td["contact.active"].any()
+        for k in range(3):
+            nudge = 1e-6 * np.random.default_rng(5 + k).standard_normal(d.qvel.shape)
+            dn = d.replace(qvel=d.qvel + torch.as_tensor(nudge.astype(np.float32)))
+            runs[f"nudged port {k}"] = bridge.data_to_numpy(t_step.step_n(tm, dn, 40))
+        drift = {}                            # run: {blocks: (pos, quat, lin, ang)}
+        for name, other in runs.items():
+            dq = np.abs(td["qpos"] - other["qpos"]).reshape(B, 5, 7)
+            dv = np.abs(td["qvel"] - other["qvel"]).reshape(B, 5, 6)
+            drift[name] = {blocks: tuple(float(x[..., sl][m_].max()) for x, sl in (
+                (dq, slice(0, 3)), (dq, slice(3, 7)), (dv, slice(0, 3)), (dv, slice(3, 6))))
+                for blocks, (m_, _) in envelope.items()}
+            for blocks, (pos, quat, lin, ang) in drift[name].items():
+                print(f"seed {seed}, port vs {name}, {blocks}: position {pos:.3g} m, quaternion "
+                      f"{quat:.3g}, velocity {lin:.3g} m/s, {ang:.3g} rad/s")
+        for blocks, (_, limits) in envelope.items():
+            pos, *got = drift["JAX"][blocks]
+            nudged = [max(drift[n][blocks][i + 1] for n in runs if n != "JAX") for i in range(3)]
+            assert pos <= 2e-4, (seed, blocks, pos)
+            for what, g, n, lim in zip(("quaternion", "velocity", "angular velocity"), got,
+                                       nudged, limits):
+                assert g <= 2 * n and g <= lim, (seed, blocks, what, g, n, lim)

@@ -1,10 +1,16 @@
-"""Compile the locked-like world with the JAX package's compiler and write
-its snapshot, `robogym_torch/worlds/locked_like.npz`.
+"""Compile the port's worlds with the JAX package's compiler and write their
+snapshots next to their modules in `robogym_torch/worlds/`:
+
+  * `locked_like.npz`, the hand-and-cube world;
+  * `locked_like_hand.npz`, its hand-only variant (no cube, no collision);
+  * `blocks_settle_like.npz`, the rearrange goal-settle world, with the
+    contact budgets `scale_contact_budgets(model, 5)` gives it.
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py
 
-The port loads the snapshot with `robogym_torch.bridge.model_from_numpy`; a test
-rebuilds it and checks that it matches the committed file field by field.
+The port loads a snapshot with `robogym_torch.bridge.model_from_numpy`; a
+test rebuilds each and checks that it matches the committed file field by
+field.
 """
 
 import os
@@ -15,26 +21,42 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like")
 
-def compile_snapshot():
-    """{key: array} of the freshly compiled world (float32 model)."""
+
+def compile_snapshot(world: str = "locked_like"):
+    """(JAX Model, {key: array}) of the freshly compiled world (float32)."""
     import jax.numpy as jnp
 
     from robogym_torch.bridge import model_to_numpy
-    from robogym_torch.worlds import locked_like
+    from robogym_torch.worlds import blocks_settle_like, locked_like
     from robogym_tpu.mjcf.compiler import compile_xml
 
-    with tempfile.TemporaryDirectory() as tmp:
-        model = compile_xml(locked_like.write(tmp), dtype=jnp.float32)
+    if world == "blocks_settle_like":
+        from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
+
+        model = compile_xml(blocks_settle_like.write(), dtype=jnp.float32)
+        model = scale_contact_budgets(model, blocks_settle_like.N_BLOCKS)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            xml = locked_like.write(tmp, hand_only=world == "locked_like_hand")
+            model = compile_xml(xml, dtype=jnp.float32)
     return model, model_to_numpy(model)
 
 
-def main():
-    from robogym_torch.worlds import locked_like
+def snapshot_path(world: str) -> str:
+    from robogym_torch.worlds import blocks_settle_like, locked_like
 
-    _, arrays = compile_snapshot()
-    np.savez_compressed(locked_like.SNAPSHOT, **arrays)
-    print(locked_like.SNAPSHOT, os.path.getsize(locked_like.SNAPSHOT), "bytes")
+    return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
+            "blocks_settle_like": blocks_settle_like.SNAPSHOT}[world]
+
+
+def main():
+    for world in WORLDS:
+        _, arrays = compile_snapshot(world)
+        path = snapshot_path(world)
+        np.savez_compressed(path, **arrays)
+        print(path, os.path.getsize(path), "bytes")
 
 
 if __name__ == "__main__":

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Plant faults in the fused CG kernel (kernel B) and show whether the check
-that `chip_smoke.py` holds the kernel to catches each one.
+"""Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu`; their shared
+loop, `cg_common.cuh`) and in the box-box kernel (E, `boxbox.cu`), and show
+whether the checks that `chip_smoke.py` holds each kernel to catch them.
 
     python3 tools/cg_fault_check.py
 
-Runs on an NVIDIA GPU. It captures kernel B's inputs from one substep of the
-locked-like world at B=1024, as `chip_smoke.py` does. Then, for the sound
-source and for each fault below, it copies `robogym_torch/csrc/` into a
-temporary directory, plants the fault in the copy's `cg_full.cu` (the
-checkout's sources are never changed), builds the copy there, and prints
-`chip_smoke.cg_readings` for it and whether the check passes. Exits non-zero
-if the sound kernel fails the check or a fault passes it.
+Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
+does, at B=1024: B's from one substep of the locked-like world, F's from one
+substep of the hand-only world, E's from one substep of the goal-settle
+world. Then, for the sound sources and for each fault below, it copies
+`robogym_torch/csrc/` into a temporary directory, plants the fault in the
+copy (the checkout's sources are never changed), builds the copy there, and
+prints the readings of `chip_smoke.cg_readings` or
+`chip_smoke.boxbox_readings` for it and whether the check passes. The sound
+sources must pass all three checks and each fault must fail the check of
+its kernel; otherwise the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -24,15 +28,19 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# name: (text in cg_full.cu, its faulty replacement)
+# name: (file, text in it, its faulty replacement, the kernel whose check runs)
 FAULTS = {
     "sound": None,
-    "one_fewer_iteration": ("for (int it = 0; it < p.iterations; ++it)",
-                            "for (int it = 0; it < p.iterations - 1; ++it)"),
-    "scale_0.125_dropped": ("const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};",
-                            "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.5f};"),
-    "facet_sign": ("return (k % 2 == 0) ? Jn + mu * Jt : Jn - mu * Jt;",
-                   "return (k % 2 == 0) ? Jn + mu * Jt : Jn + mu * Jt;"),
+    "one_fewer_iteration": ("cg_full.cu", "cg_iterate(s, E, V, p.iterations);",
+                            "cg_iterate(s, E, V, p.iterations - 1);", "cg_full"),
+    "scale_0.125_dropped": ("cg_common.cuh", "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};",
+                            "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.5f};", "cg_full"),
+    "facet_sign": ("cg_full.cu", "return (k % 2 == 0) ? Jn + mu * Jt : Jn - mu * Jt;",
+                   "return (k % 2 == 0) ? Jn + mu * Jt : Jn + mu * Jt;", "cg_full"),
+    "cg_one_fewer_iteration": ("cg.cu", "cg_iterate(s, E, V, p.iterations);",
+                               "cg_iterate(s, E, V, p.iterations - 1);", "cg"),
+    "boxbox_corner_sign": ("boxbox.cu", "(c & 1) ? 1.0f : -1.0f};",
+                           "(c & 1) || c == 6 ? 1.0f : -1.0f};", "boxbox"),
 }
 
 
@@ -44,15 +52,65 @@ def build_variant(tmp: str, name: str, fault) -> None:
     src = os.path.join(tmp, name)
     shutil.copytree(os.path.join(REPO, "robogym_torch", "csrc"), src)
     if fault is not None:
-        path = os.path.join(src, "cg_full.cu")
+        path = os.path.join(src, fault[0])
         with open(path) as f:
             text = f.read()
-        if text.count(fault[0]) != 1:
-            raise RuntimeError(f"fault {name}: its text is not found once in cg_full.cu")
+        if text.count(fault[1]) != 1:
+            raise RuntimeError(f"fault {name}: its text is not found once in {fault[0]}")
         with open(path, "w") as f:
-            f.write(text.replace(fault[0], fault[1]))
+            f.write(text.replace(fault[1], fault[2]))
     cuda.CSRC, cuda.BUILD_DIR, cuda._lib = src, os.path.join(tmp, "lib"), None
     cuda.build()
+
+
+def capture(chip_smoke):
+    """Each checked kernel's inputs at B=1024: {"cg_full": (args_of,
+    iterations), "cg": (args_of, iterations), "boxbox": args}."""
+    from robogym_torch.physics import cg_kernel, step
+    from robogym_torch.physics.collision import boxbox_kernel
+
+    world = chip_smoke.worlds()
+    state = {name: chip_smoke.start_states(m, arrays, chip_smoke.BATCH, chip_smoke.SEED, **kw)
+             for name, (m, arrays, kw) in world.items()}
+    ci, iterations, nfacet = chip_smoke.capture_core(world["locked_like"][0],
+                                                     state["locked_like"])
+    mh, dh = world["hand"][0], state["hand"]
+    fa = chip_smoke.capture_call(cg_kernel, "cg", lambda: step.step(mh, dh))
+    ms, ds = world["settle"][0], state["settle"]
+    return {
+        "cg_full": (lambda its: chip_smoke.cg_args(ci, its, nfacet), iterations),
+        "cg": (lambda its: (*fa[:-1], its), fa[-1]),
+        "boxbox": chip_smoke.capture_call(boxbox_kernel, "boxbox",
+                                          lambda: step.fwd_position(ms, ds)),
+    }
+
+
+def readings(chip_smoke, kernel, inputs):
+    """Print the check's readings for `kernel`; returns its failures."""
+    from robogym_torch.physics.collision import boxbox_kernel
+
+    if kernel == "boxbox":
+        got, want = boxbox_kernel.boxbox(*inputs), boxbox_kernel.boxbox_plain(*inputs)
+        err, ties, total, failures = chip_smoke.boxbox_readings(inputs, got, want)
+        sentinels = int(((got[0] >= 1e9) != (want[0] >= 1e9)).sum())
+        print(f"  boxbox: max abs err where the axes agree {err:.3g}; pairs on another axis "
+              f"{ties} of {total}; candidates differing in being sentinels {sentinels}")
+        return failures
+    args_of, iterations = inputs
+    errs, early, noise, failures = chip_smoke.cg_readings(kernel, args_of, iterations)
+    print(f"  {kernel}: " + "; ".join(f"after {its}: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in e.items()) for its, e in early.items()))
+    print(f"  {kernel}: after {iterations}, kernel vs plain (kernel vs float64, plain vs "
+          "float64): " + ", ".join(f"{k} {errs[k]:.3g} ({noise[k][0]:.3g}, {noise[k][1]:.3g})"
+                                   for k in errs))
+    for its in (1, iterations):
+        a = args_of(its)
+        x_k = chip_smoke.wrapper(kernel)(*a)[0]
+        x_p = chip_smoke.wrapper(kernel, plain=True)(*a)[0]
+        off = (x_k - x_p).abs().amax(-1) > chip_smoke.CG_EARLY_TOL * x_p.abs().max()
+        print(f"  {kernel}: after {its}: qacc off by more than {chip_smoke.CG_EARLY_TOL} rel in "
+              f"{int(off.sum())} of {x_k.shape[0]} envs")
+    return failures
 
 
 def main() -> int:
@@ -61,38 +119,24 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import chip_smoke
-    from robogym_torch.physics import cg_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[device] {chip_smoke.card_line()}", flush=True)
     bad = []
     with tempfile.TemporaryDirectory() as tmp:
         build_variant(tmp, "capture", None)
-        m, arrays = chip_smoke.load_world()
-        d = chip_smoke.start_states(m, arrays, chip_smoke.BATCH, chip_smoke.SEED, settle=20)
-        ci, iterations, nfacet, _ = chip_smoke.capture_inputs(m, d)
+        inputs = capture(chip_smoke)
         for name, fault in FAULTS.items():
             build_variant(tmp, name, fault)
-            errs, early, noise, failures = chip_smoke.cg_readings(ci, iterations, nfacet)
-            print(f"[{name}] " + "; ".join(
-                f"after {its}: " + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
-                for its, e in early.items()))
-            print(f"[{name}] after {iterations}, kernel vs plain (kernel vs float64, plain vs "
-                  "float64): " + ", ".join(f"{k} {errs[k]:.3g} ({noise[k][0]:.3g}, "
-                                           f"{noise[k][1]:.3g})" for k in errs))
-            for its in (1, iterations):
-                a = chip_smoke.cg_args(ci, its, nfacet)
-                x_k, x_p = cg_kernel.cg_full(*a)[0], cg_kernel.cg_full_plain(*a)[0]
-                off = (x_k - x_p).abs().amax(-1) > chip_smoke.CG_EARLY_TOL * x_p.abs().max()
-                print(f"[{name}] after {its}: qacc off by more than {chip_smoke.CG_EARLY_TOL} "
-                      f"rel in {int(off.sum())} of {x_k.shape[0]} envs; kernel qacc sum "
-                      f"{float(x_k.double().sum())!r}")
-            print(f"[{name}] check {'FAILS: ' + '; '.join(failures) if failures else 'passes'}",
-                  flush=True)
-            if bool(failures) != (fault is not None):
-                bad.append(name)
+            kernels = ("cg_full", "cg", "boxbox") if fault is None else (fault[3],)
+            for kernel in kernels:
+                failures = readings(chip_smoke, kernel, inputs[kernel])
+                print(f"[{name}] {kernel} check "
+                      f"{'FAILS: ' + '; '.join(failures) if failures else 'passes'}", flush=True)
+                if bool(failures) != (fault is not None):
+                    bad.append(f"{name}/{kernel}")
     print("cg_fault_check: " + (f"wrong verdict for {bad}" if bad else
-                                "the sound kernel passes and every fault fails"))
+                                "the sound kernels pass and every fault fails"))
     return 1 if bad else 0
 
 
