@@ -9,36 +9,47 @@ Phases, in order; any failure ends the script with a non-zero exit:
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the CUDA kernels from `robogym_torch/csrc/` and prints
    what `nvcc -Xptxas -v` reports per kernel.
-3. State, B=1024 from seed 0 on three worlds: the locked-like world
+3. State, B=1024 from seed 0 on four worlds: the locked-like world
    (`robogym_torch/worlds/locked_like.npz`) settled for 20 substeps so
    contacts are live; the rearrange goal-settle world
    (`blocks_settle_like.npz`) settled for 40 substeps so the blocks rest on
    the table and on each other; the hand-only world (`locked_like_hand.npz`)
-   with hinges started past their limits so joint-limit rows are live.
+   with hinges started past their limits so joint-limit rows are live; the
+   table-setting goal-settle world (`table_setting_like.npz`, five free
+   meshes, the spoon on the plate in every other env) settled for 40
+   substeps.
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
    launches, after a warm-up), with a library call beside them where one
    computes the same function. A (SPD inverse), B (fused CG solve), C and D
-   (hull kernels) from a locked-like substep; B again (E=192, no scalar
-   row) and E (box-box) from a settle-world substep; A again (V=24) and F
-   (CG on a prebuilt J) from a hand-world substep; B without the Euler
-   update from one `forward()` of the locked-like world.
+   (hull kernels) from a locked-like substep, and H and G (the hull
+   kernels on world verts) on the same winners placed in the world by
+   `world_from_loc`, also held to C's and D's outputs bit for bit; B again
+   (E=192, no scalar row) and E (box-box) from a settle-world substep; A
+   again (V=24) and F (CG on a prebuilt J) from a hand-world substep; B
+   without the Euler update from one `forward()` of the locked-like world;
+   C and H on the mesh-mesh winners of a table-world substep (V1=V2=64).
 5. Paths, each driven with every launch count set to 0 just before it and
    read just after; every qpos, qvel and qacc finite; every kernel's count
    equal to its count per substep or call times their number:
    the locked-like world, `step_n` for 20 env steps of 10 substeps
    (env-steps/s); one goal settle, 200 substeps of 1 ms on the settle world
    (substeps/s, settles/s); one env step of 10 substeps on the hand world;
-   10 `forward()` calls on the locked-like world.
+   10 `forward()` calls on the locked-like world; one goal settle of the
+   table world, 200 substeps (substeps/s, settles/s); one locked-like env
+   step of 10 substeps, after each of which that substep's hull winners are
+   placed in the world and passed to the world-vertex entry points.
 6. Whole-step agreement: one substep through the kernels against one
-   through the plain versions, at B=64, on the locked-like, settle and hand
-   worlds; every kernel routed to its plain version by name.
+   through the plain versions, at B=64, on the locked-like, settle, hand
+   and table worlds; every kernel routed to its plain version by name.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
-   of its first phase, `k@p` for its phase on path p's shapes; each entry
-   counts the kernel's launches on the paths it stands for.
+   of its first phase, `k@w` for its phase at world w's shapes; each entry
+   counts the kernel's launches on the paths it stands for (H, which no
+   path runs on the table world, counts its launches on every path at
+   `@table`).
 
 `--profile PATH` also writes a device-time breakdown of three locked-like
 substeps, with their wall time and the device's busy share, to PATH.
@@ -63,9 +74,11 @@ BATCH = 1024                      # envs of every path
 ENV_STEPS = 20                    # env steps of the locked-like path
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
 SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
+SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
 FORWARD_CALLS = 10
 SEED = 0
 REPS = 50                         # launches per kernel timing
+HOLD_CYCLES_PER_REP = 400_000     # device cycles held per timed launch while the host queues them
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
 CG_EARLY_TOL = 1e-4               # a CG kernel vs plain after 1 and 2 iterations, relative
@@ -92,6 +105,12 @@ KERNELS = {
     "hull_pair": dict(module="robogym_torch.physics.collision.convex_kernel",
                       source="hull_sweep.cu",
                       replaces=_TPU + "collision/convex_kernel.py:215 _hull_kernel_loc"),
+    "hull_manifold_world": dict(module="robogym_torch.physics.collision.convex_kernel",
+                                source="hull_sweep.cu",
+                                replaces=_TPU + "collision/convex_kernel.py:234 _manifold_kernel"),
+    "hull_pair_world": dict(module="robogym_torch.physics.collision.convex_kernel",
+                            source="hull_sweep.cu",
+                            replaces=_TPU + "collision/convex_kernel.py:202 _hull_kernel"),
     "boxbox": dict(module="robogym_torch.physics.collision.boxbox_kernel", source="boxbox.cu",
                    replaces=_TPU + "collision/boxbox_kernel.py:47 _boxbox_kernel"),
     "cg": dict(module="robogym_torch.physics.cg_kernel", source="cg.cu",
@@ -103,7 +122,12 @@ PER_CALL = {
     "settle": {"boxbox": 1, "spd_inverse": 2, "cg_full": 1},
     "hand": {"cg": 1, "spd_inverse": 2},
     "forward": {"spd_inverse": 1, "cg_full_noeuler": 1, "hull_manifold": 1, "hull_pair": 1},
+    "table_setting": {"hull_manifold": 2, "spd_inverse": 2, "cg_full": 1},
+    "hull_world": {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 1, "hull_pair": 1,
+                   "hull_manifold_world": 1, "hull_pair_world": 1},
 }
+# the path that steps the world named after `@` in a kernels-line entry
+AT_PATH = {"table": "table_setting"}
 
 
 class SmokeFailure(RuntimeError):
@@ -123,17 +147,34 @@ def card_line() -> str:
 
 
 def timed_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` calls after two warm-up calls."""
+    """Mean device time of `fn` over `reps` calls after two warm-up calls.
+    The device first spins for about 0.2 ms a call (`torch.cuda._sleep`)
+    while the host queues the calls behind it, so the events time the
+    device running them back to back, not the host's launch rate (a hull
+    wrapper's Python takes longer than its kernel)."""
     fn()
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES_PER_REP * reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host time of one call of `fn` (its Python and launch), in us,
+    over `reps` calls that queue without a wait."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 def nbytes(*ts) -> int:
@@ -207,12 +248,12 @@ def contact_build_flops(S: int, F: int, V: int) -> int:
     return S * V * (33 + 15) + 2 * S * F * V
 
 
-def hull_flops(K: int, V1: int, V2: int, ndir: int, manifold: bool) -> float:
-    """Per pair: the world transform and centering (21 a vert), 5 per vert
-    and side for each direction's bf16 dot, the witness extraction (10 a
-    vert), and for the manifold 4 support bounds on side 2 and 26 per
-    side-1 corner."""
-    per = (V1 + V2) * (21 + 5 * ndir + 10)
+def hull_flops(K: int, V1: int, V2: int, ndir: int, manifold: bool, world: bool) -> float:
+    """Per pair: the world transform (18 a vert, none for world verts) and
+    centering (3), 5 per vert and side for each direction's bf16 dot, the
+    witness extraction (10 a vert), and for the manifold 4 support bounds on
+    side 2 and 26 per side-1 corner."""
+    per = (V1 + V2) * ((3 if world else 21) + 5 * ndir + 10)
     if manifold:
         per += 4 * 5 * V2 + 26 * V1
     return K * per
@@ -439,76 +480,156 @@ def phase_boxbox(args, reps):
     check(not failures, "boxbox: " + "; ".join(failures))
     check(live > 0, "boxbox: no penetrating candidate in the captured inputs")
     ms = timed_ms(lambda: bb.boxbox(*args), reps)
+    host = host_us(lambda: bb.boxbox(*args), reps)
     plain_ms = timed_ms(lambda: bb.boxbox_plain(*args), max(2, reps // 10))
     n_out = got[0].numel() + got[1].numel() + got[2][:, :, 0].numel()
     b_ms, b_by = bound(nbytes(*args) + 4 * n_out, total * BOXBOX_FLOPS)
-    print(f"[E boxbox] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    print(f"[E boxbox] kernel {ms:.4f} ms (host {host:.1f} us a call), plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=err, max_err=err, ties=ties, pairs=total, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
 
 
-def check_near_ties(name, args, got, n_plain, tied):
+def near_tie_failures(name, args, got, n_plain, tied):
     """Where the kernel chose another direction than the plain version, the
     plain version's selection score (bf16 dots) along the kernel's direction
     must equal the score along its own to within one bf16 ulp of the dots;
     for a hull pair the kernel's witness points must also be supports of
-    both hulls along its normal, to NEAR_TIE_TOL."""
+    both hulls along its normal, to NEAR_TIE_TOL. Returns the failures."""
     from robogym_torch.physics.collision import convex_kernel as ck
 
-    v1, v2 = ck.world_from_loc(*args[0:3]), ck.world_from_loc(*args[3:6])
-    c1, c2 = args[6], args[7]
+    failures = []
+    v1, v2, c1, c2 = (args if name.endswith("_world") else to_world(args))[:4]
     s_k, _ = ck.selection_score(v1, v2, c1, c2, got[2])
     s_p, scale = ck.selection_score(v1, v2, c1, c2, n_plain)
     gap = (s_k - s_p).abs()[tied]
     ulp = (torch.finfo(torch.bfloat16).eps * scale)[tied]
-    check(bool((gap <= ulp).all()),
-          f"{name}: a near-tie's selection scores differ by {float((gap - ulp).max()):.3g} "
-          "more than one bf16 ulp")
-    if name == "hull_pair":
+    if not bool((gap <= ulp).all()):
+        failures.append(f"a near-tie's selection scores differ by "
+                        f"{float((gap - ulp).max()):.3g} more than one bf16 ulp")
+    if name.startswith("hull_pair"):
         dist, pos, n, p2 = (x[tied] for x in got)
         p1 = 2.0 * pos - p2
         d1 = torch.einsum("pi,piv->pv", n, v1[tied]).amax(-1)
         d2 = torch.einsum("pi,piv->pv", n, v2[tied]).amin(-1)
         ok = ((-(d1 - d2) - dist).abs() <= NEAR_TIE_TOL) \
             & ((n * p1).sum(-1) >= d1 - NEAR_TIE_TOL) & ((n * p2).sum(-1) <= d2 + NEAR_TIE_TOL)
-        check(bool(ok.all()), f"{name}: {int((~ok).sum())} near-tie witnesses are not supports")
+        if not bool(ok.all()):
+            failures.append(f"{int((~ok).sum())} near-tie witnesses are not supports")
+    return failures
 
 
-def phase_hull(name, args, DX, reps):
+def hull_readings(name, args, DX):
+    """Hull kernel `name` against its plain version on the operands `args`
+    (world verts for the `_world` entries): 1e-5 where both chose the same
+    direction, at most 1 pair in 100 on a near-tie of the bf16 selection
+    (`near_tie_failures`). Returns (outputs, max abs err, near-ties, pairs,
+    failures)."""
     from robogym_torch.physics.collision import convex_kernel as ck
 
-    kern, plain = getattr(ck, name), getattr(ck, name + "_plain")
-    got, want = kern(*args, DX), plain(*args, DX)
+    got, want = getattr(ck, name)(*args, DX), getattr(ck, name + "_plain")(*args, DX)
     torch.cuda.synchronize()
-    n_g, n_w = got[2], want[2]
-    same = (n_g - n_w).abs().amax(-1) <= 1e-6                         # (B, K)
-    ties = int((~same).sum())
-    total = same.numel()
-    # dist/pos/normal to 1e-5 where both picked the same direction; a
-    # near-tie of the bf16 selection may pick another (at most 1 in 100)
-    check(ties <= total // 100, f"{name}: {ties} of {total} pairs chose another direction")
+    failures = []
+    same = (got[2] - want[2]).abs().amax(-1) <= 1e-6                  # (B, K)
+    ties, total = int((~same).sum()), same.numel()
+    if ties > total // 100:
+        failures.append(f"{ties} of {total} pairs chose another direction")
     if ties:
-        check_near_ties(name, args, got, n_w, ~same)
+        failures += near_tie_failures(name, args, got, want[2], ~same)
     errs = []
     for g, w in zip(got, want):
+        if not bool(torch.isfinite(g).all()):
+            failures.append("non-finite output")
         g, w = g[same], w[same]
         live = w.abs() < 1e9
-        check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
         errs.append(float((g - w).abs()[live].max()) if bool(live.any()) else 0.0)
     err = max(errs)
-    check(err <= 1e-5, f"{name}: max abs err {err:.3g} > 1e-5")
+    if not err <= 1e-5:
+        failures.append(f"max abs err {err:.3g} > 1e-5")
+    return got, err, ties, total, failures
+
+
+def world_vs_local(name, loc_args, DX):
+    """The world-vertex kernel of `name` on a local call's operands placed by
+    `world_from_loc`, against the local kernel's outputs on the same pairs:
+    (max abs diff, pair slots whose outputs differ). They must be equal bit
+    for bit: each eager operation of `world_from_loc` rounds once, as the
+    local kernel's transform does under -fmad=false."""
+    from robogym_torch.physics.collision import convex_kernel as ck
+
+    got = getattr(ck, name + "_world")(*to_world(loc_args), DX)
+    ref = getattr(ck, name)(*loc_args, DX)
+    torch.cuda.synchronize()
+    diff = max(float((g - w).abs().max()) for g, w in zip(got, ref))
+    off = sum(int((g != w).reshape(g.shape[0], g.shape[1], -1).any(-1).sum())
+              for g, w in zip(got, ref))
+    return diff, off
+
+
+HULL_LETTER = {"hull_manifold": "C", "hull_pair": "D", "hull_manifold_world": "H",
+               "hull_pair_world": "G"}
+
+
+def phase_hull(name, args, DX, reps, label=None):
+    """A hull kernel's phase: `hull_readings` on the operands that one of
+    its paths gave it, then the kernel's and the plain version's times and
+    the bound."""
+    from robogym_torch.physics.collision import convex_kernel as ck
+
+    label = label or f"{HULL_LETTER[name]} {name}"
+    world = name.endswith("_world")
+    got, err, ties, total, failures = hull_readings(name, args, DX)
+    check(not failures, f"{name}: " + "; ".join(failures))
+    kern, plain = getattr(ck, name), getattr(ck, name + "_plain")
     ms = timed_ms(lambda: kern(*args, DX), reps)
+    host = host_us(lambda: kern(*args, DX), reps)
     plain_ms = timed_ms(lambda: plain(*args, DX), max(2, reps // 10))
     B, K, _, V1 = args[0].shape
-    V2 = args[3].shape[-1]
+    V2 = args[1 if world else 3].shape[-1]
     ndir = 12 + 1 + DX + 16
-    n_b = nbytes(*args[:8]) + nbytes(args[8][:, :, :max(DX, 1)]) + nbytes(*got)
-    b_ms, b_by = bound(n_b, B * hull_flops(K, V1, V2, ndir, name == "hull_manifold"))
-    print(f"[{'C' if name == 'hull_manifold' else 'D'} {name}] B={B} K={K} V1={V1} V2={V2} "
-          f"DX={DX} max abs err {err:.3g} (tol 1e-5), near-ties {ties}/{total}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    n_b = nbytes(*args[:-1]) + nbytes(args[-1][:, :, :max(DX, 1)]) + nbytes(*got)
+    manifold = name.startswith("hull_manifold")
+    b_ms, b_by = bound(n_b, B * hull_flops(K, V1, V2, ndir, manifold, world))
+    extra = ""
+    if manifold:
+        corner = int((got[0][..., :3] < 1e9).any(-1).sum())
+        extra = f", pairs with a side-1 vert in the manifold {corner}"
+    print(f"[{label}] B={B} K={K} V1={V1} V2={V2} DX={DX} max abs err {err:.3g} (tol 1e-5), "
+          f"near-ties {ties}/{total}{extra}; kernel {ms:.4f} ms (host {host:.1f} us a call), "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=err, max_err=err, ties=ties, pairs=total, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
+
+
+def to_world(loc_args):
+    """A local-vert hull call's operands with each side placed in the world
+    by `world_from_loc`: (v1, v2, c1, c2, xd)."""
+    from robogym_torch.physics.collision import convex_kernel as ck
+
+    return (ck.world_from_loc(*loc_args[0:3]), ck.world_from_loc(*loc_args[3:6]), *loc_args[6:9])
+
+
+def phase_world(name, loc_args, DX, reps, label=None):
+    """The world-vertex kernel of `name` (G for hull_pair, H for
+    hull_manifold) on a local call's operands placed in the world:
+    `phase_hull`, then `world_vs_local`, then both kernels timed in turns
+    (local, world, world, local) on the same pairs."""
+    from robogym_torch.physics.collision import convex_kernel as ck
+
+    wname = name + "_world"
+    label = label or f"{HULL_LETTER[wname]} {wname}"
+    wargs = to_world(loc_args)
+    r = phase_hull(wname, wargs, DX, reps, label)
+    diff, off = world_vs_local(name, loc_args, DX)
+    check(off == 0, f"{wname}: differs from {name} on {off} pair slots (max {diff:.3g})")
+    loc, wor = getattr(ck, name), getattr(ck, wname)
+    t = [timed_ms(lambda: loc(*loc_args, DX), reps), timed_ms(lambda: wor(*wargs, DX), reps),
+         timed_ms(lambda: wor(*wargs, DX), reps), timed_ms(lambda: loc(*loc_args, DX), reps)]
+    a, b = HULL_LETTER[name], HULL_LETTER[wname]
+    print(f"[{label}] against {a} on the same pairs: max abs diff {diff:.3g}, outputs differing "
+          f"in {off} pair slots; in turns {a} / {b} / {b} / {a}: "
+          + " / ".join(f"{x:.4f}" for x in t) + " ms")
+    return r
 
 
 def load_world(snapshot=None):
@@ -557,14 +678,16 @@ def start_states(m, arrays, batch, seed, settle, world=None, **kw):
 
 def worlds():
     """{name: (Model on the card, arrays, start-state keywords)} of the
-    three worlds."""
-    from robogym_torch.worlds import blocks_settle_like, locked_like
+    four worlds."""
+    from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
 
     out = {}
     for name, snap, kw in (("locked_like", locked_like.SNAPSHOT, dict(settle=20)),
                            ("settle", blocks_settle_like.SNAPSHOT,
-                            dict(settle=40, world=blocks_settle_like)),
-                           ("hand", locked_like.HAND_SNAPSHOT, dict(settle=5, reach=1.1))):
+                            dict(settle=SETTLE_START, world=blocks_settle_like)),
+                           ("hand", locked_like.HAND_SNAPSHOT, dict(settle=5, reach=1.1)),
+                           ("table", table_setting_like.SNAPSHOT,
+                            dict(settle=SETTLE_START, world=table_setting_like))):
         m, arrays = load_world(snap)
         out[name] = (m, arrays, kw)
     return out
@@ -592,13 +715,17 @@ def drive(name, run, calls):
 
 
 def entry_launches(entry, entries, paths):
-    """Launches of a kernels-line entry: for `k@p`, kernel k's launches on
-    path p; for `k`, its launches on every path that no `k@...` entry
-    stands for."""
+    """Launches of a kernels-line entry: for `k@w`, kernel k's launches on
+    the path that steps world w, or, where that path does not run k, its
+    launches on every path; for `k`, its launches on every path that no
+    `k@...` entry stands for."""
     kernel, _, at = entry.partition("@")
-    claimed = {e.partition("@")[2] for e in entries if e.startswith(kernel + "@")}
-    return sum(p["launches"].get(kernel, 0) for name, p in paths.items()
-               if (name == at if at else name not in claimed))
+    if at:
+        n = paths[AT_PATH.get(at, at)]["launches"].get(kernel, 0)
+        return n or sum(p["launches"].get(kernel, 0) for p in paths.values())
+    claimed = {AT_PATH.get(w, w) for w in (e.partition("@")[2] for e in entries
+                                          if e.startswith(kernel + "@"))}
+    return sum(p["launches"].get(kernel, 0) for name, p in paths.items() if name not in claimed)
 
 
 def profile_substeps(m, d, path):
@@ -669,7 +796,7 @@ def main() -> int:
         print(f"[state] {name}: B={B} settled {kw['settle']} substeps in "
               f"{time.perf_counter() - t0:.2f} s; live contacts per env: mean "
               f"{float(live.float().mean()):.2f}")
-    for name in ("locked_like", "settle"):
+    for name in ("locked_like", "settle", "table"):
         check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
 
     # 4. one phase per kernel, on inputs captured from one substep or call
@@ -681,6 +808,7 @@ def main() -> int:
     for name in ("hull_manifold", "hull_pair"):
         args = capture_call(convex_kernel, name, lambda: step.fwd_position(m, d))
         res[name] = phase_hull(name, args[:-1], args[-1], REPS)
+        res[name + "_world"] = phase_world(name, args[:-1], args[-1], REPS)
     ms, ds = world["settle"][0], state["settle"]
     ci_s, its_s, nfacet_s = capture_core(ms, ds)
     check(ci_s["rows"]["Js"].shape[1] == 0, "settle world: scalar rows, want none")
@@ -694,6 +822,15 @@ def main() -> int:
     res["cg"] = phase_cg_prebuilt(capture_call(cg_kernel, "cg", lambda: step.step(mh, dh)), REPS)
     res["cg_full_noeuler"] = phase_cg_noeuler(
         capture_call(constraint_batched, "solve_core", lambda: step.forward(m, d)), REPS)
+    # the table world's last hull_manifold call is its mesh-mesh group
+    mt, dt = world["table"][0], state["table"]
+    *targs, tDX = capture_call(convex_kernel, "hull_manifold", lambda: step.fwd_position(mt, dt))
+    check(targs[0].shape[-1] == 64 and targs[3].shape[-1] == 64,
+          f"table world: mesh-mesh call with V1={targs[0].shape[-1]}, V2={targs[3].shape[-1]}")
+    res["hull_manifold@table"] = phase_hull("hull_manifold", targs, tDX, REPS,
+                                            "C hull_manifold@table")
+    res["hull_manifold_world@table"] = phase_world("hull_manifold", targs, tDX, REPS,
+                                                   "H hull_manifold_world@table")
 
     # 5. paths
     paths = {}
@@ -733,6 +870,34 @@ def main() -> int:
     record("forward", wall, counts, calls=FORWARD_CALLS, calls_per_s=FORWARD_CALLS / wall)
     print(f"[path forward] {FORWARD_CALLS} forward() calls on the locked-like world at B={B}: "
           f"{wall:.3f} s, {FORWARD_CALLS / wall:.2f} calls/s; launches {counts}")
+
+    out, wall, counts = drive("table_setting", lambda: step.step_n(mt, dt, SETTLE_SUBSTEPS),
+                              SETTLE_SUBSTEPS)
+    record("table_setting", wall, counts, substeps=SETTLE_SUBSTEPS,
+           substeps_per_s=SETTLE_SUBSTEPS / wall, settles_per_s=B / wall)
+    print(f"[path table_setting] one goal settle of the table world, {SETTLE_SUBSTEPS} substeps "
+          f"of 1 ms at B={B}: {wall:.3f} s, {SETTLE_SUBSTEPS / wall:.1f} substeps/s, "
+          f"{B / wall:.1f} settles/s; launches {counts}; live contacts per env "
+          f"{float(out.contact.active.sum(1).float().mean()):.2f}")
+
+    def hull_world_step():
+        dw = d
+        for _ in range(SUBSTEPS):
+            calls = {}
+            with recording(convex_kernel, ("hull_pair", "hull_manifold"), calls):
+                dw = step.step(m, dw)
+            for name in ("hull_pair", "hull_manifold"):
+                *a, DX = calls[name]
+                outs = getattr(convex_kernel, name + "_world")(*to_world(a), DX)
+                check(all(bool(torch.isfinite(o).all()) for o in outs),
+                      f"hull_world path: non-finite {name}_world output")
+        return dw
+
+    out, wall, counts = drive("hull_world", hull_world_step, SUBSTEPS)
+    record("hull_world", wall, counts, env_steps=1, substeps=SUBSTEPS)
+    print(f"[path hull_world] one locked-like env step of {SUBSTEPS} substeps at B={B}, each "
+          f"substep's hull winners through the world-vertex entry points: {wall:.3f} s; "
+          f"launches {counts}")
     launches = {entry: entry_launches(entry, res, paths) for entry in res}
     for k in KERNELS:
         check(sum(p["launches"].get(k, 0) for p in paths.values()) > 0,

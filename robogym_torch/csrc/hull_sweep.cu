@@ -4,23 +4,26 @@
 //
 // Replaces robogym_tpu/physics/collision/convex_kernel.py:_hull_kernel_loc
 // (robogym_hull_pair) and :_manifold_kernel_loc (robogym_hull_manifold),
-// with their shared _world_from_loc, _sweep_witness and _manifold_body.
+// with their shared _world_from_loc, _sweep_witness and _manifold_body, and
+// their world-vertex twins :_hull_kernel (robogym_hull_pair_world) and
+// :_manifold_kernel (robogym_hull_manifold_world), which read verts the
+// caller has already placed in the world and skip the transform.
 //
-// Bound on this card: a pair reads its local verts (3 x V floats a side,
-// at most 64 verts) and its two poses, under 2 KB, and writes under 100
-// bytes; the sweep evaluates about 35 directions against every vert of both
-// sides, about 6 * 35 * (V1 + V2) flops. Both bounds are a few
-// microseconds at the main path's sizes; what bounds a simple kernel is
-// the chain of 35 dependent warp reductions per pair.
+// Bound on this card: a pair reads its verts (3 x V floats a side, at most
+// 64 verts) and, for the local entries, its two poses, under 2 KB, and
+// writes under 100 bytes; the sweep evaluates about 35 directions against
+// every vert of both sides, about 6 * 35 * (V1 + V2) flops. Both bounds
+// are a few microseconds at the main path's sizes; what bounds a simple
+// kernel is the chain of 35 dependent warp reductions per pair.
 //
 // Design: one warp per pair. Lane l holds verts l and l + 32 of each side,
-// rotated and translated into the world frame in registers; every
-// direction's support value is a warp max by __shfl_xor_sync, so the whole
-// sweep, the rings and the witness extraction run without shared memory or
-// barriers. Direction selection emulates the JAX package's bfloat16 dots
-// as the plain version does: centered verts and the direction rounded to
-// bf16, the three exact products summed in float32, the sum rounded to
-// bf16. The library is built with -fmad=false, so every other float32
+// read as world verts or rotated and translated into the world frame in
+// registers (a template flag); every direction's support value is a warp
+// max by __shfl_xor_sync, so the whole sweep, the rings and the witness
+// extraction run without shared memory or barriers. Direction selection
+// emulates the JAX package's bfloat16 dots as the plain version does:
+// centered verts and the direction rounded to bf16, the three exact
+// products summed in float32, the sum rounded to bf16. The library is built with -fmad=false, so every other float32
 // expression rounds as the plain version's elementwise operations do and
 // the kernel picks the same direction except on near-ties.
 
@@ -73,21 +76,31 @@ struct Side {
   bool ok[2];
 };
 
-__device__ void load_side(const float* vl, const float* xm, const float* xp, V3 c, int V,
+// kWorld: v holds world verts and xm, xp are not read; otherwise v holds
+// local verts, placed by the row-major rotation xm and the origin xp. Every
+// vert of the bank counts (the driver parks padding at the hull's center).
+template <bool kWorld>
+__device__ void load_side(const float* v, const float* xm, const float* xp, V3 c, int V,
                           int lane, Side& s) {
-  float R[9];
+  float R[9] = {};
+  V3 o{0.0f, 0.0f, 0.0f};
+  if constexpr (!kWorld) {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) R[i] = xm[i];
-  const V3 o = ld3(xp);
+    for (int i = 0; i < 9; ++i) R[i] = xm[i];
+    o = ld3(xp);
+  }
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int idx = lane + 32 * k;
     s.ok[k] = idx < V;
     if (s.ok[k]) {
-      const float l0 = vl[idx], l1 = vl[V + idx], l2 = vl[2 * V + idx];
-      const V3 w{o.x + ((R[0] * l0 + R[1] * l1) + R[2] * l2),
-                 o.y + ((R[3] * l0 + R[4] * l1) + R[5] * l2),
-                 o.z + ((R[6] * l0 + R[7] * l1) + R[8] * l2)};
+      const float l0 = v[idx], l1 = v[V + idx], l2 = v[2 * V + idx];
+      V3 w{l0, l1, l2};
+      if constexpr (!kWorld) {
+        w = V3{o.x + ((R[0] * l0 + R[1] * l1) + R[2] * l2),
+               o.y + ((R[3] * l0 + R[4] * l1) + R[5] * l2),
+               o.z + ((R[6] * l0 + R[7] * l1) + R[8] * l2)};
+      }
       s.w[k] = w;
       s.cv[k] = V3{bf(w.x - c.x), bf(w.y - c.y), bf(w.z - c.z)};
     } else {
@@ -233,11 +246,14 @@ __device__ Sweep sweep(const Side& s1, const Side& s2, V3 c1, V3 c2, const float
   return out;
 }
 
+// v1, v2: local verts with their poses xm, xp, or world verts with the pose
+// pointers null (the world entries)
 struct Args {
-  const float *v1l, *xm1, *xp1, *v2l, *xm2, *xp2, *c1, *c2, *xd, *tab;
+  const float *v1, *xm1, *xp1, *v2, *xm2, *xp2, *c1, *c2, *xd, *tab;
   int BK, V1, V2, DXp, DX;
 };
 
+template <bool kWorld>
 __device__ __forceinline__ bool pair_setup(const Args& a, int& w, int& lane, Side& s1, Side& s2,
                                            V3& c1, V3& c2) {
   w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -245,20 +261,22 @@ __device__ __forceinline__ bool pair_setup(const Args& a, int& w, int& lane, Sid
   if (w >= a.BK) return false;
   c1 = ld3(a.c1 + 3 * (size_t)w);
   c2 = ld3(a.c2 + 3 * (size_t)w);
-  load_side(a.v1l + (size_t)w * 3 * a.V1, a.xm1 + 9 * (size_t)w, a.xp1 + 3 * (size_t)w, c1, a.V1,
-            lane, s1);
-  load_side(a.v2l + (size_t)w * 3 * a.V2, a.xm2 + 9 * (size_t)w, a.xp2 + 3 * (size_t)w, c2, a.V2,
-            lane, s2);
+  const size_t p = (size_t)w;
+  load_side<kWorld>(a.v1 + p * 3 * a.V1, kWorld ? nullptr : a.xm1 + 9 * p,
+                    kWorld ? nullptr : a.xp1 + 3 * p, c1, a.V1, lane, s1);
+  load_side<kWorld>(a.v2 + p * 3 * a.V2, kWorld ? nullptr : a.xm2 + 9 * p,
+                    kWorld ? nullptr : a.xp2 + 3 * p, c2, a.V2, lane, s2);
   return true;
 }
 
+template <bool kWorld>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 hull_pair_kernel(Args a, float* __restrict__ dist, float* __restrict__ pos, float* __restrict__ nrm,
                  float* __restrict__ p2o) {
   int w, lane;
   Side s1, s2;
   V3 c1, c2;
-  if (!pair_setup(a, w, lane, s1, s2, c1, c2)) return;
+  if (!pair_setup<kWorld>(a, w, lane, s1, s2, c1, c2)) return;
   const Sweep r = sweep(s1, s2, c1, c2, a.xd + (size_t)w * a.DXp * 3, a.DX, a.tab);
   if (lane == 0) {
     dist[w] = r.dist;
@@ -274,13 +292,14 @@ hull_pair_kernel(Args a, float* __restrict__ dist, float* __restrict__ pos, floa
   }
 }
 
+template <bool kWorld>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4,
                      float* __restrict__ nrm) {
   int w, lane;
   Side s1, s2;
   V3 c1, c2;
-  if (!pair_setup(a, w, lane, s1, s2, c1, c2)) return;
+  if (!pair_setup<kWorld>(a, w, lane, s1, s2, c1, c2)) return;
   const Sweep r = sweep(s1, s2, c1, c2, a.xd + (size_t)w * a.DXp * 3, a.DX, a.tab);
   const V3 n = r.n;
 
@@ -370,6 +389,25 @@ int check(int BK, int V1, int V2, int DXp, int DX) {
   return 0;
 }
 
+template <bool kWorld>
+int launch_pair(const Args& a, float* dist, float* pos, float* n, float* p2, cudaStream_t stream) {
+  if (int e = check(a.BK, a.V1, a.V2, a.DXp, a.DX)) return e;
+  if (a.BK == 0) return 0;
+  const int grid = (a.BK + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  hull_pair_kernel<kWorld><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(a, dist, pos, n, p2);
+  return (int)cudaGetLastError();
+}
+
+template <bool kWorld>
+int launch_manifold(const Args& a, float* dist4, float* pos4, float* n, cudaStream_t stream) {
+  if (int e = check(a.BK, a.V1, a.V2, a.DXp, a.DX)) return e;
+  if (a.V1 < 4) return (int)cudaErrorInvalidValue;
+  if (a.BK == 0) return 0;
+  const int grid = (a.BK + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  hull_manifold_kernel<kWorld><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(a, dist4, pos4, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int robogym_hull_pair(const float* v1l, const float* xm1, const float* xp1,
@@ -377,12 +415,16 @@ extern "C" int robogym_hull_pair(const float* v1l, const float* xm1, const float
                                  const float* c1, const float* c2, const float* xd,
                                  const float* tab, float* dist, float* pos, float* n, float* p2,
                                  int BK, int V1, int V2, int DXp, int DX, cudaStream_t stream) {
-  if (int e = check(BK, V1, V2, DXp, DX)) return e;
-  if (BK == 0) return 0;
   const Args a{v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
-  const int grid = (BK + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  hull_pair_kernel<<<grid, 32 * kWarpsPerBlock, 0, stream>>>(a, dist, pos, n, p2);
-  return (int)cudaGetLastError();
+  return launch_pair<false>(a, dist, pos, n, p2, stream);
+}
+
+extern "C" int robogym_hull_pair_world(const float* v1, const float* v2, const float* c1,
+                                       const float* c2, const float* xd, const float* tab,
+                                       float* dist, float* pos, float* n, float* p2, int BK,
+                                       int V1, int V2, int DXp, int DX, cudaStream_t stream) {
+  const Args a{v1, nullptr, nullptr, v2, nullptr, nullptr, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
+  return launch_pair<true>(a, dist, pos, n, p2, stream);
 }
 
 extern "C" int robogym_hull_manifold(const float* v1l, const float* xm1, const float* xp1,
@@ -391,11 +433,14 @@ extern "C" int robogym_hull_manifold(const float* v1l, const float* xm1, const f
                                      const float* tab, float* dist4, float* pos4, float* n,
                                      int BK, int V1, int V2, int DXp, int DX,
                                      cudaStream_t stream) {
-  if (int e = check(BK, V1, V2, DXp, DX)) return e;
-  if (V1 < 4) return (int)cudaErrorInvalidValue;
-  if (BK == 0) return 0;
   const Args a{v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
-  const int grid = (BK + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  hull_manifold_kernel<<<grid, 32 * kWarpsPerBlock, 0, stream>>>(a, dist4, pos4, n);
-  return (int)cudaGetLastError();
+  return launch_manifold<false>(a, dist4, pos4, n, stream);
+}
+
+extern "C" int robogym_hull_manifold_world(const float* v1, const float* v2, const float* c1,
+                                           const float* c2, const float* xd, const float* tab,
+                                           float* dist4, float* pos4, float* n, int BK, int V1,
+                                           int V2, int DXp, int DX, cudaStream_t stream) {
+  const Args a{v1, nullptr, nullptr, v2, nullptr, nullptr, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
+  return launch_manifold<true>(a, dist4, pos4, n, stream);
 }

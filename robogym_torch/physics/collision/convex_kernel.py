@@ -1,20 +1,27 @@
 """Vert-hull convex narrowphase: the staged support sweep and its witness
 points, as a single point (hull pair) or a 4-point manifold.
 
-Counterpart of `robogym_tpu/physics/collision/convex_kernel.py`. Two
+Counterpart of `robogym_tpu/physics/collision/convex_kernel.py`. Four
 entry points, each a wrapper with a hand-written CUDA kernel
 (`robogym_torch/csrc/hull_sweep.cu`) and its plain PyTorch version here:
 
-  * `hull_pair` (replaces `_hull_kernel_loc`): one contact point per pair;
-    plain version `hull_pair_plain` (`_reference_hull_pair` after
-    `_world_from_loc_xla`).
-  * `hull_manifold` (replaces `_manifold_kernel_loc`): side-1 verts (box
-    corners) scored against the contact plane, the 4 deepest kept; plain
-    version `hull_manifold_plain` (`_reference_hull_manifold`).
+  * `hull_pair` (replaces `_hull_kernel_loc`) and `hull_pair_world`
+    (replaces `_hull_kernel`, the entry `_make_hull_core`): one contact
+    point per pair; plain versions `hull_pair_plain` and
+    `hull_pair_world_plain` (`_reference_hull_pair`).
+  * `hull_manifold` (replaces `_manifold_kernel_loc`) and
+    `hull_manifold_world` (replaces `_manifold_kernel`, the entry
+    `_make_hull_manifold_core`): side-1 verts (box corners or a hull's
+    verts) scored against the contact plane, the 4 deepest kept; plain
+    versions `hull_manifold_plain` and `hull_manifold_world_plain`
+    (`_reference_hull_manifold`).
 
-Both take each side as LOCAL verts (B, K, 3, V), a row-major rotation
-(B, K, 9) and an origin (B, K, 3), plus world centers c1/c2 (B, K, 3) and
-extra directions xd (B, K, max(DX, 1), 3) of which the first DX are used.
+The `_world` entries take each side as WORLD verts (B, K, 3, V). The others
+take LOCAL verts (B, K, 3, V), a row-major rotation (B, K, 9) and an origin
+(B, K, 3), and place them with `world_from_loc`, whose eager operations each
+round once as the kernels' transform does. All take world centers c1/c2
+(B, K, 3) and extra directions xd (B, K, max(DX, 1), 3) of which the first
+DX are used.
 
 Direction selection uses bfloat16 dots, as the JAX package does: verts are
 centered and rounded to bf16, each direction is rounded to bf16, the three
@@ -34,6 +41,7 @@ from robogym_torch.utils.rotation import cross
 
 BIG = 1e10
 MANIFOLD_TOL = 5e-3
+MAX_VERTS = 64       # the compiler's MAX_HULL_VERTS: one warp holds two verts a lane
 RING_N = 8
 RING_RADII = (0.3, 0.08)
 
@@ -114,9 +122,10 @@ def selection_score(v1, v2, c1, c2, n):
     return _sep_sel(n[..., None, :], cv1, cv2, c1 - c2)[..., 0], m1.abs() + m2.abs()
 
 
-def _sweep(v1, v2, c1, c2, xd, DX):
-    """Shared plain sweep on world verts (B, K, 3, V): returns
-    (dist, pos, n, p2) each batched over (B, K)."""
+def hull_pair_world_plain(v1, v2, c1, c2, xd, DX: int):
+    """Plain version of the world-vertex hull-pair kernel, the sweep shared
+    by all four entries, on world verts (B, K, 3, V): (dist (B, K),
+    pos (B, K, 3), n (B, K, 3), p2 (B, K, 3))."""
     dev, f32 = v1.device, v1.dtype
     d0 = c2 - c1
     d0 = d0 / (_norm(d0, keepdim=True) + 1e-12)
@@ -178,16 +187,15 @@ def _sweep(v1, v2, c1, c2, xd, DX):
 def hull_pair_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
     """Plain version of the hull-pair kernel: (dist (B, K), pos (B, K, 3),
     n (B, K, 3), p2 (B, K, 3))."""
-    return _sweep(world_from_loc(v1l, xm1, xp1), world_from_loc(v2l, xm2, xp2), c1, c2, xd, DX)
+    return hull_pair_world_plain(world_from_loc(v1l, xm1, xp1), world_from_loc(v2l, xm2, xp2),
+                                 c1, c2, xd, DX)
 
 
-def hull_manifold_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
-    """Plain version of the manifold kernel: (dist4 (B, K, 4),
-    pos4 (B, K, 4, 3), n (B, K, 3))."""
-    v1 = world_from_loc(v1l, xm1, xp1)
-    v2 = world_from_loc(v2l, xm2, xp2)
+def hull_manifold_world_plain(v1, v2, c1, c2, xd, DX: int):
+    """Plain version of the world-vertex manifold kernel on world verts
+    (B, K, 3, V): (dist4 (B, K, 4), pos4 (B, K, 4, 3), n (B, K, 3))."""
     dev, f32 = v1.device, v1.dtype
-    dist0, pos0, n, plane_pt = _sweep(v1, v2, c1, c2, xd, DX)
+    dist0, pos0, n, plane_pt = hull_pair_world_plain(v1, v2, c1, c2, xd, DX)
     corners = v1.transpose(-1, -2)                                    # (B, K, V1, 3)
     cdist = _dot3(corners - plane_pt[..., None, :], (-n)[..., None, :])
 
@@ -217,23 +225,38 @@ def hull_manifold_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
     return dist4, pos4, n
 
 
+def hull_manifold_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
+    """Plain version of the manifold kernel: (dist4 (B, K, 4),
+    pos4 (B, K, 4, 3), n (B, K, 3))."""
+    return hull_manifold_world_plain(world_from_loc(v1l, xm1, xp1),
+                                     world_from_loc(v2l, xm2, xp2), c1, c2, xd, DX)
+
+
 # ---------------------------------------------------------------------------
 # wrappers: a CPU tensor takes the plain version, a CUDA tensor the kernel
 # ---------------------------------------------------------------------------
 
 
-def _check(args, V1, V2):
-    B, K = args[0].shape[:2]
-    shapes = [(B, K, 3, V1), (B, K, 9), (B, K, 3), (B, K, 3, V2), (B, K, 9), (B, K, 3),
-              (B, K, 3), (B, K, 3), (B, K, args[8].shape[2], 3)]
+def _check(args, world: bool):
+    """Validate the operands of a hull kernel: local sides (v, xm, xp) or,
+    for the world entries, world verts alone; returns (B, K, V1, V2)."""
+    v1, v2 = args[0], args[1 if world else 3]
+    B, K = v1.shape[:2]
+    V1, V2 = v1.shape[-1], v2.shape[-1]
+    side1 = [(B, K, 3, V1)] if world else [(B, K, 3, V1), (B, K, 9), (B, K, 3)]
+    side2 = [(B, K, 3, V2)] if world else [(B, K, 3, V2), (B, K, 9), (B, K, 3)]
+    shapes = side1 + side2 + [(B, K, 3), (B, K, 3), (B, K) + tuple(args[-1].shape[2:3]) + (3,)]
+    if len(args) != len(shapes):
+        raise ValueError(f"hull kernel takes {len(shapes)} operands, got {len(args)}")
     for a, s in zip(args, shapes):
         if tuple(a.shape) != s or a.dtype != torch.float32 or not a.is_contiguous():
-            raise ValueError(f"hull kernel operand {tuple(a.shape)} {a.dtype}, want {s} float32 contiguous")
-        if a.device != args[0].device:
+            raise ValueError(f"hull kernel operand {tuple(a.shape)} {a.dtype}, "
+                             f"want {s} float32 contiguous")
+        if a.device != v1.device:
             raise ValueError("hull kernel operands on different devices")
-    if max(V1, V2) > 64:
-        raise ValueError(f"hull kernels take at most 64 verts a side, got {V1}, {V2}")
-    return B, K
+    if not (1 <= V1 <= MAX_VERTS and 1 <= V2 <= MAX_VERTS):
+        raise ValueError(f"hull kernels take 1 to {MAX_VERTS} verts a side, got {V1}, {V2}")
+    return B, K, V1, V2
 
 
 @functools.lru_cache(maxsize=8)
@@ -244,34 +267,62 @@ def _dir_table(device: str) -> torch.Tensor:
     return torch.as_tensor(tab, device=device)
 
 
-def hull_pair(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
-    """Single-point hull-hull collision (kernel D on CUDA tensors)."""
-    if v1l.device.type == "cpu":
-        return hull_pair_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX)
+def _launch_pair(name, args, DX):
     from robogym_torch import cuda
 
-    args = (v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd)
-    B, K = _check(args, v1l.shape[-1], v2l.shape[-1])
-    dist = torch.empty((B, K), dtype=torch.float32, device=v1l.device)
-    pos = torch.empty((B, K, 3), dtype=torch.float32, device=v1l.device)
+    B, K, V1, V2 = _check(args, world=name.endswith("_world"))
+    dev = args[0].device
+    dist = torch.empty((B, K), dtype=torch.float32, device=dev)
+    pos = torch.empty((B, K, 3), dtype=torch.float32, device=dev)
     n = torch.empty_like(pos)
     p2 = torch.empty_like(pos)
-    cuda.launch("hull_pair", *args, _dir_table(str(v1l.device)), dist, pos, n, p2,
-                B * K, v1l.shape[-1], v2l.shape[-1], xd.shape[2], DX)
+    cuda.launch(name, *args, _dir_table(str(dev)), dist, pos, n, p2,
+                B * K, V1, V2, args[-1].shape[2], DX)
     return dist, pos, n, p2
 
 
-def hull_manifold(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
-    """4-point hull manifold (kernel C on CUDA tensors)."""
-    if v1l.device.type == "cpu":
-        return hull_manifold_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX)
+def _launch_manifold(name, args, DX):
     from robogym_torch import cuda
 
-    args = (v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd)
-    B, K = _check(args, v1l.shape[-1], v2l.shape[-1])
-    dist4 = torch.empty((B, K, 4), dtype=torch.float32, device=v1l.device)
-    pos4 = torch.empty((B, K, 4, 3), dtype=torch.float32, device=v1l.device)
-    n = torch.empty((B, K, 3), dtype=torch.float32, device=v1l.device)
-    cuda.launch("hull_manifold", *args, _dir_table(str(v1l.device)), dist4, pos4, n,
-                B * K, v1l.shape[-1], v2l.shape[-1], xd.shape[2], DX)
+    B, K, V1, V2 = _check(args, world=name.endswith("_world"))
+    if V1 < 4:
+        raise ValueError(f"the hull manifold takes at least 4 side-1 verts, got {V1}")
+    dev = args[0].device
+    dist4 = torch.empty((B, K, 4), dtype=torch.float32, device=dev)
+    pos4 = torch.empty((B, K, 4, 3), dtype=torch.float32, device=dev)
+    n = torch.empty((B, K, 3), dtype=torch.float32, device=dev)
+    cuda.launch(name, *args, _dir_table(str(dev)), dist4, pos4, n,
+                B * K, V1, V2, args[-1].shape[2], DX)
     return dist4, pos4, n
+
+
+def hull_pair(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
+    """Single-point hull-hull collision on local verts and poses (kernel D
+    on CUDA tensors)."""
+    if v1l.device.type == "cpu":
+        return hull_pair_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX)
+    return _launch_pair("hull_pair", (v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd), DX)
+
+
+def hull_pair_world(v1, v2, c1, c2, xd, DX: int):
+    """Single-point hull-hull collision on world verts (kernel G on CUDA
+    tensors); the counterpart of `_make_hull_core(DX)`."""
+    if v1.device.type == "cpu":
+        return hull_pair_world_plain(v1, v2, c1, c2, xd, DX)
+    return _launch_pair("hull_pair_world", (v1, v2, c1, c2, xd), DX)
+
+
+def hull_manifold(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX: int):
+    """4-point hull manifold on local verts and poses (kernel C on CUDA
+    tensors)."""
+    if v1l.device.type == "cpu":
+        return hull_manifold_plain(v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, DX)
+    return _launch_manifold("hull_manifold", (v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd), DX)
+
+
+def hull_manifold_world(v1, v2, c1, c2, xd, DX: int):
+    """4-point hull manifold on world verts (kernel H on CUDA tensors); the
+    counterpart of `_make_hull_manifold_core(DX)`."""
+    if v1.device.type == "cpu":
+        return hull_manifold_world_plain(v1, v2, c1, c2, xd, DX)
+    return _launch_manifold("hull_manifold_world", (v1, v2, c1, c2, xd), DX)

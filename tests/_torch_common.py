@@ -163,14 +163,15 @@ def hand_state(batch: int, seed: int = 0, settle: int = 5):
     return tm, torch_step.step_n(tm, d, settle)
 
 
-def settle_state(batch: int, seed: int = 0, settle: int = 40):
-    """The goal-settle world from seeded start states (blocks 1 to 5 mm
-    above the table, block 1 stacked on block 0 in the odd envs), settled by
-    the port's step for `settle` 1 ms substeps so that the blocks rest on
-    the table and on each other. Returns (port Model, Data)."""
-    tm = snapshot_model(blocks_settle_like.SNAPSHOT)
-    qpos, _ = blocks_settle_like.initial_state(snapshot_arrays(blocks_settle_like.SNAPSHOT),
-                                               batch, seed)
+def settle_state(batch: int, seed: int = 0, settle: int = 40, world=blocks_settle_like):
+    """A goal-settle world (a module of `robogym_torch.worlds`: the blocks
+    world by default, or `table_setting_like`) from seeded start states
+    (objects 1 to 5 mm above the table; in the odd envs block 1 stacked on
+    block 0, or the spoon on the plate), settled by the port's step for
+    `settle` 1 ms substeps so that the objects rest on the table and on
+    each other. Returns (port Model, Data)."""
+    tm = snapshot_model(world.SNAPSHOT)
+    qpos, _ = world.initial_state(snapshot_arrays(world.SNAPSHOT), batch, seed)
     return tm, torch_step.step_n(tm, make_data(tm, batch, torch.as_tensor(qpos)), settle)
 
 

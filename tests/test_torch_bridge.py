@@ -51,13 +51,15 @@ def _snapshot_tool():
     return tool
 
 
-@pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like"])
+@pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like", "table_setting_like"])
 def test_world_snapshot_matches_fresh_compile(world):
     """The hand-only and goal-settle snapshots equal what
     tools/build_locked_like_snapshot.py compiles now, field by field. The
-    hand has no collision pair and 24 hinges; the settle world carries the
-    contact budgets of `scale_contact_budgets(model, 5)`, 15 box-box and 5
-    plane-box pairs."""
+    hand has no collision pair and 24 hinges; the settle worlds carry the
+    contact budgets of `scale_contact_budgets(model, 5)`: the blocks world
+    15 box-box and 5 plane-box pairs, the table-setting world five meshes of
+    64 hull verts each and 25 pairs (5 box-mesh, 10 mesh-mesh, 10
+    plane-mesh)."""
     tool = _snapshot_tool()
     model, fresh = tool.compile_snapshot(world)
     with np.load(tool.snapshot_path(world)) as z:
@@ -66,10 +68,14 @@ def test_world_snapshot_matches_fresh_compile(world):
     if world == "locked_like_hand":
         assert (c.nq, c.nv, len(c.collision_pairs)) == (24, 24, 0)
         return
+    assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (48, 56)
+    if world == "table_setting_like":
+        assert (c.nq, c.nv, c.nmesh, len(c.collision_pairs)) == (35, 30, 5, 25)
+        assert (np.asarray(fresh["model.mesh_convex_mask"]).sum(1) == 64).all()
+        return
     raw = compile_xml(blocks_settle_like.write(), dtype=jnp.float32)
     scaled = scale_contact_budgets(raw, blocks_settle_like.N_BLOCKS)
     assert (scaled.opt.ncon_active, scaled.opt.group_cap) == (48, 56)
-    assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (48, 56)
     assert (c.nq, c.nv, len(c.collision_pairs)) == (35, 30, 20)
 
 
@@ -104,6 +110,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import robogym_torch.physics.collision.boxbox_kernel\n"
         "import robogym_torch.physics.constraint, robogym_torch.physics.constraint_batched\n"
         "import robogym_torch.worlds.locked_like, robogym_torch.worlds.blocks_settle_like\n"
+        "import robogym_torch.worlds.table_setting_like\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
         "assert not bad, bad\n"
     )

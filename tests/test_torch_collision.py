@@ -1,5 +1,7 @@
 """The port's packed contact table against the JAX package's, on BALL_BOX
-(tests/test_constraint_batched.py) and on the locked-like world at B=4.
+(tests/test_constraint_batched.py), on the locked-like world and on the
+table-setting world at B=4, and the static pair grouping and slot layout
+against the JAX package's on every world.
 
 Both packages run their own position pass on the same state, so the
 broadphase scores agree to float32 rounding before both round them to
@@ -14,10 +16,12 @@ import numpy as np
 import pytest
 
 from _torch_common import (ball_box_models, ball_box_state, locked_like_models,
-                           locked_like_state, to_jax)
+                           locked_like_state, settle_state, snapshot_jax_model, snapshot_model,
+                           to_jax)
 from robogym_torch import bridge
 from robogym_torch.physics import step as t_step
 from robogym_torch.physics.collision import driver as t_driver
+from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
 from robogym_tpu.physics import step as j_step
 
 BIG = 1e10
@@ -79,6 +83,45 @@ def test_contact_table_matches_jax_ball_box():
 def test_contact_table_matches_jax_locked_like(seed):
     jmod, tm = locked_like_models()
     _run(jmod, tm, locked_like_state(tm, 4, seed=seed))
+
+
+def test_contact_table_matches_jax_table_setting():
+    """The table-setting world (five free meshes on the table top, the spoon
+    on the plate in the odd envs) after 40 substeps: box-mesh, mesh-mesh
+    and plane-mesh slots."""
+    tm, d = settle_state(4, world=table_setting_like)
+    _run(snapshot_jax_model(table_setting_like.SNAPSHOT), tm, d)
+
+
+@pytest.mark.parametrize("world", ["locked_like", "locked_like_hand", "blocks_settle_like",
+                                   "table_setting_like"])
+def test_pair_groups_and_slot_layout_match_jax(world):
+    """`build_groups` at the model's group cap: the same groups in the same
+    order (kind, geom types, contacts per pair, active budget K, geom ids,
+    condim), hence the same contact slot layout and winner rows as the JAX
+    package's `driver.build_groups`."""
+    from robogym_tpu.physics.collision import driver as j_driver
+
+    path = {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
+            "blocks_settle_like": blocks_settle_like.SNAPSHOT,
+            "table_setting_like": table_setting_like.SNAPSHOT}[world]
+    tm, jmod = snapshot_model(path), snapshot_jax_model(path)
+    cap = tm.opt.group_cap
+    assert cap == jmod.opt.group_cap
+    got, want = t_driver.build_groups(tm.const, cap), j_driver.build_groups(jmod.const, cap)
+    assert [(g["kind"], g["t1"], g["t2"], g["ncon"], g["K"]) for g in got] == \
+        [(g["kind"], g["t1"], g["t2"], g["ncon"], g["K"]) for g in want]
+    for g, w in zip(got, want):
+        for k in ("g1", "g2", "condim"):
+            np.testing.assert_array_equal(g[k], w[k])
+    assert t_driver.contact_slot_layout(tm.const, cap) == \
+        list(j_driver.contact_slot_layout(jmod.const, cap))
+    np.testing.assert_array_equal(t_driver.slot_winner_rows(tm.const, cap),
+                                  j_driver.slot_winner_rows(jmod.const, cap))
+    if world == "table_setting_like":
+        kinds = [(g["kind"], len(g["g1"]), g["ncon"], g["K"]) for g in got]
+        assert kinds == [("box_convex", 5, 4, 5), ("convex", 10, 4, 10),
+                         ("plane_convex", 10, 4, 9)]
 
 
 def test_deepest_k_breaks_bf16_ties_as_top_k():

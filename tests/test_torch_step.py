@@ -1,9 +1,10 @@
 """The port's physics substep against the JAX package's: one substep on
 the locked-like world, on BALL_BOX, on the goal-settle world (box-box pairs,
-no scalar row) and on the hand-only world (no contact slot: the unfused
-`forward_tail` and `euler`), <= 1e-4 abs on qpos and qvel; a 10-substep env
-step on the locked-like world and a 40-substep env step on the settle world
-at B=4, which must stay inside stated envelopes."""
+no scalar row), on the table-setting world (box-mesh, mesh-mesh and
+plane-mesh manifolds) and on the hand-only world (no contact slot: the
+unfused `forward_tail` and `euler`), <= 1e-4 abs on qpos and qvel; a
+10-substep env step on the locked-like world and a 40-substep env step on
+each goal-settle world at B=4, which must stay inside stated envelopes."""
 
 import jax
 import numpy as np
@@ -15,7 +16,7 @@ from _torch_common import (ball_box_models, ball_box_state, hand_state, jax_boxb
                            snapshot_jax_model, to_jax)
 from robogym_torch import bridge
 from robogym_torch.physics import step as t_step
-from robogym_torch.worlds import blocks_settle_like, locked_like
+from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
 from robogym_tpu.physics import step as j_step
 
 B = 4
@@ -86,33 +87,32 @@ def test_one_substep_matches_jax_settle():
     _one_substep(snapshot_jax_model(blocks_settle_like.SNAPSHOT), *settle_state(B))
 
 
+def test_one_substep_matches_jax_table_setting():
+    _one_substep(snapshot_jax_model(table_setting_like.SNAPSHOT),
+                 *settle_state(B, world=table_setting_like))
+
+
 def test_one_substep_matches_jax_hand():
     _one_substep(snapshot_jax_model(locked_like.HAND_SNAPSHOT), *hand_state(B), contacts=False)
 
 
-def test_env_step_matches_jax_settle():
-    """One env step of the goal settle: 40 substeps of 1 ms (a fifth of
-    blocks.py's 5 x 40), from blocks still landing, for seeds 0 to 2. The
-    one-substep test above is what holds the port's arithmetic to JAX (at
-    1e-4): box-box contact points moved by a tenth of their depth fail it
-    and pass this test. This one bounds the drift of a whole env step.
-    Over 40 substeps the blocks' rocking on the table and on each other is
-    chaotic (the table blocks' angular velocities drift by as much as
-    they are), so the
-    port is also run from start qvels nudged by 1e-6 (three draws), and
-    the drift from JAX is held to what a nudge gives: per seed, for the
-    blocks on the table and for the stacked top block, the largest error
-    in quaternion, linear and angular velocity at most twice the largest
-    nudged run's. Beside that, absolute envelopes: every block's position
-    2e-4 m; the blocks on the table: quaternion entries 1e-3, linear
-    velocity 1e-2 m/s, angular 0.4 rad/s; the stacked top block: 5e-3,
-    0.1 m/s and 5 rad/s. The drifts are printed (`-s`)."""
-    jmod = snapshot_jax_model(blocks_settle_like.SNAPSHOT)
-    top = np.zeros((B, 5), bool)
-    top[1::2, 1] = True                       # block 1 of the odd envs starts on block 0
-    envelope = {"on the table": (~top, (1e-3, 1e-2, 0.4)), "stacked top": (top, (5e-3, 0.1, 5.0))}
+def _env_step_drift(world, top, envelope, start=10):
+    """One env step of a goal settle, 40 substeps of 1 ms at B=4 from
+    `start` substeps after the objects' start (10: still landing), port
+    against JAX, for each seed. The port is also run from start qvels nudged by
+    1e-6 (three draws), and per group of objects the drift from JAX is held
+    to what a nudge gives: the largest error in quaternion, linear and
+    angular velocity at most twice the largest nudged run's. Beside that,
+    absolute envelopes: every object's position 2e-4 m, and per group
+    (quaternion entries, m/s, rad/s) as `envelope` says. The drifts are
+    printed (`-s`). `top` (B, 5) marks the objects resting on another
+    object, the rest lie on the table: envelope {group: limits}, the
+    table's group first."""
+    jmod = snapshot_jax_model(world.SNAPSHOT)
+    (on_table, table_lim), (stacked, stack_lim) = envelope.items()
+    groups = {on_table: (~top, table_lim), stacked: (top, stack_lim)}
     for seed in (0, 1, 2):
-        tm, d = settle_state(B, seed=seed, settle=10)
+        tm, d = settle_state(B, seed=seed, settle=start, world=world)
         jd = to_jax(d)
         for _ in range(40):
             jd = _jax_step(jmod)(jd)
@@ -124,20 +124,59 @@ def test_env_step_matches_jax_settle():
             nudge = 1e-6 * np.random.default_rng(5 + k).standard_normal(d.qvel.shape)
             dn = d.replace(qvel=d.qvel + torch.as_tensor(nudge.astype(np.float32)))
             runs[f"nudged port {k}"] = bridge.data_to_numpy(t_step.step_n(tm, dn, 40))
-        drift = {}                            # run: {blocks: (pos, quat, lin, ang)}
+        drift = {}                            # run: {group: (pos, quat, lin, ang)}
         for name, other in runs.items():
             dq = np.abs(td["qpos"] - other["qpos"]).reshape(B, 5, 7)
             dv = np.abs(td["qvel"] - other["qvel"]).reshape(B, 5, 6)
-            drift[name] = {blocks: tuple(float(x[..., sl][m_].max()) for x, sl in (
+            drift[name] = {g: tuple(float(x[..., sl][m_].max()) for x, sl in (
                 (dq, slice(0, 3)), (dq, slice(3, 7)), (dv, slice(0, 3)), (dv, slice(3, 6))))
-                for blocks, (m_, _) in envelope.items()}
-            for blocks, (pos, quat, lin, ang) in drift[name].items():
-                print(f"seed {seed}, port vs {name}, {blocks}: position {pos:.3g} m, quaternion "
-                      f"{quat:.3g}, velocity {lin:.3g} m/s, {ang:.3g} rad/s")
-        for blocks, (_, limits) in envelope.items():
-            pos, *got = drift["JAX"][blocks]
-            nudged = [max(drift[n][blocks][i + 1] for n in runs if n != "JAX") for i in range(3)]
-            assert pos <= 2e-4, (seed, blocks, pos)
-            for what, g, n, lim in zip(("quaternion", "velocity", "angular velocity"), got,
+                for g, (m_, _) in groups.items()}
+            for g, (pos, quat, lin, ang) in drift[name].items():
+                print(f"{world.__name__.rsplit('.', 1)[-1]} seed {seed}, port vs {name}, {g}: "
+                      f"position {pos:.3g} m, quaternion {quat:.3g}, velocity {lin:.3g} m/s, "
+                      f"{ang:.3g} rad/s")
+        for g, (_, limits) in groups.items():
+            pos, *got = drift["JAX"][g]
+            nudged = [max(drift[n][g][i + 1] for n in runs if n != "JAX") for i in range(3)]
+            assert pos <= 2e-4, (seed, g, pos)
+            for what, e, n, lim in zip(("quaternion", "velocity", "angular velocity"), got,
                                        nudged, limits):
-                assert g <= 2 * n and g <= lim, (seed, blocks, what, g, n, lim)
+                assert e <= 2 * n and e <= lim, (seed, g, what, e, n, lim)
+
+
+def test_env_step_matches_jax_settle():
+    """One env step of the goal settle: 40 substeps of 1 ms (a fifth of
+    blocks.py's 5 x 40), from blocks still landing, for seeds 0 to 2. The
+    one-substep test above is what holds the port's arithmetic to JAX (at
+    1e-4): box-box contact points moved by a tenth of their depth fail it
+    and pass this test. This one bounds the drift of a whole env step.
+    Over 40 substeps the blocks' rocking on the table and on each other is
+    chaotic (the table blocks' angular velocities drift by as much as
+    they are), so the drift from JAX is held to what a nudge gives
+    (`_env_step_drift`). Envelopes: the blocks on the table, quaternion
+    entries 1e-3, linear velocity 1e-2 m/s, angular 0.4 rad/s; the stacked
+    top block: 5e-3, 0.1 m/s and 5 rad/s."""
+    top = np.zeros((B, 5), bool)
+    top[1::2, 1] = True                       # block 1 of the odd envs starts on block 0
+    _env_step_drift(blocks_settle_like, top, {"on the table": (1e-3, 1e-2, 0.4),
+                                              "stacked top": (5e-3, 0.1, 5.0)})
+
+
+def test_env_step_matches_jax_table_setting():
+    """One env step of the table-setting goal settle, 40 substeps from the
+    state 40 substeps after the start (the objects landed, the spoon on the
+    plate in the odd envs), seeds 0 to 2, held as the blocks'
+    (`_env_step_drift`). The spoon rests on the plate on one contact point
+    (no plate vert lies under it, so the mesh-mesh manifold falls back to
+    the sweep's witness) and tips, and the objects rock on their feet, so
+    the step is chaotic: the port's drift from JAX reaches 1.79 times its
+    largest nudged drift (seed 0, the table objects' quaternions, on the
+    CPU). Envelopes, about three times the largest drift from JAX seen:
+    the objects on the table, quaternion entries 2e-3, linear velocity
+    2e-2 m/s, angular 0.2 rad/s; the spoon on the plate: 5e-3, 2e-2 m/s and
+    1 rad/s."""
+    top = np.zeros((B, 5), bool)
+    top[1::2, table_setting_like.SPOON] = True
+    _env_step_drift(table_setting_like, top, {"on the table": (2e-3, 2e-2, 0.2),
+                                              "spoon on the plate": (5e-3, 2e-2, 1.0)},
+                    start=40)

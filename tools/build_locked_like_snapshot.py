@@ -3,8 +3,10 @@ snapshots next to their modules in `robogym_torch/worlds/`:
 
   * `locked_like.npz`, the hand-and-cube world;
   * `locked_like_hand.npz`, its hand-only variant (no cube, no collision);
-  * `blocks_settle_like.npz`, the rearrange goal-settle world, with the
-    contact budgets `scale_contact_budgets(model, 5)` gives it.
+  * `blocks_settle_like.npz`, the rearrange goal-settle world, and
+    `table_setting_like.npz`, the table-setting goal-settle world of five
+    free meshes, each with the contact budgets `scale_contact_budgets(model,
+    5)` gives it.
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py
 
@@ -21,7 +23,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like")
+WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like")
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -29,14 +31,17 @@ def compile_snapshot(world: str = "locked_like"):
     import jax.numpy as jnp
 
     from robogym_torch.bridge import model_to_numpy
-    from robogym_torch.worlds import blocks_settle_like, locked_like
+    from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
+    from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
     from robogym_tpu.mjcf.compiler import compile_xml
 
     if world == "blocks_settle_like":
-        from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
-
         model = compile_xml(blocks_settle_like.write(), dtype=jnp.float32)
         model = scale_contact_budgets(model, blocks_settle_like.N_BLOCKS)
+    elif world == "table_setting_like":
+        with tempfile.TemporaryDirectory() as tmp:
+            model = compile_xml(table_setting_like.write(tmp), dtype=jnp.float32)
+        model = scale_contact_budgets(model, table_setting_like.N_OBJECTS)
     else:
         with tempfile.TemporaryDirectory() as tmp:
             xml = locked_like.write(tmp, hand_only=world == "locked_like_hand")
@@ -45,10 +50,11 @@ def compile_snapshot(world: str = "locked_like"):
 
 
 def snapshot_path(world: str) -> str:
-    from robogym_torch.worlds import blocks_settle_like, locked_like
+    from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
-            "blocks_settle_like": blocks_settle_like.SNAPSHOT}[world]
+            "blocks_settle_like": blocks_settle_like.SNAPSHOT,
+            "table_setting_like": table_setting_like.SNAPSHOT}[world]
 
 
 def main():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu`; their shared
-loop, `cg_common.cuh`) and in the box-box kernel (E, `boxbox.cu`), and show
+loop, `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`) and in the
+world-vertex branch of the hull kernels (G and H, `hull_sweep.cu`), and show
 whether the checks that `chip_smoke.py` holds each kernel to catch them.
 
     python3 tools/cg_fault_check.py
@@ -8,13 +9,15 @@ whether the checks that `chip_smoke.py` holds each kernel to catch them.
 Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
 does, at B=1024: B's from one substep of the locked-like world, F's from one
 substep of the hand-only world, E's from one substep of the goal-settle
+world, G's and H's from the locked-like substep's hull winners placed in the
 world. Then, for the sound sources and for each fault below, it copies
 `robogym_torch/csrc/` into a temporary directory, plants the fault in the
 copy (the checkout's sources are never changed), builds the copy there, and
-prints the readings of `chip_smoke.cg_readings` or
-`chip_smoke.boxbox_readings` for it and whether the check passes. The sound
-sources must pass all three checks and each fault must fail the check of
-its kernel; otherwise the script exits non-zero.
+prints the readings of `chip_smoke.cg_readings`,
+`chip_smoke.boxbox_readings` or `chip_smoke.hull_readings` (with
+`chip_smoke.world_vs_local`) for it and whether the check passes. The sound
+sources must pass every check and each fault must fail the checks of its
+kernels; otherwise the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -28,19 +31,24 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# name: (file, text in it, its faulty replacement, the kernel whose check runs)
+CHECKED = ("cg_full", "cg", "boxbox", "hull_pair_world", "hull_manifold_world")
+# name: (file, text in it, its faulty replacement, the kernels whose checks run)
 FAULTS = {
     "sound": None,
     "one_fewer_iteration": ("cg_full.cu", "cg_iterate(s, E, V, p.iterations);",
-                            "cg_iterate(s, E, V, p.iterations - 1);", "cg_full"),
+                            "cg_iterate(s, E, V, p.iterations - 1);", ("cg_full",)),
     "scale_0.125_dropped": ("cg_common.cuh", "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};",
-                            "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.5f};", "cg_full"),
+                            "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.5f};", ("cg_full",)),
     "facet_sign": ("cg_full.cu", "return (k % 2 == 0) ? Jn + mu * Jt : Jn - mu * Jt;",
-                   "return (k % 2 == 0) ? Jn + mu * Jt : Jn + mu * Jt;", "cg_full"),
+                   "return (k % 2 == 0) ? Jn + mu * Jt : Jn + mu * Jt;", ("cg_full",)),
     "cg_one_fewer_iteration": ("cg.cu", "cg_iterate(s, E, V, p.iterations);",
-                               "cg_iterate(s, E, V, p.iterations - 1);", "cg"),
+                               "cg_iterate(s, E, V, p.iterations - 1);", ("cg",)),
     "boxbox_corner_sign": ("boxbox.cu", "(c & 1) ? 1.0f : -1.0f};",
-                           "(c & 1) || c == 6 ? 1.0f : -1.0f};", "boxbox"),
+                           "(c & 1) || c == 6 ? 1.0f : -1.0f};", ("boxbox",)),
+    # the world-vertex branch reads y and z of each vert swapped; the local
+    # branch overwrites the vert with its transform, so C and D stay sound
+    "world_vert_yz_swapped": ("hull_sweep.cu", "V3 w{l0, l1, l2};", "V3 w{l0, l2, l1};",
+                              ("hull_pair_world", "hull_manifold_world")),
 }
 
 
@@ -65,9 +73,11 @@ def build_variant(tmp: str, name: str, fault) -> None:
 
 def capture(chip_smoke):
     """Each checked kernel's inputs at B=1024: {"cg_full": (args_of,
-    iterations), "cg": (args_of, iterations), "boxbox": args}."""
+    iterations), "cg": (args_of, iterations), "boxbox": args,
+    "hull_pair_world": (local operands, DX), "hull_manifold_world": (local
+    operands, DX)}."""
     from robogym_torch.physics import cg_kernel, step
-    from robogym_torch.physics.collision import boxbox_kernel
+    from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
     world = chip_smoke.worlds()
     state = {name: chip_smoke.start_states(m, arrays, chip_smoke.BATCH, chip_smoke.SEED, **kw)
@@ -77,7 +87,12 @@ def capture(chip_smoke):
     mh, dh = world["hand"][0], state["hand"]
     fa = chip_smoke.capture_call(cg_kernel, "cg", lambda: step.step(mh, dh))
     ms, ds = world["settle"][0], state["settle"]
+    m, d = world["locked_like"][0], state["locked_like"]
+    hull = {name + "_world": chip_smoke.capture_call(convex_kernel, name,
+                                                    lambda: step.fwd_position(m, d))
+            for name in ("hull_pair", "hull_manifold")}
     return {
+        **{name: (args[:-1], args[-1]) for name, args in hull.items()},
         "cg_full": (lambda its: chip_smoke.cg_args(ci, its, nfacet), iterations),
         "cg": (lambda its: (*fa[:-1], its), fa[-1]),
         "boxbox": chip_smoke.capture_call(boxbox_kernel, "boxbox",
@@ -89,6 +104,17 @@ def readings(chip_smoke, kernel, inputs):
     """Print the check's readings for `kernel`; returns its failures."""
     from robogym_torch.physics.collision import boxbox_kernel
 
+    if kernel.endswith("_world"):
+        loc_args, DX = inputs
+        _, err, ties, total, failures = chip_smoke.hull_readings(
+            kernel, chip_smoke.to_world(loc_args), DX)
+        diff, off = chip_smoke.world_vs_local(kernel[:-len("_world")], loc_args, DX)
+        if off:
+            failures.append(f"differs from the local kernel on {off} pair slots")
+        print(f"  {kernel}: max abs err where the directions agree {err:.3g}; pairs on another "
+              f"direction {ties} of {total}; against the local kernel: max abs diff {diff:.3g}, "
+              f"{off} pair slots differ")
+        return failures
     if kernel == "boxbox":
         got, want = boxbox_kernel.boxbox(*inputs), boxbox_kernel.boxbox_plain(*inputs)
         err, ties, total, failures = chip_smoke.boxbox_readings(inputs, got, want)
@@ -128,7 +154,7 @@ def main() -> int:
         inputs = capture(chip_smoke)
         for name, fault in FAULTS.items():
             build_variant(tmp, name, fault)
-            kernels = ("cg_full", "cg", "boxbox") if fault is None else (fault[3],)
+            kernels = CHECKED if fault is None else fault[3]
             for kernel in kernels:
                 failures = readings(chip_smoke, kernel, inputs[kernel])
                 print(f"[{name}] {kernel} check "
