@@ -78,7 +78,7 @@ SETTLE_START = 40                 # substeps that settle the goal-settle worlds'
 FORWARD_CALLS = 10
 SEED = 0
 REPS = 50                         # launches per kernel timing
-HOLD_CYCLES_PER_REP = 400_000     # device cycles held per timed launch while the host queues them
+HOLD_CYCLES_PER_REP = 2_000_000   # device cycles held per timed launch while the host queues them
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
 CG_EARLY_TOL = 1e-4               # a CG kernel vs plain after 1 and 2 iterations, relative
@@ -148,10 +148,11 @@ def card_line() -> str:
 
 def timed_ms(fn, reps: int) -> float:
     """Mean device time of `fn` over `reps` calls after two warm-up calls.
-    The device first spins for about 0.2 ms a call (`torch.cuda._sleep`)
+    The device first spins for about 1 ms a call (`torch.cuda._sleep`)
     while the host queues the calls behind it, so the events time the
     device running them back to back, not the host's launch rate (a hull
-    wrapper's Python takes longer than its kernel)."""
+    wrapper's Python takes longer than its kernel, and a CG wrapper's
+    outlasted a 0.2 ms hold on a busy host)."""
     fn()
     fn()
     torch.cuda.synchronize()
@@ -367,10 +368,37 @@ def phase_cg(name, label, args_of, iterations, n_bytes_in, flops, reps):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_cg_full(label, ci, iterations, nfacet, reps):
-    """Kernel B on the fused core's inputs `ci` from one substep of a path."""
+def iteration_split(name, label, args_of, iterations, reps):
+    """Kernel `name`'s device time at 0, 1 and `iterations` CG iterations on
+    the same inputs, which separates its set-up (J, aref, the first
+    gradient, J^T f and the Euler update) from its loop."""
+    kern = wrapper(name)
+    t = {}
+    for its in (0, 1, iterations):
+        a = args_of(its)
+        t[its] = timed_ms(lambda: kern(*a), reps)
+    per_it = (t[iterations] - t[0]) / iterations
+    print(f"[{label}] kernel at 0 / 1 / {iterations} iterations: "
+          + " / ".join(f"{v:.4f}" for v in t.values())
+          + f" ms; set-up {t[0]:.4f} ms, {per_it:.5f} ms an iteration")
+    return t
+
+
+def occupancy_line(label, B, E, V, S, nfacet, euler):
+    """Kernel B's shared memory per env, its envs resident per SM by the
+    occupancy calculator, and the waves that B envs take on this card."""
     from robogym_torch import cuda
 
+    per_sm = cuda.cg_full_blocks_per_sm(E, V, euler)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(per_sm > 0, f"{label}: no env of kernel B fits on an SM")
+    print(f"[{label}] B={B} E={E} V={V} S={S} F={nfacet}: one warp per env, smem/env "
+          f"{cuda.cg_full_smem_bytes(E, V, euler)} B, {per_sm} envs/SM x {sms} SMs = "
+          f"{per_sm * sms} resident, {B / (per_sm * sms):.2f} waves at B={B}")
+
+
+def phase_cg_full(label, ci, iterations, nfacet, reps):
+    """Kernel B on the fused core's inputs `ci` from one substep of a path."""
     rows = ci["rows"]
     B, n_s, V = rows["Js"].shape
     S = rows["off1"].shape[1]
@@ -379,16 +407,16 @@ def phase_cg_full(label, ci, iterations, nfacet, reps):
     n_in = nbytes(*rows.values(), *ci["maps"].values(), *args[5:12]) + 4 * E + 4
     flops = B * cg_flops(E, V, iterations, build=contact_build_flops(S, nfacet, V), qs=True,
                          euler=True)
-    print(f"[{label}] B={B} E={E} V={V} S={S} F={nfacet}, smem/block "
-          f"{cuda.cg_smem_bytes(E, V, 4)} B")
-    return phase_cg("cg_full", label, lambda its: cg_args(ci, its, nfacet), iterations,
-                    n_in, flops, reps)
+    occupancy_line(label, B, E, V, S, nfacet, True)
+    r = phase_cg("cg_full", label, lambda its: cg_args(ci, its, nfacet), iterations,
+                 n_in, flops, reps)
+    iteration_split("cg_full", label, lambda its: cg_args(ci, its, nfacet), iterations, reps)
+    return r
 
 
 def phase_cg_noeuler(si, reps):
     """Kernel B without the Euler update, on the inputs `solve_core` took
     in one forward()."""
-    from robogym_torch import cuda
     from robogym_torch.physics import constraint_batched
 
     kind_s, iterations, nfacet, *args = si
@@ -405,10 +433,11 @@ def phase_cg_noeuler(si, reps):
     n_in = nbytes(*rows.values(), *ci["maps"].values(), ci["qM"], Minv, ci["qvel"], qs, x0)
     n_in += 4 * E
     flops = B * cg_flops(E, V, iterations, build=contact_build_flops(S, nfacet, V))
-    print(f"[B cg_full_noeuler] B={B} E={E} V={V} S={S} F={nfacet}, smem/block "
-          f"{cuda.cg_smem_bytes(E, V, 2)} B")
-    return phase_cg("cg_full_noeuler", "B cg_full_noeuler", args_of, iterations, n_in, flops,
-                    reps)
+    occupancy_line("B cg_full_noeuler", B, E, V, S, nfacet, False)
+    r = phase_cg("cg_full_noeuler", "B cg_full_noeuler", args_of, iterations, n_in, flops,
+                 reps)
+    iteration_split("cg_full_noeuler", "B cg_full_noeuler", args_of, iterations, reps)
+    return r
 
 
 def phase_cg_prebuilt(fa, reps):

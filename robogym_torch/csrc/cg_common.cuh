@@ -1,7 +1,9 @@
-// The constraint CG solve that kernels B (cg_full.cu) and F (cg.cu) share:
-// M^-1-preconditioned Polak-Ribiere+ nonlinear CG with the frozen-active-set
-// Newton line search, as robogym_tpu/physics/cg_kernel.py runs it in both
-// _cg_full_kernel and _cg_kernel (the loop body and _line_search_step).
+// The constraint CG solve of kernel F (cg.cu): M^-1-preconditioned
+// Polak-Ribiere+ nonlinear CG with the frozen-active-set Newton line
+// search, as robogym_tpu/physics/cg_kernel.py runs it in _cg_kernel (the
+// loop body and _line_search_step). Kernel B (cg_full.cu, one warp per env)
+// has its own loop and takes only the row arithmetic (force_of,
+// penalty_of), warp_sum and row_stride from here.
 //
 // One thread block per env. The caller puts J (E x V, odd row stride Vs), M
 // and M^-1 (V x Vs) and the per-row weights in shared memory, sets x to the

@@ -7,29 +7,62 @@
 // _build_rows and _line_search_step) in its two variants: with the Euler
 // update, qacc_smooth and the warmstart (step's fused solve, entry point
 // robogym_cg_full), and without them, qacc_smooth and the warmstart given
-// (forward()'s solve, robogym_cg_full_noeuler). The CG loop itself is in
-// cg_common.cuh, which kernel F (cg.cu) shares.
+// (forward()'s solve, robogym_cg_full_noeuler).
 //
 // Bound on this card: per env the kernel reads about 40 KB (the four
 // (V, V) matrices, the gathered contact data, the row maps) and writes a
 // few hundred bytes, and does about 15 * 6 * E * V flops, so the roofline
-// bound is tens of microseconds at B=1024. What bounds a simple kernel is
-// the chain of dependent steps: 15 iterations of a handful of matvecs and
-// block reductions, each closed by a barrier.
+// bound is about ten microseconds at B=1024. What bounds it is the chain of
+// dependent steps in each env's solve: 15 iterations of matvecs and
+// reductions, each of which needs the one before, and in the set-up the
+// latency of its loads from device memory.
 //
-// Design: one thread block per env. J (E x V, built here from the gathered
-// contact data exactly as the plain version builds it, contact-major and
-// facet-minor; a model with no scalar rows has n_s = 0), M, M^-1 and, with
-// the Euler update, M + dt*D and its inverse stay in shared memory for the
-// whole solve, with an odd row stride so that one thread per row reads
-// without bank conflicts.
+// Design: one warp per env (a block of 32 threads, blockIdx.x = env), so
+// that no step of the solve waits on a block barrier, and B=1024 envs are
+// resident at once: reductions are butterfly shuffles, which leave the
+// same sum in every lane, and lanes exchange data through shared memory
+// behind __syncwarp.
+//  - Lane = dof: lane i holds dofs i, i + 32, ... (DPL a lane, 1, 2, 4 or
+//    8, so V <= 256) of every per-dof vector in registers; M v and M^-1 v
+//    take row i in lane i and v_j by shuffle. For V <= 32 the rows of M and
+//    M^-1 live in registers, staged through J's region with coalesced
+//    loads; above that the two matrices stay in shared memory.
+//  - Lane = rows r = lane (mod 32): jar, J p, D and the friction loss of
+//    the first R rows a lane (a template parameter) live in registers, with
+//    the row kinds packed two bits a row; the rest in shared memory.
+//  - J (E x V; n_s may be 0) is the only per-env array in shared memory for
+//    V <= 32. It is stored by column, with an odd column stride CS = 32 n +
+//    1 (n row slots a lane, at least ceil(E / 32)) and rows E..CS - 2 zero:
+//    J p (lane = row) reads the lane's rows of one column at compile-time
+//    offsets 32 k, p_v by shuffle; J^T f (lane = dof) walks its own column
+//    against the row forces in shared memory, in eight partial sums in a
+//    fixed order, so runs are deterministic. Both are free of bank
+//    conflicts.
+//  - J is built once per contact: lane = dof loads its cdof row once; lane
+//    l loads contact l's offsets, frame and friction of each 32 contacts,
+//    which reach the other lanes by shuffle; the dof masks are loaded a few
+//    contacts at a time; each contact's relative Jacobian and frame
+//    projections are computed once and give its F facet entries, each
+//    with the plain version's expression (`contact_rows`).
+//  - Loads from device memory are issued in batches, so that the set-up
+//    waits on a few load latencies, not on one per contact or row.
+//  - The Euler update stages M + dt*D and its inverse through J's region
+//    after the last J^T f.
+// The arithmetic of every row and dof is cg_common.cuh's (kernel F's),
+// which follows the plain version; only the order of the sums differs.
 
 #include "cg_common.cuh"
 
 namespace {
 
-using namespace cg_common;
+using cg_common::force_of;
+using cg_common::penalty_of;
+using cg_common::row_stride;
+using cg_common::RowW;
+using cg_common::warp_sum;
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxV = 256;
 constexpr int kEq = 0;
 constexpr int kOneSided = 1;
 constexpr int kFriction = 2;
@@ -51,7 +84,7 @@ struct Params {
   const float* floss;
   const float* M;         // (B, V, V)
   const float* Minv;
-  const float* Mimp;      // with the Euler update only
+  const float* Mimp;      // with the Euler update only (null without)
   const float* Minv_imp;
   const float* qvel;      // (B, V)
   const float* qfrc_smooth;  // with the Euler update
@@ -68,167 +101,670 @@ struct Params {
   int n_s, S, F, V, iterations;
 };
 
-// One pyramid facet entry of the contact rows (the plain contact_rows).
-__device__ float facet_entry(const Params& p, int b, int s, int k, int v) {
-  const int S = p.S, V = p.V, F = p.F;
-  const float* cd = p.cdof + ((size_t)b * V + v) * 6;
-  const float a0 = cd[0], a1 = cd[1], a2 = cd[2];
-  const float l0 = cd[3], l1 = cd[4], l2 = cd[5];
-  const float* o1 = p.off1 + ((size_t)b * S + s) * 3;
-  const float* o2 = p.off2 + ((size_t)b * S + s) * 3;
-  const float mm1 = p.m1[((size_t)b * S + s) * V + v];
-  const float mm2 = p.m2[((size_t)b * S + s) * V + v];
-  const float* fr = p.frame + ((size_t)b * S + s) * 9;
-  const float* fc = p.fric + ((size_t)b * S + s) * 5;
-  // jac = (lin + cross(ang, off)) * mask
-  const float j10 = (l0 + (a1 * o1[2] - a2 * o1[1])) * mm1;
-  const float j11 = (l1 + (a2 * o1[0] - a0 * o1[2])) * mm1;
-  const float j12 = (l2 + (a0 * o1[1] - a1 * o1[0])) * mm1;
-  const float j20 = (l0 + (a1 * o2[2] - a2 * o2[1])) * mm2;
-  const float j21 = (l1 + (a2 * o2[0] - a0 * o2[2])) * mm2;
-  const float j22 = (l2 + (a0 * o2[1] - a1 * o2[0])) * mm2;
-  const float r0 = j20 - j10, r1 = j21 - j11, r2 = j22 - j12;
-  const float Jn = (fr[0] * r0 + fr[1] * r1) + fr[2] * r2;
-  if (F == 1) return Jn;
-  if (k < 4) {
-    const int row = k < 2 ? 1 : 2;
-    const float Jt = (fr[3 * row] * r0 + fr[3 * row + 1] * r1) + fr[3 * row + 2] * r2;
-    const float mu = fc[k < 2 ? 0 : 1];
-    return (k % 2 == 0) ? Jn + mu * Jt : Jn - mu * Jt;
-  }
-  const float dm = mm2 - mm1;
-  const float q0 = a0 * dm, q1 = a1 * dm, q2 = a2 * dm;
-  const int row = k < 6 ? 0 : (k < 8 ? 1 : 2);
-  const float Jr = (fr[3 * row] * q0 + fr[3 * row + 1] * q1) + fr[3 * row + 2] * q2;
-  const float mu = fc[k < 6 ? 2 : (k < 8 ? 3 : 4)];
-  return (k % 2 == 0) ? Jn + mu * Jr : Jn - mu * Jr;
+// Rows a lane keeps in registers: all of them, up to 8, for V <= 32.
+__host__ __device__ inline int reg_rows(int E, int V) {
+  const int nk = (E + 31) / 32;
+  if (V <= 32) return nk < 1 ? 1 : nk > 8 ? 8 : nk;
+  return V <= 64 ? 8 : 4;
 }
 
-template <bool kEuler>
-__global__ void __launch_bounds__(kThreads) cg_full_kernel(Params p) {
+// Shared memory of one env, in floats: J's region (J by column, and at
+// least 2 V rows of stride Vs where it stages two (V, V) matrices: M and
+// M^-1 for V <= 32, and the Euler update's), the two matrices for V > 32,
+// the row forces, and the rows past the register rows (5 values each).
+struct Layout {
+  int Vs, nk, CS, nspill;
+  size_t mats, f, spill, total;
+};
+
+__host__ __device__ inline Layout layout(int E, int V, bool euler) {
+  Layout l;
+  l.Vs = row_stride(V);
+  l.nk = (E + 31) / 32;
+  const int R = reg_rows(E, V);
+  l.CS = 32 * (l.nk > R ? l.nk : R) + 1;
+  l.nspill = l.nk > R ? l.nk - R : 0;
+  const size_t jsize = (size_t)V * l.CS;
+  const size_t staged = (euler || V <= 32) ? 2 * (size_t)V * l.Vs : 0;
+  l.mats = jsize > staged ? jsize : staged;
+  l.f = l.mats + (V > 32 ? 2 * (size_t)V * l.Vs : 0);
+  l.f = (l.f + 3) / 4 * 4;  // 16-byte aligned for float4 reads
+  l.spill = l.f + (E + 3) / 4 * 4;
+  l.total = l.spill + 5 * 32 * (size_t)l.nspill;
+  return l;
+}
+
+// Copies the (V, V) matrices a and b into rows [0, V) and [V, 2V) of dst
+// (row stride Vs), coalesced, 16 loads a lane in flight.
+__device__ __forceinline__ void stage_pair(float* dst, const float* a, const float* b, int V,
+                                           int Vs) {
+  constexpr int kBatch = 8;
+  const int n = V * V;
+  for (int base = threadIdx.x; base < n; base += 32 * kBatch) {
+    float ra[kBatch], rb[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + 32 * u;
+      ra[u] = idx < n ? a[idx] : 0.0f;
+      rb[u] = idx < n ? b[idx] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + 32 * u;
+      if (idx >= n) break;
+      const int i = idx / V, j = idx - i * V;
+      dst[i * Vs + j] = ra[u];
+      dst[(V + i) * Vs + j] = rb[u];
+    }
+  }
+}
+
+template <int DPL>
+__device__ __forceinline__ void load_vec(const float* src, float (&v)[DPL], int V) {
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) {
+    const int i = threadIdx.x + 32 * q;
+    v[q] = i < V ? src[i] : 0.0f;
+  }
+}
+
+template <int DPL>
+__device__ __forceinline__ void store_vec(float* dst, const float (&v)[DPL], int V) {
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) {
+    const int i = threadIdx.x + 32 * q;
+    if (i < V) dst[i] = v[q];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void warp_sums(float (&v)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
+}
+
+// out = A v for A in shared memory (row stride Vs): lane row i = lane +
+// 32 q, v_j by shuffle; 0 in the rows past V.
+template <int DPL>
+__device__ __forceinline__ void smem_matvec(const float* A, const float (&v)[DPL],
+                                            float (&out)[DPL], int V, int Vs) {
+  const int lane = threadIdx.x;
+  float acc[DPL];
+  const float* row[DPL];
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) {
+    acc[q] = 0.0f;
+    const int i = lane + 32 * q;
+    row[q] = A + (i < V ? i : 0) * Vs;
+  }
+#pragma unroll
+  for (int q2 = 0; q2 < DPL; ++q2) {
+    if (32 * q2 >= V) break;
+    const int n = V - 32 * q2 < 32 ? V - 32 * q2 : 32;
+#pragma unroll 2
+    for (int j2 = 0; j2 < n; ++j2) {
+      const float vj = __shfl_sync(kFull, v[q2], j2);
+#pragma unroll
+      for (int q = 0; q < DPL; ++q) acc[q] += row[q][32 * q2 + j2] * vj;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) out[q] = lane + 32 * q < V ? acc[q] : 0.0f;
+}
+
+// A (V, V) matrix that the solve applies: in shared memory for V > 32 ...
+template <int DPL>
+struct Mat {
+  const float* a;
+  __device__ __forceinline__ void load(const float* staged, int, int) { a = staged; }
+  __device__ __forceinline__ void apply(const float (&v)[DPL], float (&out)[DPL], int V,
+                                        int Vs) const {
+    smem_matvec<DPL>(a, v, out, V, Vs);
+  }
+};
+
+// ... and for V <= 32 row `lane` in registers, zero past V.
+template <>
+struct Mat<1> {
+  float r[32];
+  __device__ __forceinline__ void load(const float* staged, int V, int Vs) {
+    const int lane = threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) r[j] = (lane < V && j < V) ? staged[lane * Vs + j] : 0.0f;
+  }
+  __device__ __forceinline__ void apply(const float (&v)[1], float (&out)[1], int V, int) const {
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      a0 += r[j] * __shfl_sync(kFull, v[0], j);
+      a1 += r[j + 1] * __shfl_sync(kFull, v[0], j + 1);
+    }
+    out[0] = (int)threadIdx.x < V ? a0 + a1 : 0.0f;
+  }
+};
+
+// A row's weights from its D, friction loss and kind (D masked by kind).
+__device__ __forceinline__ RowW weights(float D, float fl, int kd) {
+  return RowW{kd == kEq ? D : 0.0f, kd == kOneSided ? D : 0.0f, kd == kFriction ? D : 0.0f, fl};
+}
+
+// The lane's row slots k (row lane + 32 k): the first R in registers, the
+// kinds two bits a slot; the others in shared memory, value k of spilled
+// slot c at [c * 32 + lane] of each array. Slots past E hold zeros.
+template <int R>
+struct Rows {
+  float jar[R], Jp[R], D[R], fl[R];
+  int kinds;
+};
+
+struct Spill {
+  float *jar, *Jp, *D, *fl;
+  int* kind;
+};
+
+// fn(k, jar, Jp, w) on each of the lane's row slots, jar and Jp writable.
+template <int R, class Fn>
+__device__ __forceinline__ void for_rows(Rows<R>& rs, const Spill& sp, int nk, Fn&& fn) {
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    fn(k, rs.jar[k], rs.Jp[k], weights(rs.D[k], rs.fl[k], (rs.kinds >> (2 * k)) & 3));
+  for (int k = R; k < nk; ++k) {
+    const int i = (k - R) * 32 + threadIdx.x;
+    float jar = sp.jar[i], jp = sp.Jp[i];
+    fn(k, jar, jp, weights(sp.D[i], sp.fl[i], sp.kind[i]));
+    sp.jar[i] = jar;
+    sp.Jp[i] = jp;
+  }
+}
+
+// out = J v on the lane's row slots (J by column, stride CS), v_j by
+// shuffle, each column's value used for every register row.
+template <int DPL, int R>
+__device__ __forceinline__ void j_times(const float* J, int CS, int V, int nk,
+                                        const float (&v)[DPL], float (&out)[R], float* spill) {
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < R; ++k) out[k] = 0.0f;
+  const float* col = J + lane;
+#pragma unroll
+  for (int q2 = 0; q2 < DPL; ++q2) {
+    if (32 * q2 >= V) break;
+    const int n = V - 32 * q2 < 32 ? V - 32 * q2 : 32;
+#pragma unroll 2
+    for (int j2 = 0; j2 < n; ++j2) {
+      const float vj = __shfl_sync(kFull, v[q2], j2);
+#pragma unroll
+      for (int k = 0; k < R; ++k) out[k] += col[32 * k] * vj;
+      col += CS;
+    }
+  }
+  for (int k = R; k < nk; ++k) {
+    const float* c = J + lane + 32 * k;
+    float s = 0.0f;
+#pragma unroll
+    for (int q2 = 0; q2 < DPL; ++q2) {
+      if (32 * q2 >= V) break;
+      const int n = V - 32 * q2 < 32 ? V - 32 * q2 : 32;
+      for (int j2 = 0; j2 < n; ++j2) s += c[(32 * q2 + j2) * CS] * __shfl_sync(kFull, v[q2], j2);
+    }
+    spill[(k - R) * 32 + lane] = s;
+  }
+}
+
+// out = J^T f for the lane's dofs, f (E,) in shared memory, in a fixed
+// order: eight partial sums over the rows (r mod 8) for the whole blocks of
+// eight, folded into four, then a block of four and the last rows; 0 past
+// V.
+template <int DPL>
+__device__ __forceinline__ void jt_times(const float* J, const float* f, int E, int V, int CS,
+                                         float (&out)[DPL]) {
+  const int lane = threadIdx.x;
+  const float* col[DPL];
+  float a[DPL][4], b[DPL][4];  // rows r mod 8 < 4, and the other four
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) {
+    const int c = lane + 32 * q;
+    col[q] = J + (c < V ? c : 0) * CS;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a[q][u] = b[q][u] = 0.0f;
+  }
+  int r = 0;
+  for (; r + 8 <= E; r += 8) {
+    const float4 f0 = *reinterpret_cast<const float4*>(f + r);
+    const float4 f1 = *reinterpret_cast<const float4*>(f + r + 4);
+    const float fa[4] = {f0.x, f0.y, f0.z, f0.w}, fb[4] = {f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int q = 0; q < DPL; ++q) {
+        a[q][u] += col[q][r + u] * fa[u];
+        b[q][u] += col[q][r + 4 + u] * fb[u];
+      }
+  }
+#pragma unroll
+  for (int q = 0; q < DPL; ++q)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a[q][u] = a[q][u] + b[q][u];
+  if (r + 4 <= E) {
+    const float4 f0 = *reinterpret_cast<const float4*>(f + r);
+    const float fa[4] = {f0.x, f0.y, f0.z, f0.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int q = 0; q < DPL; ++q) a[q][u] += col[q][r + u] * fa[u];
+    r += 4;
+  }
+  for (; r < E; ++r) {
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) a[q][0] += col[q][r] * f[r];
+  }
+#pragma unroll
+  for (int q = 0; q < DPL; ++q)
+    out[q] = lane + 32 * q < V ? (a[q][0] + a[q][1]) + (a[q][2] + a[q][3]) : 0.0f;
+}
+
+// Facets k and k + 1 of a contact's rows (rows r and r + 1 of column col).
+__device__ __forceinline__ void put_pair(float* col, int k, float Jn, float mu, float Jt) {
+  col[k] = Jn + mu * Jt;
+  col[k + 1] = Jn - mu * Jt;
+}
+
+// One contact's offsets, frame (normal | tangent1 | tangent2) and friction.
+struct Contact {
+  float o1[3], o2[3], fr[9], fc[5];
+};
+
+// J by column: the scalar rows, the contact rows (contact-major and
+// facet-minor), and zeros in rows E..CS - 2; lane = dof.
+template <int DPL>
+__device__ __forceinline__ void build_j(const Params& p, float* J, int CS) {
+  constexpr int G = DPL < 8 ? 8 / DPL : 1;  // contacts whose dof masks load together
+  const int lane = threadIdx.x, b = blockIdx.x;
+  const int V = p.V, S = p.S, F = p.F, n_s = p.n_s;
+  const int E = n_s + S * F;
+  for (int idx = lane; idx < n_s * V; idx += 32) {
+    const int i = idx / V;
+    J[(idx - i * V) * CS + i] = p.Js[(size_t)b * n_s * V + idx];
+  }
+  float cd[DPL][6];
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) {
+    const int v = lane + 32 * q;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) cd[q][c] = v < V ? p.cdof[((size_t)b * V + v) * 6 + c] : 0.0f;
+    for (int r = E; r < CS - 1; ++r)
+      if (v < V) J[v * CS + r] = 0.0f;
+  }
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    // lane l holds contact s0 + l
+    Contact mine;
+    {
+      const int s = s0 + lane;
+      const bool ok = s < S;
+      const size_t bs = (size_t)b * S + (ok ? s : 0);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        mine.o1[c] = ok ? p.off1[bs * 3 + c] : 0.0f;
+        mine.o2[c] = ok ? p.off2[bs * 3 + c] : 0.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < 9; ++c) mine.fr[c] = ok ? p.frame[bs * 9 + c] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < 5; ++c) mine.fc[c] = ok ? p.fric[bs * 5 + c] : 0.0f;
+    }
+    const int n = S - s0 < 32 ? S - s0 : 32;
+    for (int g = 0; g < n; g += G) {
+      float mm1[G][DPL], mm2[G][DPL];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int q = 0; q < DPL; ++q) {
+          const int v = lane + 32 * q;
+          const bool ok = g + j < n && v < V;
+          const size_t at = ((size_t)b * S + s0 + g + j) * V + v;
+          mm1[j][q] = ok ? p.m1[at] : 0.0f;
+          mm2[j][q] = ok ? p.m2[at] : 0.0f;
+        }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (g + j >= n) break;
+        const int s = s0 + g + j;
+        Contact c;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          c.o1[i] = __shfl_sync(kFull, mine.o1[i], g + j);
+          c.o2[i] = __shfl_sync(kFull, mine.o2[i], g + j);
+        }
+#pragma unroll
+        for (int i = 0; i < 9; ++i) c.fr[i] = __shfl_sync(kFull, mine.fr[i], g + j);
+#pragma unroll
+        for (int i = 0; i < 5; ++i) c.fc[i] = __shfl_sync(kFull, mine.fc[i], g + j);
+        const float* o1 = c.o1;
+        const float* o2 = c.o2;
+        const float* fr = c.fr;
+        const float* fc = c.fc;
+#pragma unroll
+        for (int q = 0; q < DPL; ++q) {
+          const int v = lane + 32 * q;
+          if (v >= V) continue;
+          const float a0 = cd[q][0], a1 = cd[q][1], a2 = cd[q][2];
+          const float l0 = cd[q][3], l1 = cd[q][4], l2 = cd[q][5];
+          const float m1 = mm1[j][q], m2 = mm2[j][q];
+          // jac = (lin + cross(ang, off)) * mask
+          const float j10 = (l0 + (a1 * o1[2] - a2 * o1[1])) * m1;
+          const float j11 = (l1 + (a2 * o1[0] - a0 * o1[2])) * m1;
+          const float j12 = (l2 + (a0 * o1[1] - a1 * o1[0])) * m1;
+          const float j20 = (l0 + (a1 * o2[2] - a2 * o2[1])) * m2;
+          const float j21 = (l1 + (a2 * o2[0] - a0 * o2[2])) * m2;
+          const float j22 = (l2 + (a0 * o2[1] - a1 * o2[0])) * m2;
+          const float r0 = j20 - j10, r1 = j21 - j11, r2 = j22 - j12;
+          const float Jn = (fr[0] * r0 + fr[1] * r1) + fr[2] * r2;
+          float* col = J + v * CS + n_s + s * F;
+          if (F == 1) {
+            col[0] = Jn;
+            continue;
+          }
+          const float Jt1 = (fr[3] * r0 + fr[4] * r1) + fr[5] * r2;
+          const float Jt2 = (fr[6] * r0 + fr[7] * r1) + fr[8] * r2;
+          put_pair(col, 0, Jn, fc[0], Jt1);
+          put_pair(col, 2, Jn, fc[1], Jt2);
+          if (F < 6) continue;
+          // torsional and rolling rows: ang * (m2 - m1)
+          const float dm = m2 - m1;
+          const float q0 = a0 * dm, q1 = a1 * dm, q2 = a2 * dm;
+          put_pair(col, 4, Jn, fc[2], (fr[0] * q0 + fr[1] * q1) + fr[2] * q2);
+          if (F < 10) continue;
+          put_pair(col, 6, Jn, fc[3], (fr[3] * q0 + fr[4] * q1) + fr[5] * q2);
+          put_pair(col, 8, Jn, fc[4], (fr[6] * q0 + fr[7] * q1) + fr[8] * q2);
+        }
+      }
+    }
+  }
+}
+
+template <int DPL, int R>
+__global__ void __launch_bounds__(32) cg_full_kernel(Params p) {
   extern __shared__ float sm[];
-  const int b = blockIdx.x, t = threadIdx.x;
-  const int V = p.V, F = p.F, n_s = p.n_s;
-  const int E = n_s + p.S * F;
-  const int Vs = row_stride(V);
-  const Smem s = carve(sm, E, V, kEuler ? 4 : 2);
-  float* J = s.J;
-  float* M = s.mat;
-  float* Minv = M + V * Vs;
-  float* Mimp = Minv + V * Vs;
-  float* Minvimp = Mimp + V * Vs;
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const int V = p.V, n_s = p.n_s;
+  const int E = n_s + p.S * p.F;
+  const bool euler = p.Mimp != nullptr;
+  const Layout L = layout(E, V, euler);
+  const int Vs = L.Vs, nk = L.nk, CS = L.CS;
+  float* J = sm;
+  float* fs = sm + L.f;
+  const int ns = 32 * L.nspill;
+  float* sp0 = sm + L.spill;
+  const Spill sp{sp0, sp0 + ns, sp0 + 2 * ns, sp0 + 3 * ns, reinterpret_cast<int*>(sp0 + 4 * ns)};
+  const size_t bVV = (size_t)b * V * V, bV = (size_t)b * V, bE = (size_t)b * E;
 
-  const size_t bVV = (size_t)b * V * V;
-  for (int idx = t; idx < V * V; idx += kThreads) {
-    const int i = idx / V, j = idx % V;
-    M[i * Vs + j] = p.M[bVV + idx];
-    Minv[i * Vs + j] = p.Minv[bVV + idx];
-    if (kEuler) {
-      Mimp[i * Vs + j] = p.Mimp[bVV + idx];
-      Minvimp[i * Vs + j] = p.Minv_imp[bVV + idx];
-    }
-  }
-  for (int idx = t; idx < n_s * V; idx += kThreads) {
-    J[(idx / V) * Vs + idx % V] = p.Js[(size_t)b * n_s * V + idx];
-  }
-  for (int idx = t; idx < p.S * F * V; idx += kThreads) {
-    const int rc = idx / V, v = idx % V;
-    J[(n_s + rc) * Vs + v] = facet_entry(p, b, rc / F, rc % F, v);
-  }
-  const size_t bE = (size_t)b * E;
-  for (int r = t; r < E; r += kThreads) {
-    const int kd = p.kind[r];
-    const float D = p.active[bE + r] > 0.0f ? 1.0f / p.rcoef[bE + r] : 0.0f;
-    s.deq[r] = kd == kEq ? D : 0.0f;
-    s.done[r] = kd == kOneSided ? D : 0.0f;
-    s.dfr[r] = kd == kFriction ? D : 0.0f;
-    s.fl[r] = p.floss[bE + r];
-  }
-  const size_t bV = (size_t)b * V;
-  for (int i = t; i < V; i += kThreads) {
-    s.qv[i] = p.qvel[bV + i];
-    if (kEuler) {
-      s.gn[i] = p.qfrc_smooth[bV + i];
-      s.dx[i] = p.qacc_prev[bV + i];
-    } else {
-      s.qs[i] = p.qs_in[bV + i];
-      s.x[i] = p.x0[bV + i];
-    }
-  }
-  __syncthreads();
+  // M and M^-1: rows into registers through J's region (V <= 32), or into
+  // their own region
+  float* staged = DPL == 1 ? J : sm + L.mats;
+  stage_pair(staged, p.M + bVV, p.Minv + bVV, V, Vs);
+  __syncwarp();
+  Mat<DPL> M, Minv;
+  M.load(staged, V, Vs);
+  Minv.load(staged + V * Vs, V, Vs);
+  __syncwarp();
 
-  if (kEuler) {
+  float x[DPL], qs[DPL], qv[DPL];
+  load_vec(p.qvel + bV, qv, V);
+  if (euler) {
     // qacc_smooth = M^-1 qfrc_smooth; warmstart from qacc_prev when finite
-    float bad[1] = {0.0f};
-    for (int i = t; i < V; i += kThreads) {
-      s.qs[i] = dotn(Minv + i * Vs, s.gn, V);
-      p.qs[bV + i] = s.qs[i];
-      if (!(fabsf(s.dx[i]) < 1e10f)) bad[0] += 1.0f;
+    float qf[DPL], prev[DPL];
+    load_vec(p.qfrc_smooth + bV, qf, V);
+    load_vec(p.qacc_prev + bV, prev, V);
+    Minv.apply(qf, qs, V, Vs);
+    store_vec(p.qs + bV, qs, V);
+    bool bad = false;
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) bad |= !(fabsf(prev[q]) < 1e10f);
+    const bool finite = !__any_sync(kFull, bad);
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) x[q] = finite ? prev[q] : qs[q];
+  } else {
+    load_vec(p.qs_in + bV, qs, V);
+    load_vec(p.x0 + bV, x, V);
+  }
+
+  build_j<DPL>(p, J, CS);
+  __syncwarp();
+
+  // row weights; jar = J x0 - aref, aref = -bref * J qvel - kimp * pos
+  Rows<R> rs;
+  rs.kinds = 0;
+  j_times<DPL, R>(J, CS, V, nk, qv, rs.Jp, sp.Jp);
+  j_times<DPL, R>(J, CS, V, nk, x, rs.jar, sp.jar);
+  auto init = [&](int k, float& jar, float jqv, float& D, float& fl, int& kd) {
+    const int r = lane + 32 * k;
+    const bool ok = r < E;
+    const size_t at = bE + (ok ? r : 0);
+    const int kr = ok ? p.kind[r] : kOneSided;
+    const float act = ok ? p.active[at] : 0.0f, rc = ok ? p.rcoef[at] : 1.0f;
+    const float flr = ok ? p.floss[at] : 0.0f, br = ok ? p.bref[at] : 0.0f;
+    const float ki = ok ? p.kimp[at] : 0.0f, ps = ok ? p.pos[at] : 0.0f;
+    D = act > 0.0f ? 1.0f / rc : 0.0f;
+    fl = flr;
+    kd = kr;
+    const float aref = -br * jqv - ki * ps;
+    jar = ok ? jar - aref : 0.0f;
+  };
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    int kd;
+    init(k, rs.jar[k], rs.Jp[k], rs.D[k], rs.fl[k], kd);
+    rs.kinds |= (kd & 3) << (2 * k);
+  }
+  for (int k = R; k < nk; ++k) {
+    const int i = (k - R) * 32 + lane;
+    init(k, sp.jar[i], sp.Jp[i], sp.D[i], sp.fl[i], sp.kind[i]);
+  }
+
+  // g = M (x - qs) + J^T force(jar); Mg = M^-1 g; p = -Mg
+  float pd[DPL], g[DPL], Mg[DPL], gn[DPL], Mgn[DPL], Mp[DPL], dx[DPL], t[DPL];
+  for_rows(rs, sp, nk, [&](int k, float& j, float&, const RowW& w) {
+    const int r = lane + 32 * k;
+    if (r < E) fs[r] = force_of(j, w);
+  });
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) dx[q] = x[q] - qs[q];
+  __syncwarp();
+  jt_times<DPL>(J, fs, E, V, CS, gn);
+  M.apply(dx, t, V, Vs);
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) g[q] = t[q] + gn[q];
+  Minv.apply(g, Mg, V, Vs);
+#pragma unroll
+  for (int q = 0; q < DPL; ++q) pd[q] = -Mg[q];
+
+  const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};
+  for (int it = 0; it < p.iterations; ++it) {
+    j_times<DPL, R>(J, CS, V, nk, pd, rs.Jp, sp.Jp);
+    M.apply(pd, Mp, V, Vs);
+
+    // c1, c2, f0.Jp, deff.Jp.Jp, penalty at a = 0
+    float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) {
+      acc[0] += (x[q] - qs[q]) * Mp[q];
+      acc[1] += pd[q] * Mp[q];
     }
-    block_sum<1>(bad, s.red);
-    const bool finite = bad[0] == 0.0f;
-    for (int i = t; i < V; i += kThreads) s.x[i] = finite ? s.dx[i] : s.qs[i];
-    __syncthreads();
-  }
+    for_rows(rs, sp, nk, [&](int, float& j, float& jp, const RowW& w) {
+      const float neg = j < 0.0f ? 1.0f : 0.0f;
+      const float inside = fabsf(w.dfr * j) < w.floss ? 1.0f : 0.0f;
+      const float deff = (w.deq + w.done * neg) + w.dfr * inside;
+      acc[2] += force_of(j, w) * jp;
+      acc[3] += deff * jp * jp;
+      acc[4] += penalty_of(j, w);
+    });
+    warp_sums(acc);
+    const float c1 = acc[0], c2 = acc[1];
+    const float phi_p = c1 + acc[2];
+    const float phi_pp = fmaxf(c2 + acc[3], 1e-12f);
+    const float a1 = fminf(fmaxf(-phi_p / phi_pp, 0.0f), 2.0f);
+    const float pen0 = acc[4];
 
-  // jar = J x0 - aref, aref = -bref * J qvel - kimp * pos
-  for (int r = t; r < E; r += kThreads) {
-    const float* Jr = J + r * Vs;
-    const float aref = -p.bref[bE + r] * dotn(Jr, s.qv, V) - p.kimp[bE + r] * p.pos[bE + r];
-    s.jar[r] = dotn(Jr, s.x, V) - aref;
-  }
-  __syncthreads();
+    float pen[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for_rows(rs, sp, nk, [&](int, float& j, float& jp, const RowW& w) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pen[k] += penalty_of(j + (a1 * scales[k]) * jp, w);
+    });
+    warp_sums(pen);
+    float best_cost = 0.0f, best_a = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float a = a1 * scales[k];
+      const float dcost = a * c1 + 0.5f * a * a * c2 + pen[k] - pen0;
+      if (dcost < best_cost) {
+        best_cost = dcost;
+        best_a = a;
+      }
+    }
 
-  cg_iterate(s, E, V, p.iterations);
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) {
+      x[q] = x[q] + best_a * pd[q];
+      dx[q] = x[q] - qs[q];
+    }
+    __syncwarp();
+    for_rows(rs, sp, nk, [&](int k, float& j, float& jp, const RowW& w) {
+      j = j + best_a * jp;
+      const int r = lane + 32 * k;
+      if (r < E) fs[r] = force_of(j, w);
+    });
+    __syncwarp();
+    jt_times<DPL>(J, fs, E, V, CS, Mgn);
+    M.apply(dx, t, V, Vs);
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) gn[q] = t[q] + Mgn[q];
+    Minv.apply(gn, Mgn, V, Vs);
+    float nd[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) {
+      nd[0] += gn[q] * (Mgn[q] - Mg[q]);
+      nd[1] += g[q] * Mg[q];
+    }
+    warp_sums(nd);
+    const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) {
+      pd[q] = -Mgn[q] + beta * pd[q];
+      g[q] = gn[q];
+      Mg[q] = Mgn[q];
+    }
+  }
 
   // f = -force(jar), qfrc = J^T f
-  write_solution(s, E, V, p.f + bE, p.x + bV);
-  __syncthreads();
-  jt_apply(J, s.fr, s.gn, s.partial, E, V, Vs);
-  __syncthreads();
-  for (int i = t; i < V; i += kThreads) p.qfrc[bV + i] = s.gn[i];
+  __syncwarp();
+  for_rows(rs, sp, nk, [&](int k, float& j, float&, const RowW& w) {
+    const int r = lane + 32 * k;
+    if (r >= E) return;
+    const float fv = -force_of(j, w);
+    fs[r] = fv;
+    p.f[bE + r] = fv;
+  });
+  store_vec(p.x + bV, x, V);
+  __syncwarp();
+  jt_times<DPL>(J, fs, E, V, CS, t);
+  store_vec(p.qfrc + bV, t, V);
 
-  if (kEuler) {
-    // implicit-damping Euler: qacc = Mimp^-1 M x with one refinement step
-    for (int i = t; i < V; i += kThreads) s.Mp[i] = dotn(M + i * Vs, s.x, V);
-    __syncthreads();
-    for (int i = t; i < V; i += kThreads) s.Mg[i] = dotn(Minvimp + i * Vs, s.Mp, V);
-    __syncthreads();
-    for (int i = t; i < V; i += kThreads) s.dx[i] = s.Mp[i] - dotn(Mimp + i * Vs, s.Mg, V);
-    __syncthreads();
+  if (euler) {
+    // implicit-damping Euler: qacc = Mimp^-1 M x with one refinement step,
+    // M + dt*D and its inverse staged into J's region
+    __syncwarp();
+    stage_pair(J, p.Mimp + bVV, p.Minv_imp + bVV, V, Vs);
+    __syncwarp();
+    const float* Mimp = J;
+    const float* Minvimp = J + V * Vs;
+    M.apply(x, Mp, V, Vs);
+    smem_matvec<DPL>(Minvimp, Mp, Mg, V, Vs);
+    smem_matvec<DPL>(Mimp, Mg, t, V, Vs);
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) dx[q] = Mp[q] - t[q];
+    smem_matvec<DPL>(Minvimp, dx, t, V, Vs);
     const float dt = p.dt[0];
-    for (int i = t; i < V; i += kThreads) {
-      const float qacc_imp = s.Mg[i] + dotn(Minvimp + i * Vs, s.dx, V);
-      p.qvel_new[bV + i] = s.qv[i] + dt * qacc_imp;
+#pragma unroll
+    for (int q = 0; q < DPL; ++q) {
+      const float qacc_imp = Mg[q] + t[q];
+      t[q] = qv[q] + dt * qacc_imp;
     }
+    store_vec(p.qvel_new + bV, t, V);
   }
 }
 
-template <bool kEuler>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  if (p.V < 1 || p.V > kThreads || p.S < 0 || p.n_s < 0) return (int)cudaErrorInvalidValue;
-  const int E = p.n_s + p.S * p.F;
-  const size_t smem = smem_floats(E, p.V, kEuler ? 4 : 2) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(cg_full_kernel<kEuler>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+using KernelFn = void (*)(Params);
+
+KernelFn pick(int E, int V) {
+  if (V <= 32) {
+    switch (reg_rows(E, V)) {
+      case 1: return cg_full_kernel<1, 1>;
+      case 2: return cg_full_kernel<1, 2>;
+      case 3: return cg_full_kernel<1, 3>;
+      case 4: return cg_full_kernel<1, 4>;
+      case 5: return cg_full_kernel<1, 5>;
+      case 6: return cg_full_kernel<1, 6>;
+      case 7: return cg_full_kernel<1, 7>;
+      default: return cg_full_kernel<1, 8>;
+    }
   }
-  cg_full_kernel<kEuler><<<B, kThreads, smem, stream>>>(p);
+  if (V <= 64) return cg_full_kernel<2, 8>;
+  if (V <= 128) return cg_full_kernel<4, 4>;
+  return cg_full_kernel<8, 4>;
+}
+
+// The kernel for E rows and V dofs with its dynamic shared memory set, in
+// `smem` bytes; cudaErrorInvalidValue when V is out of range or the env's
+// arrays do not fit in one block's shared memory.
+cudaError_t configure(int E, int V, bool euler, KernelFn* fn, size_t* smem) {
+  if (V < 1 || V > kMaxV || E < 0) return cudaErrorInvalidValue;
+  *fn = pick(E, V);
+  *smem = layout(E, V, euler).total * sizeof(float);
+  if (*smem > cg_common::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)*smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+int launch(const Params& p, int B, cudaStream_t stream) {
+  if (p.S < 0 || p.n_s < 0) return (int)cudaErrorInvalidValue;
+  KernelFn fn;
+  size_t smem;
+  const cudaError_t e = configure(p.n_s + p.S * p.F, p.V, p.Mimp != nullptr, &fn, &smem);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<B, 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Dynamic shared memory one block of a CG kernel takes for E rows, V dofs
-// and nmat (V, V) matrices: 4 for cg_full, 2 for cg_full_noeuler and cg.
+// Dynamic shared memory one block of kernel F (cg.cu, cg_common.cuh's
+// layout) takes for E rows, V dofs and nmat (V, V) matrices (2).
 extern "C" long long robogym_cg_smem_bytes(int E, int V, int nmat) {
-  return (long long)(smem_floats(E, V, nmat) * sizeof(float));
+  return (long long)(cg_common::smem_floats(E, V, nmat) * sizeof(float));
+}
+
+// Dynamic shared memory of one env (one block) of kernel B for E rows and
+// V dofs, with the Euler update or without.
+extern "C" long long robogym_cg_full_smem_bytes(int E, int V, int euler) {
+  return (long long)(layout(E, V, euler != 0).total * sizeof(float));
+}
+
+// Envs (blocks) of kernel B resident on one SM for E rows and V dofs, with
+// the Euler update or without; a negative CUDA error code on failure.
+extern "C" int robogym_cg_full_blocks_per_sm(int E, int V, int euler) {
+  KernelFn fn;
+  size_t smem;
+  cudaError_t e = configure(E, V, euler != 0, &fn, &smem);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, 32, smem);
+  return e == cudaSuccess ? n : -(int)e;
 }
 
 // Both entry points return cudaErrorInvalidValue, and launch nothing, when
-// V > 256 or the system does not fit in one block's shared memory.
+// V > 256 or the env's arrays do not fit in one block's shared memory.
 extern "C" int robogym_cg_full(
     const float* Js, const float* off1, const float* off2, const float* frame, const float* fric,
     const float* m1, const float* m2, const float* cdof, const float* pos, const float* kimp,
@@ -237,10 +773,11 @@ extern "C" int robogym_cg_full(
     const float* qvel, const float* qfrc_smooth, const float* qacc_prev, const int* kind,
     const float* dt, float* x, float* f, float* qfrc, float* qvel_new, float* qs,
     int B, int n_s, int S, int F, int V, int iterations, cudaStream_t stream) {
+  if (Mimp == nullptr) return (int)cudaErrorInvalidValue;
   Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
            M, Minv, Mimp, Minv_imp, qvel, qfrc_smooth, qacc_prev, nullptr, nullptr, kind, dt,
            x, f, qfrc, qvel_new, qs, n_s, S, F, V, iterations};
-  return launch<true>(p, B, stream);
+  return launch(p, B, stream);
 }
 
 extern "C" int robogym_cg_full_noeuler(
@@ -253,5 +790,5 @@ extern "C" int robogym_cg_full_noeuler(
   Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
            M, Minv, nullptr, nullptr, qvel, nullptr, nullptr, qs, x0, kind, nullptr,
            x, f, qfrc, nullptr, nullptr, n_s, S, F, V, iterations};
-  return launch<false>(p, B, stream);
+  return launch(p, B, stream);
 }

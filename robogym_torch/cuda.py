@@ -114,6 +114,10 @@ def build() -> str:
         _lib.robogym_error_string.argtypes = [ctypes.c_int]
         _lib.robogym_cg_smem_bytes.restype = ctypes.c_longlong
         _lib.robogym_cg_smem_bytes.argtypes = [ctypes.c_int] * 3
+        _lib.robogym_cg_full_smem_bytes.restype = ctypes.c_longlong
+        _lib.robogym_cg_full_smem_bytes.argtypes = [ctypes.c_int] * 3
+        _lib.robogym_cg_full_blocks_per_sm.restype = ctypes.c_int
+        _lib.robogym_cg_full_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         for name, (n_ptr, n_int) in SIGNATURES.items():
             fn = getattr(_lib, "robogym_" + name)
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -122,11 +126,31 @@ def build() -> str:
 
 
 def cg_smem_bytes(E: int, V: int, nmat: int) -> int:
-    """Dynamic shared memory of one block of a CG kernel for a system of E
-    rows, V dofs and nmat (V, V) matrices (4 for `cg_full`, 2 for
-    `cg_full_noeuler` and `cg`), as the library computes it."""
+    """Dynamic shared memory of one block of kernel F (`cg`) for a system of
+    E rows, V dofs and nmat (2) (V, V) matrices, as the library computes
+    it."""
     build()
     return int(_lib.robogym_cg_smem_bytes(E, V, nmat))
+
+
+def cg_full_smem_bytes(E: int, V: int, euler: bool) -> int:
+    """Dynamic shared memory of one env (one block) of kernel B
+    (`cg_full` with `euler`, else `cg_full_noeuler`) for E rows and V
+    dofs."""
+    build()
+    return int(_lib.robogym_cg_full_smem_bytes(E, V, int(euler)))
+
+
+def cg_full_blocks_per_sm(E: int, V: int, euler: bool) -> int:
+    """Envs of kernel B (`cg_full` with `euler`, else `cg_full_noeuler`)
+    resident on one SM for E rows and V dofs, by the CUDA occupancy
+    calculator; raises on a CUDA error."""
+    build()
+    n = int(_lib.robogym_cg_full_blocks_per_sm(E, V, int(euler)))
+    if n < 0:
+        raise RuntimeError(f"cg_full_blocks_per_sm({E}, {V}, {euler}): CUDA error {-n} "
+                           f"({_lib.robogym_error_string(-n).decode()})")
+    return n
 
 
 def launch(name: str, *args) -> None:

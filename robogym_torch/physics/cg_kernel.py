@@ -70,12 +70,14 @@ def contact_rows(off1, off2, frame, fric, m1, m2, cdof, nfacet: int) -> torch.Te
     return torch.stack(facets, dim=2).reshape(B, S * nfacet, -1)
 
 
-def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
+def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, trace=None):
     """M^-1-preconditioned Polak-Ribière+ nonlinear CG on the soft-
     constraint cost with a frozen-active-set Newton line search (the JAX
     package's reference solve, `constraint._scan_cg_solve`), batched over a
     leading env axis: J (B, E, V), row vectors (B, E), M/Minv (B, V, V),
-    qs/x0 (B, V). Returns (qacc (B, V), efc_force (B, E))."""
+    qs/x0 (B, V). Returns (qacc (B, V), efc_force (B, E)). A list `trace`
+    gets each iteration's line search: the search direction (B, V), the
+    four costs (B, 4) of `LS_SCALES` and the step taken (B,)."""
 
     def force(jar):
         neg = (jar < 0).to(jar.dtype)
@@ -117,12 +119,16 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
         pen0 = penalty_cost(jar)
         best_cost = torch.zeros_like(c1)
         best_a = torch.zeros_like(c1)
+        dcosts = []
         for s in cl.LS_SCALES:
             a = a1 * s
             dcost = a * c1 + 0.5 * a * a * c2 + penalty_cost(jar + a[:, None] * Jp) - pen0
             take = dcost < best_cost
             best_cost = torch.where(take, dcost, best_cost)
             best_a = torch.where(take, a, best_a)
+            dcosts.append(dcost)
+        if trace is not None:
+            trace.append((p, torch.stack(dcosts, -1), best_a))
         x = x + best_a[:, None] * p
         jar = jar + best_a[:, None] * Jp
         g_new = grad(x, jar)
@@ -203,8 +209,8 @@ def _row_operands(kernel, kind, nfacet, rows, maps):
 def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
             qvel, qfrc_smooth, qacc_prev, dt):
     """The fused constraint solve; the CUDA kernel on CUDA tensors. The
-    launch raises when V > 256 or when J and the four (V, V) matrices do not
-    fit in one block's shared memory (227 KB; `cuda.cg_smem_bytes`)."""
+    launch raises when V > 256 or when an env's arrays do not fit in one
+    block's shared memory (227 KB; `cuda.cg_full_smem_bytes`)."""
     if M.device.type == "cpu":
         return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
                              qvel, qfrc_smooth, qacc_prev, dt)
@@ -231,8 +237,7 @@ def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
 def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0):
     """The constraint solve of `forward()`: kernel B without the Euler
     update, qacc_smooth `qs` and the warmstart `x0` given. Returns (x, f,
-    qfrc); the CUDA kernel on CUDA tensors, with `cg_full`'s limits (two
-    (V, V) matrices in shared memory)."""
+    qfrc); the CUDA kernel on CUDA tensors, with `cg_full`'s limits."""
     if M.device.type == "cpu":
         return cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
     from robogym_torch import cuda

@@ -1,0 +1,77 @@
+// Runs kernel B on the host, block after block, each block as 32 threads
+// (cuda_runtime.h here). `cg_full_host.cpp` is cg_full.cu with its launch
+// and its `extern __shared__` line taken out, written by the test.
+//
+//   run_cg_full IN OUT
+//
+// IN: 7 int32 (B, n_s, S, F, V, iterations, euler), then the 24 float
+// arrays of the kernel's Params up to dt, each an int64 count and its
+// float32 values (count 0 for a null pointer), then the row kinds (int64
+// count, int32 values). OUT: x, f, qfrc, qvel_new, qs as float32.
+#include <cstdint>
+#include <cstdio>
+#include <thread>
+#include <vector>
+
+extern float sm[];
+#include "cg_full_host.cpp"
+
+thread_local uint3 threadIdx, blockIdx;
+namespace host_warp {
+std::barrier<>* bar;
+float xf[32];
+int xi[32];
+}  // namespace host_warp
+float sm[1 << 16];
+
+static std::vector<float> read_floats(FILE* f) {
+  int64_t n = 0;
+  if (fread(&n, 8, 1, f) != 1) return {};
+  std::vector<float> v(n);
+  if (n && fread(v.data(), 4, n, f) != (size_t)n) v.clear();
+  return v;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 3) return 2;
+  FILE* f = fopen(argv[1], "rb");
+  if (!f) return 2;
+  int h[7];
+  if (fread(h, 4, 7, f) != 7) return 2;
+  const int B = h[0], n_s = h[1], S = h[2], F = h[3], V = h[4], its = h[5], euler = h[6];
+  std::vector<std::vector<float>> a;
+  for (int i = 0; i < 24; ++i) a.push_back(read_floats(f));
+  int64_t nk = 0;
+  if (fread(&nk, 8, 1, f) != 1) return 2;
+  std::vector<int> kind(nk);
+  if (nk && fread(kind.data(), 4, nk, f) != (size_t)nk) return 2;
+  fclose(f);
+  const int E = n_s + S * F;
+  std::vector<float> x(B * V), fo(B * E), qfrc(B * V), qvn(B * V), qs(B * V);
+  auto P = [&](int i) -> const float* { return a[i].empty() ? nullptr : a[i].data(); };
+  Params p{P(0),  P(1),  P(2),  P(3),  P(4),  P(5),  P(6),  P(7),  P(8),  P(9),  P(10), P(11),
+           P(12), P(13), P(14), P(15), P(16), P(17), P(18), P(19), P(20), P(21), P(22),
+           kind.data(), P(23), x.data(), fo.data(), qfrc.data(), qvn.data(), qs.data(),
+           n_s, S, F, V, its};
+  KernelFn fn;
+  size_t smem;
+  if (configure(E, V, euler != 0, &fn, &smem) != cudaSuccess || smem > sizeof(sm)) return 3;
+  for (size_t i = 0; i < smem / 4; ++i) sm[i] = std::nanf("");  // no read before a write
+  std::barrier<> bar(32);
+  host_warp::bar = &bar;
+  for (int b = 0; b < B; ++b) {
+    std::vector<std::thread> lanes;
+    for (int l = 0; l < 32; ++l)
+      lanes.emplace_back([&, l, b] {
+        threadIdx = {(unsigned)l, 0, 0};
+        blockIdx = {(unsigned)b, 0, 0};
+        fn(p);
+      });
+    for (auto& t : lanes) t.join();
+  }
+  FILE* o = fopen(argv[2], "wb");
+  if (!o) return 2;
+  for (const auto* v : {&x, &fo, &qfrc, &qvn, &qs}) fwrite(v->data(), 4, v->size(), o);
+  fclose(o);
+  return 0;
+}

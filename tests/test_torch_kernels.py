@@ -408,6 +408,99 @@ def test_solve_core_plain_matches_jax(world):
     assert (_np(got[2]) != 0).any(), "no constraint force: the state has no live rows"
 
 
+def _wide_core_inputs(batch=4, V=40, n_s=8, S=80, nfacet=4, seed=5):
+    """A seeded synthetic system for the fused core, wider than any world:
+    V=40 dofs (two a lane in kernel B) and E = n_s + S*nfacet = 328 rows
+    (past the 256 that kernel B keeps in registers), with an equality, two
+    friction and five limit rows and 80 contacts, about four in five live,
+    1 to 10 mm deep. Returns (kind_s, iterations, nfacet, numpy args) in
+    `fused_step_core`'s order."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    kind_s = np.array([0, 2, 2, 1, 1, 1, 1, 1], np.int32)[:n_s]
+    X = rng.standard_normal((batch, V, V))
+    qM = X @ X.transpose(0, 2, 1) / V + np.eye(V)
+    q, _ = np.linalg.qr(rng.standard_normal((batch * S, 3, 3)))
+    pos_s = np.where(kind_s == 1, rng.uniform(-0.05, 0.01, (batch, n_s)), 0.0)
+    args = [
+        rng.standard_normal((batch, n_s, V)) * 0.5,                      # J_s
+        pos_s,
+        np.tile([0.02, 1.0], (batch, n_s, 1)),                           # solref_s
+        np.tile([0.9, 0.95, 0.001, 0.5, 2.0], (batch, n_s, 1)),          # solimp_s
+        np.where(kind_s == 2, 0.1, 0.0) * np.ones((batch, n_s)),         # floss_s
+        np.where((kind_s != 1) | (pos_s < 0), 1.0, 0.0),                 # active_s
+        rng.uniform(0.5, 2.0, n_s),                                      # diagA_s
+        rng.standard_normal((batch, S, 3)) * 0.1,                        # pos_c
+        q.transpose(0, 2, 1).reshape(batch, S, 3, 3),                    # frame_c
+        rng.uniform(-0.01, -0.001, (batch, S)),                          # dist_c
+        np.zeros((batch, S)),                                            # margin_c
+        np.tile([1.0, 1.0, 0.005, 1e-4, 1e-4], (batch, S, 1)),           # fric_c
+        rng.random((batch, S)) < 0.8,                                    # act_c
+        np.full((batch, S), 3, np.int32),                                # cd_sel
+        rng.uniform(0.5, 2.0, (batch, S)),                               # iw_c
+        (rng.random((batch, S, V)) < 0.5).astype(f32),                   # mask1
+        (rng.random((batch, S, V)) < 0.5).astype(f32),                   # mask2
+        rng.standard_normal((batch, S, 3)) * 0.1,                        # rc1
+        rng.standard_normal((batch, S, 3)) * 0.1,                        # rc2
+        np.tile([0.02, 1.0], (batch, S, 1)),                             # solref_c
+        np.tile([0.9, 0.95, 0.001, 0.5, 2.0], (batch, S, 1)),            # solimp_c
+        rng.standard_normal((batch, V, 6)) * 0.3,                        # cdof
+        rng.standard_normal((batch, V)),                                 # qvel
+        qM,
+        rng.standard_normal((batch, V)),                                 # qfrc_smooth
+        rng.standard_normal((batch, V)),                                 # qacc_prev
+        rng.uniform(0.1, 1.0, (batch, V)),                               # damp
+        np.asarray(0.002),                                               # dt
+    ]
+    args = [a if a.dtype in (np.bool_, np.int32) else a.astype(f32) for a in map(np.asarray, args)]
+    return kind_s, 15, nfacet, args
+
+
+def test_fused_core_plain_matches_jax_wide():
+    """B at V=40 and E=328 (`_wide_core_inputs`): the plain core against
+    the JAX package's reference, with the tolerances of
+    test_fused_core_plain_matches_jax."""
+    import jax
+    import jax.numpy as jnp
+    from robogym_tpu.physics import constraint_batched as j_cb
+
+    kind_s, iterations, nfacet, args = _wide_core_inputs()
+    got = constraint_batched.reference(kind_s, iterations, nfacet,
+                                       *[torch.as_tensor(a) for a in args])
+    core = j_cb._make_core(kind_s.tobytes(), iterations, nfacet, True, True)
+    in_axes = [None if a.ndim == 0 or k == 6 else 0 for k, a in enumerate(args)]
+    want = jax.jit(jax.vmap(core, in_axes=in_axes))(*[jnp.asarray(a) for a in args])
+    tols = dict(qacc=1e-4, qfrc=1e-2, efc_force=1e-4, qvel_new=1e-4, qacc_smooth=1e-4)
+    for (name, tol), g, w in zip(tols.items(), got, want):
+        assert _rel(_np(g), w) <= tol, (name, _rel(_np(g), w))
+    assert (_np(got[2]) != 0).sum() > 100, "too few live rows"
+
+
+@pytest.mark.cuda
+def test_cuda_cg_full_wide():
+    """Kernel B with and without the Euler update at V=40 and E=328, two
+    dofs a lane and rows past the register rows, against its plain version
+    on the card, B=256 (`chip_smoke.cg_readings`: 1e-4 relative after 1 and
+    2 iterations, after 15 at most 2 times the plain version's float32
+    error against float64)."""
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    kind_s, its, nfacet, args = _wide_core_inputs(batch=256)
+    ci = constraint_batched.core_inputs(kind_s, nfacet,
+                                        *[torch.as_tensor(a, device="cuda") for a in args])
+    Minv = factor_kernel.spd_inverse_plain(ci["qM"])
+    qs = torch.linalg.solve(ci["qM"], ci["qfrc_smooth"][..., None])[..., 0]
+    runs = {"cg_full": lambda k: chip_smoke.cg_args(ci, k, nfacet),
+            "cg_full_noeuler": lambda k: (ci["kind"], k, nfacet, ci["rows"], ci["maps"], ci["qM"],
+                                          Minv, ci["qvel"], qs, ci["qacc_prev"])}
+    for name, args_of in runs.items():
+        errs, early, noise, failures = chip_smoke.cg_readings(name, args_of, its)
+        print(f"{name} at V=40, E=328: early {early}, after {its} {errs}, vs float64 {noise}")
+        assert not failures, failures
+
+
 def test_fused_core_plain_matches_jax_without_scalar_rows():
     """B with n_s = 0: the fused core on the settle world (48 contacts, 4
     facets, no scalar row) against the JAX package's reference, with the

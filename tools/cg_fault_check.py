@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu`; their shared
-loop, `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`) and in the
+"""Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu` and its loop
+in `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`) and in the
 world-vertex branch of the hull kernels (G and H, `hull_sweep.cu`), and show
 whether the checks that `chip_smoke.py` holds each kernel to catch them.
 
@@ -32,17 +32,19 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CHECKED = ("cg_full", "cg", "boxbox", "hull_pair_world", "hull_manifold_world")
+SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 # name: (file, text in it, its faulty replacement, the kernels whose checks run)
 FAULTS = {
     "sound": None,
-    "one_fewer_iteration": ("cg_full.cu", "cg_iterate(s, E, V, p.iterations);",
-                            "cg_iterate(s, E, V, p.iterations - 1);", ("cg_full",)),
-    "scale_0.125_dropped": ("cg_common.cuh", "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};",
-                            "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.5f};", ("cg_full",)),
-    "facet_sign": ("cg_full.cu", "return (k % 2 == 0) ? Jn + mu * Jt : Jn - mu * Jt;",
-                   "return (k % 2 == 0) ? Jn + mu * Jt : Jn + mu * Jt;", ("cg_full",)),
+    "one_fewer_iteration": ("cg_full.cu", "for (int it = 0; it < p.iterations; ++it) {",
+                            "for (int it = 0; it < p.iterations - 1; ++it) {", ("cg_full",)),
+    "scale_0.125_dropped": ("cg_full.cu", SCALES, SCALES.replace("0.125f", "0.5f"), ("cg_full",)),
+    "facet_sign": ("cg_full.cu", "col[k + 1] = Jn - mu * Jt;",
+                   "col[k + 1] = Jn + mu * Jt;", ("cg_full",)),
     "cg_one_fewer_iteration": ("cg.cu", "cg_iterate(s, E, V, p.iterations);",
                                "cg_iterate(s, E, V, p.iterations - 1);", ("cg",)),
+    "cg_scale_0.125_dropped": ("cg_common.cuh", SCALES, SCALES.replace("0.125f", "0.5f"),
+                               ("cg",)),
     "boxbox_corner_sign": ("boxbox.cu", "(c & 1) ? 1.0f : -1.0f};",
                            "(c & 1) || c == 6 ? 1.0f : -1.0f};", ("boxbox",)),
     # the world-vertex branch reads y and z of each vert swapped; the local
