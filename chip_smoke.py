@@ -29,7 +29,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (E=192, no scalar row) and E (box-box) from a settle-world substep; A
    again (V=24) and F (CG on a prebuilt J) from a hand-world substep; B
    without the Euler update from one `forward()` of the locked-like world;
-   C and H on the mesh-mesh winners of a table-world substep (V1=V2=64).
+   C and H on the mesh-mesh winners of a table-world substep (V1=V2=64);
+   last the size route (`cg@wide`): a seeded synthetic system at V=96,
+   E=408 (`wide_core_inputs`), above kernel B's shared memory, where
+   `cg_full` takes the plain version's route with its solve in kernel F,
+   and F keeps J in device memory.
 5. Paths, each driven with every launch count set to 0 just before it and
    read just after; every qpos, qvel and qacc finite; every kernel's count
    equal to its count per substep or call times their number:
@@ -49,7 +53,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    of its first phase, `k@w` for its phase at world w's shapes; each entry
    counts the kernel's launches on the paths it stands for (H, which no
    path runs on the table world, counts its launches on every path at
-   `@table`).
+   `@table`; `cg@wide` counts F's launches in the routed `cg_full` call
+   of its phase, read the same way as a path's).
 
 `--profile PATH` also writes a device-time breakdown of three locked-like
 substeps, with their wall time and the device's busy share, to PATH.
@@ -384,17 +389,32 @@ def iteration_split(name, label, args_of, iterations, reps):
     return t
 
 
-def occupancy_line(label, B, E, V, S, nfacet, euler):
-    """Kernel B's shared memory per env, its envs resident per SM by the
-    occupancy calculator, and the waves that B envs take on this card."""
+def occupancy_line(label, B, per_sm, smem, layout):
+    """A CG kernel's envs resident per SM (`per_sm`, by the occupancy
+    calculator), its shared memory per env and the waves that B envs take
+    on this card, after `layout` (its shapes and where its arrays live)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(per_sm > 0, f"{label}: no env fits on an SM")
+    print(f"[{label}] B={B} {layout}: one warp per env, smem/env {smem} B, {per_sm} envs/SM x "
+          f"{sms} SMs = {per_sm * sms} resident, {B / (per_sm * sms):.2f} waves at B={B}")
+
+
+def b_occupancy(label, B, E, V, S, nfacet, euler):
+    """Kernel B's `occupancy_line` at E rows, V dofs, S contacts."""
     from robogym_torch import cuda
 
-    per_sm = cuda.cg_full_blocks_per_sm(E, V, euler)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    check(per_sm > 0, f"{label}: no env of kernel B fits on an SM")
-    print(f"[{label}] B={B} E={E} V={V} S={S} F={nfacet}: one warp per env, smem/env "
-          f"{cuda.cg_full_smem_bytes(E, V, euler)} B, {per_sm} envs/SM x {sms} SMs = "
-          f"{per_sm * sms} resident, {B / (per_sm * sms):.2f} waves at B={B}")
+    occupancy_line(label, B, cuda.cg_full_blocks_per_sm(E, V, euler),
+                   cuda.cg_full_smem_bytes(E, V, euler), f"E={E} V={V} S={S} F={nfacet}")
+
+
+def f_occupancy(label, B, E, V):
+    """Kernel F's `occupancy_line` at E rows and V dofs, on its route."""
+    from robogym_torch import cuda
+
+    scratch = cuda.cg_scratch_floats(E, V)
+    occupancy_line(label, B, cuda.cg_blocks_per_sm(E, V), cuda.cg_smem_bytes(E, V),
+                   f"E={E} V={V}, J in {'device' if scratch else 'shared'} memory, scratch/env "
+                   f"{4 * scratch} B")
 
 
 def phase_cg_full(label, ci, iterations, nfacet, reps):
@@ -407,7 +427,7 @@ def phase_cg_full(label, ci, iterations, nfacet, reps):
     n_in = nbytes(*rows.values(), *ci["maps"].values(), *args[5:12]) + 4 * E + 4
     flops = B * cg_flops(E, V, iterations, build=contact_build_flops(S, nfacet, V), qs=True,
                          euler=True)
-    occupancy_line(label, B, E, V, S, nfacet, True)
+    b_occupancy(label, B, E, V, S, nfacet, True)
     r = phase_cg("cg_full", label, lambda its: cg_args(ci, its, nfacet), iterations,
                  n_in, flops, reps)
     iteration_split("cg_full", label, lambda its: cg_args(ci, its, nfacet), iterations, reps)
@@ -433,7 +453,7 @@ def phase_cg_noeuler(si, reps):
     n_in = nbytes(*rows.values(), *ci["maps"].values(), ci["qM"], Minv, ci["qvel"], qs, x0)
     n_in += 4 * E
     flops = B * cg_flops(E, V, iterations, build=contact_build_flops(S, nfacet, V))
-    occupancy_line("B cg_full_noeuler", B, E, V, S, nfacet, False)
+    b_occupancy("B cg_full_noeuler", B, E, V, S, nfacet, False)
     r = phase_cg("cg_full_noeuler", "B cg_full_noeuler", args_of, iterations, n_in, flops,
                  reps)
     iteration_split("cg_full_noeuler", "B cg_full_noeuler", args_of, iterations, reps)
@@ -442,15 +462,116 @@ def phase_cg_noeuler(si, reps):
 
 def phase_cg_prebuilt(fa, reps):
     """Kernel F on the inputs `cg` took in one hand-world substep."""
-    from robogym_torch import cuda
-
     *ins, iterations = fa
     B, E, V = ins[0].shape
-    print(f"[F cg] B={B} E={E} V={V}, smem/block {cuda.cg_smem_bytes(E, V, 2)} B, live rows "
-          f"per env: mean {float((ins[3] > 0).sum(1).float().mean()):.2f}")
+    f_occupancy("F cg", B, E, V)
+    print(f"[F cg] live rows per env: mean {float((ins[3] > 0).sum(1).float().mean()):.2f}")
     check(bool((ins[3] > 0).any()), "cg: no live row in the captured inputs")
-    return phase_cg("cg", "F cg", lambda its: (*ins, its), iterations, nbytes(*ins),
-                    B * cg_flops(E, V, iterations, aref=False, qfrc=False), reps)
+    r = phase_cg("cg", "F cg", lambda its: (*ins, its), iterations, nbytes(*ins),
+                 B * cg_flops(E, V, iterations, aref=False, qfrc=False), reps)
+    iteration_split("cg", "F cg", lambda its: (*ins, its), iterations, reps)
+    return r
+
+
+def wide_core_inputs(batch, V=96, n_s=8, S=100, nfacet=4, seed=SEED):
+    """A seeded synthetic system for the fused core, wider than any world
+    (made with numpy): V dofs, E = n_s + S*nfacet rows (by default V=96
+    and E=408, past the 384 rows that kernel B takes at V=96), with an
+    equality, two friction and five limit rows and S contacts, about four
+    in five live, 1 to 10 mm deep. Returns (kind_s, iterations, nfacet,
+    numpy args) in `constraint_batched.fused_step_core`'s order."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    kind_s = np.array([0, 2, 2, 1, 1, 1, 1, 1], np.int32)[:n_s]
+    X = rng.standard_normal((batch, V, V))
+    qM = X @ X.transpose(0, 2, 1) / V + np.eye(V)
+    q, _ = np.linalg.qr(rng.standard_normal((batch * S, 3, 3)))
+    pos_s = np.where(kind_s == 1, rng.uniform(-0.05, 0.01, (batch, n_s)), 0.0)
+    args = [
+        rng.standard_normal((batch, n_s, V)) * 0.5,                      # J_s
+        pos_s,
+        np.tile([0.02, 1.0], (batch, n_s, 1)),                           # solref_s
+        np.tile([0.9, 0.95, 0.001, 0.5, 2.0], (batch, n_s, 1)),          # solimp_s
+        np.where(kind_s == 2, 0.1, 0.0) * np.ones((batch, n_s)),         # floss_s
+        np.where((kind_s != 1) | (pos_s < 0), 1.0, 0.0),                 # active_s
+        rng.uniform(0.5, 2.0, n_s),                                      # diagA_s
+        rng.standard_normal((batch, S, 3)) * 0.1,                        # pos_c
+        q.transpose(0, 2, 1).reshape(batch, S, 3, 3),                    # frame_c
+        rng.uniform(-0.01, -0.001, (batch, S)),                          # dist_c
+        np.zeros((batch, S)),                                            # margin_c
+        np.tile([1.0, 1.0, 0.005, 1e-4, 1e-4], (batch, S, 1)),           # fric_c
+        rng.random((batch, S)) < 0.8,                                    # act_c
+        np.full((batch, S), 3, np.int32),                                # cd_sel
+        rng.uniform(0.5, 2.0, (batch, S)),                               # iw_c
+        (rng.random((batch, S, V)) < 0.5).astype(f32),                   # mask1
+        (rng.random((batch, S, V)) < 0.5).astype(f32),                   # mask2
+        rng.standard_normal((batch, S, 3)) * 0.1,                        # rc1
+        rng.standard_normal((batch, S, 3)) * 0.1,                        # rc2
+        np.tile([0.02, 1.0], (batch, S, 1)),                             # solref_c
+        np.tile([0.9, 0.95, 0.001, 0.5, 2.0], (batch, S, 1)),            # solimp_c
+        rng.standard_normal((batch, V, 6)) * 0.3,                        # cdof
+        rng.standard_normal((batch, V)),                                 # qvel
+        qM,
+        rng.standard_normal((batch, V)),                                 # qfrc_smooth
+        rng.standard_normal((batch, V)),                                 # qacc_prev
+        rng.uniform(0.1, 1.0, (batch, V)),                               # damp
+        np.asarray(0.002),                                               # dt
+    ]
+    args = [a if a.dtype in (np.bool_, np.int32) else a.astype(f32) for a in map(np.asarray, args)]
+    return kind_s, 15, nfacet, args
+
+
+def phase_cg_wide(reps, fitting, device):
+    """The size route at B=1024 on `wide_core_inputs` (V=96, E=408): kernel
+    B's layout does not fit there, so `cg_full` takes the route through
+    kernel F, which runs with J in device memory. Checks that the route is
+    taken there (one launch of F, none of B) and on none of the `fitting`
+    systems ((E, V) of kernel B with the Euler update and of F that the
+    paths run); holds the routed `cg_full` to `cg_full_plain` and F to
+    `cg_plain` (`cg_readings`), and times F, on `device`. Returns F's
+    entry."""
+    from robogym_torch import cuda
+    from robogym_torch.physics import cg_kernel, constraint_batched
+    from robogym_torch.physics import factor_kernel as fk
+
+    kind_s, its, nfacet, args = wide_core_inputs(BATCH)
+    ci = constraint_batched.core_inputs(kind_s, nfacet,
+                                        *[torch.as_tensor(a, device=device) for a in args])
+    B, n_s, V = ci["rows"]["Js"].shape
+    E = n_s + ci["rows"]["off1"].shape[1] * nfacet
+    print(f"[cg@wide] B={B} E={E} V={V}: kernel B smem/env {cuda.cg_full_smem_bytes(E, V, True)} B, "
+          f"limit {cuda.max_smem_bytes()} B")
+    check(not cg_kernel.fits(E, V, True), f"cg@wide: kernel B takes E={E}, V={V}")
+    check(cuda.cg_scratch_floats(E, V) > 0, "cg@wide: kernel F keeps J in shared memory")
+    for (Eb, Vb), (Ef, Vf) in fitting:
+        check(cg_kernel.fits(Eb, Vb, True), f"cg@wide: kernel B does not take E={Eb}, V={Vb}")
+        check(cuda.cg_scratch_floats(Ef, Vf) == 0, f"cg@wide: F's route at E={Ef}, V={Vf}")
+    f_occupancy("cg@wide", B, E, V)
+
+    def full_args(k):
+        return cg_args(ci, k, nfacet)
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    cg_kernel.cg_full(*full_args(its))
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    print(f"[cg@wide] one routed cg_full call: launches {launches}")
+    check(launches["cg"] == 1 and sum(launches.values()) == 1,
+          f"cg@wide: the routed cg_full launched {launches}, want kernel F once")
+    errs, early, noise, failures = cg_readings("cg_full", full_args, its)
+    print(f"[cg@wide] routed cg_full vs cg_full_plain: early {early}; after {its} " + ", ".join(
+        f"{k} {errs[k]:.3g} ({noise[k][0]:.3g}, {noise[k][1]:.3g})" for k in errs))
+    check(not failures, "cg@wide routed cg_full: " + "; ".join(failures))
+
+    Minv = fk.spd_inverse_plain(ci["qM"])
+    qs = torch.linalg.solve(ci["qM"], ci["qfrc_smooth"][..., None])[..., 0].contiguous()
+    ins = (*cg_kernel.solve_inputs(ci["kind"], nfacet, ci["rows"], ci["maps"], ci["qvel"]),
+           ci["qM"], Minv, qs, ci["qacc_prev"])
+    r = phase_cg("cg", "F cg@wide", lambda k: (*ins, k), its, nbytes(*ins),
+                 B * cg_flops(E, V, its, aref=False, qfrc=False), reps)
+    r["launches"] = launches["cg"]
+    return r
 
 
 def boxbox_readings(args, got, want):
@@ -848,7 +969,8 @@ def main() -> int:
     res["spd_inverse@hand"] = phase_spd(
         "A spd_inverse@hand", capture_call(factor_kernel, "spd_inverse",
                                            lambda: step.step(mh, dh))[0], REPS)
-    res["cg"] = phase_cg_prebuilt(capture_call(cg_kernel, "cg", lambda: step.step(mh, dh)), REPS)
+    fa = capture_call(cg_kernel, "cg", lambda: step.step(mh, dh))
+    res["cg"] = phase_cg_prebuilt(fa, REPS)
     res["cg_full_noeuler"] = phase_cg_noeuler(
         capture_call(constraint_batched, "solve_core", lambda: step.forward(m, d)), REPS)
     # the table world's last hull_manifold call is its mesh-mesh group
@@ -860,6 +982,10 @@ def main() -> int:
                                             "C hull_manifold@table")
     res["hull_manifold_world@table"] = phase_world("hull_manifold", targs, tDX, REPS,
                                                    "H hull_manifold_world@table")
+    # the size route: a system above kernel B's shared memory, through F
+    f_shape = tuple(fa[0].shape[1:])
+    res["cg@wide"] = phase_cg_wide(REPS, [((len(c["kind"]), c["qM"].shape[-1]), f_shape)
+                                          for c in (ci, ci_s)], m.device)
 
     # 5. paths
     paths = {}
@@ -927,7 +1053,8 @@ def main() -> int:
     print(f"[path hull_world] one locked-like env step of {SUBSTEPS} substeps at B={B}, each "
           f"substep's hull winners through the world-vertex entry points: {wall:.3f} s; "
           f"launches {counts}")
-    launches = {entry: entry_launches(entry, res, paths) for entry in res}
+    launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
+                for entry, r in res.items()}
     for k in KERNELS:
         check(sum(p["launches"].get(k, 0) for p in paths.values()) > 0,
               f"{k} was launched on no path")

@@ -48,24 +48,15 @@
 //    waits on a few load latencies, not on one per contact or row.
 //  - The Euler update stages M + dt*D and its inverse through J's region
 //    after the last J^T f.
-// The arithmetic of every row and dof is cg_common.cuh's (kernel F's),
-// which follows the plain version; only the order of the sums differs.
+// The CG loop is cg_common.cuh's `cg_solve`, which kernel F runs too; its
+// arithmetic of every row and dof follows the plain version, and only the
+// order of the sums differs.
 
 #include "cg_common.cuh"
 
 namespace {
 
-using cg_common::force_of;
-using cg_common::penalty_of;
-using cg_common::row_stride;
-using cg_common::RowW;
-using cg_common::warp_sum;
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxV = 256;
-constexpr int kEq = 0;
-constexpr int kOneSided = 1;
-constexpr int kFriction = 2;
+using namespace cg_common;
 
 struct Params {
   const float* Js;        // (B, n_s, V)
@@ -132,235 +123,6 @@ __host__ __device__ inline Layout layout(int E, int V, bool euler) {
   l.spill = l.f + (E + 3) / 4 * 4;
   l.total = l.spill + 5 * 32 * (size_t)l.nspill;
   return l;
-}
-
-// Copies the (V, V) matrices a and b into rows [0, V) and [V, 2V) of dst
-// (row stride Vs), coalesced, 16 loads a lane in flight.
-__device__ __forceinline__ void stage_pair(float* dst, const float* a, const float* b, int V,
-                                           int Vs) {
-  constexpr int kBatch = 8;
-  const int n = V * V;
-  for (int base = threadIdx.x; base < n; base += 32 * kBatch) {
-    float ra[kBatch], rb[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + 32 * u;
-      ra[u] = idx < n ? a[idx] : 0.0f;
-      rb[u] = idx < n ? b[idx] : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = base + 32 * u;
-      if (idx >= n) break;
-      const int i = idx / V, j = idx - i * V;
-      dst[i * Vs + j] = ra[u];
-      dst[(V + i) * Vs + j] = rb[u];
-    }
-  }
-}
-
-template <int DPL>
-__device__ __forceinline__ void load_vec(const float* src, float (&v)[DPL], int V) {
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) {
-    const int i = threadIdx.x + 32 * q;
-    v[q] = i < V ? src[i] : 0.0f;
-  }
-}
-
-template <int DPL>
-__device__ __forceinline__ void store_vec(float* dst, const float (&v)[DPL], int V) {
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) {
-    const int i = threadIdx.x + 32 * q;
-    if (i < V) dst[i] = v[q];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void warp_sums(float (&v)[N]) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = warp_sum(v[k]);
-}
-
-// out = A v for A in shared memory (row stride Vs): lane row i = lane +
-// 32 q, v_j by shuffle; 0 in the rows past V.
-template <int DPL>
-__device__ __forceinline__ void smem_matvec(const float* A, const float (&v)[DPL],
-                                            float (&out)[DPL], int V, int Vs) {
-  const int lane = threadIdx.x;
-  float acc[DPL];
-  const float* row[DPL];
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) {
-    acc[q] = 0.0f;
-    const int i = lane + 32 * q;
-    row[q] = A + (i < V ? i : 0) * Vs;
-  }
-#pragma unroll
-  for (int q2 = 0; q2 < DPL; ++q2) {
-    if (32 * q2 >= V) break;
-    const int n = V - 32 * q2 < 32 ? V - 32 * q2 : 32;
-#pragma unroll 2
-    for (int j2 = 0; j2 < n; ++j2) {
-      const float vj = __shfl_sync(kFull, v[q2], j2);
-#pragma unroll
-      for (int q = 0; q < DPL; ++q) acc[q] += row[q][32 * q2 + j2] * vj;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) out[q] = lane + 32 * q < V ? acc[q] : 0.0f;
-}
-
-// A (V, V) matrix that the solve applies: in shared memory for V > 32 ...
-template <int DPL>
-struct Mat {
-  const float* a;
-  __device__ __forceinline__ void load(const float* staged, int, int) { a = staged; }
-  __device__ __forceinline__ void apply(const float (&v)[DPL], float (&out)[DPL], int V,
-                                        int Vs) const {
-    smem_matvec<DPL>(a, v, out, V, Vs);
-  }
-};
-
-// ... and for V <= 32 row `lane` in registers, zero past V.
-template <>
-struct Mat<1> {
-  float r[32];
-  __device__ __forceinline__ void load(const float* staged, int V, int Vs) {
-    const int lane = threadIdx.x;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) r[j] = (lane < V && j < V) ? staged[lane * Vs + j] : 0.0f;
-  }
-  __device__ __forceinline__ void apply(const float (&v)[1], float (&out)[1], int V, int) const {
-    float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 32; j += 2) {
-      a0 += r[j] * __shfl_sync(kFull, v[0], j);
-      a1 += r[j + 1] * __shfl_sync(kFull, v[0], j + 1);
-    }
-    out[0] = (int)threadIdx.x < V ? a0 + a1 : 0.0f;
-  }
-};
-
-// A row's weights from its D, friction loss and kind (D masked by kind).
-__device__ __forceinline__ RowW weights(float D, float fl, int kd) {
-  return RowW{kd == kEq ? D : 0.0f, kd == kOneSided ? D : 0.0f, kd == kFriction ? D : 0.0f, fl};
-}
-
-// The lane's row slots k (row lane + 32 k): the first R in registers, the
-// kinds two bits a slot; the others in shared memory, value k of spilled
-// slot c at [c * 32 + lane] of each array. Slots past E hold zeros.
-template <int R>
-struct Rows {
-  float jar[R], Jp[R], D[R], fl[R];
-  int kinds;
-};
-
-struct Spill {
-  float *jar, *Jp, *D, *fl;
-  int* kind;
-};
-
-// fn(k, jar, Jp, w) on each of the lane's row slots, jar and Jp writable.
-template <int R, class Fn>
-__device__ __forceinline__ void for_rows(Rows<R>& rs, const Spill& sp, int nk, Fn&& fn) {
-#pragma unroll
-  for (int k = 0; k < R; ++k)
-    fn(k, rs.jar[k], rs.Jp[k], weights(rs.D[k], rs.fl[k], (rs.kinds >> (2 * k)) & 3));
-  for (int k = R; k < nk; ++k) {
-    const int i = (k - R) * 32 + threadIdx.x;
-    float jar = sp.jar[i], jp = sp.Jp[i];
-    fn(k, jar, jp, weights(sp.D[i], sp.fl[i], sp.kind[i]));
-    sp.jar[i] = jar;
-    sp.Jp[i] = jp;
-  }
-}
-
-// out = J v on the lane's row slots (J by column, stride CS), v_j by
-// shuffle, each column's value used for every register row.
-template <int DPL, int R>
-__device__ __forceinline__ void j_times(const float* J, int CS, int V, int nk,
-                                        const float (&v)[DPL], float (&out)[R], float* spill) {
-  const int lane = threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < R; ++k) out[k] = 0.0f;
-  const float* col = J + lane;
-#pragma unroll
-  for (int q2 = 0; q2 < DPL; ++q2) {
-    if (32 * q2 >= V) break;
-    const int n = V - 32 * q2 < 32 ? V - 32 * q2 : 32;
-#pragma unroll 2
-    for (int j2 = 0; j2 < n; ++j2) {
-      const float vj = __shfl_sync(kFull, v[q2], j2);
-#pragma unroll
-      for (int k = 0; k < R; ++k) out[k] += col[32 * k] * vj;
-      col += CS;
-    }
-  }
-  for (int k = R; k < nk; ++k) {
-    const float* c = J + lane + 32 * k;
-    float s = 0.0f;
-#pragma unroll
-    for (int q2 = 0; q2 < DPL; ++q2) {
-      if (32 * q2 >= V) break;
-      const int n = V - 32 * q2 < 32 ? V - 32 * q2 : 32;
-      for (int j2 = 0; j2 < n; ++j2) s += c[(32 * q2 + j2) * CS] * __shfl_sync(kFull, v[q2], j2);
-    }
-    spill[(k - R) * 32 + lane] = s;
-  }
-}
-
-// out = J^T f for the lane's dofs, f (E,) in shared memory, in a fixed
-// order: eight partial sums over the rows (r mod 8) for the whole blocks of
-// eight, folded into four, then a block of four and the last rows; 0 past
-// V.
-template <int DPL>
-__device__ __forceinline__ void jt_times(const float* J, const float* f, int E, int V, int CS,
-                                         float (&out)[DPL]) {
-  const int lane = threadIdx.x;
-  const float* col[DPL];
-  float a[DPL][4], b[DPL][4];  // rows r mod 8 < 4, and the other four
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) {
-    const int c = lane + 32 * q;
-    col[q] = J + (c < V ? c : 0) * CS;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) a[q][u] = b[q][u] = 0.0f;
-  }
-  int r = 0;
-  for (; r + 8 <= E; r += 8) {
-    const float4 f0 = *reinterpret_cast<const float4*>(f + r);
-    const float4 f1 = *reinterpret_cast<const float4*>(f + r + 4);
-    const float fa[4] = {f0.x, f0.y, f0.z, f0.w}, fb[4] = {f1.x, f1.y, f1.z, f1.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int q = 0; q < DPL; ++q) {
-        a[q][u] += col[q][r + u] * fa[u];
-        b[q][u] += col[q][r + 4 + u] * fb[u];
-      }
-  }
-#pragma unroll
-  for (int q = 0; q < DPL; ++q)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) a[q][u] = a[q][u] + b[q][u];
-  if (r + 4 <= E) {
-    const float4 f0 = *reinterpret_cast<const float4*>(f + r);
-    const float fa[4] = {f0.x, f0.y, f0.z, f0.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int q = 0; q < DPL; ++q) a[q][u] += col[q][r + u] * fa[u];
-    r += 4;
-  }
-  for (; r < E; ++r) {
-#pragma unroll
-    for (int q = 0; q < DPL; ++q) a[q][0] += col[q][r] * f[r];
-  }
-#pragma unroll
-  for (int q = 0; q < DPL; ++q)
-    out[q] = lane + 32 * q < V ? (a[q][0] + a[q][1]) + (a[q][2] + a[q][3]) : 0.0f;
 }
 
 // Facets k and k + 1 of a contact's rows (rows r and r + 1 of column col).
@@ -495,7 +257,11 @@ __global__ void __launch_bounds__(32) cg_full_kernel(Params p) {
   float* fs = sm + L.f;
   const int ns = 32 * L.nspill;
   float* sp0 = sm + L.spill;
-  const Spill sp{sp0, sp0 + ns, sp0 + 2 * ns, sp0 + 3 * ns, reinterpret_cast<int*>(sp0 + 4 * ns)};
+  ColSys<DPL, R, KindW<R>, Spill> sys{
+      J, CS, V, E, nk, fs, {},
+      Spill{sp0, sp0 + ns, sp0 + 2 * ns, sp0 + 3 * ns, reinterpret_cast<int*>(sp0 + 4 * ns)}};
+  Rows<R, KindW<R>>& rs = sys.rs;
+  const Spill& sp = sys.sp;
   const size_t bVV = (size_t)b * V * V, bV = (size_t)b * V, bE = (size_t)b * E;
 
   // M and M^-1: rows into registers through J's region (V <= 32), or into
@@ -532,8 +298,7 @@ __global__ void __launch_bounds__(32) cg_full_kernel(Params p) {
   __syncwarp();
 
   // row weights; jar = J x0 - aref, aref = -bref * J qvel - kimp * pos
-  Rows<R> rs;
-  rs.kinds = 0;
+  rs.w.kinds = 0;
   j_times<DPL, R>(J, CS, V, nk, qv, rs.Jp, sp.Jp);
   j_times<DPL, R>(J, CS, V, nk, x, rs.jar, sp.jar);
   auto init = [&](int k, float& jar, float jqv, float& D, float& fl, int& kd) {
@@ -553,120 +318,20 @@ __global__ void __launch_bounds__(32) cg_full_kernel(Params p) {
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     int kd;
-    init(k, rs.jar[k], rs.Jp[k], rs.D[k], rs.fl[k], kd);
-    rs.kinds |= (kd & 3) << (2 * k);
+    init(k, rs.jar[k], rs.Jp[k], rs.w.D[k], rs.w.fl[k], kd);
+    rs.w.kinds |= (kd & 3) << (2 * k);
   }
   for (int k = R; k < nk; ++k) {
     const int i = (k - R) * 32 + lane;
     init(k, sp.jar[i], sp.Jp[i], sp.D[i], sp.fl[i], sp.kind[i]);
   }
 
-  // g = M (x - qs) + J^T force(jar); Mg = M^-1 g; p = -Mg
-  float pd[DPL], g[DPL], Mg[DPL], gn[DPL], Mgn[DPL], Mp[DPL], dx[DPL], t[DPL];
-  for_rows(rs, sp, nk, [&](int k, float& j, float&, const RowW& w) {
-    const int r = lane + 32 * k;
-    if (r < E) fs[r] = force_of(j, w);
-  });
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) dx[q] = x[q] - qs[q];
-  __syncwarp();
-  jt_times<DPL>(J, fs, E, V, CS, gn);
-  M.apply(dx, t, V, Vs);
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) g[q] = t[q] + gn[q];
-  Minv.apply(g, Mg, V, Vs);
-#pragma unroll
-  for (int q = 0; q < DPL; ++q) pd[q] = -Mg[q];
-
-  const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};
-  for (int it = 0; it < p.iterations; ++it) {
-    j_times<DPL, R>(J, CS, V, nk, pd, rs.Jp, sp.Jp);
-    M.apply(pd, Mp, V, Vs);
-
-    // c1, c2, f0.Jp, deff.Jp.Jp, penalty at a = 0
-    float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int q = 0; q < DPL; ++q) {
-      acc[0] += (x[q] - qs[q]) * Mp[q];
-      acc[1] += pd[q] * Mp[q];
-    }
-    for_rows(rs, sp, nk, [&](int, float& j, float& jp, const RowW& w) {
-      const float neg = j < 0.0f ? 1.0f : 0.0f;
-      const float inside = fabsf(w.dfr * j) < w.floss ? 1.0f : 0.0f;
-      const float deff = (w.deq + w.done * neg) + w.dfr * inside;
-      acc[2] += force_of(j, w) * jp;
-      acc[3] += deff * jp * jp;
-      acc[4] += penalty_of(j, w);
-    });
-    warp_sums(acc);
-    const float c1 = acc[0], c2 = acc[1];
-    const float phi_p = c1 + acc[2];
-    const float phi_pp = fmaxf(c2 + acc[3], 1e-12f);
-    const float a1 = fminf(fmaxf(-phi_p / phi_pp, 0.0f), 2.0f);
-    const float pen0 = acc[4];
-
-    float pen[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for_rows(rs, sp, nk, [&](int, float& j, float& jp, const RowW& w) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) pen[k] += penalty_of(j + (a1 * scales[k]) * jp, w);
-    });
-    warp_sums(pen);
-    float best_cost = 0.0f, best_a = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float a = a1 * scales[k];
-      const float dcost = a * c1 + 0.5f * a * a * c2 + pen[k] - pen0;
-      if (dcost < best_cost) {
-        best_cost = dcost;
-        best_a = a;
-      }
-    }
-
-#pragma unroll
-    for (int q = 0; q < DPL; ++q) {
-      x[q] = x[q] + best_a * pd[q];
-      dx[q] = x[q] - qs[q];
-    }
-    __syncwarp();
-    for_rows(rs, sp, nk, [&](int k, float& j, float& jp, const RowW& w) {
-      j = j + best_a * jp;
-      const int r = lane + 32 * k;
-      if (r < E) fs[r] = force_of(j, w);
-    });
-    __syncwarp();
-    jt_times<DPL>(J, fs, E, V, CS, Mgn);
-    M.apply(dx, t, V, Vs);
-#pragma unroll
-    for (int q = 0; q < DPL; ++q) gn[q] = t[q] + Mgn[q];
-    Minv.apply(gn, Mgn, V, Vs);
-    float nd[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int q = 0; q < DPL; ++q) {
-      nd[0] += gn[q] * (Mgn[q] - Mg[q]);
-      nd[1] += g[q] * Mg[q];
-    }
-    warp_sums(nd);
-    const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);
-#pragma unroll
-    for (int q = 0; q < DPL; ++q) {
-      pd[q] = -Mgn[q] + beta * pd[q];
-      g[q] = gn[q];
-      Mg[q] = Mgn[q];
-    }
-  }
-
-  // f = -force(jar), qfrc = J^T f
-  __syncwarp();
-  for_rows(rs, sp, nk, [&](int k, float& j, float&, const RowW& w) {
-    const int r = lane + 32 * k;
-    if (r >= E) return;
-    const float fv = -force_of(j, w);
-    fs[r] = fv;
-    p.f[bE + r] = fv;
-  });
+  // the solve; f = -force(jar), qfrc = J^T f
+  cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);
+  float t[DPL];
   store_vec(p.x + bV, x, V);
   __syncwarp();
-  jt_times<DPL>(J, fs, E, V, CS, t);
+  jt_times<DPL>(J, fs, E, V, CS, 1, t);
   store_vec(p.qfrc + bV, t, V);
 
   if (euler) {
@@ -677,6 +342,7 @@ __global__ void __launch_bounds__(32) cg_full_kernel(Params p) {
     __syncwarp();
     const float* Mimp = J;
     const float* Minvimp = J + V * Vs;
+    float Mp[DPL], Mg[DPL], dx[DPL];
     M.apply(x, Mp, V, Vs);
     smem_matvec<DPL>(Minvimp, Mp, Mg, V, Vs);
     smem_matvec<DPL>(Mimp, Mg, t, V, Vs);
@@ -739,12 +405,6 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 }
 
 }  // namespace
-
-// Dynamic shared memory one block of kernel F (cg.cu, cg_common.cuh's
-// layout) takes for E rows, V dofs and nmat (V, V) matrices (2).
-extern "C" long long robogym_cg_smem_bytes(int E, int V, int nmat) {
-  return (long long)(cg_common::smem_floats(E, V, nmat) * sizeof(float));
-}
 
 // Dynamic shared memory of one env (one block) of kernel B for E rows and
 // V dofs, with the Euler update or without.

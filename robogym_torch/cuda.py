@@ -17,6 +17,7 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,9 +40,14 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 
 # C entry points `robogym_<name>`: (device pointers, ints) before the stream
 SIGNATURES = {"spd_inverse": (2, 2), "cg_full": (28, 6), "cg_full_noeuler": (23, 6),
-              "cg": (12, 4), "hull_pair": (14, 5), "hull_manifold": (13, 5),
+              "cg": (13, 4), "hull_pair": (14, 5), "hull_manifold": (13, 5),
               "hull_pair_world": (10, 5), "hull_manifold_world": (9, 5), "boxbox": (9, 1)}
 LAUNCHES = {name: 0 for name in SIGNATURES}
+MAX_V = 256   # dofs a CG kernel takes (eight a lane of one warp)
+# exports that describe the CG kernels' layouts: name, argument count
+_SIZES = (("max_smem_bytes", 0), ("cg_smem_bytes", 2), ("cg_scratch_floats", 2),
+          ("cg_full_smem_bytes", 3))
+_OCCUPANCY = (("cg_blocks_per_sm", 2), ("cg_full_blocks_per_sm", 3))
 
 _lock = threading.Lock()
 _lib = None
@@ -112,12 +118,10 @@ def build() -> str:
         _lib = ctypes.CDLL(lib)
         _lib.robogym_error_string.restype = ctypes.c_char_p
         _lib.robogym_error_string.argtypes = [ctypes.c_int]
-        _lib.robogym_cg_smem_bytes.restype = ctypes.c_longlong
-        _lib.robogym_cg_smem_bytes.argtypes = [ctypes.c_int] * 3
-        _lib.robogym_cg_full_smem_bytes.restype = ctypes.c_longlong
-        _lib.robogym_cg_full_smem_bytes.argtypes = [ctypes.c_int] * 3
-        _lib.robogym_cg_full_blocks_per_sm.restype = ctypes.c_int
-        _lib.robogym_cg_full_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        for name, n in _SIZES + _OCCUPANCY:
+            fn = getattr(_lib, "robogym_" + name)
+            fn.restype = ctypes.c_longlong if (name, n) in _SIZES else ctypes.c_int
+            fn.argtypes = [ctypes.c_int] * n
         for name, (n_ptr, n_int) in SIGNATURES.items():
             fn = getattr(_lib, "robogym_" + name)
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -125,32 +129,58 @@ def build() -> str:
         return _build_log
 
 
-def cg_smem_bytes(E: int, V: int, nmat: int) -> int:
-    """Dynamic shared memory of one block of kernel F (`cg`) for a system of
-    E rows, V dofs and nmat (2) (V, V) matrices, as the library computes
-    it."""
+@functools.lru_cache(maxsize=None)
+def _size(name: str, *args: int) -> int:
     build()
-    return int(_lib.robogym_cg_smem_bytes(E, V, nmat))
+    return int(getattr(_lib, "robogym_" + name)(*args))
+
+
+def max_smem_bytes() -> int:
+    """Shared memory one block of a CG kernel may use (227 KB on Hopper),
+    the limit of kernel B's layout."""
+    return _size("max_smem_bytes")
+
+
+def cg_smem_bytes(E: int, V: int) -> int:
+    """Dynamic shared memory of one env (one block) of kernel F (`cg`) for
+    E rows and V dofs, on the route it takes."""
+    return _size("cg_smem_bytes", E, V)
+
+
+def cg_scratch_floats(E: int, V: int) -> int:
+    """Floats of device scratch an env of kernel F takes for E rows and V
+    dofs: 0 where J fits in shared memory, else its row forces and spilled
+    rows (J in device memory)."""
+    return _size("cg_scratch_floats", E, V)
 
 
 def cg_full_smem_bytes(E: int, V: int, euler: bool) -> int:
     """Dynamic shared memory of one env (one block) of kernel B
     (`cg_full` with `euler`, else `cg_full_noeuler`) for E rows and V
     dofs."""
+    return _size("cg_full_smem_bytes", E, V, int(euler))
+
+
+def _blocks_per_sm(name: str, *args: int) -> int:
     build()
-    return int(_lib.robogym_cg_full_smem_bytes(E, V, int(euler)))
+    n = int(getattr(_lib, "robogym_" + name)(*args))
+    if n < 0:
+        raise RuntimeError(f"{name}{args}: CUDA error {-n} "
+                           f"({_lib.robogym_error_string(-n).decode()})")
+    return n
+
+
+def cg_blocks_per_sm(E: int, V: int) -> int:
+    """Envs of kernel F (`cg`) resident on one SM for E rows and V dofs, by
+    the CUDA occupancy calculator; raises on a CUDA error."""
+    return _blocks_per_sm("cg_blocks_per_sm", E, V)
 
 
 def cg_full_blocks_per_sm(E: int, V: int, euler: bool) -> int:
     """Envs of kernel B (`cg_full` with `euler`, else `cg_full_noeuler`)
     resident on one SM for E rows and V dofs, by the CUDA occupancy
     calculator; raises on a CUDA error."""
-    build()
-    n = int(_lib.robogym_cg_full_blocks_per_sm(E, V, int(euler)))
-    if n < 0:
-        raise RuntimeError(f"cg_full_blocks_per_sm({E}, {V}, {euler}): CUDA error {-n} "
-                           f"({_lib.robogym_error_string(-n).decode()})")
-    return n
+    return _blocks_per_sm("cg_full_blocks_per_sm", E, V, int(euler))
 
 
 def launch(name: str, *args) -> None:

@@ -16,8 +16,12 @@ PyTorch version (the JAX reference transcribed) on CPU tensors:
     the same up to J^T f, with qacc_smooth and the warmstart given. Plain
     version `cg_full_noeuler_plain` (`_make_core(..., False).reference`).
   * `cg` (replaces `_cg_kernel`; `robogym_torch/csrc/cg.cu`): the solve on
-    a prebuilt J with its row weights. Plain version `cg_plain`
-    (`constraint._scan_cg_solve`).
+    a prebuilt J with its row weights, for any number of rows. Plain version
+    `cg_plain` (`constraint._scan_cg_solve`).
+
+A system too large for kernel B's shared memory (`fits`) takes the route
+the JAX package takes for it: the plain version of `cg_full` or
+`cg_full_noeuler` with its solve in kernel F.
 
 Shapes (per env, leading B): scalar rows Js (n_s, V), n_s may be 0; contact
 offsets off1/off2 (S, 3); frames (S, 9) as [normal | tangent1 | tangent2];
@@ -141,27 +145,38 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
     return x, -force(jar)
 
 
-def cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0):
-    """Plain version of the CG kernel without the Euler update. Returns
-    (x, f, qfrc)."""
+def solve_inputs(kind, nfacet, rows, maps, qvel):
+    """Kernel B's system as `cg_plain` and `cg` take it: J (B, E, V), aref,
+    the row weights D masked by kind (Deq, Done, Dfr) and the friction
+    losses (B, E)."""
     Jc = contact_rows(rows["off1"], rows["off2"], rows["frame"], rows["fric"],
                       rows["m1"], rows["m2"], rows["cdof"], nfacet)
     J = torch.cat([rows["Js"], Jc], dim=1)
     aref = -maps["bref"] * mv(J, qvel) - maps["kimp"] * maps["pos"]
     D = torch.where(maps["active"] > 0, 1.0 / maps["rcoef"], torch.zeros_like(maps["rcoef"]))
     Deq, Done, Dfr = cl.kind_masked_D(kind, D)
-    x, f = cg_plain(J, aref, Deq, Done, Dfr, maps["floss"], M, Minv, qs, x0, iterations)
+    return J, aref, Deq, Done, Dfr, maps["floss"]
+
+
+def cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0,
+                          solve=cg_plain):
+    """Plain version of the CG kernel without the Euler update, the solve
+    by `solve` (`cg_plain`; `cg` on the route of oversized systems).
+    Returns (x, f, qfrc)."""
+    J, aref, Deq, Done, Dfr, floss = solve_inputs(kind, nfacet, rows, maps, qvel)
+    x, f = solve(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations)
     return x, f, mv(J.transpose(-1, -2), f)
 
 
 def cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
-                  qvel, qfrc_smooth, qacc_prev, dt):
-    """Plain version of the fused CG kernel. Returns (x, f, qfrc, qvel_new,
-    qacc_smooth)."""
+                  qvel, qfrc_smooth, qacc_prev, dt, solve=cg_plain):
+    """Plain version of the fused CG kernel, the solve by `solve`. Returns
+    (x, f, qfrc, qvel_new, qacc_smooth)."""
     qs = mv(Minv, qfrc_smooth)
     finite = torch.all(torch.abs(qacc_prev) < 1e10, dim=-1, keepdim=True)
     x0 = torch.where(finite, qacc_prev, qs)
-    x, f, qfrc = cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
+    x, f, qfrc = cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0,
+                                       solve)
     qfrc_total = mv(M, x)
     qacc1 = mv(Minv_imp, qfrc_total)
     qacc_imp = qacc1 + mv(Minv_imp, qfrc_total - mv(Mimp, qacc1))
@@ -206,11 +221,22 @@ def _row_operands(kernel, kind, nfacet, rows, maps):
     return [t for _, t, _ in ops], kind_t, (B, n_s, S, E, V)
 
 
+def fits(E: int, V: int, euler: bool) -> bool:
+    """Whether kernel B takes a system of E rows and V dofs: V <= 256 and
+    an env's arrays within one block's shared memory. Above that `cg_full`
+    and `cg_full_noeuler` take the route of the JAX package's oversized
+    systems (`constraint_batched.py:226`): the rows built in PyTorch, the
+    solve in kernel F, J^T f and the Euler update as matvecs."""
+    from robogym_torch import cuda
+
+    return V <= cuda.MAX_V and cuda.cg_full_smem_bytes(E, V, euler) <= cuda.max_smem_bytes()
+
+
 def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
             qvel, qfrc_smooth, qacc_prev, dt):
-    """The fused constraint solve; the CUDA kernel on CUDA tensors. The
-    launch raises when V > 256 or when an env's arrays do not fit in one
-    block's shared memory (227 KB; `cuda.cg_full_smem_bytes`)."""
+    """The fused constraint solve; on CUDA tensors kernel B, or for a
+    system that B does not take (`fits`) its plain version with the solve
+    in kernel F (`cg`)."""
     if M.device.type == "cpu":
         return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
                              qvel, qfrc_smooth, qacc_prev, dt)
@@ -223,6 +249,9 @@ def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
     ops += [(k, t, (B, V)) for k, t in (("qvel", qvel), ("qfrc_smooth", qfrc_smooth),
                                         ("qacc_prev", qacc_prev))]
     _check("cg_full", ops, dev)
+    if not fits(E, V, True):
+        return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
+                             qvel, qfrc_smooth, qacc_prev, dt, solve=cg)
     dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev).reshape(1)
     x = torch.empty((B, V), dtype=torch.float32, device=dev)
     f = torch.empty((B, E), dtype=torch.float32, device=dev)
@@ -237,7 +266,8 @@ def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
 def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0):
     """The constraint solve of `forward()`: kernel B without the Euler
     update, qacc_smooth `qs` and the warmstart `x0` given. Returns (x, f,
-    qfrc); the CUDA kernel on CUDA tensors, with `cg_full`'s limits."""
+    qfrc); on CUDA tensors the kernel, or `cg_full`'s route for a system
+    that B does not take."""
     if M.device.type == "cpu":
         return cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
     from robogym_torch import cuda
@@ -247,6 +277,9 @@ def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
     ops = [("M", M, (B, V, V)), ("Minv", Minv, (B, V, V)), ("qvel", qvel, (B, V)),
            ("qs", qs, (B, V)), ("x0", x0, (B, V))]
     _check("cg_full_noeuler", ops, M.device)
+    if not fits(E, V, False):
+        return cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0,
+                                     solve=cg)
     x = torch.empty((B, V), dtype=torch.float32, device=M.device)
     f = torch.empty((B, E), dtype=torch.float32, device=M.device)
     qfrc = torch.empty_like(x)
@@ -258,8 +291,8 @@ def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
 def cg(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
     """The CG solve on a prebuilt J (B, E, V) with row weights Deq, Done,
     Dfr and friction losses (B, E): `cg_plain`'s arguments and returns; the
-    CUDA kernel on CUDA tensors. The launch raises when V > 256 or J and two
-    (V, V) matrices do not fit in one block's shared memory."""
+    CUDA kernel on CUDA tensors, for any E and V <= 256 (J in shared memory
+    where it fits, else in device memory with a scratch buffer)."""
     if M.device.type == "cpu":
         return cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations)
     from robogym_torch import cuda
@@ -272,5 +305,6 @@ def cg(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
     _check("cg", ops, M.device)
     x = torch.empty((B, V), dtype=torch.float32, device=M.device)
     f = torch.empty((B, E), dtype=torch.float32, device=M.device)
-    cuda.launch("cg", *[t for _, t, _ in ops], x, f, B, E, V, iterations)
+    scratch = torch.empty((B, cuda.cg_scratch_floats(E, V)), dtype=torch.float32, device=M.device)
+    cuda.launch("cg", *[t for _, t, _ in ops], x, f, scratch, B, E, V, iterations)
     return x, f

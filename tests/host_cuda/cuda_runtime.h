@@ -1,7 +1,7 @@
-// A host stand-in for the CUDA runtime and the warp intrinsics that kernel
-// B (robogym_torch/csrc/cg_full.cu) uses, so that its source runs on a CPU:
-// one block is 32 std::threads, and every shuffle, vote and __syncwarp is a
-// meeting of the 32 at a std::barrier. Float arithmetic is the host's in
+// A host stand-in for the CUDA runtime and the warp intrinsics that kernels
+// B and F (robogym_torch/csrc/cg_full.cu, cg.cu) use, so that their sources
+// run on a CPU: one block is 32 std::threads, and every shuffle, vote and
+// __syncwarp is a meeting of the 32 at a std::barrier. Float arithmetic is the host's in
 // IEEE single precision; compiled with -ffp-contract=off it rounds as the
 // card does under nvcc -fmad=false.
 #pragma once

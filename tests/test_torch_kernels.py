@@ -409,51 +409,14 @@ def test_solve_core_plain_matches_jax(world):
 
 
 def _wide_core_inputs(batch=4, V=40, n_s=8, S=80, nfacet=4, seed=5):
-    """A seeded synthetic system for the fused core, wider than any world:
-    V=40 dofs (two a lane in kernel B) and E = n_s + S*nfacet = 328 rows
-    (past the 256 that kernel B keeps in registers), with an equality, two
-    friction and five limit rows and 80 contacts, about four in five live,
-    1 to 10 mm deep. Returns (kind_s, iterations, nfacet, numpy args) in
+    """chip_smoke.py's seeded synthetic system for the fused core, wider
+    than any world: by default V=40 dofs (two a lane in kernel B) and E =
+    n_s + S*nfacet = 328 rows (past the 256 that kernel B keeps in
+    registers). Returns (kind_s, iterations, nfacet, numpy args) in
     `fused_step_core`'s order."""
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-    kind_s = np.array([0, 2, 2, 1, 1, 1, 1, 1], np.int32)[:n_s]
-    X = rng.standard_normal((batch, V, V))
-    qM = X @ X.transpose(0, 2, 1) / V + np.eye(V)
-    q, _ = np.linalg.qr(rng.standard_normal((batch * S, 3, 3)))
-    pos_s = np.where(kind_s == 1, rng.uniform(-0.05, 0.01, (batch, n_s)), 0.0)
-    args = [
-        rng.standard_normal((batch, n_s, V)) * 0.5,                      # J_s
-        pos_s,
-        np.tile([0.02, 1.0], (batch, n_s, 1)),                           # solref_s
-        np.tile([0.9, 0.95, 0.001, 0.5, 2.0], (batch, n_s, 1)),          # solimp_s
-        np.where(kind_s == 2, 0.1, 0.0) * np.ones((batch, n_s)),         # floss_s
-        np.where((kind_s != 1) | (pos_s < 0), 1.0, 0.0),                 # active_s
-        rng.uniform(0.5, 2.0, n_s),                                      # diagA_s
-        rng.standard_normal((batch, S, 3)) * 0.1,                        # pos_c
-        q.transpose(0, 2, 1).reshape(batch, S, 3, 3),                    # frame_c
-        rng.uniform(-0.01, -0.001, (batch, S)),                          # dist_c
-        np.zeros((batch, S)),                                            # margin_c
-        np.tile([1.0, 1.0, 0.005, 1e-4, 1e-4], (batch, S, 1)),           # fric_c
-        rng.random((batch, S)) < 0.8,                                    # act_c
-        np.full((batch, S), 3, np.int32),                                # cd_sel
-        rng.uniform(0.5, 2.0, (batch, S)),                               # iw_c
-        (rng.random((batch, S, V)) < 0.5).astype(f32),                   # mask1
-        (rng.random((batch, S, V)) < 0.5).astype(f32),                   # mask2
-        rng.standard_normal((batch, S, 3)) * 0.1,                        # rc1
-        rng.standard_normal((batch, S, 3)) * 0.1,                        # rc2
-        np.tile([0.02, 1.0], (batch, S, 1)),                             # solref_c
-        np.tile([0.9, 0.95, 0.001, 0.5, 2.0], (batch, S, 1)),            # solimp_c
-        rng.standard_normal((batch, V, 6)) * 0.3,                        # cdof
-        rng.standard_normal((batch, V)),                                 # qvel
-        qM,
-        rng.standard_normal((batch, V)),                                 # qfrc_smooth
-        rng.standard_normal((batch, V)),                                 # qacc_prev
-        rng.uniform(0.1, 1.0, (batch, V)),                               # damp
-        np.asarray(0.002),                                               # dt
-    ]
-    args = [a if a.dtype in (np.bool_, np.int32) else a.astype(f32) for a in map(np.asarray, args)]
-    return kind_s, 15, nfacet, args
+    import chip_smoke
+
+    return chip_smoke.wide_core_inputs(batch, V, n_s, S, nfacet, seed)
 
 
 def test_fused_core_plain_matches_jax_wide():

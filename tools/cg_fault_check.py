@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu` and its loop
-in `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`) and in the
+"""Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu`; their shared
+loop in `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`) and in the
 world-vertex branch of the hull kernels (G and H, `hull_sweep.cu`), and show
 whether the checks that `chip_smoke.py` holds each kernel to catch them.
 
@@ -8,16 +8,20 @@ whether the checks that `chip_smoke.py` holds each kernel to catch them.
 
 Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
 does, at B=1024: B's from one substep of the locked-like world, F's from one
-substep of the hand-only world, E's from one substep of the goal-settle
-world, G's and H's from the locked-like substep's hull winners placed in the
-world. Then, for the sound sources and for each fault below, it copies
+substep of the hand-only world (J in shared memory) and from chip_smoke's
+wide system (`cg_wide`: V=96, E=408, J in device memory), E's from one
+substep of the goal-settle world, G's and H's from the locked-like
+substep's hull winners placed in the world. Then, for the sound sources and for each fault below, it copies
 `robogym_torch/csrc/` into a temporary directory, plants the fault in the
 copy (the checkout's sources are never changed), builds the copy there, and
 prints the readings of `chip_smoke.cg_readings`,
 `chip_smoke.boxbox_readings` or `chip_smoke.hull_readings` (with
-`chip_smoke.world_vs_local`) for it and whether the check passes. The sound
-sources must pass every check and each fault must fail the checks of its
-kernels; otherwise the script exits non-zero.
+`chip_smoke.world_vs_local`) for it and whether the check passes; for a CG
+kernel, which of its two parts fails: the early check (1e-4 after 1 and 2
+iterations) or the noise check after all of them (the kernel's error
+against a float64 run at most 2 times the plain version's). The sound sources must
+pass every check and each fault must fail the checks of its kernels;
+otherwise the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -31,20 +35,34 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-CHECKED = ("cg_full", "cg", "boxbox", "hull_pair_world", "hull_manifold_world")
+CHECKED = ("cg_full", "cg", "cg_wide", "boxbox", "hull_pair_world", "hull_manifold_world")
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
+BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
+B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
+F_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Ms, p.iterations);"
 # name: (file, text in it, its faulty replacement, the kernels whose checks run)
 FAULTS = {
     "sound": None,
-    "one_fewer_iteration": ("cg_full.cu", "for (int it = 0; it < p.iterations; ++it) {",
-                            "for (int it = 0; it < p.iterations - 1; ++it) {", ("cg_full",)),
-    "scale_0.125_dropped": ("cg_full.cu", SCALES, SCALES.replace("0.125f", "0.5f"), ("cg_full",)),
+    "one_fewer_iteration": ("cg_full.cu", B_SOLVE, B_SOLVE.replace("p.iterations", "p.iterations - 1"),
+                            ("cg_full",)),
+    # in the loop B and F share; the wide system's line search never takes
+    # the 0.125 step, so this fault leaves its outputs as they are
+    "scale_0.125_dropped": ("cg_common.cuh", SCALES, SCALES.replace("0.125f", "0.5f"),
+                            ("cg_full", "cg")),
+    # late and in few envs: from iteration 5 on, in one env of 128 (8 at
+    # B=1024), the loop B and F share restarts its direction every
+    # iteration; the early check cannot see it, and F's hand-world solves
+    # (about two live rows) have converged by then, so F is checked wide
+    "late_restart_few_envs": ("cg_common.cuh", BETA,
+                              BETA.replace("= fmaxf", "= blockIdx.x % 128 == 0 && it >= 5 "
+                                           "? 0.0f : fmaxf"), ("cg_full", "cg_wide")),
     "facet_sign": ("cg_full.cu", "col[k + 1] = Jn - mu * Jt;",
                    "col[k + 1] = Jn + mu * Jt;", ("cg_full",)),
-    "cg_one_fewer_iteration": ("cg.cu", "cg_iterate(s, E, V, p.iterations);",
-                               "cg_iterate(s, E, V, p.iterations - 1);", ("cg",)),
-    "cg_scale_0.125_dropped": ("cg_common.cuh", SCALES, SCALES.replace("0.125f", "0.5f"),
-                               ("cg",)),
+    "cg_one_fewer_iteration": ("cg.cu", F_SOLVE, F_SOLVE.replace("p.iterations", "p.iterations - 1"),
+                               ("cg", "cg_wide")),
+    # J^T f of J in device memory walks the rows with stride V - 1 (in bounds)
+    "cg_device_j_row_stride": ("cg.cu", "jt_times<DPL>(J, fs, E, V, 1, V, out);",
+                               "jt_times<DPL>(J, fs, E, V, 1, V - 1, out);", ("cg_wide",)),
     "boxbox_corner_sign": ("boxbox.cu", "(c & 1) ? 1.0f : -1.0f};",
                            "(c & 1) || c == 6 ? 1.0f : -1.0f};", ("boxbox",)),
     # the world-vertex branch reads y and z of each vert swapped; the local
@@ -70,15 +88,17 @@ def build_variant(tmp: str, name: str, fault) -> None:
         with open(path, "w") as f:
             f.write(text.replace(fault[1], fault[2]))
     cuda.CSRC, cuda.BUILD_DIR, cuda._lib = src, os.path.join(tmp, "lib"), None
+    cuda._size.cache_clear()
     cuda.build()
 
 
 def capture(chip_smoke):
     """Each checked kernel's inputs at B=1024: {"cg_full": (args_of,
-    iterations), "cg": (args_of, iterations), "boxbox": args,
+    iterations), "cg": (args_of, iterations), "cg_wide": (args_of,
+    iterations), "boxbox": args,
     "hull_pair_world": (local operands, DX), "hull_manifold_world": (local
     operands, DX)}."""
-    from robogym_torch.physics import cg_kernel, step
+    from robogym_torch.physics import cg_kernel, constraint_batched, factor_kernel, step
     from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
     world = chip_smoke.worlds()
@@ -93,8 +113,16 @@ def capture(chip_smoke):
     hull = {name + "_world": chip_smoke.capture_call(convex_kernel, name,
                                                     lambda: step.fwd_position(m, d))
             for name in ("hull_pair", "hull_manifold")}
+    kind_s, its_w, nfacet_w, wargs = chip_smoke.wide_core_inputs(chip_smoke.BATCH)
+    ci_w = constraint_batched.core_inputs(kind_s, nfacet_w,
+                                          *[torch.as_tensor(a, device=m.device) for a in wargs])
+    qs_w = torch.linalg.solve(ci_w["qM"], ci_w["qfrc_smooth"][..., None])[..., 0].contiguous()
+    wide = (*cg_kernel.solve_inputs(ci_w["kind"], nfacet_w, ci_w["rows"], ci_w["maps"],
+                                    ci_w["qvel"]),
+            ci_w["qM"], factor_kernel.spd_inverse_plain(ci_w["qM"]), qs_w, ci_w["qacc_prev"])
     return {
         **{name: (args[:-1], args[-1]) for name, args in hull.items()},
+        "cg_wide": (lambda its: (*wide, its), its_w),
         "cg_full": (lambda its: chip_smoke.cg_args(ci, its, nfacet), iterations),
         "cg": (lambda its: (*fa[:-1], its), fa[-1]),
         "boxbox": chip_smoke.capture_call(boxbox_kernel, "boxbox",
@@ -125,18 +153,23 @@ def readings(chip_smoke, kernel, inputs):
               f"{ties} of {total}; candidates differing in being sentinels {sentinels}")
         return failures
     args_of, iterations = inputs
+    label, kernel = kernel, kernel.replace("cg_wide", "cg")
     errs, early, noise, failures = chip_smoke.cg_readings(kernel, args_of, iterations)
-    print(f"  {kernel}: " + "; ".join(f"after {its}: " + ", ".join(
+    print(f"  {label}: " + "; ".join(f"after {its}: " + ", ".join(
         f"{k} {v:.3g}" for k, v in e.items()) for its, e in early.items()))
-    print(f"  {kernel}: after {iterations}, kernel vs plain (kernel vs float64, plain vs "
+    print(f"  {label}: after {iterations}, kernel vs plain (kernel vs float64, plain vs "
           "float64): " + ", ".join(f"{k} {errs[k]:.3g} ({noise[k][0]:.3g}, {noise[k][1]:.3g})"
                                    for k in errs))
+    early_fails = any(" iteration(s): " in f for f in failures)
+    noise_fails = any(" iteration(s): " not in f for f in failures)
+    print(f"  {label}: early check {'FAILS' if early_fails else 'passes'}, noise check "
+          f"{'FAILS' if noise_fails else 'passes'}")
     for its in (1, iterations):
         a = args_of(its)
         x_k = chip_smoke.wrapper(kernel)(*a)[0]
         x_p = chip_smoke.wrapper(kernel, plain=True)(*a)[0]
         off = (x_k - x_p).abs().amax(-1) > chip_smoke.CG_EARLY_TOL * x_p.abs().max()
-        print(f"  {kernel}: after {its}: qacc off by more than {chip_smoke.CG_EARLY_TOL} rel in "
+        print(f"  {label}: after {its}: qacc off by more than {chip_smoke.CG_EARLY_TOL} rel in "
               f"{int(off.sum())} of {x_k.shape[0]} envs")
     return failures
 
