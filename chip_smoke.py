@@ -29,7 +29,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (E=192, no scalar row) and E (box-box) from a settle-world substep; A
    again (V=24) and F (CG on a prebuilt J) from a hand-world substep; B
    without the Euler update from one `forward()` of the locked-like world;
-   C and H on the mesh-mesh winners of a table-world substep (V1=V2=64);
+   C and H on the winners of the table world's two manifold calls in one
+   substep, its box-mesh group (`@table-box`: the table's 8 corners against
+   the meshes, DX=6) and its mesh-mesh group (`@table`, V1=V2=64); each
+   manifold phase also prints the kernel's layout (shared memory a block,
+   registers, warps an SM, waves);
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
@@ -51,10 +55,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
    of its first phase, `k@w` for its phase at world w's shapes; each entry
-   counts the kernel's launches on the paths it stands for (H, which no
-   path runs on the table world, counts its launches on every path at
-   `@table`; `cg@wide` counts F's launches in the routed `cg_full` call
-   of its phase, read the same way as a path's).
+   counts the kernel's launches on the paths it stands for (C counts all
+   its launches on the table world's path at both `@table` and
+   `@table-box`, as the launch count does not tell the two calls apart; H,
+   which no path runs on the table world, counts its launches on every path
+   at `@table` and `@table-box`; `cg@wide` counts F's launches in the
+   routed `cg_full` call of its phase, read the same way as a path's).
 
 `--profile PATH` also writes a device-time breakdown of three locked-like
 substeps, with their wall time and the device's busy share, to PATH.
@@ -132,7 +138,7 @@ PER_CALL = {
                    "hull_manifold_world": 1, "hull_pair_world": 1},
 }
 # the path that steps the world named after `@` in a kernels-line entry
-AT_PATH = {"table": "table_setting"}
+AT_PATH = {"table": "table_setting", "table-box": "table_setting"}
 
 
 class SmokeFailure(RuntimeError):
@@ -744,11 +750,27 @@ def phase_hull(name, args, DX, reps, label=None):
     if manifold:
         corner = int((got[0][..., :3] < 1e9).any(-1).sum())
         extra = f", pairs with a side-1 vert in the manifold {corner}"
+        manifold_layout(label, world, B * K, V1, V2, DX)
     print(f"[{label}] B={B} K={K} V1={V1} V2={V2} DX={DX} max abs err {err:.3g} (tol 1e-5), "
           f"near-ties {ties}/{total}{extra}; kernel {ms:.4f} ms (host {host:.1f} us a call), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=err, max_err=err, ties=ties, pairs=total, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
+
+
+def manifold_layout(label, world, BK, V1, V2, DX):
+    """Print the manifold kernel's layout at these shapes: pairs and shared
+    memory a block, registers, warps an SM (the occupancy calculator) and
+    the waves that BK pairs take on this card."""
+    from robogym_torch import cuda
+
+    lay = cuda.hull_manifold_info(world, V1, V2, DX)
+    check(lay["blocks_per_sm"] > 0, f"{label}: no block fits on an SM")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[{label}] layout: {lay['pairs_per_block']} pairs a block of {lay['threads']} threads, "
+          f"{lay['smem_bytes']} B of shared memory a block, {lay['registers']} registers, "
+          f"{lay['blocks_per_sm'] * lay['threads'] // 32} warps an SM, "
+          f"{BK / (lay['pairs_per_block'] * lay['blocks_per_sm'] * sms):.2f} waves")
 
 
 def to_world(loc_args):
@@ -793,13 +815,24 @@ def load_world(snapshot=None):
     return bridge.model_from_numpy(arrays, "cuda"), arrays
 
 
+def capture_calls(module, name, run):
+    """The arguments of every `module.<name>` call while `run()` runs
+    (tensors cloned), in order."""
+    calls, fn = [], getattr(module, name)
+
+    def rec(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return fn(*args)
+
+    with patched([((module, name), rec)]):
+        run()
+    check(bool(calls), f"{name} was not called")
+    return calls
+
+
 def capture_call(module, name, run):
     """The arguments of the last `module.<name>` call while `run()` runs."""
-    store = {}
-    with recording(module, (name,), store):
-        run()
-    check(name in store, f"{name} was not called")
-    return store[name]
+    return capture_calls(module, name, run)[-1]
 
 
 def capture_core(m, d):
@@ -973,15 +1006,17 @@ def main() -> int:
     res["cg"] = phase_cg_prebuilt(fa, REPS)
     res["cg_full_noeuler"] = phase_cg_noeuler(
         capture_call(constraint_batched, "solve_core", lambda: step.forward(m, d)), REPS)
-    # the table world's last hull_manifold call is its mesh-mesh group
+    # the table world's two hull_manifold calls: its box-mesh group, then
+    # its mesh-mesh group
     mt, dt = world["table"][0], state["table"]
-    *targs, tDX = capture_call(convex_kernel, "hull_manifold", lambda: step.fwd_position(mt, dt))
-    check(targs[0].shape[-1] == 64 and targs[3].shape[-1] == 64,
-          f"table world: mesh-mesh call with V1={targs[0].shape[-1]}, V2={targs[3].shape[-1]}")
-    res["hull_manifold@table"] = phase_hull("hull_manifold", targs, tDX, REPS,
-                                            "C hull_manifold@table")
-    res["hull_manifold_world@table"] = phase_world("hull_manifold", targs, tDX, REPS,
-                                                   "H hull_manifold_world@table")
+    calls = capture_calls(convex_kernel, "hull_manifold", lambda: step.fwd_position(mt, dt))
+    check([(c[0].shape[-1], c[3].shape[-1]) for c in calls] == [(8, 64), (64, 64)],
+          f"table world: hull_manifold calls at {[tuple(c[0].shape) for c in calls]}")
+    for at, (*targs, tDX) in zip(("table-box", "table"), calls):
+        res["hull_manifold@" + at] = phase_hull("hull_manifold", targs, tDX, REPS,
+                                                "C hull_manifold@" + at)
+        res["hull_manifold_world@" + at] = phase_world("hull_manifold", targs, tDX, REPS,
+                                                       "H hull_manifold_world@" + at)
     # the size route: a system above kernel B's shared memory, through F
     f_shape = tuple(fa[0].shape[1:])
     res["cg@wide"] = phase_cg_wide(REPS, [((len(c["kind"]), c["qM"].shape[-1]), f_shape)

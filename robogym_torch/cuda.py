@@ -183,6 +183,24 @@ def cg_full_blocks_per_sm(E: int, V: int, euler: bool) -> int:
     return _blocks_per_sm("cg_full_blocks_per_sm", E, V, int(euler))
 
 
+def hull_manifold_info(world: bool, V1: int, V2: int, DX: int) -> dict:
+    """The layout of the manifold kernel (H for `world`, else C) for V1
+    and V2 verts a side and DX extra directions: shared memory a block,
+    registers a thread, blocks an SM (the occupancy calculator), threads
+    and pairs a block; raises on a CUDA error."""
+    build()
+    fn = _lib.robogym_hull_manifold_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(int(world), V1, V2, DX, out)
+    if rc:
+        raise RuntimeError(f"hull_manifold_info: CUDA error {rc} "
+                           f"({_lib.robogym_error_string(rc).decode()})")
+    return dict(zip(("smem_bytes", "registers", "blocks_per_sm", "threads", "pairs_per_block"),
+                    out))
+
+
 def launch(name: str, *args) -> None:
     """Launch kernel `name` with tensors (as device pointers) and ints, on
     the current stream of the first tensor's device."""

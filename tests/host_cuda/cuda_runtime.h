@@ -1,13 +1,16 @@
 // A host stand-in for the CUDA runtime and the warp intrinsics that kernels
-// B and F (robogym_torch/csrc/cg_full.cu, cg.cu) use, so that their sources
-// run on a CPU: one block is 32 std::threads, and every shuffle, vote and
-// __syncwarp is a meeting of the 32 at a std::barrier. Float arithmetic is the host's in
-// IEEE single precision; compiled with -ffp-contract=off it rounds as the
-// card does under nvcc -fmad=false.
+// B and F (robogym_torch/csrc/cg_full.cu, cg.cu) and the hull kernels
+// (hull_sweep.cu) use, so that their sources run on a CPU: a warp is 32
+// std::threads, and every shuffle, vote and __syncwarp is a meeting of the
+// 32 at a std::barrier. Float arithmetic is the host's in IEEE single
+// precision; compiled with -ffp-contract=off it rounds as the card does
+// under nvcc -fmad=false.
 #pragma once
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <thread>
+#include <vector>
 
 #define __global__
 #define __device__
@@ -30,14 +33,19 @@ typedef void* cudaStream_t;
 struct float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+struct cudaFuncAttributes {
+  int numRegs;
+};
 
 namespace host_warp {
 extern std::barrier<>* bar;
 extern float xf[32];
 extern int xi[32];
+// every lane of the warp still running takes part, whatever the mask names
 template <class T>
 inline T exchange(T* slot, T v, int src) {
-  slot[threadIdx.x] = v;
+  slot[threadIdx.x & 31] = v;
   bar->arrive_and_wait();
   const T r = slot[src & 31];
   bar->arrive_and_wait();
@@ -51,15 +59,21 @@ inline float __shfl_sync(unsigned, float v, int src) {
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   return host_warp::exchange(host_warp::xf, v, (int)threadIdx.x ^ mask);
 }
+inline int __shfl_sync(unsigned, int v, int src) {
+  return host_warp::exchange(host_warp::xi, v, src);
+}
+inline int __shfl_xor_sync(unsigned, int v, int mask) {
+  return host_warp::exchange(host_warp::xi, v, (int)threadIdx.x ^ mask);
+}
 inline bool __any_sync(unsigned, bool p) {
-  host_warp::xi[threadIdx.x] = p;
+  host_warp::xi[threadIdx.x & 31] = p;
   host_warp::bar->arrive_and_wait();
   bool r = false;
   for (int i = 0; i < 32; ++i) r |= host_warp::xi[i] != 0;
   host_warp::bar->arrive_and_wait();
   return r;
 }
-inline void __syncwarp() { host_warp::bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { host_warp::bar->arrive_and_wait(); }
 inline void __syncthreads() { host_warp::bar->arrive_and_wait(); }
 
 template <class T>
@@ -71,4 +85,33 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int, size_t
   *n = 1;
   return cudaSuccess;
 }
+template <class T>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
+  a->numRegs = 0;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// kernel<<<grid, block, smem, stream>>>(args...) on the host: block after
+// block and warp after warp, each warp as 32 threads; a thread that
+// returns drops out of its warp's barrier. The caller provides the shared
+// memory (one block's, reused by the next).
+template <class K, class... A>
+void host_launch(K kernel, unsigned grid, unsigned block, size_t, cudaStream_t, A... args) {
+  for (unsigned b = 0; b < grid; ++b) {
+    for (unsigned w0 = 0; w0 < block; w0 += 32) {
+      std::barrier<> bar(32);
+      host_warp::bar = &bar;
+      std::vector<std::thread> lanes;
+      for (unsigned l = 0; l < 32; ++l) {
+        lanes.emplace_back([&, l] {
+          threadIdx = {w0 + l, 0, 0};
+          blockIdx = {b, 0, 0};
+          kernel(args...);
+          host_warp::bar->arrive_and_drop();
+        });
+      }
+      for (auto& t : lanes) t.join();
+    }
+  }
+}

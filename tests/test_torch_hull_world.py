@@ -202,18 +202,10 @@ def _table_manifold_calls():
     substep at B=4 (40 substeps after the start): the box-mesh group (side 1
     the table's 8 corners, DX=6) and the mesh-mesh group (V1=V2=64, DX=0),
     each as ((v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd), DX)."""
-    calls = []
-    fn = t_ck.hull_manifold
-
-    def rec(*args):
-        calls.append((args[:-1], args[-1]))
-        return fn(*args)
-
     tm, d = settle_state(B, world=table_setting_like)
-    with chip_smoke.patched([((t_ck, "hull_manifold"), rec)]):
-        t_step.fwd_position(tm, d)
-    assert [c[0][0].shape[-1] for c in calls] == [8, 64]
-    return calls
+    calls = chip_smoke.capture_calls(t_ck, "hull_manifold", lambda: t_step.fwd_position(tm, d))
+    assert [c[0].shape[-1] for c in calls] == [8, 64]
+    return [(c[:-1], c[-1]) for c in calls]
 
 
 def test_table_world_manifold_matches_jax():

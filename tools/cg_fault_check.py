@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu`; their shared
-loop in `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`) and in the
-world-vertex branch of the hull kernels (G and H, `hull_sweep.cu`), and show
-whether the checks that `chip_smoke.py` holds each kernel to catch them.
+loop in `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`), in the
+world-vertex branch of the hull kernels (G and H, `hull_sweep.cu`) and in
+the manifold kernels' sweep (C and H), and show whether the checks that
+`chip_smoke.py` holds each kernel to catch them.
 
     python3 tools/cg_fault_check.py
 
@@ -10,13 +11,15 @@ Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
 does, at B=1024: B's from one substep of the locked-like world, F's from one
 substep of the hand-only world (J in shared memory) and from chip_smoke's
 wide system (`cg_wide`: V=96, E=408, J in device memory), E's from one
-substep of the goal-settle world, G's and H's from the locked-like
-substep's hull winners placed in the world. Then, for the sound sources and for each fault below, it copies
+substep of the goal-settle world, C's from the locked-like substep's hull
+winners and from the table world's two manifold calls (`@table-box`,
+`@table`), G's and H's from the locked-like substep's hull winners placed
+in the world. Then, for the sound sources and for each fault below, it copies
 `robogym_torch/csrc/` into a temporary directory, plants the fault in the
 copy (the checkout's sources are never changed), builds the copy there, and
 prints the readings of `chip_smoke.cg_readings`,
-`chip_smoke.boxbox_readings` or `chip_smoke.hull_readings` (with
-`chip_smoke.world_vs_local`) for it and whether the check passes; for a CG
+`chip_smoke.boxbox_readings` or `chip_smoke.hull_readings` (for G and H
+with `chip_smoke.world_vs_local`) for it and whether the check passes; for a CG
 kernel, which of its two parts fails: the early check (1e-4 after 1 and 2
 iterations) or the noise check after all of them (the kernel's error
 against a float64 run at most 2 times the plain version's). The sound sources must
@@ -35,7 +38,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-CHECKED = ("cg_full", "cg", "cg_wide", "boxbox", "hull_pair_world", "hull_manifold_world")
+MANIFOLD = ("hull_manifold", "hull_manifold@table-box", "hull_manifold@table",
+            "hull_manifold_world")
+CHECKED = ("cg_full", "cg", "cg_wide", "boxbox", "hull_pair_world") + MANIFOLD
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
 B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
@@ -66,9 +71,20 @@ FAULTS = {
     "boxbox_corner_sign": ("boxbox.cu", "(c & 1) ? 1.0f : -1.0f};",
                            "(c & 1) || c == 6 ? 1.0f : -1.0f};", ("boxbox",)),
     # the world-vertex branch reads y and z of each vert swapped; the local
-    # branch overwrites the vert with its transform, so C and D stay sound
-    "world_vert_yz_swapped": ("hull_sweep.cu", "V3 w{l0, l1, l2};", "V3 w{l0, l2, l1};",
-                              ("hull_pair_world", "hull_manifold_world")),
+    # branch places the vert by its pose instead, so C and D stay sound
+    "world_vert_yz_swapped": ("hull_sweep.cu", "return V3{l0, l1, l2};",
+                              "return V3{l0, l2, l1};", ("hull_pair_world", "hull_manifold_world")),
+    # the manifold's argmin over a pair's lanes (stage A, the rings, the
+    # corner pick) breaks ties to the higher index
+    "manifold_argmin_ties_high": ("hull_sweep.cu", "(ov == v && oi < i)", "(ov == v && oi > i)",
+                                  MANIFOLD),
+    # the manifold's stage A leaves out its last direction (the last box
+    # normal at DX=6, the centre line at DX=0); on the table's box-mesh
+    # pairs that normal (-z, into the table) never wins, so this fault
+    # leaves their outputs as they are
+    "manifold_stage_a_short": ("hull_sweep.cu", "const int nA = kDirs + 1 + a.DX;",
+                               "const int nA = kDirs + a.DX;",
+                               ("hull_manifold", "hull_manifold@table", "hull_manifold_world")),
 }
 
 
@@ -95,9 +111,9 @@ def build_variant(tmp: str, name: str, fault) -> None:
 def capture(chip_smoke):
     """Each checked kernel's inputs at B=1024: {"cg_full": (args_of,
     iterations), "cg": (args_of, iterations), "cg_wide": (args_of,
-    iterations), "boxbox": args,
-    "hull_pair_world": (local operands, DX), "hull_manifold_world": (local
-    operands, DX)}."""
+    iterations), "boxbox": args, and (local operands, DX) for
+    "hull_pair_world", "hull_manifold_world", "hull_manifold",
+    "hull_manifold@table-box" and "hull_manifold@table"}."""
     from robogym_torch.physics import cg_kernel, constraint_batched, factor_kernel, step
     from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
@@ -113,6 +129,10 @@ def capture(chip_smoke):
     hull = {name + "_world": chip_smoke.capture_call(convex_kernel, name,
                                                     lambda: step.fwd_position(m, d))
             for name in ("hull_pair", "hull_manifold")}
+    hull["hull_manifold"] = hull["hull_manifold_world"]
+    mt, dt = world["table"][0], state["table"]
+    hull["hull_manifold@table-box"], hull["hull_manifold@table"] = chip_smoke.capture_calls(
+        convex_kernel, "hull_manifold", lambda: step.fwd_position(mt, dt))
     kind_s, its_w, nfacet_w, wargs = chip_smoke.wide_core_inputs(chip_smoke.BATCH)
     ci_w = constraint_batched.core_inputs(kind_s, nfacet_w,
                                           *[torch.as_tensor(a, device=m.device) for a in wargs])
@@ -134,6 +154,12 @@ def readings(chip_smoke, kernel, inputs):
     """Print the check's readings for `kernel`; returns its failures."""
     from robogym_torch.physics.collision import boxbox_kernel
 
+    if kernel.startswith("hull_manifold") and not kernel.endswith("_world"):
+        loc_args, DX = inputs
+        _, err, ties, total, failures = chip_smoke.hull_readings("hull_manifold", loc_args, DX)
+        print(f"  {kernel}: max abs err where the directions agree {err:.3g}; pairs on another "
+              f"direction {ties} of {total}")
+        return failures
     if kernel.endswith("_world"):
         loc_args, DX = inputs
         _, err, ties, total, failures = chip_smoke.hull_readings(
