@@ -32,8 +32,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    C and H on the winners of the table world's two manifold calls in one
    substep, its box-mesh group (`@table-box`: the table's 8 corners against
    the meshes, DX=6) and its mesh-mesh group (`@table`, V1=V2=64); each
-   manifold phase also prints the kernel's layout (shared memory a block,
-   registers, warps an SM, waves);
+   manifold phase and each phase of A also prints the kernel's layout
+   (shared memory a block, registers, warps an SM, waves); A is held to
+   1e-5 of the plain version's largest entry and, column by column, to a
+   float64 inverse (`spd_readings`);
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
@@ -94,6 +96,8 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
 CG_EARLY_TOL = 1e-4               # a CG kernel vs plain after 1 and 2 iterations, relative
 NOISE_RATIO = 2                   # a CG kernel's float32 error vs the plain version's, both vs float64
+SPD_TOL = 1e-5                    # A vs plain, relative to the plain version's largest entry
+SPD_COLUMN_RATIO = 4              # A's worst per-column error vs float64 over the plain version's
 NEAR_TIE_TOL = 5e-3               # witness check of a hull pair on a bf16 near-tie (m)
 SAT_TIE_TOL = 1e-6                # box-box: plain SAT depth along the kernel's axis vs its own (m)
 _TPU = "robogym_tpu/physics/"
@@ -276,27 +280,79 @@ def hull_flops(K: int, V1: int, V2: int, ndir: int, manifold: bool, world: bool)
 BOXBOX_FLOPS = 15 * 50 + 9 * 20 + 16 * 62 + 60
 
 
+def column_err(got, ref):
+    """The largest over envs and columns of a column's max abs error
+    against `ref` over that column's largest entry of `ref`."""
+    err = (got.double() - ref).abs().amax(-2)
+    return float((err / ref.abs().amax(-2).clamp_min(1e-300)).max())
+
+
+def spd_readings(A):
+    """Kernel A against its plain version on matrices A (B, V, V): the
+    relative error against the plain version's largest entry, and column by
+    column against a float64 inverse (`column_err`) for the kernel and for
+    the plain version. Kernel A factors the matrix that the plain version
+    factors (the lower triangle), so the float64 inverse is the plain
+    version's on the float64 copy. The kernel's per-column error may be at
+    most SPD_COLUMN_RATIO times the plain version's: the global check alone
+    cannot see an error in a column whose entries are small beside the
+    largest (locked-like M^-1 peaks at about 2e4 on the cube's dofs, the
+    hand's block is far below that). Returns (readings, failures)."""
+    from robogym_torch.physics import factor_kernel as fk
+
+    got, want = fk.spd_inverse(A), fk.spd_inverse_plain(A)
+    ref = fk.spd_inverse_plain(A.double())
+    torch.cuda.synchronize()
+    r = dict(max_abs_err=float((got - want).abs().max()), max_err=rel_err(got, want),
+             column=column_err(got, ref), plain_column=column_err(want, ref),
+             ref_max=float(want.abs().max()), symmetric=torch.equal(got, got.transpose(1, 2)))
+    failures = []
+    if not bool(torch.isfinite(got).all()):
+        failures.append("non-finite output")
+    if not r["max_err"] <= SPD_TOL:
+        failures.append(f"rel err {r['max_err']:.3g} > {SPD_TOL}")
+    if not r["column"] <= SPD_COLUMN_RATIO * r["plain_column"]:
+        failures.append(f"per-column err {r['column']:.3g} > {SPD_COLUMN_RATIO} x the plain "
+                        f"version's {r['plain_column']:.3g}")
+    if not r["symmetric"]:
+        failures.append("output not bit-symmetric")
+    return r, failures
+
+
+def spd_layout(label, B, V):
+    """Print kernel A's layout at V dofs and B envs."""
+    from robogym_torch import cuda
+
+    lay = cuda.spd_inverse_info(V)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = lay["blocks_per_sm"] * lay["envs_per_block"]
+    print(f"[{label}] layout: {lay['envs_per_block']} envs (warps) a block, "
+          f"{lay['smem_bytes']} B of shared memory a block, {lay['registers']} registers, "
+          f"{warps} warps an SM, {B / (warps * sms):.2f} waves")
+
+
 def phase_spd(label, A, reps):
     """Kernel A on the matrices A (B, V, V) that one of its paths gave it."""
     from robogym_torch.physics import factor_kernel as fk
 
-    got, want = fk.spd_inverse(A), fk.spd_inverse_plain(A)
-    torch.cuda.synchronize()
-    err = rel_err(got, want)
-    check(bool(torch.isfinite(got).all()), "spd_inverse: non-finite output")
-    check(err <= 1e-5, f"spd_inverse: rel err {err:.3g} > 1e-5")
+    r, failures = spd_readings(A)
+    check(not failures, f"spd_inverse: {'; '.join(failures)}")
     B, V, _ = A.shape
+    spd_layout(label, B, V)
     ms = timed_ms(lambda: fk.spd_inverse(A), reps)
     plain_ms = timed_ms(lambda: fk.spd_inverse_plain(A), reps)
     lib_ms = timed_ms(lambda: torch.linalg.inv(A), reps)
     chol_ms = timed_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(A)), reps)
     b_ms, b_by = bound(2 * nbytes(A), B * V ** 3)
-    print(f"[{label}] B={B} V={V} rel err {err:.3g} (tol 1e-5, ref |max| "
-          f"{float(want.abs().max()):.4g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"[{label}] B={B} V={V} rel err {r['max_err']:.3g} (tol {SPD_TOL}, ref |max| "
+          f"{r['ref_max']:.4g}); per-column err vs float64 {r['column']:.3g}, plain version's "
+          f"{r['plain_column']:.3g} (at most {SPD_COLUMN_RATIO} x); bit-symmetric; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (cholesky_ex, solve_triangular, matmul), "
           f"linalg.inv {lib_ms:.4f} ms, cholesky_inverse {chol_ms:.4f} ms, bound {b_ms:.5f} ms")
-    return dict(max_abs_err=float((got - want).abs().max()), max_err=err, ms=ms,
+    return dict(max_abs_err=r["max_abs_err"], max_err=r["max_err"], ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, cholesky_inverse_ms=chol_ms,
-                bound_ms=b_ms, bound_by=b_by, tol=1e-5)
+                bound_ms=b_ms, bound_by=b_by, tol=SPD_TOL, column_err=r["column"],
+                plain_column_err=r["plain_column"])
 
 
 def to_float64(x):

@@ -183,6 +183,22 @@ def cg_full_blocks_per_sm(E: int, V: int, euler: bool) -> int:
     return _blocks_per_sm("cg_full_blocks_per_sm", E, V, int(euler))
 
 
+def spd_inverse_info(V: int) -> dict:
+    """The layout of kernel A (`spd_inverse`) at V dofs: shared memory a
+    block, registers a thread, blocks an SM (the occupancy calculator) and
+    envs (warps) a block; raises on a CUDA error."""
+    build()
+    fn = _lib.robogym_spd_inverse_info
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn(V, out)
+    if rc:
+        raise RuntimeError(f"spd_inverse_info: CUDA error {rc} "
+                           f"({_lib.robogym_error_string(rc).decode()})")
+    return dict(zip(("smem_bytes", "registers", "blocks_per_sm", "envs_per_block"), out))
+
+
 def hull_manifold_info(world: bool, V1: int, V2: int, DX: int) -> dict:
     """The layout of the manifold kernel (H for `world`, else C) for V1
     and V2 verts a side and DX extra directions: shared memory a block,

@@ -2,18 +2,18 @@
 
 Counterpart of `robogym_tpu/physics/factor_kernel.py`. `spd_inverse` is
 the wrapper: on a CUDA tensor it launches the hand-written kernel in
-`robogym_torch/csrc/spd_inverse.cu` (one thread block per env:
-right-looking Cholesky, forward substitution for L^-1, A^-1 = L^-T L^-1,
-with identity on the dofs padded up to a multiple of 8); on a CPU tensor it
-runs `spd_inverse_plain`, the PyTorch transcription of the JAX reference
-`_spd_inverse_ref`.
+`robogym_torch/csrc/spd_inverse.cu` (one warp per env, a row or column a
+lane: right-looking Cholesky, forward substitution for L^-1, A^-1 =
+L^-T L^-1, with identity on the dofs padded up to a multiple of 8, so V <=
+32); on a CPU tensor it runs `spd_inverse_plain`, the PyTorch transcription
+of the JAX reference `_spd_inverse_ref`. Both read only the lower triangle.
 """
 
 from __future__ import annotations
 
 import torch
 
-MAX_V = 64
+MAX_V = 32   # dofs kernel A takes: one row a lane of a warp
 
 
 def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:

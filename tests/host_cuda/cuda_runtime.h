@@ -1,6 +1,6 @@
 // A host stand-in for the CUDA runtime and the warp intrinsics that kernels
-// B and F (robogym_torch/csrc/cg_full.cu, cg.cu) and the hull kernels
-// (hull_sweep.cu) use, so that their sources run on a CPU: a warp is 32
+// A, B and F (robogym_torch/csrc/spd_inverse.cu, cg_full.cu, cg.cu) and the
+// hull kernels (hull_sweep.cu) use, so that their sources run on a CPU: a warp is 32
 // std::threads, and every shuffle, vote and __syncwarp is a meeting of the
 // 32 at a std::barrier. Float arithmetic is the host's in IEEE single
 // precision; compiled with -ffp-contract=off it rounds as the card does
@@ -74,6 +74,9 @@ inline bool __any_sync(unsigned, bool p) {
   return r;
 }
 inline void __syncwarp(unsigned = 0xffffffffu) { host_warp::bar->arrive_and_wait(); }
+// the card's approximate reciprocal and reciprocal root, here rounded
+inline float __fdividef(float a, float b) { return a / b; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline void __syncthreads() { host_warp::bar->arrive_and_wait(); }
 
 template <class T>
@@ -91,6 +94,9 @@ cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaSuccess ? "no error" : "invalid argument";
+}
 
 // kernel<<<grid, block, smem, stream>>>(args...) on the host: block after
 // block and warp after warp, each warp as 32 threads; a thread that

@@ -1,0 +1,142 @@
+"""Kernel A's CUDA source (`robogym_torch/csrc/spd_inverse.cu`) run on the
+CPU and held against its plain version, as tests/test_torch_cg_host.py
+holds kernel F: compiled by the host's C++ compiler against the stand-in
+CUDA runtime of `tests/host_cuda/`, each launch block after block and warp
+after warp, each warp as 32 threads that meet at a barrier for every
+shuffle and __syncwarp, in IEEE single precision without contracted
+multiply-adds, through the library's own C entry point
+(`tests/host_cuda/run_spd.cpp`).
+
+Inputs: the locked-like world's M and M + dt*diag(damping) from one
+substep (V=30, B=3), the hand world's M (V=24), and seeded random SPD
+matrices at V in {1, 5, 8, 24, 30, 32}, which cover the padding and every
+instance of the kernel (Vp = 8, 16, 24, 32). Tolerances, chip_smoke.py's:
+1e-5 relative to the plain version's largest entry (`SPD_TOL`), and each
+column's error against a float64 inverse, over that column's largest
+entry, at most 4 times the plain version's in the batch's worst column
+(`SPD_COLUMN_RATIO`); the output bit-symmetric. On the input of tests/test_factor_kernel.py (V=30)
+the host build and the JAX package's Pallas kernel in interpret mode are
+held to `np.linalg.inv` with that file's tolerances and to each other at
+1e-5 relative."""
+
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_common import core_inputs, hand_state, locked_like_model, locked_like_state
+from robogym_torch.physics import constraint_batched, factor_kernel
+from robogym_torch.physics import step as t_step
+from test_torch_kernels import _spd
+
+import chip_smoke
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(HERE), "robogym_torch", "csrc")
+B = 3
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """The runner of kernel A built for the host; skips without g++."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a C++20 compiler (g++) to run the CUDA source on the host")
+    out = tmp_path_factory.mktemp("host_spd")
+    with open(os.path.join(CSRC, "spd_inverse.cu")) as f:
+        src = f.read()
+    launches = src.count("<<<")
+    src, n = re.subn(r"(\w+(?:<[^<>]*>)?)<<<([^<>]*)>>>\(", r"host_launch(\1, \2, ", src)
+    assert n == launches > 0
+    shared = "  extern __shared__ float4 smem[];\n"
+    assert shared in src
+    (out / "spd_host.cpp").write_text(src.replace(shared, ""))
+    exe = out / "run_spd"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-pthread", "-ffp-contract=off",
+                    "-Wno-unknown-pragmas", f"-I{out}", f"-I{os.path.join(HERE, 'host_cuda')}",
+                    "-o", str(exe), os.path.join(HERE, "host_cuda", "run_spd.cpp")],
+                   check=True, capture_output=True, text=True)
+    return str(exe), out
+
+
+def _run(host_kernel, A):
+    """Kernel A of the host build on (B, V, V) float32 matrices."""
+    exe, tmp = host_kernel
+    A = np.ascontiguousarray(np.asarray(A, np.float32))
+    Bn, V, _ = A.shape
+    fin, fout = str(tmp / "in.bin"), str(tmp / "out.bin")
+    with open(fin, "wb") as f:
+        np.array([Bn, V], np.int32).tofile(f)
+        A.tofile(f)
+    subprocess.run([exe, fin, fout], check=True)
+    return torch.as_tensor(np.fromfile(fout, np.float32).reshape(Bn, V, V))
+
+
+def _check(host_kernel, A):
+    got, want = _run(host_kernel, A), factor_kernel.spd_inverse_plain(A)
+    ref = factor_kernel.spd_inverse_plain(A.double())
+    assert bool(torch.isfinite(got).all())
+    assert chip_smoke.rel_err(got, want) <= chip_smoke.SPD_TOL
+    assert (chip_smoke.column_err(got, ref)
+            <= chip_smoke.SPD_COLUMN_RATIO * chip_smoke.column_err(want, ref))
+    assert torch.equal(got, got.transpose(1, 2)), "output not bit-symmetric"
+    return got
+
+
+@pytest.fixture(scope="module")
+def locked_like_core():
+    tm = locked_like_model()
+    kind_s, _, nfacet, args = core_inputs(tm, locked_like_state(tm, B, seed=0))
+    return constraint_batched.core_inputs(kind_s, nfacet, *args)
+
+
+@pytest.mark.parametrize("name", ["qM", "Mimp"])
+def test_spd_source_on_host_matches_plain_locked_like(host_kernel, locked_like_core, name):
+    A = locked_like_core[name]
+    assert A.shape == (B, 30, 30)
+    _check(host_kernel, A)
+
+
+def test_spd_source_on_host_matches_plain_hand(host_kernel):
+    tm, d = hand_state(B)
+    A = chip_smoke.capture_call(factor_kernel, "spd_inverse", lambda: t_step.step(tm, d))[0]
+    assert A.shape == (B, 24, 24)
+    _check(host_kernel, A)
+
+
+@pytest.mark.parametrize("V", [1, 5, 8, 24, 30, 32])
+def test_spd_source_on_host_matches_plain_random(host_kernel, V):
+    _check(host_kernel, torch.as_tensor(_spd(np.random.default_rng(V), B, V)))
+
+
+def test_spd_source_on_host_reads_lower_triangle(host_kernel):
+    """The strict upper triangle is never read, as torch's Cholesky."""
+    A = torch.as_tensor(_spd(np.random.default_rng(7), B, 30))
+    junk = A + torch.triu(torch.full_like(A, 1e3), diagonal=1)
+    assert torch.equal(_run(host_kernel, junk), _run(host_kernel, A))
+
+
+def test_spd_source_on_host_matches_pallas(host_kernel):
+    """The host build and the JAX package's Pallas kernel in interpret mode
+    on the input of tests/test_factor_kernel.py (B=8, V=30)."""
+    import jax.numpy as jnp
+    from robogym_tpu.physics import factor_kernel as j_fk
+
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((8, 30, 30)).astype(np.float32)
+    M = A @ np.swapaxes(A, 1, 2) + 2.0 * np.eye(30, dtype=np.float32)
+    old = j_fk.INTERPRET
+    j_fk.INTERPRET = True
+    try:
+        pallas = np.array(j_fk.spd_inverse_batched(jnp.asarray(M)))
+    finally:
+        j_fk.INTERPRET = old
+    got = _check(host_kernel, torch.as_tensor(M)).numpy()
+    ref = np.linalg.inv(M)
+    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(pallas, ref, rtol=2e-3, atol=2e-4)
+    assert chip_smoke.rel_err(torch.as_tensor(got), torch.as_tensor(pallas)) <= chip_smoke.SPD_TOL

@@ -1,34 +1,41 @@
 #!/usr/bin/env python3
-"""Plant faults in the CG kernels (B, `cg_full.cu`; F, `cg.cu`; their shared
-loop in `cg_common.cuh`), in the box-box kernel (E, `boxbox.cu`), in the
-world-vertex branch of the hull kernels (G and H, `hull_sweep.cu`) and in
-the manifold kernels' sweep (C and H), and show whether the checks that
-`chip_smoke.py` holds each kernel to catch them.
+"""Plant faults in the SPD inverse (A, `spd_inverse.cu`), in the CG kernels
+(B, `cg_full.cu`; F, `cg.cu`; their shared loop in `cg_common.cuh`), in the
+box-box kernel (E, `boxbox.cu`), in the world-vertex branch of the hull
+kernels (G and H, `hull_sweep.cu`) and in the manifold kernels' sweep (C
+and H), and show whether the checks that `chip_smoke.py` holds each kernel
+to catch them.
 
-    python3 tools/cg_fault_check.py
+    python3 tools/cg_fault_check.py [--faults NAME,...]
+
+(`--faults` runs the sound build and the named faults only.)
 
 Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
-does, at B=1024: B's from one substep of the locked-like world, F's from one
-substep of the hand-only world (J in shared memory) and from chip_smoke's
-wide system (`cg_wide`: V=96, E=408, J in device memory), E's from one
-substep of the goal-settle world, C's from the locked-like substep's hull
-winners and from the table world's two manifold calls (`@table-box`,
-`@table`), G's and H's from the locked-like substep's hull winners placed
-in the world. Then, for the sound sources and for each fault below, it copies
+does, at B=1024: A's from one substep of the locked-like world (M, V=30)
+and of the hand-only world (V=24), B's from one substep of the locked-like
+world, F's from one substep of the hand-only world (J in shared memory) and
+from chip_smoke's wide system (`cg_wide`: V=96, E=408, J in device memory),
+E's from one substep of the goal-settle world, C's from the locked-like
+substep's hull winners and from the table world's two manifold calls
+(`@table-box`, `@table`), G's and H's from the locked-like substep's hull
+winners placed in the world. Then, for the sound sources and for each fault
+below, it copies
 `robogym_torch/csrc/` into a temporary directory, plants the fault in the
 copy (the checkout's sources are never changed), builds the copy there, and
 prints the readings of `chip_smoke.cg_readings`,
-`chip_smoke.boxbox_readings` or `chip_smoke.hull_readings` (for G and H
-with `chip_smoke.world_vs_local`) for it and whether the check passes; for a CG
+`chip_smoke.boxbox_readings`, `chip_smoke.hull_readings` (for G and H
+with `chip_smoke.world_vs_local`) or `chip_smoke.spd_readings` for it and
+whether the check passes, and for A which of its checks fails; for a CG
 kernel, which of its two parts fails: the early check (1e-4 after 1 and 2
 iterations) or the noise check after all of them (the kernel's error
 against a float64 run at most 2 times the plain version's). The sound sources must
-pass every check and each fault must fail the checks of its kernels;
-otherwise the script exits non-zero.
+pass every check and each fault must fail the checks of its kernels, and
+pass those that `PASSES` names for it; otherwise the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import shutil
 import sys
@@ -40,7 +47,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MANIFOLD = ("hull_manifold", "hull_manifold@table-box", "hull_manifold@table",
             "hull_manifold_world")
-CHECKED = ("cg_full", "cg", "cg_wide", "boxbox", "hull_pair_world") + MANIFOLD
+SPD = ("spd_inverse", "spd_inverse@hand")
+CHECKED = SPD + ("cg_full", "cg", "cg_wide", "boxbox", "hull_pair_world") + MANIFOLD
+RANK1 = "if (c4 + k > j) a[c4 + k] -= l * lc[k];"
+DIAG = "__shfl_sync(kFull, a[j], j)"
+PAD = "a[c] = (c == t) ? 1.0f : 0.0f;  // identity on the padded dofs"
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
 B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
@@ -48,6 +59,22 @@ F_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Ms, p.iterations);"
 # name: (file, text in it, its faulty replacement, the kernels whose checks run)
 FAULTS = {
     "sound": None,
+    # A's rank-1 update leaves out the last column; at V=30 (Vp=32) that
+    # column is padding, whose l_c are 0, so only the hand's V=24 sees it
+    # (PASSES)
+    "spd_rank1_skips_last_column": ("spd_inverse.cu", RANK1,
+                                    RANK1.replace("c4 + k > j)", "c4 + k > j && c4 + k < Vp - 1)"),
+                                    ("spd_inverse@hand",)),
+    # step 3 of A's Cholesky takes its diagonal from lane 4 (an entry below it)
+    "spd_diagonal_from_wrong_lane": ("spd_inverse.cu", DIAG, DIAG.replace("a[j], j)",
+                                                                          "a[j], j == 3 ? 4 : j)"),
+                                     SPD),
+    # A's padded dofs start at 0, not at the identity: the square root's
+    # clamp keeps their factor finite and they are decoupled from the real
+    # dofs, so no output moves (and the hand's V=24 has no padding): it
+    # passes every check (PASSES)
+    "spd_padding_zero": ("spd_inverse.cu", PAD, PAD.replace("(c == t) ? 1.0f : 0.0f", "0.0f"),
+                         ()),
     "one_fewer_iteration": ("cg_full.cu", B_SOLVE, B_SOLVE.replace("p.iterations", "p.iterations - 1"),
                             ("cg_full",)),
     # in the loop B and F share; the wide system's line search never takes
@@ -87,6 +114,10 @@ FAULTS = {
                                ("hull_manifold", "hull_manifold@table", "hull_manifold_world")),
 }
 
+# faults run on kernels whose checks they are expected to pass, with the
+# reason at the fault
+PASSES = {"spd_rank1_skips_last_column": ("spd_inverse",), "spd_padding_zero": SPD}
+
 
 def build_variant(tmp: str, name: str, fault) -> None:
     """Load the kernel library built from a copy of the checkout's sources
@@ -109,7 +140,8 @@ def build_variant(tmp: str, name: str, fault) -> None:
 
 
 def capture(chip_smoke):
-    """Each checked kernel's inputs at B=1024: {"cg_full": (args_of,
+    """Each checked kernel's inputs at B=1024: {"spd_inverse": M,
+    "spd_inverse@hand": M, "cg_full": (args_of,
     iterations), "cg": (args_of, iterations), "cg_wide": (args_of,
     iterations), "boxbox": args, and (local operands, DX) for
     "hull_pair_world", "hull_manifold_world", "hull_manifold",
@@ -141,6 +173,9 @@ def capture(chip_smoke):
                                     ci_w["qvel"]),
             ci_w["qM"], factor_kernel.spd_inverse_plain(ci_w["qM"]), qs_w, ci_w["qacc_prev"])
     return {
+        "spd_inverse": ci["qM"],
+        "spd_inverse@hand": chip_smoke.capture_call(factor_kernel, "spd_inverse",
+                                                    lambda: step.step(mh, dh))[0],
         **{name: (args[:-1], args[-1]) for name, args in hull.items()},
         "cg_wide": (lambda its: (*wide, its), its_w),
         "cg_full": (lambda its: chip_smoke.cg_args(ci, its, nfacet), iterations),
@@ -154,6 +189,12 @@ def readings(chip_smoke, kernel, inputs):
     """Print the check's readings for `kernel`; returns its failures."""
     from robogym_torch.physics.collision import boxbox_kernel
 
+    if kernel.startswith("spd_inverse"):
+        r, failures = chip_smoke.spd_readings(inputs)
+        print(f"  {kernel}: rel err {r['max_err']:.3g} (tol {chip_smoke.SPD_TOL}); per-column err "
+              f"vs float64 {r['column']:.3g}, plain version's {r['plain_column']:.3g} (at most "
+              f"{chip_smoke.SPD_COLUMN_RATIO} x); bit-symmetric: {r['symmetric']}")
+        return failures
     if kernel.startswith("hull_manifold") and not kernel.endswith("_world"):
         loc_args, DX = inputs
         _, err, ties, total, failures = chip_smoke.hull_readings("hull_manifold", loc_args, DX)
@@ -201,6 +242,12 @@ def readings(chip_smoke, kernel, inputs):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--faults", default="", help="comma-separated fault names (default: all)")
+    names = [f for f in ap.parse_args().faults.split(",") if f]
+    unknown = set(names) - set(FAULTS)
+    if unknown:
+        ap.error(f"unknown faults {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("cg_fault_check: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -214,13 +261,15 @@ def main() -> int:
         build_variant(tmp, "capture", None)
         inputs = capture(chip_smoke)
         for name, fault in FAULTS.items():
+            if names and fault is not None and name not in names:
+                continue
             build_variant(tmp, name, fault)
-            kernels = CHECKED if fault is None else fault[3]
+            kernels = CHECKED if fault is None else fault[3] + PASSES.get(name, ())
             for kernel in kernels:
                 failures = readings(chip_smoke, kernel, inputs[kernel])
                 print(f"[{name}] {kernel} check "
                       f"{'FAILS: ' + '; '.join(failures) if failures else 'passes'}", flush=True)
-                if bool(failures) != (fault is not None):
+                if bool(failures) != (fault is not None and kernel not in PASSES.get(name, ())):
                     bad.append(f"{name}/{kernel}")
     print("cg_fault_check: " + (f"wrong verdict for {bad}" if bad else
                                 "the sound kernels pass and every fault fails"))

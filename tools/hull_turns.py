@@ -62,16 +62,16 @@ def warps_by_registers(regs: int, threads: int) -> int:
     return min(blocks * threads // 32, MAX_WARPS)
 
 
-def build(tmp: str, name: str, hull_src: str | None):
+def build(tmp: str, name: str, other: str | None, file: str = "hull_sweep.cu"):
     """Load the kernel library built from a copy of the checkout's sources,
-    with `hull_src` as its hull_sweep.cu where given. Returns (library,
-    path of the .so, compiler report)."""
+    with `other` as its `file` where given. Returns (library, path of the
+    .so, compiler report)."""
     from robogym_torch import cuda
 
     src = os.path.join(tmp, name)
     shutil.copytree(CSRC, src)
-    if hull_src:
-        shutil.copy(hull_src, os.path.join(src, "hull_sweep.cu"))
+    if other:
+        shutil.copy(other, os.path.join(src, file))
     cuda.CSRC, cuda.BUILD_DIR, cuda._lib = src, os.path.join(tmp, "lib_" + name), None
     cuda._size.cache_clear()
     log = cuda.build()
@@ -87,14 +87,14 @@ def demangle(names):
     return got if len(got) == len(names) else list(names)
 
 
-def registers(log: str):
-    """{demangled hull kernel: (registers, spill stores, spill loads)} from
-    the `-Xptxas -v` report."""
+def registers(log: str, key: str = "hull"):
+    """{demangled kernel whose name holds `key`: (registers, spill stores,
+    spill loads)} from the `-Xptxas -v` report."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = m.group(1) if "hull" in m.group(1) else None
+            cur = m.group(1) if key in m.group(1) else None
         elif cur and "spill" in line:
             s = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
             out.setdefault(cur, [0, 0, 0])[1:] = s[:2]
@@ -107,10 +107,10 @@ def opcode(ins: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
 
 
-def sass(lib_path: str, dump: str):
-    """Per hull kernel of the library: instructions, opcode classes and
-    loops (a backward branch and its body), from `cuobjdump -sass`; their
-    listing is written to `dump`."""
+def sass(lib_path: str, dump: str, key: str = "hull"):
+    """Per kernel of the library whose name holds `key`: instructions,
+    opcode classes and loops (a backward branch and its body), from
+    `cuobjdump -sass`; their listing is written to `dump`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
@@ -118,7 +118,7 @@ def sass(lib_path: str, dump: str):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = funcs.setdefault(m.group(1), []) if "hull" in m.group(1) else None
+            cur = funcs.setdefault(m.group(1), []) if key in m.group(1) else None
         if cur is None:
             continue
         kept.append(line)
@@ -140,7 +140,8 @@ def sass(lib_path: str, dump: str):
                               body.count("LDS"), sum(o in ("FMUL", "FADD", "FFMA", "FMNMX")
                                                      for o in body)))
         out[name] = dict(instructions=len(ins), shfl=ops.count("SHFL"), lds=ops.count("LDS"),
-                         ldg=ops.count("LDG"), fp=sum(o in ("FMUL", "FADD", "FFMA", "FMNMX")
+                         sts=ops.count("STS"), ldg=ops.count("LDG"), stg=ops.count("STG"),
+                         bar=ops.count("BAR"), fp=sum(o in ("FMUL", "FADD", "FFMA", "FMNMX")
                                                       for o in ops),
                          cvt=sum(o.startswith("F2F") for o in ops), loops=loops)
     return out
