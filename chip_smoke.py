@@ -32,7 +32,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    C and H on the winners of the table world's two manifold calls in one
    substep, its box-mesh group (`@table-box`: the table's 8 corners against
    the meshes, DX=6) and its mesh-mesh group (`@table`, V1=V2=64); each
-   manifold phase and each phase of A also prints the kernel's layout
+   hull phase and each phase of A also prints the kernel's layout
    (shared memory a block, registers, warps an SM, waves); A is held to
    1e-5 of the plain version's largest entry and, column by column, to a
    float64 inverse (`spd_readings`);
@@ -806,7 +806,7 @@ def phase_hull(name, args, DX, reps, label=None):
     if manifold:
         corner = int((got[0][..., :3] < 1e9).any(-1).sum())
         extra = f", pairs with a side-1 vert in the manifold {corner}"
-        manifold_layout(label, world, B * K, V1, V2, DX)
+    hull_layout(label, name, B * K, V1, V2, DX)
     print(f"[{label}] B={B} K={K} V1={V1} V2={V2} DX={DX} max abs err {err:.3g} (tol 1e-5), "
           f"near-ties {ties}/{total}{extra}; kernel {ms:.4f} ms (host {host:.1f} us a call), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
@@ -814,13 +814,13 @@ def phase_hull(name, args, DX, reps, label=None):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
 
 
-def manifold_layout(label, world, BK, V1, V2, DX):
-    """Print the manifold kernel's layout at these shapes: pairs and shared
+def hull_layout(label, name, BK, V1, V2, DX):
+    """Print hull kernel `name`'s layout at these shapes: pairs and shared
     memory a block, registers, warps an SM (the occupancy calculator) and
     the waves that BK pairs take on this card."""
     from robogym_torch import cuda
 
-    lay = cuda.hull_manifold_info(world, V1, V2, DX)
+    lay = cuda.hull_info(name, V1, V2, DX)
     check(lay["blocks_per_sm"] > 0, f"{label}: no block fits on an SM")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[{label}] layout: {lay['pairs_per_block']} pairs a block of {lay['threads']} threads, "

@@ -1,6 +1,7 @@
-// Vert-hull convex narrowphase for Hopper (sm_90a): the staged support
-// sweep with its witness points, returned as one contact point (hull pair)
-// or as a 4-point manifold of side-1 corners (box against hull).
+// Vert-hull convex narrowphase for Hopper (sm_90a): one staged support
+// sweep with its witness points, and two epilogues that return it as one
+// contact point (hull pair) or as a 4-point manifold of side-1 corners
+// (box against hull).
 //
 // Replaces robogym_tpu/physics/collision/convex_kernel.py:_hull_kernel_loc
 // (robogym_hull_pair) and :_manifold_kernel_loc (robogym_hull_manifold),
@@ -13,11 +14,9 @@
 // 64 verts) and, for the local entries, its two poses, under 2 KB, and
 // writes under 100 bytes; the sweep evaluates about 35 directions against
 // every vert of both sides, about 6 * 35 * (V1 + V2) flops. Both bounds
-// are a few microseconds at the main path's sizes. The hull pair kernels
-// are bound by the instructions they issue, most of them cross-lane
-// traffic (a 5-round warp reduction a direction and side); the manifold
-// kernels, measured stage by stage on an H100 (PERF.md), by each pair's
-// serial chain of square roots, divisions, shuffle rounds and re-reads.
+// are a few microseconds at the main path's sizes. Measured stage by stage
+// on an H100 (PERF.md), the kernels are bound by each pair's serial chain
+// of square roots, divisions, shuffle rounds and re-reads.
 //
 // Direction selection emulates the JAX package's bfloat16 dots as the
 // plain version does: centered verts and the direction rounded to bf16,
@@ -26,31 +25,29 @@
 // rounds as the plain version's elementwise operations do and the kernels
 // pick the same direction except on near-ties.
 //
-// Hull pair (D, G): one warp per pair. Lane l holds verts l and l + 32 of
-// each side, read as world verts or rotated and translated into the world
-// frame in registers (a template flag); every direction's support value is
-// a warp max by __shfl_xor_sync, so the sweep, the rings and the witness
-// run without shared memory or barriers.
+// The sweep (`group_sweep`): a group of kGroup = 8 lanes per pair, four
+// pairs a warp, directions across the lanes. Each vert is placed once and
+// its bf16 centered copy staged in shared memory as a float4 (a quarter
+// warp reads one pair's vert, a broadcast; a pair's stride is odd, so the
+// quarters read disjoint banks). The group is 4 direction slots times 2
+// parts of the verts: lane j takes slot j % 4's directions over every
+// other vert from j / 4, so that each shared load serves several
+// directions. Stage A (the icosahedron's 12, the centre line, the DX
+// extras) gives a slot 4 or 5 directions; each ring of 8 candidates gives
+// it 2, lane j making candidate j. A lane keeps its extremes in registers
+// and one xor shuffle joins the two parts. Rounding to bf16 is monotone and
+// odd, so max_v bf(dot_v) = bf(max_v dot_v) and max_v -bf(dot_v) =
+// -bf(min_v dot_v): each side's support is the float32 extreme rounded
+// once, bit for bit the plain version's. Each stage ends in one argmin over
+// the group (3 shuffle rounds, ties to the lower index as torch.argmin).
+// The witnesses run across the group, lane j holding verts j, j + 8, ...;
+// a world position is placed again from the operands where one is needed,
+// by the staging's expression, so it has the same bits.
 //
-// Manifold (C, H): a group of kGroup = 8 lanes per pair, four pairs a
-// warp, directions across the lanes. Each vert is placed once and its bf16
-// centered copy staged in shared memory as a float4 (a quarter warp reads
-// one pair's vert, a broadcast; a pair's stride is odd, so the quarters
-// read disjoint banks). The group is 4 direction slots times 2 parts of
-// the verts: lane j takes slot j % 4's directions over every other vert
-// from j / 4, so that each shared load serves several directions. Stage A
-// (the icosahedron's 12, the centre line, the DX extras) gives a slot 4 or
-// 5 directions; each ring of 8 candidates gives it 2, lane j making
-// candidate j. A lane keeps its extremes in registers and one xor shuffle
-// joins the two parts. Rounding to bf16 is monotone and odd, so max_v
-// bf(dot_v) = bf(max_v dot_v) and max_v -bf(dot_v) = -bf(min_v dot_v):
-// each side's support is the float32 extreme rounded once, bit for bit the
-// plain version's. Each stage ends in one argmin over the group (3 shuffle
-// rounds, ties to the lower index as torch.argmin). The witness, the
-// support bounds and the 4-corner pick run across the group, lane j
-// holding verts j, j + 8, ...; a world position is placed again from the
-// operands where one is needed, by the staging's expression, so it has the
-// same bits.
+// The epilogues: the hull pair (D, G) writes the contact's ten floats, a
+// lane at a time; the manifold (C, H) takes the hull's support bounds
+// along two tangents and picks side 1's 4 deepest corners, across the
+// group.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -58,7 +55,6 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;    // hull pair: one pair a warp
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 1e10f;
 constexpr float kTol = 5e-3f;   // lateral tolerance of the manifold corners
@@ -66,28 +62,16 @@ constexpr int kRingN = 8;
 constexpr int kDirs = 12;        // icosahedron directions; the table holds them,
                                  // then the ring's (cos, sin) pairs
 constexpr int kMaxVerts = 64;    // a side
-constexpr int kGroup = 8;        // manifold: lanes a pair
+constexpr int kGroup = 8;        // lanes a pair
 constexpr int kParts = 2;        // ... as kParts parts of a pair's verts
 constexpr int kSlots = kGroup / kParts;   // ... times kSlots direction slots
 constexpr int kPairsPerBlock = 16;
-constexpr int kManifoldThreads = kGroup * kPairsPerBlock;
+constexpr int kThreads = kGroup * kPairsPerBlock;
 constexpr int kNone = 0x7fffffff;  // index of no direction or corner
 static_assert(kGroup == kRingN && kParts == 2, "a ring's candidates: two a lane, one made");
 static_assert(32 % kGroup == 0, "groups tile a warp");
 
 __device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 struct V3 {
   float x, y, z;
@@ -102,13 +86,6 @@ __device__ __forceinline__ V3 cross3(V3 a, V3 b) {
 __device__ __forceinline__ V3 ld3(const float* p) { return V3{p[0], p[1], p[2]}; }
 
 __device__ __forceinline__ V3 bf3(V3 a) { return V3{bf(a.x), bf(a.y), bf(a.z)}; }
-
-// A lane's two verts of one side: world position and bf16 centered copy.
-struct Side {
-  V3 w[2];
-  V3 cv[2];
-  bool ok[2];
-};
 
 // a side's pose: row-major rotation and origin (not read for world verts)
 struct Pose {
@@ -146,47 +123,6 @@ __device__ __forceinline__ V3 centered(V3 w, V3 c) {
   return V3{bf(w.x - c.x), bf(w.y - c.y), bf(w.z - c.z)};
 }
 
-template <bool kWorld>
-__device__ void load_side(const float* v, const float* xm, const float* xp, V3 c, int V,
-                          int lane, Side& s) {
-  const Pose pose = load_pose<kWorld>(xm, xp);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int idx = lane + 32 * k;
-    s.ok[k] = idx < V;
-    if (s.ok[k]) {
-      s.w[k] = place<kWorld>(v, V, idx, pose);
-      s.cv[k] = centered(s.w[k], c);
-    } else {
-      s.w[k] = V3{0.0f, 0.0f, 0.0f};
-      s.cv[k] = s.w[k];
-    }
-  }
-}
-
-// bf16 selection dot of a bf16-valued direction with a lane's vert k
-__device__ __forceinline__ float sel_dot(const Side& s, int k, V3 db) {
-  return bf((db.x * s.cv[k].x + db.y * s.cv[k].y) + db.z * s.cv[k].z);
-}
-
-// max over the side's verts of the (negated) selection dots
-__device__ __forceinline__ float support(const Side& s, V3 db, bool neg) {
-  float m = -CUDART_INF_F;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    if (s.ok[k]) {
-      const float d = sel_dot(s, k, db);
-      m = fmaxf(m, neg ? -d : d);
-    }
-  }
-  return warp_max(m);
-}
-
-__device__ __forceinline__ float separation(const Side& s1, const Side& s2, V3 d, V3 dc) {
-  const V3 db = bf3(d);
-  return (support(s1, db, false) + support(s2, db, true)) + dot3(d, dc);
-}
-
 __device__ __forceinline__ V3 scaled(V3 a, float inv_plus) {
   return V3{a.x / inv_plus, a.y / inv_plus, a.z / inv_plus};
 }
@@ -197,158 +133,6 @@ __device__ __forceinline__ V3 tangent(V3 n) {
   const V3 h{small ? 1.0f : 0.0f, small ? 0.0f : 1.0f, 0.0f};
   return cross3(n, h);
 }
-
-// centroid of the verts that reach the side's (negated) support along n
-__device__ V3 witness(const Side& s, V3 nb, bool neg) {
-  float d[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float v = sel_dot(s, k, nb);
-    d[k] = neg ? -v : v;
-  }
-  float m = -CUDART_INF_F;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) if (s.ok[k]) m = fmaxf(m, d[k]);
-  const float dmax = warp_max(m);
-  bool on[2];
-  float cnt = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    on[k] = s.ok[k] && d[k] >= dmax;
-    cnt += on[k] ? 1.0f : 0.0f;
-  }
-  const float w = 1.0f / warp_sum(cnt);
-  V3 acc{0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float o = on[k] ? w : 0.0f;
-    acc.x += o * s.w[k].x;
-    acc.y += o * s.w[k].y;
-    acc.z += o * s.w[k].z;
-  }
-  return V3{warp_sum(acc.x), warp_sum(acc.y), warp_sum(acc.z)};
-}
-
-struct Sweep {
-  V3 n, p1, p2;
-  float dist;
-};
-
-__device__ Sweep sweep(const Side& s1, const Side& s2, V3 c1, V3 c2, const float* xd, int DX,
-                       const float* tab) {
-  const V3 dc{c1.x - c2.x, c1.y - c2.y, c1.z - c2.z};
-  float best = CUDART_INF_F;
-  V3 n{0.0f, 0.0f, 1.0f};
-  for (int j = 0; j < kDirs; ++j) {
-    const V3 d = ld3(tab + 3 * j);
-    const float s = separation(s1, s2, d, dc);
-    if (s < best) {
-      best = s;
-      n = d;
-    }
-  }
-  {
-    const V3 e{c2.x - c1.x, c2.y - c1.y, c2.z - c1.z};
-    const V3 d = scaled(e, sqrtf(dot3(e, e)) + 1e-12f);
-    const float s = separation(s1, s2, d, dc);
-    if (s < best) {
-      best = s;
-      n = d;
-    }
-  }
-  for (int j = 0; j < DX; ++j) {
-    const V3 d = ld3(xd + 3 * j);
-    const float s = separation(s1, s2, d, dc);
-    if (s < best) {
-      best = s;
-      n = d;
-    }
-  }
-  const float radii[2] = {0.3f, 0.08f};
-  const float* ring = tab + 3 * kDirs;
-#pragma unroll
-  for (int ri = 0; ri < 2; ++ri) {
-    const float radius = radii[ri];
-    V3 t1 = tangent(n);
-    t1 = scaled(t1, sqrtf(dot3(t1, t1)) + 1e-12f);
-    const V3 t2 = cross3(n, t1);
-    float sb = CUDART_INF_F;
-    V3 nb = n;
-    for (int k = 0; k < kRingN; ++k) {
-      const float cs = ring[2 * k], sn = ring[2 * k + 1];
-      V3 u{n.x + radius * (cs * t1.x + sn * t2.x), n.y + radius * (cs * t1.y + sn * t2.y),
-           n.z + radius * (cs * t1.z + sn * t2.z)};
-      u = scaled(u, sqrtf(dot3(u, u)) + 1e-12f);
-      const float s = separation(s1, s2, u, dc);
-      if (s < sb) {
-        sb = s;
-        nb = u;
-      }
-    }
-    if (sb < best) {
-      best = sb;
-      n = nb;
-    }
-  }
-  Sweep out;
-  out.n = n;
-  const V3 nbf = bf3(n);
-  out.p1 = witness(s1, nbf, false);
-  out.p2 = witness(s2, nbf, true);
-  const V3 dp{out.p1.x - out.p2.x, out.p1.y - out.p2.y, out.p1.z - out.p2.z};
-  out.dist = -dot3(n, dp);
-  return out;
-}
-
-// v1, v2: local verts with their poses xm, xp, or world verts with the pose
-// pointers null (the world entries)
-struct Args {
-  const float *v1, *xm1, *xp1, *v2, *xm2, *xp2, *c1, *c2, *xd, *tab;
-  int BK, V1, V2, DXp, DX;
-};
-
-template <bool kWorld>
-__device__ __forceinline__ bool pair_setup(const Args& a, int& w, int& lane, Side& s1, Side& s2,
-                                           V3& c1, V3& c2) {
-  w = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  lane = threadIdx.x & 31;
-  if (w >= a.BK) return false;
-  c1 = ld3(a.c1 + 3 * (size_t)w);
-  c2 = ld3(a.c2 + 3 * (size_t)w);
-  const size_t p = (size_t)w;
-  load_side<kWorld>(a.v1 + p * 3 * a.V1, kWorld ? nullptr : a.xm1 + 9 * p,
-                    kWorld ? nullptr : a.xp1 + 3 * p, c1, a.V1, lane, s1);
-  load_side<kWorld>(a.v2 + p * 3 * a.V2, kWorld ? nullptr : a.xm2 + 9 * p,
-                    kWorld ? nullptr : a.xp2 + 3 * p, c2, a.V2, lane, s2);
-  return true;
-}
-
-template <bool kWorld>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-hull_pair_kernel(Args a, float* __restrict__ dist, float* __restrict__ pos, float* __restrict__ nrm,
-                 float* __restrict__ p2o) {
-  int w, lane;
-  Side s1, s2;
-  V3 c1, c2;
-  if (!pair_setup<kWorld>(a, w, lane, s1, s2, c1, c2)) return;
-  const Sweep r = sweep(s1, s2, c1, c2, a.xd + (size_t)w * a.DXp * 3, a.DX, a.tab);
-  if (lane == 0) {
-    dist[w] = r.dist;
-    pos[3 * w + 0] = 0.5f * (r.p1.x + r.p2.x);
-    pos[3 * w + 1] = 0.5f * (r.p1.y + r.p2.y);
-    pos[3 * w + 2] = 0.5f * (r.p1.z + r.p2.z);
-    nrm[3 * w + 0] = r.n.x;
-    nrm[3 * w + 1] = r.n.y;
-    nrm[3 * w + 2] = r.n.z;
-    p2o[3 * w + 0] = r.p2.x;
-    p2o[3 * w + 1] = r.p2.y;
-    p2o[3 * w + 2] = r.p2.z;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Manifold kernels (C, H): a group of kGroup lanes per pair
-// ---------------------------------------------------------------------------
 
 // float4s a pair's staged verts take: an odd count, so that the four pairs
 // of a warp read disjoint banks when each of its quarters reads a float4
@@ -489,36 +273,68 @@ __device__ V3 group_witness(int lane, const float4* cv, const float* v, const Po
   return V3{group_sum(acc.x), group_sum(acc.y), group_sum(acc.z)};
 }
 
-// P: stage A's directions a lane in one pass over its part of the verts
-template <bool kWorld, int P>
-__global__ void __launch_bounds__(kManifoldThreads)
-hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4,
-                     float* __restrict__ nrm) {
-  extern __shared__ float4 cvs[];
+// v1, v2: local verts with their poses xm, xp, or world verts with the pose
+// pointers null (the world entries)
+struct Args {
+  const float *v1, *xm1, *xp1, *v2, *xm2, *xp2, *c1, *c2, *xd, *tab;
+  int BK, V1, V2, DXp, DX;
+};
+
+// One pair's group: its place, its operands and its staged verts
+struct Pair {
+  bool live;       // a pair of the call; a group past the last pair repeats
+                   // it (every lane takes part in every shuffle) and writes nothing
+  int lane;        // this lane's index among its pair's
+  size_t p;        // the pair whose operands the group reads
+  float4* cv;      // side 1's staged verts, then side 2's
+  V3 c1, c2;
+  const float *v1, *v2, *xm1, *xp1, *xm2, *xp2, *xd;
+};
+
+// the group's pair, with its verts staged; ends in the warp's barrier
+template <bool kWorld>
+__device__ __forceinline__ Pair pair_of(const Args& a, float4* cvs) {
   const int pb = threadIdx.x / kGroup;   // the pair's place in the block
   const int pair = blockIdx.x * kPairsPerBlock + pb;
-  const bool live = pair < a.BK;   // else repeat the last pair and write nothing
-  const int lane = threadIdx.x % kGroup;   // this lane's index among its pair's
-  const size_t p = live ? pair : a.BK - 1;
-  const int V1 = a.V1, V2 = a.V2;
-  float4* cv = cvs + pb * pair_stride(V1, V2);   // side 1's verts, then side 2's
-  const V3 c1 = ld3(a.c1 + 3 * p), c2 = ld3(a.c2 + 3 * p);
-  const float* v1 = a.v1 + p * 3 * V1;
-  const float* v2 = a.v2 + p * 3 * V2;
-  const float* xm1 = kWorld ? nullptr : a.xm1 + 9 * p;
-  const float* xp1 = kWorld ? nullptr : a.xp1 + 3 * p;
-  const float* xm2 = kWorld ? nullptr : a.xm2 + 9 * p;
-  const float* xp2 = kWorld ? nullptr : a.xp2 + 3 * p;
-  stage<kWorld>(lane, v1, xm1, xp1, c1, V1, cv);
-  stage<kWorld>(lane, v2, xm2, xp2, c2, V2, cv + V1);
+  Pair q;
+  q.live = pair < a.BK;
+  q.lane = threadIdx.x % kGroup;
+  q.p = q.live ? pair : a.BK - 1;
+  q.cv = cvs + pb * pair_stride(a.V1, a.V2);
+  q.c1 = ld3(a.c1 + 3 * q.p);
+  q.c2 = ld3(a.c2 + 3 * q.p);
+  q.v1 = a.v1 + q.p * 3 * a.V1;
+  q.v2 = a.v2 + q.p * 3 * a.V2;
+  q.xm1 = kWorld ? nullptr : a.xm1 + 9 * q.p;
+  q.xp1 = kWorld ? nullptr : a.xp1 + 3 * q.p;
+  q.xm2 = kWorld ? nullptr : a.xm2 + 9 * q.p;
+  q.xp2 = kWorld ? nullptr : a.xp2 + 3 * q.p;
+  q.xd = a.xd + q.p * a.DXp * 3;
+  stage<kWorld>(q.lane, q.v1, q.xm1, q.xp1, q.c1, a.V1, q.cv);
+  stage<kWorld>(q.lane, q.v2, q.xm2, q.xp2, q.c2, a.V2, q.cv + a.V1);
   __syncwarp();
+  return q;
+}
+
+struct Sweep {
+  V3 n, p1, p2;
+  float dist;
+};
+
+// The pair's sweep: the normal n, the witnesses p1 and p2 and the depth,
+// the same bits in every lane of the group. P: stage A's directions a lane
+// in one pass over its part of the verts.
+template <bool kWorld, int P>
+__device__ __forceinline__ Sweep group_sweep(const Args& a, const Pair& q) {
+  const int lane = q.lane, V1 = a.V1, V2 = a.V2;
+  const float4* cv = q.cv;
+  const V3 c1 = q.c1, c2 = q.c2;
 
   // stage A: the lanes of slot j < kSlots take directions j, j + kSlots,
   // ... in ascending order (the strict < keeps the lowest index of a tie
   // within the lane), each over its part of the verts
   const int slot = lane % kSlots;
   const V3 dc{c1.x - c2.x, c1.y - c2.y, c1.z - c2.z};
-  const float* xd = a.xd + p * a.DXp * 3;
   const int nA = kDirs + 1 + a.DX;
   float best = CUDART_INF_F;
   int bi = kNone;
@@ -526,17 +342,17 @@ hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4
     V3 db[P];
     float ddc[P], hi[P], lo[P];
 #pragma unroll
-    for (int q = 0; q < P; ++q) {
-      const int k = base + slot + q * kSlots;
-      const V3 d = k < nA ? stage_a_dir(k, a.tab, c1, c2, xd) : V3{0.0f, 0.0f, 0.0f};
-      db[q] = bf3(d);
-      ddc[q] = dot3(d, dc);
+    for (int j = 0; j < P; ++j) {
+      const int k = base + slot + j * kSlots;
+      const V3 d = k < nA ? stage_a_dir(k, a.tab, c1, c2, q.xd) : V3{0.0f, 0.0f, 0.0f};
+      db[j] = bf3(d);
+      ddc[j] = dot3(d, dc);
     }
     extremes<P>(lane, cv, V1, V2, db, hi, lo);
 #pragma unroll
-    for (int q = 0; q < P; ++q) {
-      const int k = base + slot + q * kSlots;
-      const float s = sel_sep(hi[q], lo[q], ddc[q]);
+    for (int j = 0; j < P; ++j) {
+      const int k = base + slot + j * kSlots;
+      const float s = sel_sep(hi[j], lo[j], ddc[j]);
       if (k < nA && s < best) {
         best = s;
         bi = k;
@@ -545,7 +361,7 @@ hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4
   }
   group_argmin(best, bi);
   // the winner, made again by every lane of the group (the same bits)
-  V3 n = bi < nA ? stage_a_dir(bi, a.tab, c1, c2, xd) : V3{0.0f, 0.0f, 1.0f};
+  V3 n = bi < nA ? stage_a_dir(bi, a.tab, c1, c2, q.xd) : V3{0.0f, 0.0f, 1.0f};
 
   // two rings of kRingN candidates around n: lane j makes candidate j and
   // sweeps candidates slot and slot + kSlots over its part of the verts; a
@@ -582,12 +398,56 @@ hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4
   }
 
   // the poses again, not kept in registers through the sweep
-  const Pose pose1 = load_pose<kWorld>(xm1, xp1), pose2 = load_pose<kWorld>(xm2, xp2);
+  const Pose pose1 = load_pose<kWorld>(q.xm1, q.xp1), pose2 = load_pose<kWorld>(q.xm2, q.xp2);
   const V3 nbf = bf3(n);
-  const V3 p1 = group_witness<kWorld>(lane, cv, v1, pose1, V1, nbf, false);
-  const V3 p2 = group_witness<kWorld>(lane, cv + V1, v2, pose2, V2, nbf, true);
-  const V3 dp{p1.x - p2.x, p1.y - p2.y, p1.z - p2.z};
-  const float dist = -dot3(n, dp);
+  Sweep r;
+  r.n = n;
+  r.p1 = group_witness<kWorld>(lane, cv, q.v1, pose1, V1, nbf, false);
+  r.p2 = group_witness<kWorld>(lane, cv + V1, q.v2, pose2, V2, nbf, true);
+  const V3 dp{r.p1.x - r.p2.x, r.p1.y - r.p2.y, r.p1.z - r.p2.z};
+  r.dist = -dot3(n, dp);
+  return r;
+}
+
+// Hull pair (D, G): the contact's ten floats (dist, pos = the witnesses'
+// midpoint, n, p2), lane j writing those at j and j + kGroup
+template <bool kWorld, int P>
+__global__ void __launch_bounds__(kThreads)
+hull_pair_group_kernel(Args a, float* __restrict__ dist, float* __restrict__ pos,
+                       float* __restrict__ nrm, float* __restrict__ p2o) {
+  extern __shared__ float4 cvs[];
+  const Pair q = pair_of<kWorld>(a, cvs);
+  const Sweep r = group_sweep<kWorld, P>(a, q);
+  if (!q.live) return;
+  const V3 mid{0.5f * (r.p1.x + r.p2.x), 0.5f * (r.p1.y + r.p2.y), 0.5f * (r.p1.z + r.p2.z)};
+  const float out[10] = {r.dist, mid.x, mid.y, mid.z, r.n.x, r.n.y, r.n.z, r.p2.x, r.p2.y, r.p2.z};
+  const size_t p = q.p;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    if (k % kGroup != q.lane) continue;
+    float* dst = k == 0 ? dist + p : k < 4 ? pos + 3 * p + (k - 1)
+                 : k < 7 ? nrm + 3 * p + (k - 4) : p2o + 3 * p + (k - 7);
+    *dst = out[k];
+  }
+}
+
+// Manifold (C, H): the hull's support bounds along the tangents, each
+// side-1 corner's depth, and the 4 deepest corners
+template <bool kWorld, int P>
+__global__ void __launch_bounds__(kThreads)
+hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4,
+                     float* __restrict__ nrm) {
+  extern __shared__ float4 cvs[];
+  const Pair q = pair_of<kWorld>(a, cvs);
+  const Sweep r = group_sweep<kWorld, P>(a, q);
+  const int lane = q.lane, V1 = a.V1, V2 = a.V2;
+  const bool live = q.live;
+  const size_t p = q.p;
+  const float4* cv = q.cv;
+  const float* v1 = q.v1;
+  const V3 c2 = q.c2, n = r.n, p1 = r.p1, p2 = r.p2;
+  const float dist = r.dist;
+  const Pose pose1 = load_pose<kWorld>(q.xm1, q.xp1);
 
   // tangent directions and the hull's support bound along each
   V3 t1 = tangent(n);
@@ -623,12 +483,12 @@ hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4
     }
   }
 
-  // the 4 deepest corners, ties to the lower corner index; lane q keeps
-  // pick q
+  // the 4 deepest corners, ties to the lower corner index; lane j keeps
+  // pick j
   float dq = 0.0f;
   int iq = 0;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int j = 0; j < 4; ++j) {
     float bv = CUDART_INF_F;
     int bc = kNone;
 #pragma unroll
@@ -643,7 +503,7 @@ hull_manifold_kernel(Args a, float* __restrict__ dist4, float* __restrict__ pos4
     for (int k = 0; k < kCorners; ++k) {
       if (lane + kGroup * k == bc) cd[k] = CUDART_INF_F;
     }
-    if (lane == q) {
+    if (lane == j) {
       dq = bv;
       iq = bc;
     }
@@ -676,39 +536,61 @@ int check(int BK, int V1, int V2, int DXp, int DX) {
   return 0;
 }
 
-template <bool kWorld>
-int launch_pair(const Args& a, float* dist, float* pos, float* n, float* p2, cudaStream_t stream) {
-  if (int e = check(a.BK, a.V1, a.V2, a.DXp, a.DX)) return e;
-  if (a.BK == 0) return 0;
-  const int grid = (a.BK + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  hull_pair_kernel<kWorld><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(a, dist, pos, n, p2);
-  return (int)cudaGetLastError();
-}
-
+using PairFn = void (*)(Args, float*, float*, float*, float*);
 using ManifoldFn = void (*)(Args, float*, float*, float*);
 
-// the manifold kernel's instance: stage A's 13 + DX directions four a
-// slot up to 16 of them, else five a slot in as many passes as they need
+// a kernel's instance for stage A's 13 + DX directions: four a slot up to
+// 16 of them, else five a slot in as many passes as they need
+template <class Fn>
+Fn by_stage_a(int DX, Fn four, Fn five) {
+  return kDirs + 1 + DX <= 4 * kSlots ? four : five;
+}
+
+template <bool kWorld>
+PairFn pair_fn(int DX) {
+  return by_stage_a<PairFn>(DX, hull_pair_group_kernel<kWorld, 4>,
+                            hull_pair_group_kernel<kWorld, 5>);
+}
+
 template <bool kWorld>
 ManifoldFn manifold_fn(int DX) {
-  if (kDirs + 1 + DX <= 4 * kSlots) return hull_manifold_kernel<kWorld, 4>;
-  return hull_manifold_kernel<kWorld, 5>;
+  return by_stage_a<ManifoldFn>(DX, hull_manifold_kernel<kWorld, 4>,
+                                hull_manifold_kernel<kWorld, 5>);
 }
 
 // a block's staged verts
-size_t manifold_smem(int V1, int V2) {
+size_t block_smem(int V1, int V2) {
   return sizeof(float4) * kPairsPerBlock * pair_stride(V1, V2);
 }
 
-template <bool kWorld>
-int launch_manifold(const Args& a, float* dist4, float* pos4, float* n, cudaStream_t stream) {
+template <class Fn, class... Out>
+int launch(Fn fn, const Args& a, cudaStream_t stream, Out... out) {
   if (int e = check(a.BK, a.V1, a.V2, a.DXp, a.DX)) return e;
-  if (a.V1 < 4) return (int)cudaErrorInvalidValue;
   if (a.BK == 0) return 0;
   const int grid = (a.BK + kPairsPerBlock - 1) / kPairsPerBlock;
-  const ManifoldFn fn = manifold_fn<kWorld>(a.DX);
-  fn<<<grid, kManifoldThreads, manifold_smem(a.V1, a.V2), stream>>>(a, dist4, pos4, n);
+  fn<<<grid, kThreads, block_smem(a.V1, a.V2), stream>>>(a, out...);
   return (int)cudaGetLastError();
+}
+
+// a kernel's layout for V1, V2 into out: shared memory a block (bytes),
+// registers a thread, blocks an SM by the occupancy calculator, threads a
+// block, pairs a block
+template <class Fn>
+int layout(Fn fn, int V1, int V2, int* out) {
+  const int smem = (int)block_smem(V1, V2);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  }
+  if (e != cudaSuccess) return (int)e;
+  out[0] = smem;
+  out[1] = attr.numRegs;
+  out[2] = blocks;
+  out[3] = kThreads;
+  out[4] = kPairsPerBlock;
+  return 0;
 }
 
 }  // namespace
@@ -719,7 +601,7 @@ extern "C" int robogym_hull_pair(const float* v1l, const float* xm1, const float
                                  const float* tab, float* dist, float* pos, float* n, float* p2,
                                  int BK, int V1, int V2, int DXp, int DX, cudaStream_t stream) {
   const Args a{v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
-  return launch_pair<false>(a, dist, pos, n, p2, stream);
+  return launch(pair_fn<false>(DX), a, stream, dist, pos, n, p2);
 }
 
 extern "C" int robogym_hull_pair_world(const float* v1, const float* v2, const float* c1,
@@ -727,7 +609,7 @@ extern "C" int robogym_hull_pair_world(const float* v1, const float* v2, const f
                                        float* dist, float* pos, float* n, float* p2, int BK,
                                        int V1, int V2, int DXp, int DX, cudaStream_t stream) {
   const Args a{v1, nullptr, nullptr, v2, nullptr, nullptr, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
-  return launch_pair<true>(a, dist, pos, n, p2, stream);
+  return launch(pair_fn<true>(DX), a, stream, dist, pos, n, p2);
 }
 
 extern "C" int robogym_hull_manifold(const float* v1l, const float* xm1, const float* xp1,
@@ -736,37 +618,30 @@ extern "C" int robogym_hull_manifold(const float* v1l, const float* xm1, const f
                                      const float* tab, float* dist4, float* pos4, float* n,
                                      int BK, int V1, int V2, int DXp, int DX,
                                      cudaStream_t stream) {
+  if (V1 < 4) return (int)cudaErrorInvalidValue;
   const Args a{v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
-  return launch_manifold<false>(a, dist4, pos4, n, stream);
+  return launch(manifold_fn<false>(DX), a, stream, dist4, pos4, n);
 }
 
 extern "C" int robogym_hull_manifold_world(const float* v1, const float* v2, const float* c1,
                                            const float* c2, const float* xd, const float* tab,
                                            float* dist4, float* pos4, float* n, int BK, int V1,
                                            int V2, int DXp, int DX, cudaStream_t stream) {
+  if (V1 < 4) return (int)cudaErrorInvalidValue;
   const Args a{v1, nullptr, nullptr, v2, nullptr, nullptr, c1, c2, xd, tab, BK, V1, V2, DXp, DX};
-  return launch_manifold<true>(a, dist4, pos4, n, stream);
+  return launch(manifold_fn<true>(DX), a, stream, dist4, pos4, n);
 }
 
-// The manifold kernel's layout for V1, V2 and DX (world: H, else C) into
-// out: shared memory a block (bytes), registers a thread, blocks an SM by
-// the occupancy calculator, threads a block, pairs a block. Returns a CUDA
-// error.
-extern "C" int robogym_hull_manifold_info(int world, int V1, int V2, int DX, int* out) {
+// The layout of a hull kernel for V1, V2 and DX into out (`layout`). kind:
+// 0 the manifold (C), 1 its world-vertex instance (H), 2 the hull pair (D),
+// 3 its world-vertex instance (G). Returns a CUDA error.
+extern "C" int robogym_hull_info(int kind, int V1, int V2, int DX, int* out) {
   if (int e = check(0, V1, V2, DX, DX)) return e;
-  const ManifoldFn fn = world ? manifold_fn<true>(DX) : manifold_fn<false>(DX);
-  const int smem = (int)manifold_smem(V1, V2);
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-  int blocks = 0;
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kManifoldThreads, smem);
+  switch (kind) {
+    case 0: return layout(manifold_fn<false>(DX), V1, V2, out);
+    case 1: return layout(manifold_fn<true>(DX), V1, V2, out);
+    case 2: return layout(pair_fn<false>(DX), V1, V2, out);
+    case 3: return layout(pair_fn<true>(DX), V1, V2, out);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess) return (int)e;
-  out[0] = smem;
-  out[1] = attr.numRegs;
-  out[2] = blocks;
-  out[3] = kManifoldThreads;
-  out[4] = kPairsPerBlock;
-  return 0;
 }

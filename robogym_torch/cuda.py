@@ -199,19 +199,22 @@ def spd_inverse_info(V: int) -> dict:
     return dict(zip(("smem_bytes", "registers", "blocks_per_sm", "envs_per_block"), out))
 
 
-def hull_manifold_info(world: bool, V1: int, V2: int, DX: int) -> dict:
-    """The layout of the manifold kernel (H for `world`, else C) for V1
-    and V2 verts a side and DX extra directions: shared memory a block,
-    registers a thread, blocks an SM (the occupancy calculator), threads
-    and pairs a block; raises on a CUDA error."""
+HULL_KINDS = ("hull_manifold", "hull_manifold_world", "hull_pair", "hull_pair_world")
+
+
+def hull_info(name: str, V1: int, V2: int, DX: int) -> dict:
+    """The layout of hull kernel `name` (one of `HULL_KINDS`: C, H, D, G)
+    for V1 and V2 verts a side and DX extra directions: shared memory a
+    block, registers a thread, blocks an SM (the occupancy calculator),
+    threads and pairs a block; raises on a CUDA error."""
     build()
-    fn = _lib.robogym_hull_manifold_info
+    fn = _lib.robogym_hull_info
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
-    rc = fn(int(world), V1, V2, DX, out)
+    rc = fn(HULL_KINDS.index(name), V1, V2, DX, out)
     if rc:
-        raise RuntimeError(f"hull_manifold_info: CUDA error {rc} "
+        raise RuntimeError(f"hull_info({name}): CUDA error {rc} "
                            f"({_lib.robogym_error_string(rc).decode()})")
     return dict(zip(("smem_bytes", "registers", "blocks_per_sm", "threads", "pairs_per_block"),
                     out))

@@ -1,7 +1,7 @@
 // Runs the hull kernels on the host through their C entry points, each
 // launch block after block and warp after warp (cuda_runtime.h here).
 // `hull_host.cpp` is hull_sweep.cu with each `<<<...>>>` launch turned into
-// a call of `host_launch` and its `extern __shared__` line taken out,
+// a call of `host_launch` and its `extern __shared__` lines taken out,
 // written by the test.
 //
 //   run_hull IN OUT
@@ -10,7 +10,9 @@
 // 3 hull_pair_world; BK, V1, V2, DXp, DX), then the entry's float operands
 // in its order up to xd (9 local, 5 world) and the direction table, each an
 // int64 count and its float32 values. OUT: the outputs as float32 in the
-// entry's order (manifold: dist4, pos4, n; pair: dist, pos, n, p2).
+// entry's order (manifold: dist4, pos4, n; pair: dist, pos, n, p2). Exits
+// 3 on a CUDA error, 4 where a kernel wrote past the last pair.
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <vector>
@@ -46,9 +48,11 @@ int main(int argc, char** argv) {
   std::vector<std::vector<float>> a;
   for (int i = 0; i < (world ? 5 : 9) + 1; ++i) a.push_back(read_floats(f));
   fclose(f);
+  // each output with room for one block's pairs past the last, which must
+  // stay NaN: a group past the last pair writes nothing
   std::vector<std::vector<float>> out;
   for (int width : manifold ? std::vector<int>{4, 12, 3} : std::vector<int>{1, 3, 3, 3}) {
-    out.emplace_back((size_t)BK * width, std::nanf(""));
+    out.emplace_back((size_t)(BK + kPairsPerBlock) * width, std::nanf(""));
   }
   auto p = [&](int i) { return a[i].data(); };
   auto o = [&](int i) { return out[i].data(); };
@@ -67,9 +71,15 @@ int main(int argc, char** argv) {
                                  V1, V2, DXp, DX, nullptr);
   }
   if (rc) return 3;
+  for (const auto& v : out) {
+    const size_t n = v.size() / (BK + kPairsPerBlock) * BK;
+    for (size_t i = n; i < v.size(); ++i) {
+      if (!std::isnan(v[i])) return 4;
+    }
+  }
   FILE* w = fopen(argv[2], "wb");
   if (!w) return 2;
-  for (const auto& v : out) fwrite(v.data(), 4, v.size(), w);
+  for (const auto& v : out) fwrite(v.data(), 4, v.size() / (BK + kPairsPerBlock) * BK, w);
   fclose(w);
   return 0;
 }

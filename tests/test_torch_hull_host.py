@@ -7,17 +7,20 @@ meet at a barrier for every shuffle and __syncwarp, in IEEE single
 precision without contracted multiply-adds, through the library's own C
 entry points (`tests/host_cuda/run_hull.cpp`).
 
-C and H (the manifold, a group of 8 lanes a pair) and D and G (the hull
-pair, a warp a pair) on three inputs: the hull winners of a locked-like
+C and H (the manifold) and D and G (the hull pair), one sweep by a group
+of 8 lanes a pair, on three inputs: the hull winners of a locked-like
 substep at B=2, the table world's two `hull_manifold` calls (box-mesh and
 mesh-mesh, `test_torch_hull_world._table_manifold_calls`), and the five
 cases of tests/test_torch_hull_world.py (random hulls at V=16 and 64, the
-three cube cases). Tolerance 0: every output equal bit for bit to the plain
-version's, but for one allowance. Where a witness is the centroid of three
-or more verts (a box face along the normal), the kernel sums them in
-another order than `torch.sum` does, and that witness, the contact points
-and depths made from it may differ in their last bits: such pairs are
-held to 1e-5 and counted, and the chosen normal must still be bit-equal.
+three cube cases); and D and G on the branches that the locked-like winners
+do not reach (`test_hull_pair_source_on_host_branches`). The runner fails
+where a kernel writes past the last pair. Tolerance 0: every output equal
+bit for bit to the plain version's, but for one allowance. Where a witness
+is the centroid of three or more verts (a box face along the normal), the
+kernel sums them in another order than `torch.sum` does, and that witness,
+the contact points and depths made from it may differ in their last bits:
+such pairs are held to 1e-5 and counted, and the chosen normal must still
+be bit-equal.
 
 The plain version here normalises with a correctly rounded square root
 (float64, rounded to float32: `_ieee_norm`), as `sqrtf` is in the kernel
@@ -27,6 +30,7 @@ which moves a centre line, and the ring candidates made from it, by an ulp
 in one mesh-mesh pair of the table world.
 """
 
+import functools
 import os
 import re
 import shutil
@@ -131,6 +135,7 @@ def _check(host_kernel, name, args, DX):
     return int(off.sum()), int(ties.sum()), off.numel()
 
 
+@functools.lru_cache(maxsize=1)
 def _locked_calls():
     tm = locked_like_model()
     calls = hull_inputs(tm, locked_like_state(tm, 2, seed=0))
@@ -180,3 +185,37 @@ def test_hull_source_on_host_matches_plain_cases(host_kernel, kernel, case):
     v1, v2, c1, c2 = _case(case, manifold)
     args = tuple(torch.as_tensor(a) for a in (v1, v2, c1, c2, _xd(c1, DX)))
     _check(host_kernel, kernel, args, DX)
+
+
+def _pair_branch(case):
+    """Operands (args, DX) of D or G (`case` ends in "_world") on a branch
+    that the locked-like winners do not reach."""
+    world = case.endswith("_world")
+    if case.startswith("box_mesh"):
+        args, DX = _table_manifold_calls()[0]
+    else:
+        args, DX = _locked_calls()["hull_pair"]
+        if case.startswith("dx6"):
+            DX = 6
+            args = (*args[:-1], torch.as_tensor(_xd(args[6].numpy(), DX)))
+        else:
+            args = tuple(torch.cat([a, a[:1]]) for a in args)
+    if world:
+        args = (t_ck.world_from_loc(*args[0:3]), t_ck.world_from_loc(*args[3:6]), *args[6:9])
+    return args, DX
+
+
+@pytest.mark.parametrize("case", ["dx6", "dx6_world", "box_mesh", "tail", "tail_world"])
+def test_hull_pair_source_on_host_branches(host_kernel, case):
+    """D and G where the locked-like winners (K=8, V=64, DX=0) do not go:
+    stage A's five-a-slot instance (`dx6`: their pairs with the +-x, +-y,
+    +-z face normals as DX=6 extra directions), a narrow side 1 through D
+    (`box_mesh`: the table world's box-mesh operands, V1=8, V2=64, DX=6),
+    and a pair count that is not a multiple of a block's 16 (`tail`: B=3,
+    K=8, the third env a copy of the first), where the groups past the
+    last pair must write nothing past it."""
+    name = "hull_pair_world" if case.endswith("_world") else "hull_pair"
+    args, DX = _pair_branch(case)
+    off, ties, total = _check(host_kernel, name, args, DX)
+    print(f"{case}: {name} at BK={total}, DX={DX}: {off} pairs differ in some bit, "
+          f"{ties} with a witness tie")

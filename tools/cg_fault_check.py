@@ -2,9 +2,9 @@
 """Plant faults in the SPD inverse (A, `spd_inverse.cu`), in the CG kernels
 (B, `cg_full.cu`; F, `cg.cu`; their shared loop in `cg_common.cuh`), in the
 box-box kernel (E, `boxbox.cu`), in the world-vertex branch of the hull
-kernels (G and H, `hull_sweep.cu`) and in the manifold kernels' sweep (C
-and H), and show whether the checks that `chip_smoke.py` holds each kernel
-to catch them.
+kernels (G and H, `hull_sweep.cu`), in the sweep that the hull kernels
+share (C, D, G and H) and in the hull pair's epilogue (D and G), and show
+whether the checks that `chip_smoke.py` holds each kernel to catch them.
 
     python3 tools/cg_fault_check.py [--faults NAME,...]
 
@@ -15,11 +15,11 @@ does, at B=1024: A's from one substep of the locked-like world (M, V=30)
 and of the hand-only world (V=24), B's from one substep of the locked-like
 world, F's from one substep of the hand-only world (J in shared memory) and
 from chip_smoke's wide system (`cg_wide`: V=96, E=408, J in device memory),
-E's from one substep of the goal-settle world, C's from the locked-like
-substep's hull winners and from the table world's two manifold calls
-(`@table-box`, `@table`), G's and H's from the locked-like substep's hull
-winners placed in the world. Then, for the sound sources and for each fault
-below, it copies
+E's from one substep of the goal-settle world, C's and D's from the
+locked-like substep's hull winners and C's also from the table world's two
+manifold calls (`@table-box`, `@table`), G's and H's from the locked-like
+substep's hull winners placed in the world. Then, for the sound sources
+and for each fault below, it copies
 `robogym_torch/csrc/` into a temporary directory, plants the fault in the
 copy (the checkout's sources are never changed), builds the copy there, and
 prints the readings of `chip_smoke.cg_readings`,
@@ -48,7 +48,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MANIFOLD = ("hull_manifold", "hull_manifold@table-box", "hull_manifold@table",
             "hull_manifold_world")
 SPD = ("spd_inverse", "spd_inverse@hand")
-CHECKED = SPD + ("cg_full", "cg", "cg_wide", "boxbox", "hull_pair_world") + MANIFOLD
+PAIR = ("hull_pair", "hull_pair_world")
+CHECKED = SPD + ("cg_full", "cg", "cg_wide", "boxbox") + PAIR + MANIFOLD
 RANK1 = "if (c4 + k > j) a[c4 + k] -= l * lc[k];"
 DIAG = "__shfl_sync(kFull, a[j], j)"
 PAD = "a[c] = (c == t) ? 1.0f : 0.0f;  // identity on the padded dofs"
@@ -56,6 +57,7 @@ SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
 B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
 F_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Ms, p.iterations);"
+MID = "const V3 mid{0.5f * (r.p1.x + r.p2.x), 0.5f * (r.p1.y + r.p2.y), 0.5f * (r.p1.z + r.p2.z)};"
 # name: (file, text in it, its faulty replacement, the kernels whose checks run)
 FAULTS = {
     "sound": None,
@@ -101,17 +103,21 @@ FAULTS = {
     # branch places the vert by its pose instead, so C and D stay sound
     "world_vert_yz_swapped": ("hull_sweep.cu", "return V3{l0, l1, l2};",
                               "return V3{l0, l2, l1};", ("hull_pair_world", "hull_manifold_world")),
-    # the manifold's argmin over a pair's lanes (stage A, the rings, the
-    # corner pick) breaks ties to the higher index
+    # the group argmin of the shared sweep (stage A, the rings) and of the
+    # manifold's corner pick breaks ties to the higher index
     "manifold_argmin_ties_high": ("hull_sweep.cu", "(ov == v && oi < i)", "(ov == v && oi > i)",
-                                  MANIFOLD),
-    # the manifold's stage A leaves out its last direction (the last box
-    # normal at DX=6, the centre line at DX=0); on the table's box-mesh
+                                  MANIFOLD + PAIR),
+    # the shared sweep's stage A leaves out its last direction (the last
+    # box normal at DX=6, the centre line at DX=0); on the table's box-mesh
     # pairs that normal (-z, into the table) never wins, so this fault
     # leaves their outputs as they are
     "manifold_stage_a_short": ("hull_sweep.cu", "const int nA = kDirs + 1 + a.DX;",
                                "const int nA = kDirs + a.DX;",
-                               ("hull_manifold", "hull_manifold@table", "hull_manifold_world")),
+                               ("hull_manifold", "hull_manifold@table", "hull_manifold_world")
+                               + PAIR),
+    # the hull pair writes p1 as its contact point, not the witnesses'
+    # midpoint
+    "pair_pos_from_p1": ("hull_sweep.cu", MID, "const V3 mid = r.p1;", PAIR),
 }
 
 # faults run on kernels whose checks they are expected to pass, with the
@@ -144,7 +150,7 @@ def capture(chip_smoke):
     "spd_inverse@hand": M, "cg_full": (args_of,
     iterations), "cg": (args_of, iterations), "cg_wide": (args_of,
     iterations), "boxbox": args, and (local operands, DX) for
-    "hull_pair_world", "hull_manifold_world", "hull_manifold",
+    "hull_pair", "hull_pair_world", "hull_manifold", "hull_manifold_world",
     "hull_manifold@table-box" and "hull_manifold@table"}."""
     from robogym_torch.physics import cg_kernel, constraint_batched, factor_kernel, step
     from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
@@ -161,7 +167,7 @@ def capture(chip_smoke):
     hull = {name + "_world": chip_smoke.capture_call(convex_kernel, name,
                                                     lambda: step.fwd_position(m, d))
             for name in ("hull_pair", "hull_manifold")}
-    hull["hull_manifold"] = hull["hull_manifold_world"]
+    hull["hull_pair"], hull["hull_manifold"] = hull["hull_pair_world"], hull["hull_manifold_world"]
     mt, dt = world["table"][0], state["table"]
     hull["hull_manifold@table-box"], hull["hull_manifold@table"] = chip_smoke.capture_calls(
         convex_kernel, "hull_manifold", lambda: step.fwd_position(mt, dt))
@@ -195,9 +201,10 @@ def readings(chip_smoke, kernel, inputs):
               f"vs float64 {r['column']:.3g}, plain version's {r['plain_column']:.3g} (at most "
               f"{chip_smoke.SPD_COLUMN_RATIO} x); bit-symmetric: {r['symmetric']}")
         return failures
-    if kernel.startswith("hull_manifold") and not kernel.endswith("_world"):
+    if kernel.startswith("hull_") and not kernel.endswith("_world"):
         loc_args, DX = inputs
-        _, err, ties, total, failures = chip_smoke.hull_readings("hull_manifold", loc_args, DX)
+        _, err, ties, total, failures = chip_smoke.hull_readings(kernel.split("@")[0], loc_args,
+                                                                 DX)
         print(f"  {kernel}: max abs err where the directions agree {err:.3g}; pairs on another "
               f"direction {ties} of {total}")
         return failures

@@ -17,14 +17,14 @@ copy of it whose hull_sweep.cu is DIR's (for example the parent commit's,
 taken out with `git show`), each into a temporary directory and named by
 DIR's last component. For each build it
 prints the hull kernels' registers, spills and warps an SM as the register
-file allows them (from `nvcc -Xptxas -v`), the occupancy that the build
-reports where it exports `robogym_hull_manifold_info`, and the SASS of each
-hull kernel (`cuobjdump -sass`): its instructions, shuffles, shared and
-global loads, and each loop's instructions and shuffles (the hull kernels'
-listings go to OUT/hull_sass_<build>.txt). Then C's and C@table's times at
-BK/2, BK and 2 BK pairs (the operands sliced to B=512 and repeated to
-B=2048): time in proportion to BK is a throughput-bound kernel, flat time
-a latency-bound one or a tail of too few warps.
+file allows them (from `nvcc -Xptxas -v`), the layouts that the build
+reports where it exports `robogym_hull_info`, and the SASS of each hull
+kernel (`cuobjdump -sass`): its instructions, shuffles, shared and global
+loads, and each loop's instructions and shuffles (the hull kernels'
+listings go to OUT/hull_sass_<build>.txt). Then C's, C@table's, D's and
+G's times at BK/2, BK and 2 BK pairs (the operands sliced to B=512 and
+repeated to B=2048): time in proportion to BK is a throughput-bound
+kernel, flat time a latency-bound one or a tail of too few warps.
 
 For each `--parent`, each kernel's outputs of that build and of the
 checkout's are compared (`torch.equal`, and the pair slots that differ),
@@ -192,17 +192,16 @@ def report_build(name, so, log, out):
 
 
 def report_layout(chip_smoke, name, ops):
-    """Print the manifold layouts that the loaded build reports, if it
-    exports them."""
+    """Print the hull kernels' layouts that the loaded build reports, if
+    it exports them."""
     from robogym_torch import cuda
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for entry in ("C", "H", "C@table", "C@table-box"):
+    for entry in ("C", "H", "D", "G", "C@table", "C@table-box"):
         kernel, args, DX = ops[entry]
         world = kernel.endswith("_world")
         try:
-            lay = cuda.hull_manifold_info(world, args[0].shape[-1],
-                                          args[1 if world else 3].shape[-1], DX)
+            lay = cuda.hull_info(kernel, args[0].shape[-1], args[1 if world else 3].shape[-1], DX)
         except AttributeError:
             return
         bk = args[0].shape[0] * args[0].shape[1]
@@ -213,8 +212,9 @@ def report_layout(chip_smoke, name, ops):
 
 
 def report_scaling(chip_smoke, name, ops):
-    """Print C's and C@table's times at BK/2, BK and 2 BK pairs."""
-    for entry in ("C", "C@table"):
+    """Print C's, C@table's, D's and G's times at BK/2, BK and 2 BK
+    pairs."""
+    for entry in ("C", "C@table", "D", "G"):
         kernel, args, DX = ops[entry]
         half = tuple(a[: a.shape[0] // 2].contiguous() for a in args)
         double = tuple(torch.cat([a, a]).contiguous() for a in args)
