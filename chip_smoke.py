@@ -32,8 +32,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    C and H on the winners of the table world's two manifold calls in one
    substep, its box-mesh group (`@table-box`: the table's 8 corners against
    the meshes, DX=6) and its mesh-mesh group (`@table`, V1=V2=64); each
-   hull phase and each phase of A also prints the kernel's layout
-   (shared memory a block, registers, warps an SM, waves); A is held to
+   hull phase, E's phase and each phase of A also prints the kernel's
+   layout (shared memory a block, registers, warps an SM, waves); A is held to
    1e-5 of the plain version's largest entry and, column by column, to a
    float64 inverse (`spd_readings`);
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
@@ -680,11 +680,19 @@ def boxbox_readings(args, got, want):
     return err, ties, total, failures
 
 
+def boxbox_layout(BK, label="E boxbox"):
+    """Print the box-box kernel's layout for BK pairs (`layout_line`)."""
+    from robogym_torch import cuda
+
+    layout_line(label, cuda.boxbox_info(), BK)
+
+
 def phase_boxbox(args, reps):
     from robogym_torch.physics.collision import boxbox_kernel as bb
 
     got, want = bb.boxbox(*args), bb.boxbox_plain(*args)
     torch.cuda.synchronize()
+    boxbox_layout(args[0].shape[0] * args[0].shape[1])
     err, ties, total, failures = boxbox_readings(args, got, want)
     live = int((want[0] < 0).sum())
     print(f"[E boxbox] B={args[0].shape[0]} K={args[0].shape[1]}: max abs err {err:.3g} (tol "
@@ -786,6 +794,7 @@ def phase_hull(name, args, DX, reps, label=None):
     """A hull kernel's phase: `hull_readings` on the operands that one of
     its paths gave it, then the kernel's and the plain version's times and
     the bound."""
+    from robogym_torch import cuda
     from robogym_torch.physics.collision import convex_kernel as ck
 
     label = label or f"{HULL_LETTER[name]} {name}"
@@ -806,7 +815,7 @@ def phase_hull(name, args, DX, reps, label=None):
     if manifold:
         corner = int((got[0][..., :3] < 1e9).any(-1).sum())
         extra = f", pairs with a side-1 vert in the manifold {corner}"
-    hull_layout(label, name, B * K, V1, V2, DX)
+    layout_line(label, cuda.hull_info(name, V1, V2, DX), B * K)
     print(f"[{label}] B={B} K={K} V1={V1} V2={V2} DX={DX} max abs err {err:.3g} (tol 1e-5), "
           f"near-ties {ties}/{total}{extra}; kernel {ms:.4f} ms (host {host:.1f} us a call), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
@@ -814,17 +823,16 @@ def phase_hull(name, args, DX, reps, label=None):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
 
 
-def hull_layout(label, name, BK, V1, V2, DX):
-    """Print hull kernel `name`'s layout at these shapes: pairs and shared
-    memory a block, registers, warps an SM (the occupancy calculator) and
-    the waves that BK pairs take on this card."""
-    from robogym_torch import cuda
-
-    lay = cuda.hull_info(name, V1, V2, DX)
+def layout_line(label, lay, BK):
+    """Print a kernel's layout `lay` (a `cuda.*_info` dict): lanes a pair
+    where it has them, pairs and shared memory a block, registers, warps an
+    SM (the occupancy calculator) and the waves that BK pairs take on this
+    card."""
     check(lay["blocks_per_sm"] > 0, f"{label}: no block fits on an SM")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[{label}] layout: {lay['pairs_per_block']} pairs a block of {lay['threads']} threads, "
-          f"{lay['smem_bytes']} B of shared memory a block, {lay['registers']} registers, "
+    lanes = f"{lay['lanes_per_pair']} lanes a pair, " if "lanes_per_pair" in lay else ""
+    print(f"[{label}] layout: {lanes}{lay['pairs_per_block']} pairs a block of {lay['threads']} "
+          f"threads, {lay['smem_bytes']} B of shared memory a block, {lay['registers']} registers, "
           f"{lay['blocks_per_sm'] * lay['threads'] // 32} warps an SM, "
           f"{BK / (lay['pairs_per_block'] * lay['blocks_per_sm'] * sms):.2f} waves")
 

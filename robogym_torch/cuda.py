@@ -220,6 +220,23 @@ def hull_info(name: str, V1: int, V2: int, DX: int) -> dict:
                     out))
 
 
+def boxbox_info() -> dict:
+    """The layout of the box-box kernel (E): lanes a pair, pairs and
+    threads a block, shared memory a block, registers a thread and blocks
+    an SM (the occupancy calculator); raises on a CUDA error."""
+    build()
+    fn = _lib.robogym_boxbox_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    rc = fn(out)
+    if rc:
+        raise RuntimeError(f"boxbox_info: CUDA error {rc} "
+                           f"({_lib.robogym_error_string(rc).decode()})")
+    return dict(zip(("lanes_per_pair", "pairs_per_block", "threads", "smem_bytes", "registers",
+                     "blocks_per_sm"), out))
+
+
 def launch(name: str, *args) -> None:
     """Launch kernel `name` with tensors (as device pointers) and ints, on
     the current stream of the first tensor's device."""

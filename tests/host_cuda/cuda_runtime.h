@@ -1,8 +1,8 @@
 // A host stand-in for the CUDA runtime and the warp intrinsics that kernels
-// A, B and F (robogym_torch/csrc/spd_inverse.cu, cg_full.cu, cg.cu) and the
-// hull kernels (hull_sweep.cu) use, so that their sources run on a CPU: a warp is 32
-// std::threads, and every shuffle, vote and __syncwarp is a meeting of the
-// 32 at a std::barrier. Float arithmetic is the host's in IEEE single
+// A, B and F (robogym_torch/csrc/spd_inverse.cu, cg_full.cu, cg.cu), the
+// hull kernels (hull_sweep.cu) and the box-box kernel (boxbox.cu) use, so
+// that their sources run on a CPU: a warp is 32 std::threads, and every
+// shuffle, vote and __syncwarp is a meeting of the 32 at a std::barrier. Float arithmetic is the host's in IEEE single
 // precision; compiled with -ffp-contract=off it rounds as the card does
 // under nvcc -fmad=false.
 #pragma once
@@ -17,6 +17,9 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+// a kernel's static shared array: one for the process, which the blocks,
+// run one after another, take in turn
+#define __shared__ static
 
 struct uint3 {
   unsigned x, y, z;

@@ -97,8 +97,17 @@ FAULTS = {
     # J^T f of J in device memory walks the rows with stride V - 1 (in bounds)
     "cg_device_j_row_stride": ("cg.cu", "jt_times<DPL>(J, fs, E, V, 1, V, out);",
                                "jt_times<DPL>(J, fs, E, V, 1, V - 1, out);", ("cg_wide",)),
+    # corner 6 of each box (candidates 6 and 14) with its z sign flipped
     "boxbox_corner_sign": ("boxbox.cu", "(c & 1) ? 1.0f : -1.0f};",
-                           "(c & 1) || c == 6 ? 1.0f : -1.0f};", ("boxbox",)),
+                           "(c & 1) || (c & 7) == 6 ? 1.0f : -1.0f};", ("boxbox",)),
+    # the box-box group argmin breaks exact ties of the SAT depth to the
+    # higher axis index
+    "boxbox_argmin_ties_high": ("boxbox.cu", "return v < ov || (v == ov && i < oi);",
+                                "return v < ov || (v == ov && i > oi);", ("boxbox",)),
+    # the box-box staged store writes every warp's pairs one pair early
+    # (the first warp's in place, so that nothing is written out of bounds)
+    "boxbox_store_pair_offset": ("boxbox.cu", "const size_t first = q0;",
+                                 "const size_t first = q0 > 0 ? q0 - 1 : 0;", ("boxbox",)),
     # the world-vertex branch reads y and z of each vert swapped; the local
     # branch places the vert by its pose instead, so C and D stay sound
     "world_vert_yz_swapped": ("hull_sweep.cu", "return V3{l0, l1, l2};",
