@@ -9,7 +9,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the CUDA kernels from `robogym_torch/csrc/` and prints
    what `nvcc -Xptxas -v` reports per kernel.
-3. State, B=1024 from seed 0 on four worlds: the locked-like world
+3. State, B=1024 from seed 0 on five worlds: the locked-like world
    (`robogym_torch/worlds/locked_like.npz`) settled for 20 substeps so
    contacts are live; the rearrange goal-settle world
    (`blocks_settle_like.npz`) settled for 40 substeps so the blocks rest on
@@ -17,13 +17,19 @@ Phases, in order; any failure ends the script with a non-zero exit:
    with hinges started past their limits so joint-limit rows are live; the
    table-setting goal-settle world (`table_setting_like.npz`, five free
    meshes, the spoon on the plate in every other env) settled for 40
-   substeps.
+   substeps; the dactyl-shaped world (`dactyl_locked_like.npz`, nv=36: the
+   cube and the target on three slides and a ball, a box palm) settled for
+   20 substeps. Then the locked env (`envs/dactyl/locked.py`) on the
+   dactyl-shaped world: its construction (the zero-control settle) and
+   `LockedEnv.reset` at B=1024 from seed 0 (time, retries, share of envs
+   with the cube on the palm; every state finite).
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
    launches, after a warm-up), with a library call beside them where one
    computes the same function. A (SPD inverse), B (fused CG solve), C and D
-   (hull kernels) from a locked-like substep, and H and G (the hull
+   (hull kernels) from a locked-like substep, A again (V=36) from a
+   substep of the locked env's reset state (`@dactyl`), and H and G (the hull
    kernels on world verts) on the same winners placed in the world by
    `world_from_loc`, also held to C's and D's outputs bit for bit; B again
    (E=192, no scalar row) and E (box-box) from a settle-world substep; A
@@ -35,11 +41,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    hull phase, E's phase and each phase of A also prints the kernel's
    layout (shared memory a block, registers, warps an SM, waves); A is held to
    1e-5 of the plain version's largest entry and, column by column, to a
-   float64 inverse (`spd_readings`);
+   float64 inverse (`spd_readings`), on its path's matrices and on dense
+   seeded SPD matrices of the same shape (`dense_spd`);
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
-   and F keeps J in device memory.
+   and F keeps J in device memory; and A on that system's M (V=96, the
+   shared-memory kernel, `spd_inverse@wide`).
 5. Paths, each driven with every launch count set to 0 just before it and
    read just after; every qpos, qvel and qacc finite; every kernel's count
    equal to its count per substep or call times their number:
@@ -49,10 +57,15 @@ Phases, in order; any failure ends the script with a non-zero exit:
    10 `forward()` calls on the locked-like world; one goal settle of the
    table world, 200 substeps (substeps/s, settles/s); one locked-like env
    step of 10 substeps, after each of which that substep's hull winners are
-   placed in the world and passed to the world-vertex entry points.
+   placed in the world and passed to the world-vertex entry points; 20
+   steps of the locked env (`LockedEnv.step`, 10 substeps each) from its
+   reset state, actions uniform in [-1, 1] from a seeded generator, as
+   bench.py drives the JAX env (env-steps/s, the reward sum, the episodes
+   done, the share on the palm; every obs and reward finite).
 6. Whole-step agreement: one substep through the kernels against one
-   through the plain versions, at B=64, on the locked-like, settle, hand
-   and table worlds; every kernel routed to its plain version by name.
+   through the plain versions, at B=64, on the locked-like, settle, hand,
+   table and dactyl-shaped worlds; every kernel routed to its plain
+   version by name.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
@@ -62,7 +75,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    `@table-box`, as the launch count does not tell the two calls apart; H,
    which no path runs on the table world, counts its launches on every path
    at `@table` and `@table-box`; `cg@wide` counts F's launches in the
-   routed `cg_full` call of its phase, read the same way as a path's).
+   routed `cg_full` call of its phase, read the same way as a path's, and
+   `spd_inverse@wide` A's launches in one call on its system).
 
 `--profile PATH` also writes a device-time breakdown of three locked-like
 substeps, with their wall time and the device's busy share, to PATH.
@@ -140,9 +154,11 @@ PER_CALL = {
     "table_setting": {"hull_manifold": 2, "spd_inverse": 2, "cg_full": 1},
     "hull_world": {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 1, "hull_pair": 1,
                    "hull_manifold_world": 1, "hull_pair_world": 1},
+    "locked_env": {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 1, "hull_pair": 1,
+                   "boxbox": 1},
 }
 # the path that steps the world named after `@` in a kernels-line entry
-AT_PATH = {"table": "table_setting", "table-box": "table_setting"}
+AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "locked_env"}
 
 
 class SmokeFailure(RuntimeError):
@@ -326,18 +342,41 @@ def spd_layout(label, B, V):
     lay = cuda.spd_inverse_info(V)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     warps = lay["blocks_per_sm"] * lay["envs_per_block"]
-    print(f"[{label}] layout: {lay['envs_per_block']} envs (warps) a block, "
+    check(warps > 0, f"{label}: no block fits on an SM")
+    rows = (f"{lay['rows_per_lane']} row(s) a lane in registers" if lay["rows_per_lane"] > 0
+            else "the matrix in shared memory" if lay["rows_per_lane"] == 0
+            else "rows a lane not reported")
+    print(f"[{label}] layout: {rows}, {lay['envs_per_block']} envs (warps) a block, "
           f"{lay['smem_bytes']} B of shared memory a block, {lay['registers']} registers, "
           f"{warps} warps an SM, {B / (warps * sms):.2f} waves")
 
 
+def dense_spd(B, V, device, seed=SEED):
+    """B seeded dense SPD matrices X X^T / V + I (V, V), float32: every
+    entry of each factor live. A path's M can leave parts of kernel A's
+    arithmetic at zero: the dactyl-shaped world's rows 30-35 (the target's
+    slides and ball) are decoupled and diagonal, so there the second slot
+    of rows (rows 32 and up) runs no off-diagonal update."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    X = torch.randn((B, V, V), generator=gen, dtype=torch.float64, device=device)
+    eye = torch.eye(V, dtype=torch.float64, device=device)
+    return (X @ X.transpose(1, 2) / V + eye).float().contiguous()
+
+
 def phase_spd(label, A, reps):
-    """Kernel A on the matrices A (B, V, V) that one of its paths gave it."""
+    """Kernel A on the matrices A (B, V, V) that one of its paths gave it,
+    and on dense seeded SPD matrices of the same shape (`dense_spd`)."""
     from robogym_torch.physics import factor_kernel as fk
 
     r, failures = spd_readings(A)
     check(not failures, f"spd_inverse: {'; '.join(failures)}")
     B, V, _ = A.shape
+    rd, failures = spd_readings(dense_spd(B, V, A.device))
+    check(not failures, f"spd_inverse on dense SPD matrices: {'; '.join(failures)}")
+    print(f"[{label}] dense seeded SPD matrices, B={B} V={V}: rel err {rd['max_err']:.3g}, "
+          f"per-column err vs float64 {rd['column']:.3g}, plain version's "
+          f"{rd['plain_column']:.3g}; bit-symmetric")
     spd_layout(label, B, V)
     ms = timed_ms(lambda: fk.spd_inverse(A), reps)
     plain_ms = timed_ms(lambda: fk.spd_inverse_plain(A), reps)
@@ -609,6 +648,7 @@ def phase_cg_wide(reps, fitting, device):
         check(cg_kernel.fits(Eb, Vb, True), f"cg@wide: kernel B does not take E={Eb}, V={Vb}")
         check(cuda.cg_scratch_floats(Ef, Vf) == 0, f"cg@wide: F's route at E={Ef}, V={Vf}")
     f_occupancy("cg@wide", B, E, V)
+    wide_qM = ci["qM"]
 
     def full_args(k):
         return cg_args(ci, k, nfacet)
@@ -633,6 +673,23 @@ def phase_cg_wide(reps, fitting, device):
     r = phase_cg("cg", "F cg@wide", lambda k: (*ins, k), its, nbytes(*ins),
                  B * cg_flops(E, V, its, aref=False, qfrc=False), reps)
     r["launches"] = launches["cg"]
+    return r, wide_qM
+
+
+def phase_spd_wide(qM, reps):
+    """Kernel A at V=96 on the wide system's M (the shared-memory kernel):
+    `phase_spd`, with its launches counted in one call."""
+    from robogym_torch import cuda
+    from robogym_torch.physics import factor_kernel as fk
+
+    r = phase_spd("A spd_inverse@wide", qM, reps)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    fk.spd_inverse(qM)
+    torch.cuda.synchronize()
+    r["launches"] = cuda.LAUNCHES["spd_inverse"]
+    check(r["launches"] == 1 and sum(cuda.LAUNCHES.values()) == 1,
+          f"spd_inverse@wide: one call launched {dict(cuda.LAUNCHES)}")
     return r
 
 
@@ -925,8 +982,9 @@ def start_states(m, arrays, batch, seed, settle, world=None, **kw):
 
 def worlds():
     """{name: (Model on the card, arrays, start-state keywords)} of the
-    four worlds."""
-    from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
+    five worlds."""
+    from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
+                                      table_setting_like)
 
     out = {}
     for name, snap, kw in (("locked_like", locked_like.SNAPSHOT, dict(settle=20)),
@@ -934,10 +992,64 @@ def worlds():
                             dict(settle=SETTLE_START, world=blocks_settle_like)),
                            ("hand", locked_like.HAND_SNAPSHOT, dict(settle=5, reach=1.1)),
                            ("table", table_setting_like.SNAPSHOT,
-                            dict(settle=SETTLE_START, world=table_setting_like))):
+                            dict(settle=SETTLE_START, world=table_setting_like)),
+                           ("dactyl", dactyl_locked_like.SNAPSHOT,
+                            dict(settle=20, world=dactyl_locked_like))):
         m, arrays = load_world(snap)
         out[name] = (m, arrays, kw)
     return out
+
+
+def locked_env_reset(batch):
+    """The locked env on the card (`make_env`, whose construction runs the
+    zero-control settle) and its reset state at `batch` envs from seed 0:
+    (env, state). Prints the times, the retries and the share of envs
+    with the cube on the palm; checks the state finite."""
+    from robogym_torch.envs.dactyl import cube_env, locked
+
+    t0 = time.perf_counter()
+    env = locked.make_env(device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, obs = env.reset(batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    on_palm = float(cube_env.is_on_palm(env.cube, state.physics).float().mean())
+    print(f"[state] locked env on the dactyl-shaped world: built (its settle, "
+          f"{env.constants.reset_initial_steps * env.constants.mujoco_substeps} substeps at B=1) "
+          f"in {t1 - t0:.2f} s; LockedEnv.reset at B={batch} in {t2 - t1:.2f} s, "
+          f"{env.reset_retries} retries, on the palm {on_palm:.4f}")
+    for k in ("qpos", "qvel", "qacc"):
+        check(bool(torch.isfinite(getattr(state.physics, k)).all()), f"locked env reset: non-finite {k}")
+    for k, v in obs.items():
+        check(bool(torch.isfinite(v).all()), f"locked env reset: non-finite obs {k}")
+    return env, state
+
+
+def locked_env_steps(env, state, out):
+    """ENV_STEPS of `LockedEnv.step` from `state`, actions uniform in [-1, 1]
+    from a seeded generator on the card (bench.py:77-88); checks every obs
+    and reward finite, and puts the reward sum, the episodes done and the
+    share on the palm into `out`. Returns the last physics state."""
+    from robogym_torch.envs.dactyl import cube_env
+
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(SEED)
+    rewards, done, finite = 0.0, 0, {}
+    for _ in range(ENV_STEPS):
+        action = torch.rand((state.t.shape[0], env.action_size), generator=gen,
+                            device=env.device) * 2.0 - 1.0
+        state, obs, reward, dn, _ = env.step(state, action)
+        for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
+            ok = torch.isfinite(v).all()
+            finite[k] = finite[k] & ok if k in finite else ok
+        rewards = rewards + reward.sum(0)
+        done = done + dn.sum()
+    for k, ok in finite.items():
+        check(bool(ok), f"locked_env path: non-finite {k}")
+    out.update(reward_sum=[float(x) for x in rewards], done=int(done),
+               on_palm=float(cube_env.is_on_palm(env.cube, state.physics).float().mean()))
+    return state.physics
 
 
 def drive(name, run, calls):
@@ -1043,8 +1155,9 @@ def main() -> int:
         print(f"[state] {name}: B={B} settled {kw['settle']} substeps in "
               f"{time.perf_counter() - t0:.2f} s; live contacts per env: mean "
               f"{float(live.float().mean()):.2f}")
-    for name in ("locked_like", "settle", "table"):
+    for name in ("locked_like", "settle", "table", "dactyl"):
         check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
+    env, env_state = locked_env_reset(B)
 
     # 4. one phase per kernel, on inputs captured from one substep or call
     # of a path; B and A also at the settle and hand worlds' shapes
@@ -1081,10 +1194,17 @@ def main() -> int:
                                                 "C hull_manifold@" + at)
         res["hull_manifold_world@" + at] = phase_world("hull_manifold", targs, tDX, REPS,
                                                        "H hull_manifold_world@" + at)
-    # the size route: a system above kernel B's shared memory, through F
+    # A on the locked env's M (V=36, two rows a lane)
+    me, de = env.model, env_state.physics
+    ci_e, _, _ = capture_core(me, de)
+    check(ci_e["qM"].shape[-1] == 36, f"locked env: V={ci_e['qM'].shape[-1]}, want 36")
+    res["spd_inverse@dactyl"] = phase_spd("A spd_inverse@dactyl", ci_e["qM"], REPS)
+    # the size route: a system above kernel B's shared memory, through F,
+    # and A at its V=96
     f_shape = tuple(fa[0].shape[1:])
-    res["cg@wide"] = phase_cg_wide(REPS, [((len(c["kind"]), c["qM"].shape[-1]), f_shape)
-                                          for c in (ci, ci_s)], m.device)
+    res["cg@wide"], wide_qM = phase_cg_wide(REPS, [((len(c["kind"]), c["qM"].shape[-1]), f_shape)
+                                                   for c in (ci, ci_s, ci_e)], m.device)
+    res["spd_inverse@wide"] = phase_spd_wide(wide_qM, REPS)
 
     # 5. paths
     paths = {}
@@ -1152,6 +1272,18 @@ def main() -> int:
     print(f"[path hull_world] one locked-like env step of {SUBSTEPS} substeps at B={B}, each "
           f"substep's hull winners through the world-vertex entry points: {wall:.3f} s; "
           f"launches {counts}")
+
+    env_out = {}
+    out, wall, counts = drive("locked_env", lambda: locked_env_steps(env, env_state, env_out),
+                              ENV_STEPS * SUBSTEPS)
+    sps = B * ENV_STEPS / wall
+    record("locked_env", wall, counts, env_steps=ENV_STEPS, substeps=SUBSTEPS,
+           env_steps_per_s=sps, reward_sum=env_out["reward_sum"], done=env_out["done"],
+           on_palm=env_out["on_palm"])
+    print(f"[path locked_env] {ENV_STEPS} LockedEnv.step calls x {SUBSTEPS} substeps at B={B} on "
+          f"the dactyl-shaped world: {wall:.3f} s, {sps:.1f} env-steps/s; reward sum "
+          f"{env_out['reward_sum']} (env, goal distance, success), episodes done "
+          f"{env_out['done']}, on the palm {env_out['on_palm']:.4f}; launches {counts}")
     launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
                 for entry, r in res.items()}
     for k in KERNELS:

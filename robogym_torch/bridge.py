@@ -12,7 +12,10 @@ dict of numpy arrays that `np.savez` can store:
     env axis.
 
 `model_from_numpy` and `data_from_numpy` build the port's `Model`/`Data` on
-a device from such a dict.
+a device from such a dict. `env_state_to_numpy` and `env_state_from_numpy`
+do the same for an env state (`physics.<field>`, `goal.<key>`,
+`prev_goal_distance.<key>`, `tracker.<field>`, `goal_aux` and `t`, each
+with its leading env axis); the JAX state's PRNG key is not carried.
 """
 
 from __future__ import annotations
@@ -112,18 +115,22 @@ def model_from_numpy(arrays, device="cuda") -> Model:
     return Model(const=const_from_numpy(arrays), opt=Option(**opt_kw), **kw)
 
 
-def model_to(model: Model, device) -> Model:
-    """The same model with every tensor on `device`."""
+def model_to(model: Model, device, dtype=None) -> Model:
+    """The same model with every tensor on `device`, and its floating
+    tensors in `dtype` if given."""
     device = torch.device(device)
-    if model.device == device:
+    if model.device == device and dtype in (None, model.dtype):
         return model
+
+    def to(v):
+        return v.to(device, dtype) if dtype is not None and v.is_floating_point() else v.to(device)
+
     kw = {}
     for name in _fields(model):
         v = getattr(model, name)
         if isinstance(v, torch.Tensor):
-            kw[name] = v.to(device)
-    opt = dataclasses.replace(
-        model.opt, **{n: getattr(model.opt, n).to(device) for n in OPTION_TENSORS})
+            kw[name] = to(v)
+    opt = dataclasses.replace(model.opt, **{n: to(getattr(model.opt, n)) for n in OPTION_TENSORS})
     return dataclasses.replace(model, opt=opt, **kw)
 
 
@@ -150,3 +157,40 @@ def data_from_numpy(arrays, device="cuda") -> Data:
     contact = Contact(**{f.name: t("contact." + f.name) for f in dataclasses.fields(Contact)})
     kw = {f.name: t(f.name) for f in dataclasses.fields(Data) if f.name != "contact"}
     return Data(contact=contact, **kw)
+
+
+def env_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """A batched env state (the JAX package's `EnvState` or the port's) as
+    a flat dict of numpy arrays."""
+    if state.model_fields:
+        raise ValueError("env_state_to_numpy carries no per-episode model fields")
+    out = {"physics." + k: v for k, v in data_to_numpy(state.physics).items()}
+    for group in ("goal", "prev_goal_distance"):
+        for k, v in getattr(state, group).items():
+            out[f"{group}.{k}"] = _np(v)
+    for name in _fields(state.tracker):
+        out["tracker." + name] = _np(getattr(state.tracker, name))
+    out["goal_aux"] = _np(state.goal_aux)
+    out["t"] = _np(state.t)
+    return out
+
+
+def env_state_from_numpy(arrays, device="cuda"):
+    """The port's `EnvState` on `device` from an `env_state_to_numpy` dict."""
+    from robogym_torch.envs.core import EnvState, TrackerState
+
+    device = torch.device(device)
+
+    def t(key):
+        return torch.as_tensor(np.array(arrays[key]), device=device)
+
+    def group(prefix):
+        return {k[len(prefix):]: t(k) for k in arrays if k.startswith(prefix)}
+
+    physics = data_from_numpy({k[8:]: v for k, v in arrays.items() if k.startswith("physics.")},
+                              device)
+    tracker = TrackerState(**{f.name: t("tracker." + f.name)
+                              for f in dataclasses.fields(TrackerState)})
+    return EnvState(physics=physics, goal=group("goal."),
+                    goal_aux=t("goal_aux"), prev_goal_distance=group("prev_goal_distance."),
+                    tracker=tracker, t=t("t"))

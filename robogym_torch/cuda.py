@@ -185,18 +185,21 @@ def cg_full_blocks_per_sm(E: int, V: int, euler: bool) -> int:
 
 def spd_inverse_info(V: int) -> dict:
     """The layout of kernel A (`spd_inverse`) at V dofs: shared memory a
-    block, registers a thread, blocks an SM (the occupancy calculator) and
-    envs (warps) a block; raises on a CUDA error."""
+    block, registers a thread, blocks an SM (the occupancy calculator),
+    envs (warps) a block and rows a lane (0 for the shared-memory kernel
+    above 64 dofs, -1 from an older build that does not report it); raises
+    on a CUDA error."""
     build()
     fn = _lib.robogym_spd_inverse_info
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)(*[-1] * 5)  # a build that reports four leaves -1
     rc = fn(V, out)
     if rc:
         raise RuntimeError(f"spd_inverse_info: CUDA error {rc} "
                            f"({_lib.robogym_error_string(rc).decode()})")
-    return dict(zip(("smem_bytes", "registers", "blocks_per_sm", "envs_per_block"), out))
+    return dict(zip(("smem_bytes", "registers", "blocks_per_sm", "envs_per_block",
+                     "rows_per_lane"), out))
 
 
 HULL_KINDS = ("hull_manifold", "hull_manifold_world", "hull_pair", "hull_pair_world")

@@ -2,18 +2,20 @@
 
 Counterpart of `robogym_tpu/physics/factor_kernel.py`. `spd_inverse` is
 the wrapper: on a CUDA tensor it launches the hand-written kernel in
-`robogym_torch/csrc/spd_inverse.cu` (one warp per env, a row or column a
-lane: right-looking Cholesky, forward substitution for L^-1, A^-1 =
-L^-T L^-1, with identity on the dofs padded up to a multiple of 8, so V <=
-32); on a CPU tensor it runs `spd_inverse_plain`, the PyTorch transcription
-of the JAX reference `_spd_inverse_ref`. Both read only the lower triangle.
+`robogym_torch/csrc/spd_inverse.cu` (one warp per env, one or two rows or
+columns a lane in registers up to V = 64: right-looking Cholesky, forward
+substitution for L^-1, A^-1 = L^-T L^-1, with identity on the dofs padded
+up to a multiple of 8; from 65 to 128 dofs the same arithmetic with the
+matrix in shared memory); on a CPU tensor it runs `spd_inverse_plain`,
+the PyTorch transcription of the JAX reference `_spd_inverse_ref`. Both
+read only the lower triangle.
 """
 
 from __future__ import annotations
 
 import torch
 
-MAX_V = 32   # dofs kernel A takes: one row a lane of a warp
+MAX_V = 128   # dofs kernel A takes (the JAX package's kernel takes any V)
 
 
 def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
@@ -36,7 +38,8 @@ def spd_inverse(A: torch.Tensor) -> torch.Tensor:
                          f"{tuple(A.shape)} {A.dtype}")
     B, V, _ = A.shape
     if V > MAX_V:
-        raise ValueError(f"spd_inverse kernel takes V <= {MAX_V}, got {V}")
+        raise ValueError(f"spd_inverse: the CUDA kernel takes V <= MAX_V = {MAX_V} dofs, "
+                         f"got V = {V}")
     out = torch.empty_like(A)
     cuda.launch("spd_inverse", A, out, B, V)
     return out

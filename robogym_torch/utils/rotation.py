@@ -1,5 +1,5 @@
 """Batched rotation math in PyTorch: the part of `robogym_tpu/utils/rotation.py`
-that the physics step calls.
+that the physics step and the dactyl env call.
 
 Conventions are the JAX package's (and MuJoCo's): quaternions are
 [w, x, y, z]; every function broadcasts over leading batch dimensions.
@@ -108,3 +108,104 @@ def any_orthogonal(vec: torch.Tensor) -> torch.Tensor:
     helper = torch.where(torch.abs(vec[..., :1]) < 0.5, ex, ey)
     orth = cross(vec, helper)
     return orth / norm(orth, keepdim=True)
+
+
+def quat_difference(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return quat_normalize(quat_mul(q, quat_conjugate(p)))
+
+
+def quat_magnitude(q: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.arccos(torch.clamp(q[..., 0], -1.0, 1.0))
+
+
+def vectors2quat(v_from: torch.Tensor, v_to: torch.Tensor) -> torch.Tensor:
+    """Minimal rotation taking v_from to v_to (w >= 0, unit norm)."""
+    v_from, v_to = torch.broadcast_tensors(v_from, v_to)
+    dot = torch.sum(v_from * v_to, dim=-1, keepdim=True)
+    w = torch.sqrt(torch.clamp(torch.sum(v_from ** 2, dim=-1, keepdim=True)
+                               * torch.sum(v_to ** 2, dim=-1, keepdim=True), min=0.0)) + dot
+    q = torch.cat([w, cross(v_from, v_to)], dim=-1)
+    # antiparallel: a half turn about any orthogonal axis
+    q_pi = torch.cat([torch.zeros_like(w), any_orthogonal(v_from)], dim=-1)
+    q = torch.where(w <= 1e-9, q_pi, q)
+    return quat_normalize(quat_unit(q))
+
+
+def uniform_quat_apply(u: torch.Tensor) -> torch.Tensor:
+    """A uniform random unit quaternion from three uniform draws in [0, 1)
+    (..., 3): s, then the two angles over 2 pi (`uniform_quat`)."""
+    s, a1, a2 = u[..., 0], u[..., 1], u[..., 2]
+    s1, s2 = torch.sqrt(1.0 - s), torch.sqrt(s)
+    t1, t2 = 2.0 * np.pi * a1, 2.0 * np.pi * a2
+    return quat_normalize(torch.stack(
+        [torch.cos(t2) * s2, torch.sin(t1) * s1, torch.cos(t1) * s1, torch.sin(t2) * s2], dim=-1))
+
+
+def uniform_quat(gen: torch.Generator, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(n, 4) uniform random unit quaternions drawn from `gen`."""
+    u = torch.rand((n, 3), generator=gen, dtype=dtype, device=device)
+    return uniform_quat_apply(u)
+
+
+def get_parallel_rotations() -> np.ndarray:
+    """The 24 rotations that map a cube onto itself, as (24, 4) float64
+    unit quaternions, sign-normalised (host-side numpy)."""
+    return _unique_euler_quats([0, np.pi / 2, -np.pi / 2, np.pi], expect=24)
+
+
+def _np_euler2mat(euler: np.ndarray) -> np.ndarray:
+    """Host-side euler -> mat (the JAX package's `euler2mat` convention)."""
+    ai, aj, ak = -euler[2], -euler[1], -euler[0]
+    si, sj, sk = np.sin(ai), np.sin(aj), np.sin(ak)
+    ci, cj, ck = np.cos(ai), np.cos(aj), np.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    mat = np.empty((3, 3))
+    mat[0, 0] = cj * ck
+    mat[0, 1] = sj * sc - cs
+    mat[0, 2] = sj * cc + ss
+    mat[1, 0] = cj * sk
+    mat[1, 1] = sj * ss + cc
+    mat[1, 2] = sj * cs - sc
+    mat[2, 0] = -sj
+    mat[2, 1] = cj * si
+    mat[2, 2] = cj * ci
+    return mat
+
+
+def _np_mat2quat(mat: np.ndarray) -> np.ndarray:
+    """Host-side mat -> quat (the eigenvector method), w >= 0."""
+    Qxx, Qyx, Qzx = mat[0, 0], mat[0, 1], mat[0, 2]
+    Qxy, Qyy, Qzy = mat[1, 0], mat[1, 1], mat[1, 2]
+    Qxz, Qyz, Qzz = mat[2, 0], mat[2, 1], mat[2, 2]
+    K = np.array([
+        [Qxx - Qyy - Qzz, 0, 0, 0],
+        [Qyx + Qxy, Qyy - Qxx - Qzz, 0, 0],
+        [Qzx + Qxz, Qzy + Qyz, Qzz - Qxx - Qyy, 0],
+        [Qyz - Qzy, Qzx - Qxz, Qxy - Qyx, Qxx + Qyy + Qzz],
+    ]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    if q[0] < 0:
+        q = -q
+    return q
+
+
+def _unique_euler_quats(vals, expect: int) -> np.ndarray:
+    """The distinct rotations (up to a quaternion's sign) of every euler
+    triple over `vals`."""
+    quats: list = []
+    for e1 in vals:
+        for e2 in vals:
+            for e3 in vals:
+                q = _np_mat2quat(_np_euler2mat(np.array([e1, e2, e3], dtype=np.float64)))
+                q = np.where(np.abs(q) < 1e-9, 0.0, q)
+                if q[np.argmax(np.abs(q))] < 0:
+                    q = -q
+                q /= np.linalg.norm(q)
+                if not any(np.allclose(q, e, atol=1e-7) or np.allclose(q, -e, atol=1e-7)
+                           for e in quats):
+                    quats.append(q)
+    out = np.array(quats)
+    assert out.shape == (expect, 4), out.shape
+    return out

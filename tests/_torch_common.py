@@ -214,3 +214,59 @@ def core_inputs(tm, d):
     d, qfrc_smooth = torch_step.forward_smooth(tm, d)
     kind_s, iterations, nfacet, args, _, _ = constraint.fused_core_inputs(tm, d, qfrc_smooth)
     return kind_s, iterations, nfacet, args
+
+
+# envelope of an env step against a reference (test_torch_step.py's
+# `test_env_step_matches_jax_locked_like`): m, quaternion entries and
+# radians, rad/s and m/s
+CUBE_POS_TOL, QPOS_TOL, QVEL_TOL = 2e-4, 1e-3, 5e-2
+NUDGE = 1e-6        # m/s or rad/s on every start qvel, the nudged runs' perturbation
+NUDGE_RATIO = 2     # drift from the reference over the largest nudged drift (test_torch_step.py)
+
+
+def _groups(idx):
+    """(name, field, columns, envelope) of the physics comparison."""
+    return (("cube position", "qpos", idx.cube_pos_qpos, CUBE_POS_TOL),
+            ("qpos", "qpos", slice(None), QPOS_TOL), ("qvel", "qvel", slice(None), QVEL_TOL))
+
+
+def _env_err(a, b, field, cols):
+    return np.abs(a[field][:, cols] - b[field][:, cols]).max(-1)
+
+
+def chaotic_envs(td, nudged, idx):
+    """(B,) the envs whose own runs from start states nudged by NUDGE leave
+    the envelope in some group: they sit on a discontinuity (a contact
+    appearing, a line-search pick flipping), where float32 noise of any
+    order moves the result as far."""
+    out = np.zeros(td["qpos"].shape[0], bool)
+    for _, field, cols, tol in _groups(idx):
+        for tn in nudged:
+            out |= _env_err(tn, td, field, cols) > tol
+    return out
+
+
+def assert_physics_close(td, jd, idx, nudged=(), whole=False):
+    """Two `data_to_numpy` states, the port's `td` and a reference's `jd`
+    (the JAX package's, or the plain versions'): finite, and each env
+    within the env-step envelope, except the `chaotic_envs` of the port's
+    `nudged` runs (every env if `whole`), whose largest drift from the
+    reference per group may be at most NUDGE_RATIO times their largest nudged drift (the rule of
+    test_torch_step.py's goal-settle envelopes); `idx` is the world's
+    `CubeIndex`. Returns the chaotic envs."""
+    assert np.isfinite(td["qpos"]).all() and np.isfinite(td["qvel"]).all()
+    chaotic = chaotic_envs(td, nudged, idx) | whole
+    for name, field, cols, tol in _groups(idx):
+        err = _env_err(td, jd, field, cols)
+        assert (err[~chaotic] <= tol).all(), (name, err, tol)
+        if chaotic.any():
+            drift = max(_env_err(tn, td, field, cols)[chaotic].max() for tn in nudged)
+            assert err[chaotic].max() <= max(NUDGE_RATIO * drift, tol), (name, err, drift)
+    return chaotic
+
+
+def nudged_runs(run, qvel, n=3):
+    """`run(qvel')` for n seeded draws qvel' = qvel + NUDGE * N(0, 1)."""
+    return [run(qvel + NUDGE * torch.randn(qvel.shape, generator=torch.Generator().manual_seed(s),
+                                           dtype=qvel.dtype).to(qvel.device))
+            for s in range(n)]

@@ -21,7 +21,8 @@ std::barrier<>* bar;
 float xf[32];
 int xi[32];
 }  // namespace host_warp
-float4 smem[kWarps * warp_floats(32) / 4];
+// the largest block: two warps at Vp = 64, or the shared-memory kernel at V = 128
+float4 smem[(smem_bytes(64) > smem_bytes(kMaxV) ? smem_bytes(64) : smem_bytes(kMaxV)) / 16];
 
 int main(int argc, char** argv) {
   if (argc != 3) return 2;

@@ -51,7 +51,8 @@ def _snapshot_tool():
     return tool
 
 
-@pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like", "table_setting_like"])
+@pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like", "table_setting_like",
+                                   "dactyl_locked_like"])
 def test_world_snapshot_matches_fresh_compile(world):
     """The hand-only and goal-settle snapshots equal what
     tools/build_locked_like_snapshot.py compiles now, field by field. The
@@ -59,7 +60,9 @@ def test_world_snapshot_matches_fresh_compile(world):
     contact budgets of `scale_contact_budgets(model, 5)`: the blocks world
     15 box-box and 5 plane-box pairs, the table-setting world five meshes of
     64 hull verts each and 25 pairs (5 box-mesh, 10 mesh-mesh, 10
-    plane-mesh)."""
+    plane-mesh). The dactyl-shaped world has nq = 38 and nv = 36 (24
+    hinges; the cube's and the target's three slides and a ball) and one
+    box-box pair, palm and cube."""
     tool = _snapshot_tool()
     model, fresh = tool.compile_snapshot(world)
     with np.load(tool.snapshot_path(world)) as z:
@@ -67,6 +70,12 @@ def test_world_snapshot_matches_fresh_compile(world):
     c = model.const
     if world == "locked_like_hand":
         assert (c.nq, c.nv, len(c.collision_pairs)) == (24, 24, 0)
+        return
+    if world == "dactyl_locked_like":
+        boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
+        box_pairs = [p for p in np.asarray(c.collision_pairs)[:, :2].tolist()
+                     if set(p) <= set(boxes.tolist())]
+        assert (c.nq, c.nv, c.nu, c.ntendon, len(box_pairs)) == (38, 36, 20, 4, 1)
         return
     assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (48, 56)
     if world == "table_setting_like":
@@ -110,7 +119,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import robogym_torch.physics.collision.boxbox_kernel\n"
         "import robogym_torch.physics.constraint, robogym_torch.physics.constraint_batched\n"
         "import robogym_torch.worlds.locked_like, robogym_torch.worlds.blocks_settle_like\n"
-        "import robogym_torch.worlds.table_setting_like\n"
+        "import robogym_torch.worlds.table_setting_like, robogym_torch.worlds.dactyl_locked_like\n"
+        "import robogym_torch.envs.core, robogym_torch.envs.dactyl.cube_env\n"
+        "import robogym_torch.envs.dactyl.locked, robogym_torch.robot.shadow_hand\n"
+        "import robogym_torch.utils.rotation\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
         "assert not bad, bad\n"
     )

@@ -484,3 +484,68 @@ def test_fused_core_plain_matches_jax_without_scalar_rows():
     for (name, tol), g, w in zip(tols.items(), got, want):
         assert _rel(_np(g), w) <= tol, (name, _rel(_np(g), w))
     assert (_np(got[2]) != 0).any(), "no contact force: the state has no live contact"
+
+
+@pytest.mark.cuda
+def test_cuda_locked_env_step_matches_plain_versions():
+    """`LockedEnv.step` at B=64 on the card, from the env's reset state on
+    the dactyl-shaped world (V=36: kernel A's two-rows-a-lane instance, B,
+    C, D and E), through the kernels and through their plain versions
+    (`chip_smoke.plain_versions`), with the same action and draws, each
+    against the plain versions run in float64. Ten substeps carry the
+    CG's float32 noise far into some envs (there the plain float32 step
+    itself is rad/s off the float64 one; the test prints both errors), so, as
+    `chip_smoke.cg_readings` holds a CG kernel: per group (the cube's
+    position, qpos, qvel) the kernels' largest error against float64 is at
+    most NOISE_RATIO times the plain versions' float32 error, or within the
+    env-step envelope against the JAX package (2e-4 m, 1e-3, 5e-2). The
+    tracker, done and the drop and success rewards equal the plain
+    versions'; the launch counts are those of ten substeps."""
+    import chip_smoke
+    from _torch_common import CUBE_POS_TOL, QPOS_TOL, QVEL_TOL
+    from robogym_torch import bridge, cuda
+    from robogym_torch.envs import core
+    from robogym_torch.envs.dactyl import locked
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    env = locked.make_env(device="cuda", seed=0)
+    state, _ = env.reset(64)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    action = torch.rand((64, 20), generator=gen, device="cuda") * 2.0 - 1.0
+    draws = env.draw_step(64)
+    cuda.reset_launches()
+    got = env.step(state, action, draws=draws)
+    torch.cuda.synchronize()
+    want_counts = {k: 10 * n for k, n in chip_smoke.PER_CALL["locked_env"].items()}
+    assert {k: n for k, n in cuda.LAUNCHES.items() if n} == want_counts
+
+    def f64(x):
+        return x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+    model32 = env.model
+    with chip_smoke.plain_versions():
+        want = env.step(state, action, draws=draws)
+        env.model = bridge.model_to(model32, "cuda", torch.float64)
+        try:
+            ref = env.step(state.replace(physics=core.data_map(f64, state.physics),
+                                         goal={k: f64(v) for k, v in state.goal.items()},
+                                         prev_goal_distance={k: f64(v) for k, v in
+                                                             state.prev_goal_distance.items()}),
+                           f64(action), draws={k: f64(v) for k, v in draws.items()})
+        finally:
+            env.model = model32
+    cube = torch.as_tensor(env.cube.cube_pos_qpos, device="cuda")
+    for name, field, cols, tol in (("cube position", "qpos", cube, CUBE_POS_TOL),
+                                   ("qpos", "qpos", slice(None), QPOS_TOL),
+                                   ("qvel", "qvel", slice(None), QVEL_TOL)):
+        r = getattr(ref[0].physics, field)[:, cols]
+        e_k = float((getattr(got[0].physics, field)[:, cols].double() - r).abs().max())
+        e_p = float((getattr(want[0].physics, field)[:, cols].double() - r).abs().max())
+        print(f"locked env step, B=64, {name} vs float64: kernels {e_k:.3g}, plain {e_p:.3g}")
+        assert e_k <= max(chip_smoke.NOISE_RATIO * e_p, tol), (name, e_k, e_p)
+    for f in ("steps", "consecutive_successes", "successes_so_far", "goals_so_far"):
+        assert torch.equal(getattr(got[0].tracker, f), getattr(want[0].tracker, f)), f
+    assert torch.equal(got[3], want[3])
+    assert torch.equal(got[2][:, 0], want[2][:, 0]) and torch.equal(got[2][:, 2], want[2][:, 2])

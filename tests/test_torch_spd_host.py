@@ -9,15 +9,18 @@ multiply-adds, through the library's own C entry point
 
 Inputs: the locked-like world's M and M + dt*diag(damping) from one
 substep (V=30, B=3), the hand world's M (V=24), and seeded random SPD
-matrices at V in {1, 5, 8, 24, 30, 32}, which cover the padding and every
-instance of the kernel (Vp = 8, 16, 24, 32). Tolerances, chip_smoke.py's:
+matrices at V in {1, 5, 8, 24, 30, 32, 33, 36, 40, 48, 64, 65, 96, 128},
+which cover the padding and every instance of the kernel (Vp = 8 to 32, a
+row a lane; 40 to 64, two rows a lane; 65 to 128 dofs, the shared-memory
+kernel), and the dactyl-shaped world's M (V=36). Tolerances, chip_smoke.py's:
 1e-5 relative to the plain version's largest entry (`SPD_TOL`), and each
 column's error against a float64 inverse, over that column's largest
 entry, at most 4 times the plain version's in the batch's worst column
 (`SPD_COLUMN_RATIO`); the output bit-symmetric. On the input of tests/test_factor_kernel.py (V=30)
 the host build and the JAX package's Pallas kernel in interpret mode are
 held to `np.linalg.inv` with that file's tolerances and to each other at
-1e-5 relative."""
+1e-5 relative, and so they are on the dactyl-shaped world's M (V=36, the
+kernel's Vp = 40 instance)."""
 
 import os
 import re
@@ -30,8 +33,11 @@ import torch
 
 from _torch_common import core_inputs, hand_state, locked_like_model, locked_like_state
 from robogym_torch.physics import constraint_batched, factor_kernel
+from robogym_torch.mjcf.model import make_data
 from robogym_torch.physics import step as t_step
+from robogym_torch.worlds import dactyl_locked_like
 from test_torch_kernels import _spd
+from _torch_common import snapshot_arrays, snapshot_model
 
 import chip_smoke
 
@@ -108,7 +114,43 @@ def test_spd_source_on_host_matches_plain_hand(host_kernel):
     _check(host_kernel, A)
 
 
-@pytest.mark.parametrize("V", [1, 5, 8, 24, 30, 32])
+@pytest.fixture(scope="module")
+def dactyl_core():
+    """M and M + dt*diag(damping) of one substep of the dactyl-shaped world
+    from seeded start states settled for 5 substeps (B=3, V=36)."""
+    tm = snapshot_model(dactyl_locked_like.SNAPSHOT)
+    qpos, ctrl = dactyl_locked_like.initial_state(snapshot_arrays(dactyl_locked_like.SNAPSHOT),
+                                                  B, 0)
+    d = make_data(tm, B, torch.as_tensor(qpos)).replace(ctrl=torch.as_tensor(ctrl))
+    d = t_step.step_n(tm, d, 5)
+    return chip_smoke.capture_calls(factor_kernel, "spd_inverse", lambda: t_step.step(tm, d))
+
+
+@pytest.mark.parametrize("call", [0, 1], ids=["qM", "Mimp"])
+def test_spd_source_on_host_matches_plain_dactyl(host_kernel, dactyl_core, call):
+    A = dactyl_core[call][0]
+    assert A.shape == (B, 36, 36)
+    _check(host_kernel, A)
+
+
+def test_spd_source_on_host_matches_pallas_dactyl(host_kernel, dactyl_core):
+    """The host build and the Pallas kernel in interpret mode on the
+    dactyl-shaped world's M (V=36, padded to 40 by both)."""
+    import jax.numpy as jnp
+    from robogym_tpu.physics import factor_kernel as j_fk
+
+    M = dactyl_core[0][0]
+    old = j_fk.INTERPRET
+    j_fk.INTERPRET = True
+    try:
+        pallas = torch.as_tensor(np.array(j_fk.spd_inverse_batched(jnp.asarray(M.numpy()))))
+    finally:
+        j_fk.INTERPRET = old
+    got = _check(host_kernel, M)
+    assert chip_smoke.rel_err(got, pallas) <= chip_smoke.SPD_TOL
+
+
+@pytest.mark.parametrize("V", [1, 5, 8, 24, 30, 32, 33, 36, 40, 48, 64, 65, 96, 128])
 def test_spd_source_on_host_matches_plain_random(host_kernel, V):
     _check(host_kernel, torch.as_tensor(_spd(np.random.default_rng(V), B, V)))
 

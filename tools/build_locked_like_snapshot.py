@@ -6,9 +6,11 @@ snapshots next to their modules in `robogym_torch/worlds/`:
   * `blocks_settle_like.npz`, the rearrange goal-settle world, and
     `table_setting_like.npz`, the table-setting goal-settle world of five
     free meshes, each with the contact budgets `scale_contact_budgets(model,
-    5)` gives it.
+    5)` gives it;
+  * `dactyl_locked_like.npz`, the hand-and-cube world with dactyl/locked's
+    names and joints (nv = 36), which the env code binds to.
 
-    JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py
+    JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
 The port loads a snapshot with `robogym_torch.bridge.model_from_numpy`; a
 test rebuilds each and checks that it matches the committed file field by
@@ -23,7 +25,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like")
+WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like",
+          "dactyl_locked_like")
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -31,7 +34,8 @@ def compile_snapshot(world: str = "locked_like"):
     import jax.numpy as jnp
 
     from robogym_torch.bridge import model_to_numpy
-    from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
+    from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
+                                      table_setting_like)
     from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
     from robogym_tpu.mjcf.compiler import compile_xml
 
@@ -42,6 +46,9 @@ def compile_snapshot(world: str = "locked_like"):
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(table_setting_like.write(tmp), dtype=jnp.float32)
         model = scale_contact_budgets(model, table_setting_like.N_OBJECTS)
+    elif world == "dactyl_locked_like":
+        with tempfile.TemporaryDirectory() as tmp:
+            model = compile_xml(dactyl_locked_like.write(tmp), dtype=jnp.float32)
     else:
         with tempfile.TemporaryDirectory() as tmp:
             xml = locked_like.write(tmp, hand_only=world == "locked_like_hand")
@@ -50,15 +57,17 @@ def compile_snapshot(world: str = "locked_like"):
 
 
 def snapshot_path(world: str) -> str:
-    from robogym_torch.worlds import blocks_settle_like, locked_like, table_setting_like
+    from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
+                                      table_setting_like)
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
-            "table_setting_like": table_setting_like.SNAPSHOT}[world]
+            "table_setting_like": table_setting_like.SNAPSHOT,
+            "dactyl_locked_like": dactyl_locked_like.SNAPSHOT}[world]
 
 
 def main():
-    for world in WORLDS:
+    for world in sys.argv[1:] or WORLDS:
         _, arrays = compile_snapshot(world)
         path = snapshot_path(world)
         np.savez_compressed(path, **arrays)

@@ -11,8 +11,9 @@ whether the checks that `chip_smoke.py` holds each kernel to catch them.
 (`--faults` runs the sound build and the named faults only.)
 
 Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
-does, at B=1024: A's from one substep of the locked-like world (M, V=30)
-and of the hand-only world (V=24), B's from one substep of the locked-like
+does, at B=1024: A's from one substep of the locked-like world (M, V=30),
+of the hand-only world (V=24) and of the dactyl-shaped world (V=36), dense
+seeded SPD matrices (V=36) and the wide system's M (V=96), B's from one substep of the locked-like
 world, F's from one substep of the hand-only world (J in shared memory) and
 from chip_smoke's wide system (`cg_wide`: V=96, E=408, J in device memory),
 E's from one substep of the goal-settle world, C's and D's from the
@@ -47,12 +48,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MANIFOLD = ("hull_manifold", "hull_manifold@table-box", "hull_manifold@table",
             "hull_manifold_world")
-SPD = ("spd_inverse", "spd_inverse@hand")
+# A's register instances (V=30, the hand's V=24, the locked env's V=36 at
+# two rows a lane and dense seeded SPD matrices at V=36,
+# `chip_smoke.dense_spd`), then its shared-memory kernel (V=96)
+SPD_REG = ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl", "spd_inverse@dense36")
+SPD = SPD_REG + ("spd_inverse@wide",)
 PAIR = ("hull_pair", "hull_pair_world")
 CHECKED = SPD + ("cg_full", "cg", "cg_wide", "boxbox") + PAIR + MANIFOLD
-RANK1 = "if (c4 + k > j) a[c4 + k] -= l * lc[k];"
-DIAG = "__shfl_sync(kFull, a[j], j)"
-PAD = "a[c] = (c == t) ? 1.0f : 0.0f;  // identity on the padded dofs"
+RANK1 = "if (c4 + m > j) a[k][c4 + m] -= l[k] * lc[m];"
+DIAG = "__shfl_sync(kFull, a[j / 32][j], j % 32)"
+PAD = "a[k][c] = (c == i) ? 1.0f : 0.0f;  // identity on the padded dofs"
+SLOT = "if (c4 >= 32 * (k + 1)) continue;"
+SMEM_DIAG = "const float dj = sqrt_rn(fmaxf(T[j * S + j], 1e-20f));"
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
 B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
@@ -61,22 +68,35 @@ MID = "const V3 mid{0.5f * (r.p1.x + r.p2.x), 0.5f * (r.p1.y + r.p2.y), 0.5f * (
 # name: (file, text in it, its faulty replacement, the kernels whose checks run)
 FAULTS = {
     "sound": None,
-    # A's rank-1 update leaves out the last column; at V=30 (Vp=32) that
-    # column is padding, whose l_c are 0, so only the hand's V=24 sees it
-    # (PASSES)
+    # A's rank-1 update leaves out the last column; at V=30 (Vp=32) and at
+    # V=36 (Vp=40) that column is padding, whose l_c are 0, so only the
+    # hand's V=24 sees it (PASSES)
     "spd_rank1_skips_last_column": ("spd_inverse.cu", RANK1,
-                                    RANK1.replace("c4 + k > j)", "c4 + k > j && c4 + k < Vp - 1)"),
+                                    RANK1.replace("c4 + m > j)", "c4 + m > j && c4 + m < Vp - 1)"),
                                     ("spd_inverse@hand",)),
-    # step 3 of A's Cholesky takes its diagonal from lane 4 (an entry below it)
-    "spd_diagonal_from_wrong_lane": ("spd_inverse.cu", DIAG, DIAG.replace("a[j], j)",
-                                                                          "a[j], j == 3 ? 4 : j)"),
-                                     SPD),
+    # step 3 of A's Cholesky takes its diagonal from lane 4 (an entry below
+    # it); the shared-memory kernel has no shuffle (PASSES)
+    "spd_diagonal_from_wrong_lane": ("spd_inverse.cu", DIAG, DIAG.replace("j % 32)",
+                                                                          "j == 3 ? 4 : j % 32)"),
+                                     SPD_REG),
     # A's padded dofs start at 0, not at the identity: the square root's
     # clamp keeps their factor finite and they are decoupled from the real
     # dofs, so no output moves (and the hand's V=24 has no padding): it
     # passes every check (PASSES)
-    "spd_padding_zero": ("spd_inverse.cu", PAD, PAD.replace("(c == t) ? 1.0f : 0.0f", "0.0f"),
+    "spd_padding_zero": ("spd_inverse.cu", PAD, PAD.replace("(c == i) ? 1.0f : 0.0f", "0.0f"),
                          ()),
+    # the rows of the second slot (rows 32 and up, two rows a lane) skip
+    # the rank-1 update of step 33; a row a lane has no second slot, and the
+    # dactyl-shaped world's rows 30-35 are decoupled and diagonal, so its M
+    # leaves that update at zero (PASSES)
+    "spd_second_slot_skips_step": ("spd_inverse.cu", SLOT,
+                                   SLOT.replace("continue;", "continue;\n        if (k == 1 && j == 33) continue;"),
+                                   ("spd_inverse@dense36",)),
+    # the shared-memory kernel's diagonal at step 70 off by 1e-4 relative;
+    # the register instances do not run it (PASSES)
+    "spd_smem_diagonal_scaled": ("spd_inverse.cu", SMEM_DIAG,
+                                 SMEM_DIAG.replace("1e-20f));", "1e-20f)) * (j == 70 ? 1.0001f : 1.0f);"),
+                                 ("spd_inverse@wide",)),
     "one_fewer_iteration": ("cg_full.cu", B_SOLVE, B_SOLVE.replace("p.iterations", "p.iterations - 1"),
                             ("cg_full",)),
     # in the loop B and F share; the wide system's line search never takes
@@ -131,7 +151,10 @@ FAULTS = {
 
 # faults run on kernels whose checks they are expected to pass, with the
 # reason at the fault
-PASSES = {"spd_rank1_skips_last_column": ("spd_inverse",), "spd_padding_zero": SPD}
+PASSES = {"spd_rank1_skips_last_column": ("spd_inverse", "spd_inverse@dactyl"),
+          "spd_diagonal_from_wrong_lane": ("spd_inverse@wide",), "spd_padding_zero": SPD,
+          "spd_second_slot_skips_step": ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl"),
+          "spd_smem_diagonal_scaled": ("spd_inverse@dactyl",)}
 
 
 def build_variant(tmp: str, name: str, fault) -> None:
@@ -156,7 +179,10 @@ def build_variant(tmp: str, name: str, fault) -> None:
 
 def capture(chip_smoke):
     """Each checked kernel's inputs at B=1024: {"spd_inverse": M,
-    "spd_inverse@hand": M, "cg_full": (args_of,
+    "spd_inverse@hand": M, "spd_inverse@dactyl": M of the dactyl-shaped
+    world (V=36), "spd_inverse@dense36": dense seeded SPD matrices (V=36),
+    "spd_inverse@wide": M of the wide system (V=96),
+    "cg_full": (args_of,
     iterations), "cg": (args_of, iterations), "cg_wide": (args_of,
     iterations), "boxbox": args, and (local operands, DX) for
     "hull_pair", "hull_pair_world", "hull_manifold", "hull_manifold_world",
@@ -187,8 +213,12 @@ def capture(chip_smoke):
     wide = (*cg_kernel.solve_inputs(ci_w["kind"], nfacet_w, ci_w["rows"], ci_w["maps"],
                                     ci_w["qvel"]),
             ci_w["qM"], factor_kernel.spd_inverse_plain(ci_w["qM"]), qs_w, ci_w["qacc_prev"])
+    ci_d, _, _ = chip_smoke.capture_core(world["dactyl"][0], state["dactyl"])
     return {
         "spd_inverse": ci["qM"],
+        "spd_inverse@dactyl": ci_d["qM"],
+        "spd_inverse@dense36": chip_smoke.dense_spd(chip_smoke.BATCH, 36, m.device),
+        "spd_inverse@wide": ci_w["qM"],
         "spd_inverse@hand": chip_smoke.capture_call(factor_kernel, "spd_inverse",
                                                     lambda: step.step(mh, dh))[0],
         **{name: (args[:-1], args[-1]) for name, args in hull.items()},

@@ -78,11 +78,11 @@ def variants(tmp):
         if src.count(marker) != 1:
             raise RuntimeError(f"variant {name}: {marker!r} is not found once")
         texts[name] = src.replace(marker, f"""#pragma unroll
-  for (int r = 0; r < Vp; ++r) if (t < Vp) S[r * SS + t] = {regs}[r];
+  for (int r = 0; r < Vp; ++r) if (t < Vp) S[r * SS + t] = {regs}[0][r];
   __syncwarp();
   {{
     float* ob = out + (size_t)b * V * V;
-    for_block<Vp>(V, t, [&](int, int e, int r, int c) {{ ob[e] = S[r * SS + c]; }});
+    for_block<kPer>(V, t, 0, [&](int, int e, int r, int c) {{ ob[e] = S[r * SS + c]; }});
   }}
   return;
 """ + marker)
