@@ -22,7 +22,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    20 substeps. Then the locked env (`envs/dactyl/locked.py`) on the
    dactyl-shaped world: its construction (the zero-control settle) and
    `LockedEnv.reset` at B=1024 from seed 0 (time, retries, share of envs
-   with the cube on the palm; every state finite).
+   with the cube on the palm; every state finite); and the default dactyl
+   wrapper stack around it (`wrappers.apply_dactyl_wrappers(env,
+   randomize=True)`, as bench.py wraps the JAX env under BENCH_WRAPPED=1)
+   reset at B=1024.
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
@@ -43,11 +46,17 @@ Phases, in order; any failure ends the script with a non-zero exit:
    1e-5 of the plain version's largest entry and, column by column, to a
    float64 inverse (`spd_readings`), on its path's matrices and on dense
    seeded SPD matrices of the same shape (`dense_spd`);
+   B again on the inputs of the last substep of one wrapped env step,
+   each env with its own timestep (`cg_full@dt`), and B with one timestep
+   given once (stride 0) and as a (B,) tensor (stride 1) on the locked
+   env's inputs, bit for bit;
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
-   and F keeps J in device memory; and A on that system's M (V=96, the
-   shared-memory kernel, `spd_inverse@wide`).
+   and F keeps J in device memory; A on that system's M (V=96, the
+   shared-memory kernel, `spd_inverse@wide`); and A on dense seeded SPD
+   matrices at V=160 (HUGE_V, the device-memory kernel,
+   `spd_inverse@huge`).
 5. Paths, each driven with every launch count set to 0 just before it and
    read just after; every qpos, qvel and qacc finite; every kernel's count
    equal to its count per substep or call times their number:
@@ -61,11 +70,21 @@ Phases, in order; any failure ends the script with a non-zero exit:
    steps of the locked env (`LockedEnv.step`, 10 substeps each) from its
    reset state, actions uniform in [-1, 1] from a seeded generator, as
    bench.py drives the JAX env (env-steps/s, the reward sum, the episodes
-   done, the share on the palm; every obs and reward finite).
+   done, the share on the palm; every obs and reward finite); 20 steps of
+   the wrapped env (`wrapped_env`) from its reset state, discrete actions
+   uniform over the 11 bins from a seeded generator (env-steps/s beside
+   the locked env's, the reward sum, the episodes done, the share on the
+   palm, each overridden model field's spread across envs: every field
+   differs across envs but the two that the dactyl-shaped world leaves
+   at the compiled model's, `WRAPPED_SAME`, and the timestep changes at
+   every step).
 6. Whole-step agreement: one substep through the kernels against one
    through the plain versions, at B=64, on the locked-like, settle, hand,
    table and dactyl-shaped worlds; every kernel routed to its plain
-   version by name.
+   version by name. Then one substep of the wrapped env's physics (each
+   env's own model fields) at B=64 through the kernels, the plain
+   versions and the plain versions in float64: the kernels' error against
+   float64 at most NOISE_RATIO times the plain float32 version's.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
@@ -76,7 +95,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    which no path runs on the table world, counts its launches on every path
    at `@table` and `@table-box`; `cg@wide` counts F's launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
-   `spd_inverse@wide` A's launches in one call on its system).
+   `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
+   their matrices).
 
 `--profile PATH` also writes a device-time breakdown of three locked-like
 substeps, with their wall time and the device's busy share, to PATH.
@@ -99,6 +119,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024                      # envs of every path
 ENV_STEPS = 20                    # env steps of the locked-like path
+N_ACTION_BINS = 11                # the default stack's discrete actions (wrappers/__init__.py)
+HUGE_V = 160                      # kernel A's device-memory kernel (above 128 dofs)
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
 SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
 SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
@@ -157,8 +179,14 @@ PER_CALL = {
     "locked_env": {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 1, "hull_pair": 1,
                    "boxbox": 1},
 }
+PER_CALL["wrapped_env"] = dict(PER_CALL["locked_env"])
 # the path that steps the world named after `@` in a kernels-line entry
-AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "locked_env"}
+AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "locked_env",
+           "dt": "wrapped_env"}
+# fields the default stack overrides that the dactyl-shaped world leaves
+# equal across envs, and why
+WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
+                "tendon_range": "its tendons have no range (width 0) to widen"}
 
 
 class SmokeFailure(RuntimeError):
@@ -344,6 +372,7 @@ def spd_layout(label, B, V):
     warps = lay["blocks_per_sm"] * lay["envs_per_block"]
     check(warps > 0, f"{label}: no block fits on an SM")
     rows = (f"{lay['rows_per_lane']} row(s) a lane in registers" if lay["rows_per_lane"] > 0
+            else "the matrix in device memory" if lay["rows_per_lane"] == 0 and not lay["smem_bytes"]
             else "the matrix in shared memory" if lay["rows_per_lane"] == 0
             else "rows a lane not reported")
     print(f"[{label}] layout: {rows}, {lay['envs_per_block']} envs (warps) a block, "
@@ -525,7 +554,8 @@ def phase_cg_full(label, ci, iterations, nfacet, reps):
     S = rows["off1"].shape[1]
     E = n_s + S * nfacet
     args = cg_args(ci, iterations, nfacet)
-    n_in = nbytes(*rows.values(), *ci["maps"].values(), *args[5:12]) + 4 * E + 4
+    n_in = nbytes(*rows.values(), *ci["maps"].values(), *args[5:12], torch.as_tensor(ci["dt"]))
+    n_in += 4 * E
     flops = B * cg_flops(E, V, iterations, build=contact_build_flops(S, nfacet, V), qs=True,
                          euler=True)
     b_occupancy(label, B, E, V, S, nfacet, True)
@@ -676,20 +706,21 @@ def phase_cg_wide(reps, fitting, device):
     return r, wide_qM
 
 
-def phase_spd_wide(qM, reps):
-    """Kernel A at V=96 on the wide system's M (the shared-memory kernel):
-    `phase_spd`, with its launches counted in one call."""
+def phase_spd_one_call(label, qM, reps):
+    """Kernel A on matrices no path gives it (the wide system's M at V=96,
+    the shared-memory kernel; dense matrices at HUGE_V, the device-memory
+    kernel): `phase_spd`, with its launches counted in one call."""
     from robogym_torch import cuda
     from robogym_torch.physics import factor_kernel as fk
 
-    r = phase_spd("A spd_inverse@wide", qM, reps)
+    r = phase_spd(label, qM, reps)
     torch.cuda.synchronize()
     cuda.reset_launches()
     fk.spd_inverse(qM)
     torch.cuda.synchronize()
     r["launches"] = cuda.LAUNCHES["spd_inverse"]
     check(r["launches"] == 1 and sum(cuda.LAUNCHES.values()) == 1,
-          f"spd_inverse@wide: one call launched {dict(cuda.LAUNCHES)}")
+          f"{label}: one call launched {dict(cuda.LAUNCHES)}")
     return r
 
 
@@ -1052,6 +1083,159 @@ def locked_env_steps(env, state, out):
     return state.physics
 
 
+def wrapped_env_reset(batch):
+    """The default dactyl wrapper stack around a locked env of its own
+    (`apply_dactyl_wrappers(locked.make_env(), randomize=True)`, as
+    bench.py wraps the JAX env under BENCH_WRAPPED=1; its own generator,
+    so that the bare env's path draws what it drew before the stack was
+    ported) and its reset at `batch` envs: (wrapped env, state). Prints the
+    time and the share on the palm; checks the state and the observations
+    finite."""
+    from robogym_torch import wrappers
+    from robogym_torch.envs.dactyl import cube_env, locked
+
+    env = locked.make_env(device="cuda", seed=SEED)
+    wenv = wrappers.apply_dactyl_wrappers(env, randomize=True)
+    t0 = time.perf_counter()
+    state, obs = wenv.reset(batch)
+    torch.cuda.synchronize()
+    on_palm = float(cube_env.is_on_palm(env.cube, state.physics).float().mean())
+    print(f"[state] default dactyl wrapper stack ({len(wenv.transforms)} transforms) around the "
+          f"locked env: reset at B={batch} in {time.perf_counter() - t0:.2f} s, "
+          f"{env.reset_retries} retries, on the palm {on_palm:.4f}, "
+          f"{len(state.model_fields)} model fields per env")
+    for k in ("qpos", "qvel", "qacc"):
+        check(bool(torch.isfinite(getattr(state.physics, k)).all()),
+              f"wrapped env reset: non-finite {k}")
+    for k, v in obs.items():
+        check(bool(torch.isfinite(v).all()), f"wrapped env reset: non-finite obs {k}")
+    return wenv, state
+
+
+def wrapped_actions(batch, device):
+    """A seeded generator of the wrapped env's discrete actions (B, 20),
+    uniform over the N_ACTION_BINS bins."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    return lambda: torch.randint(0, N_ACTION_BINS, (batch, 20), generator=gen, device=device)
+
+
+def wrapped_env_steps(wenv, state, out):
+    """ENV_STEPS of the wrapped env from `state` with seeded discrete
+    actions; checks every obs and reward finite, and puts the reward sum,
+    the episodes done, the share on the palm, each step's timestep field
+    and the last state into `out`. Returns the last physics state."""
+    from robogym_torch.envs.dactyl import cube_env
+
+    actions = wrapped_actions(state.t.shape[0], wenv.device)
+    rewards, done, finite, timesteps = 0.0, 0, {}, []
+    for _ in range(ENV_STEPS):
+        state, obs, reward, dn, _ = wenv.step(state, actions())
+        for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
+            ok = torch.isfinite(v).all()
+            finite[k] = finite[k] & ok if k in finite else ok
+        rewards = rewards + reward.sum(0)
+        done = done + dn.sum()
+        timesteps.append(state.model_fields["opt:timestep"])
+    for k, ok in finite.items():
+        check(bool(ok), f"wrapped_env path: non-finite {k}")
+    out.update(reward_sum=[float(x) for x in rewards], done=int(done),
+               on_palm=float(cube_env.is_on_palm(wenv.env.cube, state.physics).float().mean()),
+               timesteps=timesteps, state=state)
+    return state.physics
+
+
+def check_field_spread(wenv, fields, timesteps):
+    """Print each overridden model field's spread across envs (the largest
+    over its entries of max - min over envs); every field but those of
+    WRAPPED_SAME must differ across envs, those must equal the compiled
+    model's in every env, and the timestep must change at every step.
+    Returns {field: spread}."""
+    from robogym_torch.wrappers.core import model_field
+
+    spread = {k: float((v.amax(0) - v.amin(0)).max()) for k, v in fields.items()}
+    print("[path wrapped_env] spread across envs of each model field: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in sorted(spread.items())))
+    check(len(fields) == 12, f"wrapped env: {len(fields)} model fields, want 12")
+    for k, v in fields.items():
+        if k in WRAPPED_SAME:
+            base = model_field(wenv.env.model, k)
+            check(bool((v == base).all()), f"wrapped env: {k} differs from the compiled model's")
+            print(f"[path wrapped_env] {k} equal in every env to the compiled model's: "
+                  f"{WRAPPED_SAME[k]} on this world")
+        else:
+            check(spread[k] > 0, f"wrapped env: {k} equal in every env")
+    changed = [not torch.equal(a, b) for a, b in zip(timesteps, timesteps[1:])]
+    print(f"[path wrapped_env] opt:timestep changed at {sum(changed)} of {len(changed)} steps; "
+          f"last step's range {float(timesteps[-1].min()):.6g} to "
+          f"{float(timesteps[-1].max()):.6g} s")
+    check(all(changed), "wrapped env: the timestep did not change at every step")
+    return spread
+
+
+def capture_wrapped_core(wenv, state):
+    """The fused core's inputs of the last substep of one wrapped env step
+    from `state` (its per-env timestep among them): (`core_inputs`, CG
+    iterations, facets per contact)."""
+    from robogym_torch.physics import constraint_batched
+
+    actions = wrapped_actions(state.t.shape[0], wenv.device)
+    kind_s, iterations, nfacet, *args = capture_call(constraint_batched, "fused_step_core",
+                                                     lambda: wenv.step(state, actions()))
+    return constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet
+
+
+def check_dt_stride(ci, iterations, nfacet):
+    """Kernel B with a timestep shared by the batch (stride 0) against the
+    same timestep given per env as a (B,) tensor (stride 1): every output
+    equal, bit for bit."""
+    from robogym_torch.physics import cg_kernel
+
+    dt = torch.as_tensor(ci["dt"], device=ci["qM"].device)
+    check(dt.dim() == 0, f"dt stride check: the locked env's dt has shape {tuple(dt.shape)}")
+    B = ci["qM"].shape[0]
+    shared = cg_kernel.cg_full(*cg_args(ci, iterations, nfacet))
+    per_env = cg_kernel.cg_full(*cg_args(dict(ci, dt=dt.expand(B).contiguous()), iterations,
+                                         nfacet))
+    torch.cuda.synchronize()
+    equal = {n: torch.equal(a, b) for n, a, b in zip(KERNELS["cg_full"]["outputs"], shared, per_env)}
+    print(f"[B cg_full dt stride] locked env substep, B={B}: one dt (stride 0) vs the same dt "
+          f"per env (stride 1), outputs bit-equal: {equal}")
+    check(all(equal.values()), f"cg_full: stride 0 and stride 1 outputs differ: {equal}")
+
+
+def wrapped_agreement(wenv, state, n=64):
+    """One substep of the wrapped env's physics on its first n envs (each
+    env's own model fields, the state of the wrapped path's last step)
+    through the kernels, through the plain versions, and through the plain
+    versions in float64: the kernels' relative error against float64 at
+    most NOISE_RATIO times the plain float32 version's (+1e-6), on qpos and
+    qvel."""
+    from robogym_torch import bridge
+    from robogym_torch.envs import core
+    from robogym_torch.physics import step
+
+    fields = {k: v[:n] for k, v in state.model_fields.items()}
+    m = core.apply_model_fields(wenv.env.model, fields)
+    d = core.data_map(lambda x: x[:n], state.physics)
+    got = step.step(m, d)
+    with plain_versions():
+        want = step.step(m, d)
+        m64 = bridge.model_to(m, m.device, torch.float64)
+        exact = step.step(m64, core.data_map(
+            lambda x: x.double() if x.is_floating_point() else x, d))
+    torch.cuda.synchronize()
+    for k in ("qpos", "qvel"):
+        g, w, x = (getattr(o, k) for o in (got, want, exact))
+        e_k, e_p = rel_err(g.double(), x), rel_err(w.double(), x)
+        print(f"[whole step] wrapped_env, B={n} one substep with per-env model fields: {k} rel "
+              f"err vs float64: kernels {e_k:.3g}, plain versions {e_p:.3g} (at most "
+              f"{NOISE_RATIO} x + 1e-6)")
+        check(bool(torch.isfinite(g).all()) and e_k <= NOISE_RATIO * e_p + 1e-6,
+              f"wrapped env whole step: {k} err vs float64 {e_k:.3g} > {NOISE_RATIO} x the plain "
+              f"version's {e_p:.3g}")
+
+
 def drive(name, run, calls):
     """Run a path with every launch count set to 0 just before it and read
     just after; check finiteness and the launch counts. Returns (final
@@ -1158,6 +1342,7 @@ def main() -> int:
     for name in ("locked_like", "settle", "table", "dactyl"):
         check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
     env, env_state = locked_env_reset(B)
+    wenv, wstate = wrapped_env_reset(B)
 
     # 4. one phase per kernel, on inputs captured from one substep or call
     # of a path; B and A also at the settle and hand worlds' shapes
@@ -1199,12 +1384,24 @@ def main() -> int:
     ci_e, _, _ = capture_core(me, de)
     check(ci_e["qM"].shape[-1] == 36, f"locked env: V={ci_e['qM'].shape[-1]}, want 36")
     res["spd_inverse@dactyl"] = phase_spd("A spd_inverse@dactyl", ci_e["qM"], REPS)
+    # B with each env's own timestep, from a step of the wrapped env, and
+    # one timestep given once or per env
+    ci_w, its_w, nfacet_w = capture_wrapped_core(wenv, wstate)
+    dt_w = torch.as_tensor(ci_w["dt"])
+    check(dt_w.shape == (B,) and bool((dt_w != dt_w[0]).any()),
+          f"wrapped env: dt of shape {tuple(dt_w.shape)}, want ({B},), differing across envs")
+    print(f"[B cg_full@dt] per-env timestep from a wrapped env step: {float(dt_w.min()):.6g} to "
+          f"{float(dt_w.max()):.6g} s")
+    res["cg_full@dt"] = phase_cg_full("B cg_full@dt", ci_w, its_w, nfacet_w, REPS)
+    check_dt_stride(ci_e, its_w, nfacet_w)
     # the size route: a system above kernel B's shared memory, through F,
     # and A at its V=96
     f_shape = tuple(fa[0].shape[1:])
     res["cg@wide"], wide_qM = phase_cg_wide(REPS, [((len(c["kind"]), c["qM"].shape[-1]), f_shape)
                                                    for c in (ci, ci_s, ci_e)], m.device)
-    res["spd_inverse@wide"] = phase_spd_wide(wide_qM, REPS)
+    res["spd_inverse@wide"] = phase_spd_one_call("A spd_inverse@wide", wide_qM, REPS)
+    res["spd_inverse@huge"] = phase_spd_one_call("A spd_inverse@huge",
+                                                 dense_spd(B, HUGE_V, m.device), REPS // 5)
 
     # 5. paths
     paths = {}
@@ -1284,6 +1481,19 @@ def main() -> int:
           f"the dactyl-shaped world: {wall:.3f} s, {sps:.1f} env-steps/s; reward sum "
           f"{env_out['reward_sum']} (env, goal distance, success), episodes done "
           f"{env_out['done']}, on the palm {env_out['on_palm']:.4f}; launches {counts}")
+    wrapped_out = {}
+    out, wall, counts = drive("wrapped_env", lambda: wrapped_env_steps(wenv, wstate, wrapped_out),
+                              ENV_STEPS * SUBSTEPS)
+    wsps = B * ENV_STEPS / wall
+    spread = check_field_spread(wenv, wrapped_out["state"].model_fields, wrapped_out["timesteps"])
+    record("wrapped_env", wall, counts, env_steps=ENV_STEPS, substeps=SUBSTEPS,
+           env_steps_per_s=wsps, reward_sum=wrapped_out["reward_sum"], done=wrapped_out["done"],
+           on_palm=wrapped_out["on_palm"], field_spread=spread)
+    print(f"[path wrapped_env] {ENV_STEPS} steps of the default dactyl wrapper stack x {SUBSTEPS} "
+          f"substeps at B={B}, discrete actions ({N_ACTION_BINS} bins): {wall:.3f} s, "
+          f"{wsps:.1f} env-steps/s (locked_env {sps:.1f} in this run, ratio {wsps / sps:.3f}); "
+          f"reward sum {wrapped_out['reward_sum']} (env, goal distance, success), episodes done "
+          f"{wrapped_out['done']}, on the palm {wrapped_out['on_palm']:.4f}; launches {counts}")
     launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
                 for entry, r in res.items()}
     for k in KERNELS:
@@ -1309,6 +1519,8 @@ def main() -> int:
                   f"abs err {e:.3g} (tol {tol:.3g})")
             check(bool(torch.isfinite(g).all()) and e <= tol,
                   f"whole step {name}: {k} differs by {e:.3g} > {tol:.3g}")
+
+    wrapped_agreement(wenv, wrapped_out["state"])
 
     if opts.profile:
         profile_substeps(m, dm, opts.profile)

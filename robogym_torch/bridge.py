@@ -14,8 +14,11 @@ dict of numpy arrays that `np.savez` can store:
 `model_from_numpy` and `data_from_numpy` build the port's `Model`/`Data` on
 a device from such a dict. `env_state_to_numpy` and `env_state_from_numpy`
 do the same for an env state (`physics.<field>`, `goal.<key>`,
-`prev_goal_distance.<key>`, `tracker.<field>`, `goal_aux` and `t`, each
-with its leading env axis); the JAX state's PRNG key is not carried.
+`prev_goal_distance.<key>`, `tracker.<field>`, `model_fields.<name>` and
+`t`, each with its leading env axis; `goal_aux` as one array, or, where it
+is a tree (a wrapper stack's `(inner goal_aux, transform states)`), as
+`goal_aux.tree`, its structure in JSON, and its leaves `goal_aux.<i>`);
+the JAX state's PRNG key is not carried.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def _fields(obj):
 def model_to_numpy(model) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for name in _fields(model):
-        if name in ("const", "opt"):
+        if name in ("const", "opt", "env_fields"):
             continue
         v = getattr(model, name)
         if v is not None:
@@ -159,18 +162,47 @@ def data_from_numpy(arrays, device="cuda") -> Data:
     return Data(contact=contact, **kw)
 
 
+def _flatten(tree, leaves):
+    """The JSON-able structure of a tree of dicts, tuples, lists, None and
+    arrays, its arrays appended to `leaves` (as numpy)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {"dict": {k: _flatten(v, leaves) for k, v in tree.items()}}
+    if isinstance(tree, (tuple, list)):
+        return {"seq": [_flatten(v, leaves) for v in tree]}
+    leaves.append(_np(tree))
+    return len(leaves) - 1
+
+
+def _unflatten(spec, leaf):
+    """The tree of `_flatten`'s `spec`, each leaf index i given by leaf(i)."""
+    if spec is None:
+        return None
+    if isinstance(spec, int):
+        return leaf(spec)
+    if "dict" in spec:
+        return {k: _unflatten(v, leaf) for k, v in spec["dict"].items()}
+    return tuple(_unflatten(v, leaf) for v in spec["seq"])
+
+
 def env_state_to_numpy(state) -> Dict[str, np.ndarray]:
     """A batched env state (the JAX package's `EnvState` or the port's) as
     a flat dict of numpy arrays."""
-    if state.model_fields:
-        raise ValueError("env_state_to_numpy carries no per-episode model fields")
     out = {"physics." + k: v for k, v in data_to_numpy(state.physics).items()}
     for group in ("goal", "prev_goal_distance"):
         for k, v in getattr(state, group).items():
             out[f"{group}.{k}"] = _np(v)
     for name in _fields(state.tracker):
         out["tracker." + name] = _np(getattr(state.tracker, name))
-    out["goal_aux"] = _np(state.goal_aux)
+    for k, v in (state.model_fields or {}).items():
+        out["model_fields." + k] = _np(v)
+    if isinstance(state.goal_aux, (tuple, list, dict)):
+        leaves = []
+        out["goal_aux.tree"] = np.asarray(json.dumps(_flatten(state.goal_aux, leaves)))
+        out.update({f"goal_aux.{i}": v for i, v in enumerate(leaves)})
+    else:
+        out["goal_aux"] = _np(state.goal_aux)
     out["t"] = _np(state.t)
     return out
 
@@ -191,6 +223,11 @@ def env_state_from_numpy(arrays, device="cuda"):
                               device)
     tracker = TrackerState(**{f.name: t("tracker." + f.name)
                               for f in dataclasses.fields(TrackerState)})
-    return EnvState(physics=physics, goal=group("goal."),
-                    goal_aux=t("goal_aux"), prev_goal_distance=group("prev_goal_distance."),
-                    tracker=tracker, t=t("t"))
+    if "goal_aux.tree" in arrays:
+        goal_aux = _unflatten(json.loads(str(arrays["goal_aux.tree"])),
+                              lambda i: t(f"goal_aux.{i}"))
+    else:
+        goal_aux = t("goal_aux")
+    return EnvState(physics=physics, goal=group("goal."), goal_aux=goal_aux,
+                    prev_goal_distance=group("prev_goal_distance."), tracker=tracker, t=t("t"),
+                    model_fields=group("model_fields.") or None)

@@ -47,7 +47,9 @@
 //  - Loads from device memory are issued in batches, so that the set-up
 //    waits on a few load latencies, not on one per contact or row.
 //  - The Euler update stages M + dt*D and its inverse through J's region
-//    after the last J^T f.
+//    after the last J^T f. dt is the batch's one timestep or each env's
+//    own (the stride over a (B,) tensor: 1), as the reference takes dt
+//    per lane.
 // The CG loop is cg_common.cuh's `cg_solve`, which kernel F runs too; its
 // arithmetic of every row and dof follows the plain version, and only the
 // order of the sums differs.
@@ -83,13 +85,14 @@ struct Params {
   const float* qs_in;        // without it: qacc_smooth and the warmstart
   const float* x0;
   const int* kind;        // (E,) row kinds
-  const float* dt;        // (1,)
+  const float* dt;        // the timestep: env b's at dt[b * dt_stride]
   float* x;               // (B, V) qacc
   float* f;               // (B, E) efc force
   float* qfrc;            // (B, V) J^T f
   float* qvel_new;        // (B, V), with the Euler update
   float* qs;              // (B, V) qacc_smooth, with the Euler update
   int n_s, S, F, V, iterations;
+  int dt_stride;          // 0: one dt for the batch; 1: a (B,) tensor
 };
 
 // Rows a lane keeps in registers: all of them, up to 8, for V <= 32.
@@ -349,7 +352,7 @@ __global__ void __launch_bounds__(32) cg_full_kernel(Params p) {
 #pragma unroll
     for (int q = 0; q < DPL; ++q) dx[q] = Mp[q] - t[q];
     smem_matvec<DPL>(Minvimp, dx, t, V, Vs);
-    const float dt = p.dt[0];
+    const float dt = p.dt[(size_t)b * p.dt_stride];
 #pragma unroll
     for (int q = 0; q < DPL; ++q) {
       const float qacc_imp = Mg[q] + t[q];
@@ -432,11 +435,11 @@ extern "C" int robogym_cg_full(
     const float* M, const float* Minv, const float* Mimp, const float* Minv_imp,
     const float* qvel, const float* qfrc_smooth, const float* qacc_prev, const int* kind,
     const float* dt, float* x, float* f, float* qfrc, float* qvel_new, float* qs,
-    int B, int n_s, int S, int F, int V, int iterations, cudaStream_t stream) {
-  if (Mimp == nullptr) return (int)cudaErrorInvalidValue;
+    int B, int n_s, int S, int F, int V, int iterations, int dt_stride, cudaStream_t stream) {
+  if (Mimp == nullptr || (dt_stride != 0 && dt_stride != 1)) return (int)cudaErrorInvalidValue;
   Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
            M, Minv, Mimp, Minv_imp, qvel, qfrc_smooth, qacc_prev, nullptr, nullptr, kind, dt,
-           x, f, qfrc, qvel_new, qs, n_s, S, F, V, iterations};
+           x, f, qfrc, qvel_new, qs, n_s, S, F, V, iterations, dt_stride};
   return launch(p, B, stream);
 }
 
@@ -449,6 +452,6 @@ extern "C" int robogym_cg_full_noeuler(
     int B, int n_s, int S, int F, int V, int iterations, cudaStream_t stream) {
   Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
            M, Minv, nullptr, nullptr, qvel, nullptr, nullptr, qs, x0, kind, nullptr,
-           x, f, qfrc, nullptr, nullptr, n_s, S, F, V, iterations};
+           x, f, qfrc, nullptr, nullptr, n_s, S, F, V, iterations, 0};
   return launch(p, B, stream);
 }

@@ -39,7 +39,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
 
 # C entry points `robogym_<name>`: (device pointers, ints) before the stream
-SIGNATURES = {"spd_inverse": (2, 2), "cg_full": (28, 6), "cg_full_noeuler": (23, 6),
+SIGNATURES = {"spd_inverse": (2, 2), "cg_full": (28, 7), "cg_full_noeuler": (23, 6),
               "cg": (13, 4), "hull_pair": (14, 5), "hull_manifold": (13, 5),
               "hull_pair_world": (10, 5), "hull_manifold_world": (9, 5), "boxbox": (9, 1)}
 LAUNCHES = {name: 0 for name in SIGNATURES}

@@ -60,8 +60,9 @@ class TrackerState:
 @dataclasses.dataclass(frozen=True)
 class EnvState:
     """Per-env state, every tensor `(B, ...)`: physics, goal, tracker and
-    the env step count. `model_fields` carries per-episode model fields
-    (`apply_model_fields`); the locked env sets none."""
+    the env step count. `model_fields` carries per-episode model fields,
+    each `(B, ...)` (`apply_model_fields`); the locked env sets none, a
+    wrapper stack sets those its transforms randomize."""
 
     physics: Data
     goal: Any                    # goal dict (env-specific)
@@ -77,16 +78,23 @@ class EnvState:
 
 def apply_model_fields(model: Model, fields) -> Model:
     """Overlay per-episode fields onto the static Model. Keys are Model
-    field names; `"opt:<name>"` addresses Option fields."""
+    field names; `"opt:<name>"` addresses Option fields. Each value is the
+    field with a leading env axis `(B, ...)`, and the overlaid model names
+    it in `env_fields`; a field not given stays shared. The diagApprox
+    weights (`setconst.invweight0`) stay those of the compiled model, as
+    the JAX package computes them once at compile time."""
     if not fields:
         return model
+    from robogym_torch.physics.setconst import invweight0
+
+    invweight0(model)
     plain = {k: v for k, v in fields.items() if not k.startswith("opt:")}
     opt = {k[4:]: v for k, v in fields.items() if k.startswith("opt:")}
     if plain:
         model = model.replace(**plain)
     if opt:
         model = model.replace(opt=dataclasses.replace(model.opt, **opt))
-    return model
+    return model.replace(env_fields=model.env_fields | frozenset(fields))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,9 +6,11 @@ model and a state across by name.
 
   * `ModelConst` is the static structure of the kinematic tree: host numpy
     arrays plus ints, identical for every env.
-  * `Model` holds the episode-constant tensors on one device. In this port
-    the model is shared by the whole batch: its tensors carry no env axis
-    and broadcast against `Data`.
+  * `Model` holds the episode-constant tensors on one device. A field is
+    shared by the whole batch and carries no env axis, or, where its name
+    is in `env_fields` (per-episode fields, `envs.core.apply_model_fields`),
+    it is each env's own, `(B, ...)`. Either way it broadcasts against
+    `Data`; `Model.take` gathers rows of a field that may be either.
   * `Data` is the per-env state. Every tensor has a leading env axis
     `(B, ...)`.
 """
@@ -212,6 +214,12 @@ OPTION_STATIC = ("iterations", "cg_iterations", "ls_iterations", "ncon_active",
                  "group_cap", "solver", "tolerance", "cone", "integrator")
 
 
+def env_col(x: torch.Tensor, n: int) -> torch.Tensor:
+    """An option value `x`, shared (0-dim) or each env's own (B,), shaped
+    to broadcast against a (B, ...) tensor of `n` more dims."""
+    return x.reshape(x.shape + (1,) * n) if x.dim() else x
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Model:
     """Episode-constant model tensors, shared by every env of a batch."""
@@ -287,6 +295,23 @@ class Model:
     headlight_ambient: Optional[torch.Tensor] = None
     mesh_face_plane: Optional[torch.Tensor] = None
     mesh_face_mask: Optional[torch.Tensor] = None
+    # names of the fields that carry a leading env axis ("opt:<name>" for
+    # an Option field)
+    env_fields: frozenset = frozenset()
+
+    def per_env(self, name: str) -> bool:
+        return name in self.env_fields
+
+    def take(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows `ids` of field `name`: ids (k,) gives (k, ...) of a shared
+        field and (B, k, ...) of a per-env one; ids (B, k), each env's own
+        rows, gives (B, k, ...) of either."""
+        v = getattr(self, name)
+        if name not in self.env_fields:
+            return v[ids]
+        if ids.dim() == 2:
+            return v[torch.arange(v.shape[0], device=v.device)[:, None], ids]
+        return v[:, ids]
 
     @property
     def nv(self) -> int:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from robogym_torch.mjcf.model import BiasType, Data, GainType, Model
+from robogym_torch.mjcf.model import BiasType, Data, GainType, Model, env_col
 from robogym_torch.physics.tables import on_device
 
 
@@ -56,13 +56,10 @@ def actuation(m: Model, d: Data, moment: torch.Tensor) -> Data:
 
     ctrl = d.ctrl
     limited = on_device(c, "act_ctrllimited", c.actuator_ctrllimited, dev)
-    ctrl = torch.where(
-        limited,
-        torch.minimum(torch.maximum(ctrl, m.actuator_ctrlrange[:, 0]), m.actuator_ctrlrange[:, 1]),
-        ctrl,
-    )
+    cr = m.actuator_ctrlrange
+    ctrl = torch.where(limited, torch.minimum(torch.maximum(ctrl, cr[..., 0]), cr[..., 1]), ctrl)
 
-    dt = m.opt.timestep
+    dt = env_col(m.opt.timestep, 1)
     (pid_ids, pid_actadr, cas_ids, cas_actadr,
      plain_ids, plain_affine) = _actuator_partition(c)
     force = torch.zeros((B, c.nu), dtype=dtype, device=dev)
@@ -73,8 +70,8 @@ def actuation(m: Model, d: Data, moment: torch.Tensor) -> Data:
 
     if len(pid_ids):
         ids, aadr = ix("pid", pid_ids), ix("pid_adr", pid_actadr)
-        gp = m.actuator_gainprm[ids]
-        kp, ti, imax, td, dsmooth, deadband = (gp[:, i] for i in range(6))
+        gp = m.take("actuator_gainprm", ids)
+        kp, ti, imax, td, dsmooth, deadband = (gp[..., i] for i in range(6))
         length = d.actuator_length[:, ids]
         integral = d.act[:, aadr]
         prev_err = d.act[:, aadr + 1]
@@ -97,10 +94,10 @@ def actuation(m: Model, d: Data, moment: torch.Tensor) -> Data:
 
     if len(cas_ids):
         ids, aadr = ix("cas", cas_ids), ix("cas_adr", cas_actadr)
-        gp = m.actuator_gainprm[ids]
-        kp, ti, iclamp = gp[:, 0], gp[:, 1], gp[:, 2]
-        kvp, tiv, iclamp_v = gp[:, 5], gp[:, 6], gp[:, 7]
-        ema, max_vel = gp[:, 8], gp[:, 9]
+        gp = m.take("actuator_gainprm", ids)
+        kp, ti, iclamp = gp[..., 0], gp[..., 1], gp[..., 2]
+        kvp, tiv, iclamp_v = gp[..., 5], gp[..., 6], gp[..., 7]
+        ema, max_vel = gp[..., 8], gp[..., 9]
         zero = torch.zeros_like(kp)
 
         length = d.actuator_length[:, ids]
@@ -133,7 +130,7 @@ def actuation(m: Model, d: Data, moment: torch.Tensor) -> Data:
 
     if len(plain_ids):
         ids = ix("plain", plain_ids)
-        gain = m.actuator_gainprm[ids, 0]
+        gain = m.take("actuator_gainprm", ids)[..., 0]
         f = gain * ctrl[:, ids]
         bias = (
             m.actuator_biasprm[ids, 0]
@@ -151,9 +148,9 @@ def actuation(m: Model, d: Data, moment: torch.Tensor) -> Data:
     act_vel_damping = torch.zeros((B, c.nv), dtype=dtype, device=dev)
     if len(cas_ids):
         ids = ix("cas", cas_ids)
-        kvp_all = m.actuator_gainprm[ids, 5]
+        kvp_all = m.take("actuator_gainprm", ids)[..., 5]
         mom2 = moment[:, ids] ** 2
-        act_vel_damping = act_vel_damping + (kvp_all[:, None] * mom2).sum(1)
+        act_vel_damping = act_vel_damping + (kvp_all[..., None] * mom2).sum(1)
 
     return d.replace(
         actuator_force=force, qfrc_actuator=qfrc_actuator, act=act_new,

@@ -27,7 +27,8 @@ Shapes (per env, leading B): scalar rows Js (n_s, V), n_s may be 0; contact
 offsets off1/off2 (S, 3); frames (S, 9) as [normal | tangent1 | tangent2];
 friction (S, 5); dof path masks m1/m2 (S, V); cdof (V, 6); row maps (E,)
 with E = n_s + S*F; M, Minv, Mimp, Minv_imp (V, V); qvel, qfrc_smooth,
-qacc_prev, qs, x0 (V,); dt a 0-dim tensor.
+qacc_prev, qs, x0 (V,); dt a 0-dim tensor, one timestep for the batch, or
+(B,), each env's own.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import functools
 import numpy as np
 import torch
 
+from robogym_torch.mjcf.model import env_col
 from robogym_torch.physics import constraint as cl
 from robogym_torch.physics.smooth import mv
 from robogym_torch.utils.rotation import cross
@@ -180,7 +182,7 @@ def cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
     qfrc_total = mv(M, x)
     qacc1 = mv(Minv_imp, qfrc_total)
     qacc_imp = qacc1 + mv(Minv_imp, qfrc_total - mv(Mimp, qacc1))
-    qvel_new = qvel + dt * qacc_imp
+    qvel_new = qvel + env_col(dt, 1) * qacc_imp
     return x, f, qfrc, qvel_new, qs
 
 
@@ -252,14 +254,18 @@ def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
     if not fits(E, V, True):
         return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
                              qvel, qfrc_smooth, qacc_prev, dt, solve=cg)
-    dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev).reshape(1)
+    dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+    if tuple(dt_t.shape) not in ((), (B,)):
+        raise ValueError(f"cg_full: dt of shape {tuple(dt_t.shape)}, want () or ({B},)")
+    dt_stride = dt_t.dim()
+    dt_t = dt_t.reshape(-1).contiguous()
     x = torch.empty((B, V), dtype=torch.float32, device=dev)
     f = torch.empty((B, E), dtype=torch.float32, device=dev)
     qfrc = torch.empty_like(x)
     qvel_new = torch.empty_like(x)
     qs = torch.empty_like(x)
     cuda.launch("cg_full", *row_ops, *[t for _, t, _ in ops], kind_t, dt_t, x, f, qfrc,
-                qvel_new, qs, B, n_s, S, nfacet, V, iterations)
+                qvel_new, qs, B, n_s, S, nfacet, V, iterations, dt_stride)
     return x, f, qfrc, qvel_new, qs
 
 

@@ -159,7 +159,9 @@ def contact_frame(normal: torch.Tensor) -> torch.Tensor:
 
 
 def _mix_params(m: Model, g1, g2):
-    """Contact solref/solimp/friction/margin/gap for static pair ids."""
+    """Contact solref/solimp/friction/margin/gap for static pair ids; the
+    friction (B, n, 5) where the model's geom friction is each env's
+    own."""
     p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
     m1, m2 = m.geom_solmix[g1], m.geom_solmix[g2]
     w1 = m1 / torch.clamp(m1 + m2, min=1e-12)
@@ -170,7 +172,7 @@ def _mix_params(m: Model, g1, g2):
     w1 = w1[:, None]
     sr1, sr2 = m.geom_solref[g1], m.geom_solref[g2]
     si1, si2 = m.geom_solimp[g1], m.geom_solimp[g2]
-    f1, f2 = m.geom_friction[g1], m.geom_friction[g2]
+    f1, f2 = m.take("geom_friction", g1), m.take("geom_friction", g2)
     solref_mix = w1 * sr1 + (1 - w1) * sr2
     direct = (sr1[:, 0] <= 0) | (sr2[:, 0] <= 0)
     solref = torch.where(direct[:, None], torch.minimum(sr1, sr2), solref_mix)
@@ -183,14 +185,16 @@ def _mix_params(m: Model, g1, g2):
     solref = torch.where(use1, sr1, torch.where(use2, sr2, solref))
     solimp = torch.where(use1, si1, torch.where(use2, si2, solimp))
     fric = torch.where(use1, f1, torch.where(use2, f2, fric))
-    friction5 = torch.stack([fric[:, 0], fric[:, 0], fric[:, 1], fric[:, 2], fric[:, 2]], dim=-1)
+    friction5 = torch.stack([fric[..., 0], fric[..., 0], fric[..., 1], fric[..., 2], fric[..., 2]],
+                            dim=-1)
     return solref, solimp, friction5, margin, gap
 
 
 def _model_cache(m: Model, group_cap: int):
     """Model-only quantities, computed once per Model: per-group pair
-    tables (solver params + ids), mesh tables in the local frame and the
-    local bounding-capsule fits of the meshes."""
+    tables (solver params + ids; (B, n, 19) where the geom friction is
+    each env's own), mesh tables in the local frame and the local
+    bounding-capsule fits of the meshes."""
     key = f"_collision_cache_{group_cap}"
     cache = m.__dict__.get(key)
     if cache is not None:
@@ -208,11 +212,11 @@ def _model_cache(m: Model, group_cap: int):
         def col(a):
             return torch.as_tensor(np.asarray(a, np.float32), dtype=dtype, device=dev)[:, None].expand(n, 1)
 
-        ptab = torch.cat([
-            solref, solimp, fric5, margin[:, None], gap[:, None],
-            col(grp["condim"]), col(grp["g1"]), col(grp["g2"]),
-            col(bodyid[grp["g1"]]), col(bodyid[grp["g2"]]),
-        ], dim=-1)                                                     # (n, 19)
+        parts = [solref, solimp, fric5, margin[:, None], gap[:, None],
+                 col(grp["condim"]), col(grp["g1"]), col(grp["g2"]),
+                 col(bodyid[grp["g1"]]), col(bodyid[grp["g2"]])]
+        lead = fric5.shape[:-2]
+        ptab = torch.cat([p.expand(lead + p.shape[-2:]) for p in parts], dim=-1)  # (n, 19)
         groups.append(dict(g1=g1, g2=g2, ptab=ptab, margin=margin))
     cache = dict(groups=groups)
     if c.nmesh:
@@ -252,7 +256,8 @@ def _mesh_capsules(m: Model):
 
 def geom_capsules(m: Model, d: Data):
     """Per-geom conservative world-frame bounding capsule: endpoints
-    (B, ngeom, 3) x2 and radius (ngeom,)."""
+    (B, ngeom, 3) x2 and radius (ngeom,), or (B, ngeom) where the geom
+    sizes are each env's own."""
     c = m.const
     t = np.asarray(c.geom_type)
     s = m.geom_size
@@ -264,19 +269,19 @@ def geom_capsules(m: Model, d: Data):
 
     is_zaxis = flag("z", (t == GeomType.CAPSULE) | (t == GeomType.CYLINDER))
     is_long = flag("long", (t == GeomType.BOX) | (t == GeomType.ELLIPSOID))
-    smax = torch.max(s, dim=1, keepdim=True).values
+    smax = torch.max(s, dim=-1, keepdim=True).values
     winners = s >= smax
     # first longest axis only (averaging tied axes misses cube corners)
-    axis_long = (winners & (torch.cumsum(winners.to(torch.int32), dim=1) == 1)).to(dtype)
+    axis_long = (winners & (torch.cumsum(winners.to(torch.int32), dim=-1) == 1)).to(dtype)
     zaxis = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev).expand(c.ngeom, 3)
     u_loc = torch.where(is_zaxis[:, None], zaxis, torch.where(is_long[:, None], axis_long, zaxis))
-    zero = torch.zeros_like(s[:, 0])
-    halflen = torch.where(is_zaxis, s[:, 1], torch.where(is_long, smax[:, 0], zero))
-    sq = torch.sum(s * s, dim=1)
-    r_perp_box = torch.sqrt(torch.clamp(sq - smax[:, 0] ** 2, min=0.0))
-    radius = torch.where(is_zaxis, s[:, 0], torch.where(is_long, r_perp_box, s[:, 0]))
+    zero = torch.zeros_like(s[..., 0])
+    halflen = torch.where(is_zaxis, s[..., 1], torch.where(is_long, smax[..., 0], zero))
+    sq = torch.sum(s * s, dim=-1)
+    r_perp_box = torch.sqrt(torch.clamp(sq - smax[..., 0] ** 2, min=0.0))
+    radius = torch.where(is_zaxis, s[..., 0], torch.where(is_long, r_perp_box, s[..., 0]))
     radius = torch.where(flag("plane", t == GeomType.PLANE), zero, radius)
-    off_loc = u_loc * halflen[:, None]
+    off_loc = u_loc * halflen[..., None]
     if c.nmesh:
         a_loc_m, b_loc_m, rper = _model_cache(m, m.opt.group_cap)["mesh_capsule"]
         mids = on_device(c, "cap_mids", np.clip(c.geom_dataid, 0, c.nmesh - 1), dev, torch.long)
@@ -286,8 +291,9 @@ def geom_capsules(m: Model, d: Data):
         radius = torch.where(is_mesh, rper[mids], radius)
     else:
         a_loc, b_loc = -off_loc, off_loc
-    a_w = xp + torch.einsum("xgij,gj->xgi", xm, a_loc)
-    b_w = xp + torch.einsum("xgij,gj->xgi", xm, b_loc)
+    spec = "xgij,xgj->xgi" if m.per_env("geom_size") else "xgij,gj->xgi"
+    a_w = xp + torch.einsum(spec, xm, a_loc)
+    b_w = xp + torch.einsum(spec, xm, b_loc)
     return a_w, b_w, radius
 
 
@@ -337,9 +343,9 @@ def _scores(m: Model, d: Data, grp, gc, caps):
         nrm = d.geom_xmat[:, g1, :, 2]
         ha = torch.sum((cap_a[:, g2] - xp1) * nrm, dim=-1)
         hb = torch.sum((cap_b[:, g2] - xp1) * nrm, dim=-1)
-        return cap_r[g2] + gc["margin"] - torch.minimum(ha, hb)
+        return cap_r[..., g2] + gc["margin"] - torch.minimum(ha, hb)
     sdist = _seg_seg_dist(cap_a[:, g1], cap_b[:, g1], cap_a[:, g2], cap_b[:, g2])
-    return cap_r[g1] + cap_r[g2] + gc["margin"] - sdist
+    return cap_r[..., g1] + cap_r[..., g2] + gc["margin"] - sdist
 
 
 def broadphase_scores(m: Model, d: Data, group_cap: int = DEFAULT_GROUP_CAP):
@@ -352,7 +358,7 @@ def broadphase_scores(m: Model, d: Data, group_cap: int = DEFAULT_GROUP_CAP):
 def _side(m: Model, d: Data, G: torch.Tensor, gtype: int, cache, need_mask=False):
     """Per-geom quantities of one pair side for winner geom ids G (B, K)."""
     bi = torch.arange(G.shape[0], device=G.device)[:, None]
-    data = dict(xpos=d.geom_xpos[bi, G], xmat=d.geom_xmat[bi, G], size=m.geom_size[G])
+    data = dict(xpos=d.geom_xpos[bi, G], xmat=d.geom_xmat[bi, G], size=m.take("geom_size", G))
     if gtype == GeomType.MESH:
         vloc, mask, cloc = cache["mesh"]
         data["vloc"] = vloc[G]
@@ -435,7 +441,9 @@ def collision(m: Model, d: Data, group_cap: int = DEFAULT_GROUP_CAP) -> Data:
         score = _scores(m, d, grp, gc, caps)                           # (B, n)
         if K < n:
             sel, active_bp = deepest_k(score, K)
-            pk = gc["ptab"][sel]                                       # (B, K, 19)
+            ptab = gc["ptab"]                                          # (n, 19) or (B, n, 19)
+            pk = ptab[torch.arange(B, device=sel.device)[:, None], sel] if ptab.dim() == 3 \
+                else ptab[sel]                                         # (B, K, 19)
             G1, G2 = gc["g1"][sel], gc["g2"][sel]
         else:
             active_bp = score > 0

@@ -132,8 +132,9 @@ def scalar_blocks(m: Model, d: Data):
         n = len(jids_np)
         jids = ix("lim_j", jids_np)
         qv = d.qpos[:, ix("lim_q", st["qadr"][lim])]
-        dist_lo = qv - m.jnt_range[jids, 0]
-        dist_hi = m.jnt_range[jids, 1] - qv
+        jr = m.take("jnt_range", jids)
+        dist_lo = qv - jr[..., 0]
+        dist_hi = jr[..., 1] - qv
         dist = torch.minimum(dist_lo, dist_hi)
         sign = torch.where(dist_lo < dist_hi, torch.ones_like(dist), -torch.ones_like(dist))
         onehot = np.zeros((n, nv), np.float32)
@@ -151,8 +152,9 @@ def scalar_blocks(m: Model, d: Data):
     if len(lt_np):
         lt = ix("ten", lt_np)
         L = d.ten_length[:, lt]
-        dist_lo = L - m.tendon_range[lt, 0]
-        dist_hi = m.tendon_range[lt, 1] - L
+        tr = m.take("tendon_range", lt)
+        dist_lo = L - tr[..., 0]
+        dist_hi = tr[..., 1] - L
         dist = torch.minimum(dist_lo, dist_hi)
         sign = torch.where(dist_lo < dist_hi, torch.ones_like(dist), -torch.ones_like(dist))
         blocks.append((

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from robogym_torch.mjcf.model import env_col
 from robogym_torch.physics import cg_kernel, factor_kernel
 from robogym_torch.physics import constraint as cl
 
@@ -83,11 +84,11 @@ def row_inputs(kind_s, nfacet, J_s, pos_s, solref_s, solimp_s, floss_s, active_s
 def core_inputs(kind_s, nfacet, *args):
     """What the kernels of the fused core take: `row_inputs`, and M +
     dt*diag(damp) for the second SPD inverse and the dof vectors. `args`
-    are `row_inputs`' after `nfacet`, then qfrc_smooth, qacc_prev, damp,
-    dt."""
+    are `row_inputs`' after `nfacet`, then qfrc_smooth, qacc_prev, damp
+    (B, V) and dt (0-dim, or (B,) each env's)."""
     *head, qfrc_smooth, qacc_prev, damp, dt = args
     ci = row_inputs(kind_s, nfacet, *head)
-    ci.update(Mimp=(ci["qM"] + dt * torch.diag_embed(damp)).contiguous(),
+    ci.update(Mimp=(ci["qM"] + env_col(dt, 2) * torch.diag_embed(damp)).contiguous(),
               qfrc_smooth=qfrc_smooth, qacc_prev=qacc_prev, dt=dt)
     return ci
 

@@ -6,7 +6,9 @@ the wrapper: on a CUDA tensor it launches the hand-written kernel in
 columns a lane in registers up to V = 64: right-looking Cholesky, forward
 substitution for L^-1, A^-1 = L^-T L^-1, with identity on the dofs padded
 up to a multiple of 8; from 65 to 128 dofs the same arithmetic with the
-matrix in shared memory); on a CPU tensor it runs `spd_inverse_plain`,
+matrix in shared memory, and above that in a scratch in device memory,
+so that it takes any V, as the JAX package's kernel does); on a CPU
+tensor it runs `spd_inverse_plain`,
 the PyTorch transcription of the JAX reference `_spd_inverse_ref`. Both
 read only the lower triangle.
 """
@@ -14,8 +16,6 @@ read only the lower triangle.
 from __future__ import annotations
 
 import torch
-
-MAX_V = 128   # dofs kernel A takes (the JAX package's kernel takes any V)
 
 
 def spd_inverse_plain(A: torch.Tensor) -> torch.Tensor:
@@ -37,9 +37,6 @@ def spd_inverse(A: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"spd_inverse takes a contiguous (B, V, V) float32 tensor, got "
                          f"{tuple(A.shape)} {A.dtype}")
     B, V, _ = A.shape
-    if V > MAX_V:
-        raise ValueError(f"spd_inverse: the CUDA kernel takes V <= MAX_V = {MAX_V} dofs, "
-                         f"got V = {V}")
     out = torch.empty_like(A)
     cuda.launch("spd_inverse", A, out, B, V)
     return out

@@ -61,6 +61,9 @@ def invweight0(m: Model):
     c = m.const
     cached = getattr(c, "_invweight0", None)
     if cached is None:
+        if m.env_fields:
+            raise ValueError("invweight0 is computed from the compiled model, not from one with "
+                             f"per-env fields {sorted(m.env_fields)}")
         cached = compute_invweight0(m)
         object.__setattr__(c, "_invweight0", cached)
     return cached

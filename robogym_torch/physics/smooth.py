@@ -83,7 +83,7 @@ def kinematics(m: Model, d: Data) -> Data:
         pids = _ix(c, f"fk{li}_p", lvl.pids, dev)
         pq = xquat[:, pids]
         xq = rot.quat_mul(pq, m.body_quat[bids])
-        xp = xpos[:, pids] + rot.quat_rot_vec(pq, m.body_pos[bids])
+        xp = xpos[:, pids] + rot.quat_rot_vec(pq, m.take("body_pos", bids))
 
         for si, per_type in enumerate(lvl.slots):
             for jt, (rows_np, jids_np) in per_type.items():
@@ -142,7 +142,8 @@ def kinematics(m: Model, d: Data) -> Data:
     if c.nsite:
         sb = _ix(c, "site_bodyid", c.site_bodyid, dev)
         site_xmat = torch.matmul(xmat[:, sb], rot.quat2mat(m.site_quat))
-        site_xpos = xpos[:, sb] + torch.einsum("xgij,gj->xgi", xmat[:, sb], m.site_pos)
+        spec = "xgij,xgj->xgi" if m.per_env("site_pos") else "xgij,gj->xgi"
+        site_xpos = xpos[:, sb] + torch.einsum(spec, xmat[:, sb], m.site_pos)
     else:
         site_xpos, site_xmat = d.site_xpos, d.site_xmat
 
@@ -181,7 +182,7 @@ def com_pos(m: Model, d: Data) -> Data:
     root_com = subtree_com[:, _ix(c, "body_rootid", c.body_rootid, dev)]
 
     R = [[d.ximat[..., i, j] for j in range(3)] for i in range(3)]
-    Iv = [m.body_inertia[:, j] for j in range(3)]
+    Iv = [m.body_inertia[..., j] for j in range(3)]
     Ic = [[R[i][0] * Iv[0] * R[k][0] + R[i][1] * Iv[1] * R[k][1] + R[i][2] * Iv[2] * R[k][2]
            for k in range(3)] for i in range(3)]
     cvec = d.xipos - root_com
@@ -271,7 +272,9 @@ def rne(m: Model, d: Data, cdofdot: torch.Tensor) -> Data:
     """qfrc_bias = C(qpos, qvel): RNE with qacc = 0, gravity at the root."""
     c = m.const
     dev, dtype = d.qpos.device, d.qpos.dtype
-    grav = torch.cat([torch.zeros(3, dtype=dtype, device=dev), -m.opt.gravity])
+    g = m.opt.gravity
+    grav = torch.cat([torch.zeros_like(g), -g], dim=-1)
+    grav = grav[:, None] if m.per_env("opt:gravity") else grav
     mask = on_device(c, "body_dof_mask", c.body_dof_mask, dev, dtype)
     cacc = grav + torch.einsum("bv,xvk->xbk", mask, cdofdot * d.qvel[..., None])
     cin = [[d.cinert[..., i, j] for j in range(6)] for i in range(6)]
@@ -388,7 +391,7 @@ def _spatial_tendon(m: Model, d: Data, adr: int, num: int):
                 b1 = int(c.site_bodyid[nxt_oid])
                 gc = d.geom_xpos[:, s_oid]
                 gb = int(c.geom_bodyid[s_oid])
-                r = m.geom_size[s_oid, 0]
+                r = m.geom_size[..., s_oid, 0]
                 t0, t1, arc, wrapping = _sphere_wrap(p0, p1, gc, r)
                 scale = 1.0 / divisor
                 dvec_direct = p1 - p0
@@ -452,7 +455,7 @@ def _sphere_wrap(p0, p1, center, r):
         alpha = torch.atan2(p2[:, 1], p2[:, 0])
         beta = torch.arccos(cosq)
         ang = alpha + sgn * beta
-        return r * torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+        return torch.stack([r * torch.cos(ang), r * torch.sin(ang)], -1)
 
     side = torch.sign(a2[:, 0] * b2[:, 1] - a2[:, 1] * b2[:, 0])
     side = torch.where(side == 0, torch.ones_like(side), side)

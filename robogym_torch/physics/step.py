@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from robogym_torch.mjcf.model import Data, JointType, Model
+from robogym_torch.mjcf.model import Data, JointType, Model, env_col
 from robogym_torch.physics import actuation as actuation_lib
 from robogym_torch.physics import constraint as constraint_lib
 from robogym_torch.physics import factor_kernel, smooth, tables
@@ -57,8 +57,10 @@ def _xfrc_to_qfrc(m: Model, d: Data) -> torch.Tensor:
 
 
 def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch.Tensor:
-    """qpos += qvel * dt with quaternion handling (mj_integratePos)."""
+    """qpos += qvel * dt with quaternion handling (mj_integratePos); dt
+    is one timestep (0-dim) or each env's (B,)."""
     c = m.const
+    dt1, dt2 = env_col(dt, 1), env_col(dt, 2)
     dev = qpos.device
     st = tables.scalar_joint_tables(c)
 
@@ -68,23 +70,23 @@ def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt) -> torch
     out = qpos.clone()
     if len(st["qadr"]):
         qadr = ix("qadr", st["qadr"])
-        out[:, qadr] = qpos[:, qadr] + qvel[:, ix("dadr", st["dadr"])] * dt
+        out[:, qadr] = qpos[:, qadr] + qvel[:, ix("dadr", st["dadr"])] * dt1
     free = [(q, dd) for jt, q, dd in st["quat"] if jt == JointType.FREE]
     ball = [(q, dd) for jt, q, dd in st["quat"] if jt == JointType.BALL]
     if free:
         qa = np.asarray([q for q, _ in free])
         da = np.asarray([dd for _, dd in free])
         lin_q = ix("free_lq", qa[:, None] + np.arange(3))
-        out[:, lin_q] = qpos[:, lin_q] + qvel[:, ix("free_ld", da[:, None] + np.arange(3))] * dt
+        out[:, lin_q] = qpos[:, lin_q] + qvel[:, ix("free_ld", da[:, None] + np.arange(3))] * dt2
         quat_q = ix("free_qq", qa[:, None] + 3 + np.arange(4))
         w = qvel[:, ix("free_qd", da[:, None] + 3 + np.arange(3))]
-        out[:, quat_q] = rot.quat_integrate(qpos[:, quat_q], w, dt)
+        out[:, quat_q] = rot.quat_integrate(qpos[:, quat_q], w, dt2)
     if ball:
         qa = np.asarray([q for q, _ in ball])
         da = np.asarray([dd for _, dd in ball])
         quat_q = ix("ball_qq", qa[:, None] + np.arange(4))
         w = qvel[:, ix("ball_qd", da[:, None] + np.arange(3))]
-        out[:, quat_q] = rot.quat_integrate(qpos[:, quat_q], w, dt)
+        out[:, quat_q] = rot.quat_integrate(qpos[:, quat_q], w, dt2)
     return out
 
 
@@ -121,11 +123,11 @@ def euler(m: Model, d: Data) -> Data:
     one refinement step, then qpos integration."""
     dt = m.opt.timestep
     qfrc_total = smooth.mv(d.qM, d.qacc)
-    M_imp = d.qM + dt * torch.diag_embed(m.dof_damping + d.act_vel_damping)
+    M_imp = d.qM + env_col(dt, 2) * torch.diag_embed(m.dof_damping + d.act_vel_damping)
     Minv_imp = factor_kernel.spd_inverse(M_imp.contiguous())
     qacc_imp = smooth.mv(Minv_imp, qfrc_total)
     qacc_imp = qacc_imp + smooth.mv(Minv_imp, qfrc_total - smooth.mv(M_imp, qacc_imp))
-    qvel_new = d.qvel + dt * qacc_imp
+    qvel_new = d.qvel + env_col(dt, 1) * qacc_imp
     return d.replace(qpos=integrate_pos(m, d.qpos, qvel_new, dt), qvel=qvel_new, time=d.time + dt)
 
 

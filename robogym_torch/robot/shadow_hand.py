@@ -115,8 +115,9 @@ def fingertip_positions(idx: HandIndex, d: Data) -> torch.Tensor:
 
 
 def ctrl_range(idx: HandIndex, m: Model) -> torch.Tensor:
-    """(20, 2) actuator control ranges in ACTUATORS order."""
-    return m.actuator_ctrlrange[_ix(idx.actuator_ids, m.actuator_ctrlrange)]
+    """(20, 2) actuator control ranges in ACTUATORS order, or (B, 20, 2)
+    where the model's ranges are each env's own."""
+    return m.take("actuator_ctrlrange", _ix(idx.actuator_ids, m.actuator_ctrlrange))
 
 
 def joint_positions_to_control(qpos_hand: torch.Tensor) -> torch.Tensor:
@@ -133,7 +134,7 @@ def denormalize_position_control(idx: HandIndex, m: Model, d: Data,
     """(B, 20) actions in [-1, 1] -> the full (B, nu) ctrl with the hand's
     actuators set, in radians (robot_interface.py:247-278)."""
     cr = ctrl_range(idx, m)
-    lo, hi = cr[:, 0], cr[:, 1]
+    lo, hi = cr[..., 0], cr[..., 1]
     if relative_action:
         actuation_center = joint_positions_to_control(joint_positions(idx, d))
     else:

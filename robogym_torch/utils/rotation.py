@@ -1,5 +1,5 @@
 """Batched rotation math in PyTorch: the part of `robogym_tpu/utils/rotation.py`
-that the physics step and the dactyl env call.
+that the physics step, the dactyl env and its wrappers call.
 
 Conventions are the JAX package's (and MuJoCo's): quaternions are
 [w, x, y, z]; every function broadcasts over leading batch dimensions.
@@ -129,6 +129,20 @@ def vectors2quat(v_from: torch.Tensor, v_to: torch.Tensor) -> torch.Tensor:
     q_pi = torch.cat([torch.zeros_like(w), any_orthogonal(v_from)], dim=-1)
     q = torch.where(w <= 1e-9, q_pi, q)
     return quat_normalize(quat_unit(q))
+
+
+def normalize_angles(angles: torch.Tensor, low=-np.pi, high=np.pi) -> torch.Tensor:
+    """Angles wrapped into [low, high)."""
+    return torch.remainder(angles - low, high - low) + low
+
+
+def quat_average2(q1: torch.Tensor, q2: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """Weighted average of two unit quaternions (..., 4) with weights w1
+    (...,) and 1 - w1: q2 sign-aligned to q1, then the chordal mean with w
+    >= 0 (the JAX package's `quat_average2`)."""
+    q2 = torch.where(torch.sum(q1 * q2, dim=-1, keepdim=True) < 0, -q2, q2)
+    w1 = w1[..., None]
+    return quat_normalize(w1 * q1 + (1.0 - w1) * q2)
 
 
 def uniform_quat_apply(u: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ module writes a stand-in that both packages' env code binds to
     on the palm; the palm is a box, so that palm and cube form a box-box
     pair (kernel E), as dactyl/locked's do;
   * the cube `cube:` on three slides `cube:cube_tx/ty/tz` and a ball
-    `cube:cube_rot`, with a `cube:center` site, resting on the palm;
+    `cube:cube_rot`, its box geom `cube:middle` (the name the cube-size
+    randomization looks for), with a `cube:center` site, resting on the
+    palm;
   * the target cube `target:` on the same four joints, its geom at
     contype="0" conaffinity="0" (it collides with nothing). Its slides
     carry a spring (stiffness 50 N/m to their rest position) and a damper
@@ -66,7 +68,7 @@ def _cube(prefix: str, pos, target: bool) -> List[str]:
         out.append(f'      <joint name="{prefix}cube_t{ax}" type="slide" axis="{axis}"{slide}/>')
     out += [
         f'      <joint name="{prefix}cube_rot" type="ball"/>',
-        f'      <geom name="{prefix}cube" type="box" size="{h} {h} {h}" density="500"{geom}/>',
+        f'      <geom name="{prefix}middle" type="box" size="{h} {h} {h}" density="500"{geom}/>',
         f'      <site name="{prefix}center" pos="0 0 0"/>',
         "    </body>",
     ]

@@ -97,6 +97,17 @@ cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, T) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// stream-ordered allocation: the host's heap, poisoned with NaN
+inline cudaError_t cudaMallocAsync(void** p, size_t bytes, cudaStream_t) {
+  float* f = new float[(bytes + 3) / 4];
+  for (size_t i = 0; i < (bytes + 3) / 4; ++i) f[i] = std::nanf("");
+  *p = f;
+  return cudaSuccess;
+}
+inline cudaError_t cudaFreeAsync(void* p, cudaStream_t) {
+  delete[] static_cast<float*>(p);
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "invalid argument";
 }

@@ -6,8 +6,9 @@
 //
 // IN: 7 int32 (B, n_s, S, F, V, iterations, euler), then the 24 float
 // arrays of the kernel's Params up to dt, each an int64 count and its
-// float32 values (count 0 for a null pointer), then the row kinds (int64
-// count, int32 values). OUT: x, f, qfrc, qvel_new, qs as float32.
+// float32 values (count 0 for a null pointer; dt: 1 value for the batch,
+// or B, one an env), then the row kinds (int64 count, int32 values).
+// OUT: x, f, qfrc, qvel_new, qs as float32.
 #include <cstdint>
 #include <cstdio>
 #include <thread>
@@ -52,7 +53,7 @@ int main(int argc, char** argv) {
   Params p{P(0),  P(1),  P(2),  P(3),  P(4),  P(5),  P(6),  P(7),  P(8),  P(9),  P(10), P(11),
            P(12), P(13), P(14), P(15), P(16), P(17), P(18), P(19), P(20), P(21), P(22),
            kind.data(), P(23), x.data(), fo.data(), qfrc.data(), qvn.data(), qs.data(),
-           n_s, S, F, V, its};
+           n_s, S, F, V, its, a[23].size() > 1 ? 1 : 0};
   KernelFn fn;
   size_t smem;
   if (configure(E, V, euler != 0, &fn, &smem) != cudaSuccess || smem > sizeof(sm)) return 3;

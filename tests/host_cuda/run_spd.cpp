@@ -6,7 +6,9 @@
 //
 //   run_spd IN OUT
 //
-// IN: 2 int32 (B, V), then B*V*V float32. OUT: the B inverses as float32.
+// IN: 3 int32 (B, V, dev), then B*V*V float32. OUT: the B inverses as
+// float32, through `robogym_spd_inverse`, or with dev = 1 through
+// `robogym_spd_inverse_dev` (the device-memory kernel at any V).
 #include <cstdint>
 #include <cstdio>
 #include <vector>
@@ -22,20 +24,21 @@ float xf[32];
 int xi[32];
 }  // namespace host_warp
 // the largest block: two warps at Vp = 64, or the shared-memory kernel at V = 128
-float4 smem[(smem_bytes(64) > smem_bytes(kMaxV) ? smem_bytes(64) : smem_bytes(kMaxV)) / 16];
+float4 smem[(smem_bytes(64) > smem_bytes(kMaxSmemV) ? smem_bytes(64) : smem_bytes(kMaxSmemV)) / 16];
 
 int main(int argc, char** argv) {
   if (argc != 3) return 2;
   FILE* f = fopen(argv[1], "rb");
   if (!f) return 2;
-  int h[2];
-  if (fread(h, 4, 2, f) != 2) return 2;
+  int h[3];
+  if (fread(h, 4, 3, f) != 3) return 2;
   const size_t n = (size_t)h[0] * h[1] * h[1];
   std::vector<float> A(n), out(n, std::nanf(""));
   if (fread(A.data(), 4, n, f) != n) return 2;
   fclose(f);
   for (auto& v : smem) v = make_float4(std::nanf(""), std::nanf(""), std::nanf(""), std::nanf(""));
-  if (robogym_spd_inverse(A.data(), out.data(), h[0], h[1], nullptr) != 0) return 3;
+  const auto entry = h[2] ? robogym_spd_inverse_dev : robogym_spd_inverse;
+  if (entry(A.data(), out.data(), h[0], h[1], nullptr) != 0) return 3;
   FILE* o = fopen(argv[2], "wb");
   if (!o) return 2;
   fwrite(out.data(), 4, n, o);

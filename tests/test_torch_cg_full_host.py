@@ -13,7 +13,11 @@ dofs a lane; E=328, rows past the register rows), at B=2: 1e-4 relative
 after 1 and 2 CG iterations (chip_smoke.py's CG_EARLY_TOL), and after 15
 the tolerances that hold the plain version to the JAX package
 (test_torch_kernels.py: qfrc 1e-2, where 15 unconverged iterations keep
-the last-bit noise of another summation order, the rest 1e-4)."""
+the last-bit noise of another summation order, the rest 1e-4). With a
+per-env timestep (seeded in [1.5, 2.5] ms, the kernel reading dt with a
+stride of 1) the same tolerances hold, and one timestep given as a (B,)
+tensor of equal values gives the outputs of the same timestep given once
+(stride 0), bit for bit."""
 
 import os
 import re
@@ -62,7 +66,7 @@ def _run(host_kernel, args, euler):
     exe, tmp = host_kernel
     if euler:
         kind, its, nfacet, rows, maps, M, Minv, Mimp, Minv_imp, qvel, qfs, qprev, dt = args
-        tail = [Mimp, Minv_imp, qvel, qfs, qprev, None, None, torch.as_tensor(dt).reshape(1)]
+        tail = [Mimp, Minv_imp, qvel, qfs, qprev, None, None, torch.as_tensor(dt).reshape(-1)]
     else:
         kind, its, nfacet, rows, maps, M, Minv, qvel, qs, x0 = args
         tail = [None, None, qvel, None, None, qs, x0, None]
@@ -124,3 +128,31 @@ def test_cg_full_source_on_host_matches_plain(host_kernel, case, euler):
         assert bool(torch.isfinite(g).all()), name
         assert chip_smoke.rel_err(g, w) <= TOLS[name], (name, chip_smoke.rel_err(g, w))
     assert bool((got[1] != 0).any()), "no live row"
+
+
+def _per_env_dt(ci, nfacet, its, dt):
+    """`chip_smoke.cg_args` with the timestep `dt` in place of the captured
+    one."""
+    return chip_smoke.cg_args(dict(ci, dt=dt), its, nfacet)
+
+
+def test_cg_full_source_on_host_per_env_dt_matches_plain(host_kernel):
+    ci, its, nfacet = _case("locked_like")
+    dt = torch.as_tensor(np.random.default_rng(3).uniform(1.5e-3, 2.5e-3, B).astype(np.float32))
+    args = _per_env_dt(ci, nfacet, its, dt)
+    got, want = _run(host_kernel, args, True), cg_kernel.cg_full_plain(*args)
+    for name, g, w in zip(OUTPUTS, got, want):
+        assert bool(torch.isfinite(g).all()), name
+        assert chip_smoke.rel_err(g, w) <= TOLS[name], (name, chip_smoke.rel_err(g, w))
+    # each env's velocity update takes its own timestep
+    one = [_run(host_kernel, _per_env_dt(ci, nfacet, its, dt[i]), True)[3][i] for i in range(B)]
+    assert torch.equal(got[3], torch.stack(one))
+
+
+def test_cg_full_source_on_host_dt_stride_zero_equals_stride_one(host_kernel):
+    ci, its, nfacet = _case("locked_like")
+    dt = torch.as_tensor(ci["dt"], dtype=torch.float32)
+    shared = _run(host_kernel, _per_env_dt(ci, nfacet, its, dt.reshape(())), True)
+    per_env = _run(host_kernel, _per_env_dt(ci, nfacet, its, dt.reshape(()).expand(B)), True)
+    for name, a, b in zip(OUTPUTS, shared, per_env):
+        assert torch.equal(a, b), name

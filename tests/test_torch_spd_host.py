@@ -9,10 +9,13 @@ multiply-adds, through the library's own C entry point
 
 Inputs: the locked-like world's M and M + dt*diag(damping) from one
 substep (V=30, B=3), the hand world's M (V=24), and seeded random SPD
-matrices at V in {1, 5, 8, 24, 30, 32, 33, 36, 40, 48, 64, 65, 96, 128},
-which cover the padding and every instance of the kernel (Vp = 8 to 32, a
-row a lane; 40 to 64, two rows a lane; 65 to 128 dofs, the shared-memory
-kernel), and the dactyl-shaped world's M (V=36). Tolerances, chip_smoke.py's:
+matrices at V in {1, 5, 8, 24, 30, 32, 33, 36, 40, 48, 64, 65, 96, 128,
+129, 160, 200}, which cover the padding and every instance of the kernel
+(Vp = 8 to 32, a row a lane; 40 to 64, two rows a lane; 65 to 128 dofs,
+the shared-memory kernel; above 128, the device-memory kernel, also held
+to a float64 inverse at 1e-3 of its largest entry), the device-memory
+kernel at V=96 bit for bit against the shared-memory one, and the
+dactyl-shaped world's M (V=36). Tolerances, chip_smoke.py's:
 1e-5 relative to the plain version's largest entry (`SPD_TOL`), and each
 column's error against a float64 inverse, over that column's largest
 entry, at most 4 times the plain version's in the batch's worst column
@@ -69,14 +72,15 @@ def host_kernel(tmp_path_factory):
     return str(exe), out
 
 
-def _run(host_kernel, A):
-    """Kernel A of the host build on (B, V, V) float32 matrices."""
+def _run(host_kernel, A, dev=False):
+    """Kernel A of the host build on (B, V, V) float32 matrices, through
+    its entry point, or with `dev` through the device-memory kernel's."""
     exe, tmp = host_kernel
     A = np.ascontiguousarray(np.asarray(A, np.float32))
     Bn, V, _ = A.shape
     fin, fout = str(tmp / "in.bin"), str(tmp / "out.bin")
     with open(fin, "wb") as f:
-        np.array([Bn, V], np.int32).tofile(f)
+        np.array([Bn, V, int(dev)], np.int32).tofile(f)
         A.tofile(f)
     subprocess.run([exe, fin, fout], check=True)
     return torch.as_tensor(np.fromfile(fout, np.float32).reshape(Bn, V, V))
@@ -150,9 +154,21 @@ def test_spd_source_on_host_matches_pallas_dactyl(host_kernel, dactyl_core):
     assert chip_smoke.rel_err(got, pallas) <= chip_smoke.SPD_TOL
 
 
-@pytest.mark.parametrize("V", [1, 5, 8, 24, 30, 32, 33, 36, 40, 48, 64, 65, 96, 128])
+@pytest.mark.parametrize("V", [1, 5, 8, 24, 30, 32, 33, 36, 40, 48, 64, 65, 96, 128,
+                               129, 160, 200])
 def test_spd_source_on_host_matches_plain_random(host_kernel, V):
-    _check(host_kernel, torch.as_tensor(_spd(np.random.default_rng(V), B, V)))
+    A = torch.as_tensor(_spd(np.random.default_rng(V), B, V))
+    got = _check(host_kernel, A)
+    if V > 128:
+        ref = torch.linalg.inv(A.double())
+        assert float((got.double() - ref).abs().max() / ref.abs().max()) <= 1e-3
+
+
+def test_spd_source_on_host_device_memory_matches_shared_memory(host_kernel):
+    """The device-memory kernel at V=96 gives the shared-memory kernel's
+    outputs bit for bit: the same arithmetic, in device memory."""
+    A = torch.as_tensor(_spd(np.random.default_rng(96), B, 96))
+    assert torch.equal(_run(host_kernel, A, dev=True), _run(host_kernel, A))
 
 
 def test_spd_source_on_host_reads_lower_triangle(host_kernel):

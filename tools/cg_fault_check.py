@@ -13,8 +13,10 @@ whether the checks that `chip_smoke.py` holds each kernel to catch them.
 Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
 does, at B=1024: A's from one substep of the locked-like world (M, V=30),
 of the hand-only world (V=24) and of the dactyl-shaped world (V=36), dense
-seeded SPD matrices (V=36) and the wide system's M (V=96), B's from one substep of the locked-like
-world, F's from one substep of the hand-only world (J in shared memory) and
+seeded SPD matrices (V=36 and, for the device-memory kernel, V=160) and
+the wide system's M (V=96), B's from one substep of the locked-like
+world and, with each env's own timestep, from one step of the default
+dactyl wrapper stack around the locked env (`cg_full@dt`), F's from one substep of the hand-only world (J in shared memory) and
 from chip_smoke's wide system (`cg_wide`: V=96, E=408, J in device memory),
 E's from one substep of the goal-settle world, C's and D's from the
 locked-like substep's hull winners and C's also from the table world's two
@@ -52,14 +54,16 @@ MANIFOLD = ("hull_manifold", "hull_manifold@table-box", "hull_manifold@table",
 # two rows a lane and dense seeded SPD matrices at V=36,
 # `chip_smoke.dense_spd`), then its shared-memory kernel (V=96)
 SPD_REG = ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl", "spd_inverse@dense36")
-SPD = SPD_REG + ("spd_inverse@wide",)
+SPD = SPD_REG + ("spd_inverse@wide", "spd_inverse@huge")
 PAIR = ("hull_pair", "hull_pair_world")
-CHECKED = SPD + ("cg_full", "cg", "cg_wide", "boxbox") + PAIR + MANIFOLD
+CHECKED = SPD + ("cg_full", "cg_full@dt", "cg", "cg_wide", "boxbox") + PAIR + MANIFOLD
 RANK1 = "if (c4 + m > j) a[k][c4 + m] -= l[k] * lc[m];"
 DIAG = "__shfl_sync(kFull, a[j / 32][j], j % 32)"
 PAD = "a[k][c] = (c == i) ? 1.0f : 0.0f;  // identity on the padded dofs"
 SLOT = "if (c4 >= 32 * (k + 1)) continue;"
 SMEM_DIAG = "const float dj = sqrt_rn(fmaxf(T[j * S + j], 1e-20f));"
+DEV_SCRATCH = "float* T = scratch + (size_t)b * warp_matrix_floats(V);"
+B_DT = "const float dt = p.dt[(size_t)b * p.dt_stride];"
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
 B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
@@ -92,13 +96,22 @@ FAULTS = {
     "spd_second_slot_skips_step": ("spd_inverse.cu", SLOT,
                                    SLOT.replace("continue;", "continue;\n        if (k == 1 && j == 33) continue;"),
                                    ("spd_inverse@dense36",)),
-    # the shared-memory kernel's diagonal at step 70 off by 1e-4 relative;
-    # the register instances do not run it (PASSES)
+    # the diagonal at step 70 off by 1e-4 relative in the arithmetic of
+    # the kernels above 64 dofs (shared and device memory); the register
+    # instances do not run it (PASSES)
     "spd_smem_diagonal_scaled": ("spd_inverse.cu", SMEM_DIAG,
                                  SMEM_DIAG.replace("1e-20f));", "1e-20f)) * (j == 70 ? 1.0001f : 1.0f);"),
-                                 ("spd_inverse@wide",)),
+                                 ("spd_inverse@wide", "spd_inverse@huge")),
+    # the device-memory kernel gives two envs one scratch slice: they
+    # overwrite each other's factors (in bounds)
+    "spd_dev_scratch_shared": ("spd_inverse.cu", DEV_SCRATCH,
+                               DEV_SCRATCH.replace("(size_t)b *", "(size_t)(b / 2) *"),
+                               ("spd_inverse@huge",)),
     "one_fewer_iteration": ("cg_full.cu", B_SOLVE, B_SOLVE.replace("p.iterations", "p.iterations - 1"),
                             ("cg_full",)),
+    # B's Euler update reads the first env's timestep in every env; with one
+    # timestep for the batch that is the right one (PASSES)
+    "dt_first_env": ("cg_full.cu", B_DT, "const float dt = p.dt[0];", ("cg_full@dt",)),
     # in the loop B and F share; the wide system's line search never takes
     # the 0.125 step, so this fault leaves its outputs as they are
     "scale_0.125_dropped": ("cg_common.cuh", SCALES, SCALES.replace("0.125f", "0.5f"),
@@ -154,7 +167,7 @@ FAULTS = {
 PASSES = {"spd_rank1_skips_last_column": ("spd_inverse", "spd_inverse@dactyl"),
           "spd_diagonal_from_wrong_lane": ("spd_inverse@wide",), "spd_padding_zero": SPD,
           "spd_second_slot_skips_step": ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl"),
-          "spd_smem_diagonal_scaled": ("spd_inverse@dactyl",)}
+          "spd_smem_diagonal_scaled": ("spd_inverse@dactyl",), "dt_first_env": ("cg_full",)}
 
 
 def build_variant(tmp: str, name: str, fault) -> None:
@@ -181,8 +194,8 @@ def capture(chip_smoke):
     """Each checked kernel's inputs at B=1024: {"spd_inverse": M,
     "spd_inverse@hand": M, "spd_inverse@dactyl": M of the dactyl-shaped
     world (V=36), "spd_inverse@dense36": dense seeded SPD matrices (V=36),
-    "spd_inverse@wide": M of the wide system (V=96),
-    "cg_full": (args_of,
+    "spd_inverse@wide": M of the wide system (V=96), "spd_inverse@huge":
+    dense seeded SPD matrices (V=160), "cg_full" and "cg_full@dt": (args_of,
     iterations), "cg": (args_of, iterations), "cg_wide": (args_of,
     iterations), "boxbox": args, and (local operands, DX) for
     "hull_pair", "hull_pair_world", "hull_manifold", "hull_manifold_world",
@@ -214,16 +227,25 @@ def capture(chip_smoke):
                                     ci_w["qvel"]),
             ci_w["qM"], factor_kernel.spd_inverse_plain(ci_w["qM"]), qs_w, ci_w["qacc_prev"])
     ci_d, _, _ = chip_smoke.capture_core(world["dactyl"][0], state["dactyl"])
+    from robogym_torch.envs.dactyl import locked
+    from robogym_torch import wrappers
+
+    env = locked.make_env(device="cuda", seed=chip_smoke.SEED)
+    wenv = wrappers.apply_dactyl_wrappers(env, randomize=True)
+    ci_dt, its_dt, nfacet_dt = chip_smoke.capture_wrapped_core(
+        wenv, wenv.reset(chip_smoke.BATCH)[0])
     return {
         "spd_inverse": ci["qM"],
         "spd_inverse@dactyl": ci_d["qM"],
         "spd_inverse@dense36": chip_smoke.dense_spd(chip_smoke.BATCH, 36, m.device),
         "spd_inverse@wide": ci_w["qM"],
+        "spd_inverse@huge": chip_smoke.dense_spd(chip_smoke.BATCH, chip_smoke.HUGE_V, m.device),
         "spd_inverse@hand": chip_smoke.capture_call(factor_kernel, "spd_inverse",
                                                     lambda: step.step(mh, dh))[0],
         **{name: (args[:-1], args[-1]) for name, args in hull.items()},
         "cg_wide": (lambda its: (*wide, its), its_w),
         "cg_full": (lambda its: chip_smoke.cg_args(ci, its, nfacet), iterations),
+        "cg_full@dt": (lambda its: chip_smoke.cg_args(ci_dt, its, nfacet_dt), its_dt),
         "cg": (lambda its: (*fa[:-1], its), fa[-1]),
         "boxbox": chip_smoke.capture_call(boxbox_kernel, "boxbox",
                                           lambda: step.fwd_position(ms, ds)),
@@ -266,7 +288,7 @@ def readings(chip_smoke, kernel, inputs):
               f"{ties} of {total}; candidates differing in being sentinels {sentinels}")
         return failures
     args_of, iterations = inputs
-    label, kernel = kernel, kernel.replace("cg_wide", "cg")
+    label, kernel = kernel, kernel.replace("cg_wide", "cg").split("@")[0]
     errs, early, noise, failures = chip_smoke.cg_readings(kernel, args_of, iterations)
     print(f"  {label}: " + "; ".join(f"after {its}: " + ", ".join(
         f"{k} {v:.3g}" for k, v in e.items()) for its, e in early.items()))

@@ -5,13 +5,13 @@
 
 Runs on an NVIDIA GPU. Prints what `nvcc -Xptxas -v` reports for each
 instance of kernel A (registers, spills), then holds the kernel at every V
-from 1 to 128 to `chip_smoke.spd_readings` (1e-5 of the plain version's
-largest entry; per column against a float64 inverse at most
-`SPD_COLUMN_RATIO` times the plain version's; bit-symmetric) on seeded SPD
-matrices X X^T / V + I at B=64, prints the readings and the layout
-(`cuda.spd_inverse_info`) at the sizes that start or end an instance, and
-checks that V=129 raises the wrapper's named limit. Exits non-zero if a
-reading fails.
+from 1 to 128 and at the device-memory kernel's V in `ABOVE` to
+`chip_smoke.spd_readings` (1e-5 of the plain version's largest entry; per
+column against a float64 inverse at most `SPD_COLUMN_RATIO` times the
+plain version's; bit-symmetric) on seeded SPD matrices X X^T / V + I at
+B=64, and prints the readings and the layout (`cuda.spd_inverse_info`) at
+the sizes that start or end an instance. Exits non-zero if a reading
+fails.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHOWN = (1, 8, 9, 30, 32, 33, 36, 40, 41, 48, 56, 64, 65, 96, 128)
+ABOVE = (129, 160, 200, 256)   # the device-memory kernel
 
 
 def main() -> int:
@@ -34,8 +35,6 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke
     from robogym_torch import cuda
-    from robogym_torch.physics import factor_kernel as fk
-
     print(f"[device] {chip_smoke.card_line()}", flush=True)
     name = None
     for line in cuda.build().splitlines():
@@ -45,24 +44,20 @@ def main() -> int:
         elif name and ("registers" in line or "spill" in line):
             print(f"[ptxas] {name}: {line.strip()}")
     bad = []
-    for V in range(1, fk.MAX_V + 1):
+    sizes = [*range(1, 129), *ABOVE]
+    for V in sizes:
         rng = np.random.default_rng(V)
         X = rng.standard_normal((64, V, V))
         A = torch.as_tensor((X @ X.transpose(0, 2, 1) / V + np.eye(V)).astype(np.float32),
                             device="cuda")
         r, failures = chip_smoke.spd_readings(A)
         bad += [f"V={V}: {f}" for f in failures]
-        if V in SHOWN or failures:
+        if V in SHOWN + ABOVE or failures:
             print(f"[V={V}] rel err {r['max_err']:.3g} (tol {chip_smoke.SPD_TOL}); per-column err "
                   f"{r['column']:.3g}, plain version's {r['plain_column']:.3g}; bit-symmetric "
                   f"{r['symmetric']}; layout {cuda.spd_inverse_info(V)}")
-    try:
-        fk.spd_inverse(torch.eye(fk.MAX_V + 1, device="cuda").expand(2, -1, -1).contiguous())
-        bad.append(f"V={fk.MAX_V + 1} did not raise")
-    except ValueError as e:
-        print(f"[V={fk.MAX_V + 1}] raises: {e}")
     print("spd_sizes: " + (f"readings fail: {bad}" if bad else
-                           f"every V from 1 to {fk.MAX_V} passes"))
+                           f"every V from 1 to 128 and {ABOVE} passes"))
     return 1 if bad else 0
 
 
