@@ -25,7 +25,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
    with the cube on the palm; every state finite); and the default dactyl
    wrapper stack around it (`wrappers.apply_dactyl_wrappers(env,
    randomize=True)`, as bench.py wraps the JAX env under BENCH_WRAPPED=1)
-   reset at B=1024.
+   reset at B=1024; and the rearrange blocks env
+   (`envs/rearrange/blocks.make_env` with bench.py's BENCH_ENV=blocks
+   configuration, `REARRANGE_CONFIG`: 8 object slots, 5 blocks, TCP control
+   through the mocap_ik dual sim) on the UR16e-shaped worlds
+   (`rearrange_blocks_like.npz`, nv=60, and the solver sim's
+   `rearrange_solver_like.npz`, nv=12), built (its 200-substep settle at
+   B=1) and reset at B=1024 (its 200-substep object settle; times, share
+   of envs with every block on the table; states and obs finite).
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
@@ -50,6 +57,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    each env with its own timestep (`cg_full@dt`), and B with one timestep
    given once (stride 0) and as a (B,) tensor (stride 1) on the locked
    env's inputs, bit for bit;
+   then, on the inputs of one rearrange env step from its reset state, A
+   at the main sim's V=60 and the solver sim's V=12 (`@rearrange`,
+   `@solver`), B on the solver sim's system (E=149, its 13 weld, connect
+   and joint rows; kernel B takes EQ rows as the plain version's two-sided
+   quadratic) and on the main sim's (E=239, V=60; checked to be within B's
+   shared memory), and C (K=42 box-hull pairs), D (the fingers, K=1) and E
+   (K=36) on the main sim's last substep;
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
@@ -77,14 +91,22 @@ Phases, in order; any failure ends the script with a non-zero exit:
    palm, each overridden model field's spread across envs: every field
    differs across envs but the two that the dactyl-shaped world leaves
    at the compiled model's, `WRAPPED_SAME`, and the timestep changes at
-   every step).
+   every step); 5 steps of the rearrange env (`rearrange_env`) from its
+   reset state, actions uniform in [-1, 1] from a seeded generator
+   (env-steps/s, construction and reset times, the reward sum by component,
+   the episodes done, the env-steps with a block off the table, the share
+   of envs with gripper-table contact; every obs and reward finite; the
+   launches an env step are `PER_CALL["rearrange_env"]`).
 6. Whole-step agreement: one substep through the kernels against one
    through the plain versions, at B=64, on the locked-like, settle, hand,
    table and dactyl-shaped worlds; every kernel routed to its plain
    version by name. Then one substep of the wrapped env's physics (each
    env's own model fields) at B=64 through the kernels, the plain
    versions and the plain versions in float64: the kernels' error against
-   float64 at most NOISE_RATIO times the plain float32 version's.
+   float64 at most NOISE_RATIO times the plain float32 version's. Then one
+   substep of each rearrange world (main and solver sim) on the first 64
+   envs of the rearrange_env path's last state, kernels against plain
+   versions, held as the five worlds are.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
@@ -93,7 +115,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    its launches on the table world's path at both `@table` and
    `@table-box`, as the launch count does not tell the two calls apart; H,
    which no path runs on the table world, counts its launches on every path
-   at `@table` and `@table-box`; `cg@wide` counts F's launches in the
+   at `@table` and `@table-box`; the `@rearrange` and `@solver` entries
+   of one kernel count all its launches on the rearrange_env path, both
+   sims'; `cg@wide` counts F's launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
    `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
    their matrices).
@@ -125,6 +149,9 @@ SUBSTEPS = 10                     # substeps per env step (envs/core.py)
 SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
 SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
 FORWARD_CALLS = 10
+REARRANGE_STEPS = 5               # env steps of the rearrange_env path
+# bench.py's BENCH_ENV=blocks configuration (constants, parameters)
+REARRANGE_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
 SEED = 0
 REPS = 50                         # launches per kernel timing
 HOLD_CYCLES_PER_REP = 2_000_000   # device cycles held per timed launch while the host queues them
@@ -180,9 +207,16 @@ PER_CALL = {
                    "boxbox": 1},
 }
 PER_CALL["wrapped_env"] = dict(PER_CALL["locked_env"])
+# per env step of the rearrange env: 40 main substeps (2 A, 1 B, 1 C, 1 D,
+# 1 E each: the blocks against the table and each other are box-box), one
+# fwd_position of the solver sim (its collision: 1 C, 1 D) and its 40
+# substeps (2 A, 1 B, 1 C, 1 D each; no box-box pair, no block)
+PER_CALL["rearrange_env"] = {"spd_inverse": 2 * 40 + 2 * 40, "cg_full": 40 + 40,
+                             "hull_manifold": 40 + 1 + 40, "hull_pair": 40 + 1 + 40,
+                             "boxbox": 40}
 # the path that steps the world named after `@` in a kernels-line entry
 AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "locked_env",
-           "dt": "wrapped_env"}
+           "dt": "wrapped_env", "rearrange": "rearrange_env", "solver": "rearrange_env"}
 # fields the default stack overrides that the dactyl-shaped world leaves
 # equal across envs, and why
 WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
@@ -775,15 +809,15 @@ def boxbox_layout(BK, label="E boxbox"):
     layout_line(label, cuda.boxbox_info(), BK)
 
 
-def phase_boxbox(args, reps):
+def phase_boxbox(args, reps, label="E boxbox"):
     from robogym_torch.physics.collision import boxbox_kernel as bb
 
     got, want = bb.boxbox(*args), bb.boxbox_plain(*args)
     torch.cuda.synchronize()
-    boxbox_layout(args[0].shape[0] * args[0].shape[1])
+    boxbox_layout(args[0].shape[0] * args[0].shape[1], label)
     err, ties, total, failures = boxbox_readings(args, got, want)
     live = int((want[0] < 0).sum())
-    print(f"[E boxbox] B={args[0].shape[0]} K={args[0].shape[1]}: max abs err {err:.3g} (tol "
+    print(f"[{label}] B={args[0].shape[0]} K={args[0].shape[1]}: max abs err {err:.3g} (tol "
           f"1e-5), pairs on another axis {ties}/{total}, penetrating candidates {live}")
     check(not failures, "boxbox: " + "; ".join(failures))
     check(live > 0, "boxbox: no penetrating candidate in the captured inputs")
@@ -792,7 +826,7 @@ def phase_boxbox(args, reps):
     plain_ms = timed_ms(lambda: bb.boxbox_plain(*args), max(2, reps // 10))
     n_out = got[0].numel() + got[1].numel() + got[2][:, :, 0].numel()
     b_ms, b_by = bound(nbytes(*args) + 4 * n_out, total * BOXBOX_FLOPS)
-    print(f"[E boxbox] kernel {ms:.4f} ms (host {host:.1f} us a call), plain {plain_ms:.4f} ms, "
+    print(f"[{label}] kernel {ms:.4f} ms (host {host:.1f} us a call), plain {plain_ms:.4f} ms, "
           f"bound {b_ms:.5f} ms ({b_by})")
     return dict(max_abs_err=err, max_err=err, ties=ties, pairs=total, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, tol=1e-5)
@@ -1236,6 +1270,145 @@ def wrapped_agreement(wenv, state, n=64):
               f"version's {e_p:.3g}")
 
 
+def rearrange_env_reset(batch):
+    """The rearrange blocks env on the card as bench.py builds the JAX one
+    (`blocks.make_env(*REARRANGE_CONFIG)`: 8 object slots, 5 blocks, the
+    default TCP control through the mocap_ik dual sim; its construction
+    runs the arm-to-tabletop settle, 200 substeps at B=1) and its reset at
+    `batch` envs from seed 0 (group scan, placement, the 200-substep object
+    settle, the first goal): (env, state, seconds built, seconds reset).
+    Checks the state, the solver sim's and the observations finite."""
+    from robogym_torch.envs.rearrange import blocks, simulation
+
+    t0 = time.perf_counter()
+    env = blocks.make_env(*REARRANGE_CONFIG, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, obs = env.reset(batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    c, sc = env.model.const, env.solver_model.const
+    on_table = 1.0 - float(simulation.check_objects_off_table(
+        env.idx, simulation.object_positions(env.idx, state.physics),
+        active_mask=env._active).any(-1).float().mean())
+    print(f"[state] rearrange blocks env on the UR16e-shaped world (nv={c.nv}, {c.neq} "
+          f"equalities; solver world nv={sc.nv}, {sc.neq} equalities): built (its settle, "
+          f"{5 * env.constants.mujoco_substeps} substeps at B=1) in {t1 - t0:.2f} s; reset at "
+          f"B={batch} ({env.constants.stabilize_steps * env.constants.mujoco_substeps} "
+          f"substeps of object settle) in {t2 - t1:.2f} s; every block on the table in "
+          f"{on_table:.4f} of envs")
+    for d, name in ((state.physics, "main"), (state.goal_aux, "solver")):
+        for k in ("qpos", "qvel", "qacc"):
+            check(bool(torch.isfinite(getattr(d, k)).all()),
+                  f"rearrange env reset: non-finite {name} {k}")
+    for k, v in obs.items():
+        check(bool(torch.isfinite(v).all()), f"rearrange env reset: non-finite obs {k}")
+    return env, state, t1 - t0, t2 - t1
+
+
+def rearrange_actions(env, batch):
+    """A seeded generator of actions uniform in [-1, 1] (B, action_size),
+    as bench.py drives the JAX env."""
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(SEED)
+    return lambda: torch.rand((batch, env.action_size), generator=gen,
+                              device=env.device) * 2.0 - 1.0
+
+
+def capture_ends(targets, run):
+    """The arguments of the first and the last call of each
+    `module.<name>` of `targets` while `run()` runs (tensors cloned):
+    {name: (first, last)}."""
+    store = {}
+
+    def recorder(name, fn):
+        def rec(*args):
+            c = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            store.setdefault(name, [c, c])[1] = c
+            return fn(*args)
+        return rec
+
+    with patched([((module, name), recorder(name, getattr(module, name)))
+                  for module, name in targets]):
+        run()
+    for _, name in targets:
+        check(name in store, f"{name} was not called")
+    return store
+
+
+def capture_rearrange(env, state):
+    """The kernels' inputs in one rearrange env step from `state`: the
+    solver sim's come first in a step (its fwd_position, then its
+    substeps), the main sim's last. Returns {"main" and "solver": (core
+    inputs, CG iterations, facets per contact), and the main sim's last
+    substep's "hull_manifold", "hull_pair" and "boxbox" arguments}."""
+    from robogym_torch.physics import constraint_batched
+    from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
+
+    act = rearrange_actions(env, state.t.shape[0])()
+    calls = capture_ends([(constraint_batched, "fused_step_core"),
+                          (convex_kernel, "hull_manifold"), (convex_kernel, "hull_pair"),
+                          (boxbox_kernel, "boxbox")], lambda: env.step(state, act))
+    out = {name: calls[name][1] for name in ("hull_manifold", "hull_pair", "boxbox")}
+    for key, (kind_s, iterations, nfacet, *args) in zip(("solver", "main"),
+                                                         calls["fused_step_core"]):
+        out[key] = (constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet)
+    return out
+
+
+def rearrange_env_steps(env, state, out):
+    """REARRANGE_STEPS of the rearrange env from `state`, actions uniform in
+    [-1, 1]; checks every obs and reward finite, and puts the reward sum by
+    component, the episodes done, the envs with a block off the table, the
+    share of envs with gripper-table contact and the last state into
+    `out`. Returns the last physics state."""
+    actions = rearrange_actions(env, state.t.shape[0])
+    rewards, done, off, contact, finite = 0.0, 0, 0, 0.0, {}
+    for _ in range(REARRANGE_STEPS):
+        state, obs, reward, dn, info = env.step(state, actions())
+        for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
+            ok = torch.isfinite(v).all()
+            finite[k] = finite[k] & ok if k in finite else ok
+        for k in ("qpos", "qvel", "qacc"):
+            ok = torch.isfinite(getattr(state.goal_aux, k)).all()
+            finite["solver " + k] = finite["solver " + k] & ok if "solver " + k in finite else ok
+        rewards = rewards + reward.sum(0)
+        done = done + dn.sum()
+        off = off + info["objects_off_table"].any(-1).sum()
+        contact = contact + info["gripper_table_contact"].float().mean()
+    for k, ok in finite.items():
+        check(bool(ok), f"rearrange_env path: non-finite {k}")
+    out.update(reward_sum=[float(x) for x in rewards], done=int(done),
+               off_table=int(off), table_contact=float(contact) / REARRANGE_STEPS, state=state)
+    return state.physics
+
+
+def rearrange_agreement(env, state, n=64):
+    """One substep of each rearrange world, the main sim and the solver sim,
+    on the first n envs of the path's last state, through the kernels
+    against the plain versions: qpos to 1e-4 abs, qvel to 1e-3 of its
+    largest value (the whole-step agreement of the other worlds)."""
+    from robogym_torch.envs import core
+    from robogym_torch.physics import step
+
+    fields = {k: v[:n] for k, v in state.model_fields.items()}
+    for name, m, d in (("rearrange", core.apply_model_fields(env.model, fields), state.physics),
+                       ("solver", env.solver_model, state.goal_aux)):
+        d = core.data_map(lambda x: x[:n], d)
+        got = step.step(m, d)
+        with plain_versions():
+            want = step.step(m, d)
+        torch.cuda.synchronize()
+        for k in ("qpos", "qvel"):
+            g, w = getattr(got, k), getattr(want, k)
+            e = float((g - w).abs().max())
+            tol = 1e-4 if k == "qpos" else 1e-3 * float(w.abs().max())
+            print(f"[whole step] {name}, B={n} one substep of the rearrange_env path's last "
+                  f"state, kernels vs plain versions: {k} max abs err {e:.3g} (tol {tol:.3g})")
+            check(bool(torch.isfinite(g).all()) and e <= tol,
+                  f"whole step {name}: {k} differs by {e:.3g} > {tol:.3g}")
+
+
 def drive(name, run, calls):
     """Run a path with every launch count set to 0 just before it and read
     just after; check finiteness and the launch counts. Returns (final
@@ -1310,7 +1483,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from robogym_torch import cuda
-    from robogym_torch.physics import cg_kernel, constraint_batched, factor_kernel, step
+    from robogym_torch.physics import cg_kernel, constraint, constraint_batched, factor_kernel, step
     from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1343,6 +1516,7 @@ def main() -> int:
         check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
     env, env_state = locked_env_reset(B)
     wenv, wstate = wrapped_env_reset(B)
+    renv, rstate, r_build, r_reset = rearrange_env_reset(B)
 
     # 4. one phase per kernel, on inputs captured from one substep or call
     # of a path; B and A also at the settle and hand worlds' shapes
@@ -1394,6 +1568,28 @@ def main() -> int:
           f"{float(dt_w.max()):.6g} s")
     res["cg_full@dt"] = phase_cg_full("B cg_full@dt", ci_w, its_w, nfacet_w, REPS)
     check_dt_stride(ci_e, its_w, nfacet_w)
+    # the rearrange env's kernels on the inputs of one env step from its
+    # reset state: A at the main sim's and the solver sim's V, B on the
+    # solver sim's system (its weld, connect and joint rows) and on the main
+    # sim's, C, D and E on the main sim's last substep
+    rcap = capture_rearrange(renv, rstate)
+    for at, model in (("rearrange", renv.model), ("solver", renv.solver_model)):
+        ci_r, its_r, nfacet_r = rcap["main" if at == "rearrange" else "solver"]
+        V_r, E_r = ci_r["qM"].shape[-1], len(ci_r["kind"])
+        eq = int((np.asarray(ci_r["kind"]) == constraint.EQ).sum())
+        print(f"[{at}] kernel B's system: E={E_r} rows ({eq} equality rows), V={V_r}; "
+              f"{'kernel B' if cg_kernel.fits(E_r, V_r, True) else 'the size route (F)'} takes it")
+        check(V_r == model.const.nv, f"{at}: V={V_r}, want {model.const.nv}")
+        check(cg_kernel.fits(E_r, V_r, True),
+              f"{at}: E={E_r}, V={V_r} above kernel B's shared memory, and PER_CALL counts B")
+        check(eq == {"rearrange": 7, "solver": 13}[at], f"{at}: {eq} equality rows")
+        res["spd_inverse@" + at] = phase_spd("A spd_inverse@" + at, ci_r["qM"], REPS)
+        res["cg_full@" + at] = phase_cg_full("B cg_full@" + at, ci_r, its_r, nfacet_r, REPS)
+    for name in ("hull_manifold", "hull_pair"):
+        *hargs, hDX = rcap[name]
+        res[name + "@rearrange"] = phase_hull(name, hargs, hDX, REPS,
+                                              f"{HULL_LETTER[name]} {name}@rearrange")
+    res["boxbox@rearrange"] = phase_boxbox(rcap["boxbox"], REPS, "E boxbox@rearrange")
     # the size route: a system above kernel B's shared memory, through F,
     # and A at its V=96
     f_shape = tuple(fa[0].shape[1:])
@@ -1494,6 +1690,23 @@ def main() -> int:
           f"{wsps:.1f} env-steps/s (locked_env {sps:.1f} in this run, ratio {wsps / sps:.3f}); "
           f"reward sum {wrapped_out['reward_sum']} (env, goal distance, success), episodes done "
           f"{wrapped_out['done']}, on the palm {wrapped_out['on_palm']:.4f}; launches {counts}")
+    rearr_out = {}
+    out, wall, counts = drive("rearrange_env",
+                              lambda: rearrange_env_steps(renv, rstate, rearr_out),
+                              REARRANGE_STEPS)
+    rsps = B * REARRANGE_STEPS / wall
+    record("rearrange_env", wall, counts, env_steps=REARRANGE_STEPS,
+           substeps=renv.constants.mujoco_substeps, env_steps_per_s=rsps, build_s=r_build,
+           reset_s=r_reset, reward_sum=rearr_out["reward_sum"], done=rearr_out["done"],
+           off_table=rearr_out["off_table"], table_contact=rearr_out["table_contact"])
+    print(f"[path rearrange_env] {REARRANGE_STEPS} BlocksRearrangeEnv.step calls at B={B} (each "
+          f"{renv.constants.mujoco_substeps} main substeps, one solver fwd_position and "
+          f"{renv.constants.mujoco_substeps} solver substeps): {wall:.3f} s, {rsps:.1f} "
+          f"env-steps/s (built in {r_build:.2f} s, reset in {r_reset:.2f} s); reward sum "
+          f"{rearr_out['reward_sum']} (env, goal distance, success), episodes done "
+          f"{rearr_out['done']}, env-steps with a block off the table {rearr_out['off_table']}, "
+          f"gripper-table contact in {rearr_out['table_contact']:.4f} of envs a step; obs and "
+          f"rewards finite; launches {counts} ({PER_CALL['rearrange_env']} an env step)")
     launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
                 for entry, r in res.items()}
     for k in KERNELS:
@@ -1521,6 +1734,7 @@ def main() -> int:
                   f"whole step {name}: {k} differs by {e:.3g} > {tol:.3g}")
 
     wrapped_agreement(wenv, wrapped_out["state"])
+    rearrange_agreement(renv, rearr_out["state"])
 
     if opts.profile:
         profile_substeps(m, dm, opts.profile)

@@ -188,7 +188,9 @@ def _unflatten(spec, leaf):
 
 def env_state_to_numpy(state) -> Dict[str, np.ndarray]:
     """A batched env state (the JAX package's `EnvState` or the port's) as
-    a flat dict of numpy arrays."""
+    a flat dict of numpy arrays: `goal_aux` as a Data (the rearrange env's
+    solver sim, `goal_aux.data.<field>`), a tree or an array, and
+    `robot_aux`, where set, as its fields (`robot_aux.<field>`)."""
     out = {"physics." + k: v for k, v in data_to_numpy(state.physics).items()}
     for group in ("goal", "prev_goal_distance"):
         for k, v in getattr(state, group).items():
@@ -197,14 +199,25 @@ def env_state_to_numpy(state) -> Dict[str, np.ndarray]:
         out["tracker." + name] = _np(getattr(state.tracker, name))
     for k, v in (state.model_fields or {}).items():
         out["model_fields." + k] = _np(v)
-    if isinstance(state.goal_aux, (tuple, list, dict)):
+    if _is_data(state.goal_aux):
+        out.update({"goal_aux.data." + k: v for k, v in data_to_numpy(state.goal_aux).items()})
+    elif isinstance(state.goal_aux, (tuple, list, dict)):
         leaves = []
         out["goal_aux.tree"] = np.asarray(json.dumps(_flatten(state.goal_aux, leaves)))
         out.update({f"goal_aux.{i}": v for i, v in enumerate(leaves)})
     else:
         out["goal_aux"] = _np(state.goal_aux)
+    robot_aux = getattr(state, "robot_aux", None)
+    if robot_aux is not None:
+        for name in _fields(robot_aux):
+            out["robot_aux." + name] = _np(getattr(robot_aux, name))
     out["t"] = _np(state.t)
     return out
+
+
+def _is_data(x) -> bool:
+    """A physics state (either package's Data), not a tree of arrays."""
+    return dataclasses.is_dataclass(x) and hasattr(x, "qpos") and hasattr(x, "contact")
 
 
 def env_state_from_numpy(arrays, device="cuda"):
@@ -223,11 +236,19 @@ def env_state_from_numpy(arrays, device="cuda"):
                               device)
     tracker = TrackerState(**{f.name: t("tracker." + f.name)
                               for f in dataclasses.fields(TrackerState)})
-    if "goal_aux.tree" in arrays:
+    if any(k.startswith("goal_aux.data.") for k in arrays):
+        goal_aux = data_from_numpy({k[14:]: v for k, v in arrays.items()
+                                    if k.startswith("goal_aux.data.")}, device)
+    elif "goal_aux.tree" in arrays:
         goal_aux = _unflatten(json.loads(str(arrays["goal_aux.tree"])),
                               lambda i: t(f"goal_aux.{i}"))
     else:
         goal_aux = t("goal_aux")
+    robot_aux = group("robot_aux.")
+    if robot_aux:
+        from robogym_torch.robot.gripper import RegraspState
+
+        robot_aux = RegraspState(**robot_aux)
     return EnvState(physics=physics, goal=group("goal."), goal_aux=goal_aux,
                     prev_goal_distance=group("prev_goal_distance."), tracker=tracker, t=t("t"),
-                    model_fields=group("model_fields.") or None)
+                    model_fields=group("model_fields.") or None, robot_aux=robot_aux or None)

@@ -62,7 +62,9 @@ class EnvState:
     """Per-env state, every tensor `(B, ...)`: physics, goal, tracker and
     the env step count. `model_fields` carries per-episode model fields,
     each `(B, ...)` (`apply_model_fields`); the locked env sets none, a
-    wrapper stack sets those its transforms randomize."""
+    wrapper stack sets those its transforms randomize, the rearrange env the
+    objects' colours. `goal_aux` is the goal generator's carry (the
+    rearrange env's: its solver sim's Data)."""
 
     physics: Data
     goal: Any                    # goal dict (env-specific)
@@ -71,6 +73,8 @@ class EnvState:
     tracker: TrackerState
     t: torch.Tensor              # int32 (B,)
     model_fields: Any = None     # dict: Model field name -> overridden tensor
+    robot_aux: Any = None        # per-episode robot controller state (a gripper's
+                                 # RegraspState), or None
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)

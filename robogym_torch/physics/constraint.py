@@ -1,8 +1,8 @@
 """Soft-constraint assembly and the constraint solves.
 
 Counterpart of `robogym_tpu/physics/constraint.py`: MuJoCo's constraint
-model (solref/solimp impedances, pyramidal friction cones, joint and tendon
-limits, dof friction loss) minimized over qacc by preconditioned nonlinear
+model (solref/solimp impedances, pyramidal friction cones, weld, connect
+and joint equalities, joint and tendon limits, dof friction loss) minimized over qacc by preconditioned nonlinear
 CG. Two entry points:
 
   * `solve_fused_step`, step's hot path: picks the `opt.ncon_active`
@@ -14,7 +14,7 @@ CG. Two entry points:
     update) where the model has contact slots; otherwise `make_efc`
     assembles J, aref and the row weights and `cg_kernel.cg` solves.
 
-The Newton solver and equality constraints are not ported.
+The Newton solver is not ported.
 """
 
 from __future__ import annotations
@@ -90,9 +90,80 @@ def _rot_jac_batch(m: Model, d: Data, bodyids: torch.Tensor):
     return d.cdof[:, None, :, :3] * mask[..., None]
 
 
+def _equality_rows(m: Model, d: Data, body_iw0, dof_iw0):
+    """The equality rows, one equality after another in model order: a
+    weld's 3 position rows then 3 rotation rows, a connect's 3 rows, a
+    joint equality's one row (the polynomial of `joint2` where obj2 > 0).
+    Returns the block's (J, pos, solref, solimp, floss, active, kind,
+    diagA) as `scalar_blocks` stacks it."""
+    from robogym_torch.mjcf.model import EqType
+    from robogym_torch.physics import smooth
+    from robogym_torch.utils import rotation as rot
+
+    c = m.const
+    dev, dtype = d.qpos.device, d.qpos.dtype
+    B, nv = d.qpos.shape[0], c.nv
+    ids = on_device(c, "sb_eq", np.arange(c.neq, dtype=np.int64), dev, torch.long)
+
+    def field(name):
+        v = m.take(name, ids)
+        return v.expand((B,) + tuple(v.shape[-2:])) if v.dim() == 2 else v
+
+    data, solref, solimp = field("eq_data"), field("eq_solref"), field("eq_solimp")
+    active = m.take("eq_active", ids) > 0
+    active = active.expand(B, c.neq) if active.dim() == 1 else active
+
+    def xform(body, v):
+        return d.xpos[:, body] + torch.einsum("bij,bj->bi", d.xmat[:, body], v)
+
+    J, pos, diagA, eq_of = [], [], [], []
+    for e in range(c.neq):
+        et, o1, o2 = int(c.eq_type[e]), int(c.eq_obj1id[e]), int(c.eq_obj2id[e])
+        if et == EqType.WELD:
+            pos_err = d.xpos[:, o2] - xform(o1, data[:, e, 3:6])
+            target = rot.quat_mul(d.xquat[:, o1], rot.quat_unit(data[:, e, 6:10]))
+            rot_err = 2.0 * rot.quat_mul(d.xquat[:, o2], rot.quat_conjugate(target))[:, 1:]
+            p2 = d.xpos[:, o2]
+            Jp = smooth.point_jacobian(m, d, p2, o2) - smooth.point_jacobian(m, d, p2, o1)
+            Jr = smooth.rotation_jacobian(m, d, o2) - smooth.rotation_jacobian(m, d, o1)
+            J += [Jp, Jr]
+            pos += [pos_err, rot_err]
+            diagA += [body_iw0[o1, 0] + body_iw0[o2, 0]] * 3 + [body_iw0[o1, 1] + body_iw0[o2, 1]] * 3
+            eq_of += [e] * 6
+        elif et == EqType.CONNECT:
+            point = xform(o1, data[:, e, 0:3])
+            J.append(smooth.point_jacobian(m, d, point, o1) - smooth.point_jacobian(m, d, point, o2))
+            pos.append(point - xform(o2, data[:, e, 3:6]))
+            diagA += [body_iw0[o1, 0] + body_iw0[o2, 0]] * 3
+            eq_of += [e] * 3
+        elif et == EqType.JOINT:
+            q1, d1 = int(c.jnt_qposadr[o1]), int(c.jnt_dofadr[o1])
+            p = data[:, e]
+            row = torch.zeros((B, 1, nv), dtype=dtype, device=dev)
+            row[:, 0, d1] = 1.0
+            if o2 > 0:
+                q2, d2 = int(c.jnt_qposadr[o2]), int(c.jnt_dofadr[o2])
+                dq = d.qpos[:, q2]
+                poly = p[:, 0] + dq * (p[:, 1] + dq * (p[:, 2] + dq * (p[:, 3] + dq * p[:, 4])))
+                dpoly = p[:, 1] + dq * (2 * p[:, 2] + dq * (3 * p[:, 3] + dq * 4 * p[:, 4]))
+                row[:, 0, d2] = row[:, 0, d2] - dpoly
+                pos.append((d.qpos[:, q1] - poly)[:, None])
+                diagA.append(dof_iw0[d1] + dof_iw0[d2])
+            else:
+                pos.append((d.qpos[:, q1] - p[:, 0])[:, None])
+                diagA.append(dof_iw0[d1])
+            J.append(row)
+            eq_of.append(e)
+    rows = on_device(c, "sb_eq_rows", np.asarray(eq_of, np.int64), dev, torch.long)
+    n = len(eq_of)
+    return (torch.cat(J, dim=1), torch.cat(pos, dim=1), solref[:, rows], solimp[:, rows],
+            torch.zeros((B, n), dtype=dtype, device=dev), active[:, rows],
+            np.full(n, EQ, np.int32), np.asarray(diagA, np.float64))
+
+
 def scalar_blocks(m: Model, d: Data):
-    """Non-contact constraint rows: dof friction, joint limits, tendon
-    limits. Returns (J (B, n, nv), pos (B, n), solref (B, n, 2),
+    """Non-contact constraint rows: equality, dof friction, joint limits,
+    tendon limits. Returns (J (B, n, nv), pos (B, n), solref (B, n, 2),
     solimp (B, n, 5), floss (B, n), active (B, n), kind (n,) numpy,
     diagA (n,) numpy)."""
     from robogym_torch.physics.setconst import invweight0
@@ -100,9 +171,7 @@ def scalar_blocks(m: Model, d: Data):
     c = m.const
     dev, dtype = d.qpos.device, d.qpos.dtype
     B, nv = d.qpos.shape[0], c.nv
-    if c.neq:
-        raise NotImplementedError("equality constraints are not ported yet")
-    dof_iw0, _, ten_iw0 = invweight0(m)
+    dof_iw0, body_iw0, ten_iw0 = invweight0(m)
 
     def ex(t):
         return t.expand((B,) + tuple(t.shape))
@@ -110,7 +179,7 @@ def scalar_blocks(m: Model, d: Data):
     def ix(key, arr):
         return on_device(c, "sb_" + key, np.asarray(arr, np.int64), dev, torch.long)
 
-    blocks = []
+    blocks = [_equality_rows(m, d, body_iw0, dof_iw0)] if c.neq else []
     fl_ids = np.nonzero(np.asarray(c.dof_has_frictionloss))[0]
     if len(fl_ids):
         n = len(fl_ids)
@@ -291,7 +360,7 @@ def solve_fused_step(m: Model, d: Data, qfrc_smooth: torch.Tensor):
 def make_efc(m: Model, d: Data):
     """Assemble the constraint rows: J (B, E, nv), aref, D, floss (B, E),
     the static row kinds, and where the model has contact slots the
-    selected slots (B, S). Row layout: [dof friction | joint limits |
+    selected slots (B, S). Row layout: [equality | dof friction | joint limits |
     tendon limits | contact facets, contact-major]. Returns None when the
     model has no constraint row."""
     dev, dtype = d.qpos.device, d.qpos.dtype

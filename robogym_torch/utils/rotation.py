@@ -155,6 +155,44 @@ def uniform_quat_apply(u: torch.Tensor) -> torch.Tensor:
         [torch.cos(t2) * s2, torch.sin(t1) * s1, torch.cos(t1) * s1, torch.sin(t2) * s2], dim=-1))
 
 
+def uniform_z_quat_apply(u: torch.Tensor) -> torch.Tensor:
+    """Rotations about z at angles uniform in [-pi, pi) from draws u (...,)
+    in [0, 1), computed in u's dtype (`uniform_z_quat`)."""
+    angle = torch.maximum(torch.as_tensor(-np.pi, dtype=u.dtype, device=u.device),
+                          u * (2.0 * np.pi) - np.pi)
+    return quat_from_angle_and_axis(angle, torch.tensor([0.0, 0.0, 1.0], dtype=u.dtype,
+                                                        device=u.device))
+
+
+def euler2quat(euler: torch.Tensor) -> torch.Tensor:
+    """Euler angles (..., 3) -> quaternion [w, x, y, z] (the JAX package's
+    `euler2quat`)."""
+    ai, aj, ak = euler[..., 2] / 2.0, -euler[..., 1] / 2.0, euler[..., 0] / 2.0
+    si, sj, sk = torch.sin(ai), torch.sin(aj), torch.sin(ak)
+    ci, cj, ck = torch.cos(ai), torch.cos(aj), torch.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    return torch.stack([cj * cc + sj * ss, cj * cs - sj * sc, -(cj * ss + sj * cc),
+                        cj * sc - sj * cs], dim=-1)
+
+
+def mat2euler(mat: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> euler angles (the JAX package's
+    `mat2euler`)."""
+    cy = torch.sqrt(mat[..., 2, 2] ** 2 + mat[..., 1, 2] ** 2)
+    condition = cy > _FLOAT_EPS * 4.0
+    e2 = torch.where(condition, -torch.atan2(mat[..., 0, 1], mat[..., 0, 0]),
+                     -torch.atan2(-mat[..., 1, 0], mat[..., 1, 1]))
+    e1 = -torch.atan2(-mat[..., 0, 2], cy)
+    e0 = torch.where(condition, -torch.atan2(mat[..., 1, 2], mat[..., 2, 2]),
+                     torch.zeros_like(cy))
+    return torch.stack([e0, e1, e2], dim=-1)
+
+
+def quat2euler(quat: torch.Tensor) -> torch.Tensor:
+    return mat2euler(quat2mat(quat))
+
+
 def uniform_quat(gen: torch.Generator, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """(n, 4) uniform random unit quaternions drawn from `gen`."""
     u = torch.rand((n, 3), generator=gen, dtype=dtype, device=device)
@@ -165,6 +203,11 @@ def get_parallel_rotations() -> np.ndarray:
     """The 24 rotations that map a cube onto itself, as (24, 4) float64
     unit quaternions, sign-normalised (host-side numpy)."""
     return _unique_euler_quats([0, np.pi / 2, -np.pi / 2, np.pi], expect=24)
+
+
+def get_parallel_rotations_180() -> np.ndarray:
+    """The 4 of them made of multiples of pi, as (4, 4) float64."""
+    return _unique_euler_quats([0, np.pi], expect=4)
 
 
 def _np_euler2mat(euler: np.ndarray) -> np.ndarray:

@@ -52,7 +52,8 @@ def _snapshot_tool():
 
 
 @pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like", "table_setting_like",
-                                   "dactyl_locked_like"])
+                                   "dactyl_locked_like", "rearrange_blocks_like",
+                                   "rearrange_solver_like"])
 def test_world_snapshot_matches_fresh_compile(world):
     """The hand-only and goal-settle snapshots equal what
     tools/build_locked_like_snapshot.py compiles now, field by field. The
@@ -62,7 +63,11 @@ def test_world_snapshot_matches_fresh_compile(world):
     64 hull verts each and 25 pairs (5 box-mesh, 10 mesh-mesh, 10
     plane-mesh). The dactyl-shaped world has nq = 38 and nv = 36 (24
     hinges; the cube's and the target's three slides and a ball) and one
-    box-box pair, palm and cube."""
+    box-box pair, palm and cube. The rearrange worlds: the main one nv = 60
+    (6 arm hinges, 6 gripper hinges, 8 free blocks), 7 actuators, a joint
+    and two connect equalities, and the budgets of
+    `scale_contact_budgets(model, 8)`; the solver one nv = 12, the gripper's
+    actuator only, and the mocap weld besides."""
     tool = _snapshot_tool()
     model, fresh = tool.compile_snapshot(world)
     with np.load(tool.snapshot_path(world)) as z:
@@ -70,6 +75,18 @@ def test_world_snapshot_matches_fresh_compile(world):
     c = model.const
     if world == "locked_like_hand":
         assert (c.nq, c.nv, len(c.collision_pairs)) == (24, 24, 0)
+        return
+    if world.startswith("rearrange_"):
+        from robogym_torch.mjcf.model import EqType
+
+        eq = sorted(int(t) for t in c.eq_type)
+        if world == "rearrange_blocks_like":
+            assert (c.nq, c.nv, c.nu, c.nmocap) == (68, 60, 7, 1)
+            assert eq == sorted([EqType.JOINT, EqType.CONNECT, EqType.CONNECT])
+            assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (56, 64)
+        else:
+            assert (c.nq, c.nv, c.nu, c.nmocap) == (12, 12, 1, 1)
+            assert eq == sorted([EqType.JOINT, EqType.CONNECT, EqType.CONNECT, EqType.WELD])
         return
     if world == "dactyl_locked_like":
         boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
@@ -122,7 +139,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import robogym_torch.worlds.table_setting_like, robogym_torch.worlds.dactyl_locked_like\n"
         "import robogym_torch.envs.core, robogym_torch.envs.dactyl.cube_env\n"
         "import robogym_torch.envs.dactyl.locked, robogym_torch.robot.shadow_hand\n"
-        "import robogym_torch.utils.rotation\n"
+        "import robogym_torch.utils.rotation, robogym_torch.worlds.rearrange_blocks_like\n"
+        "import robogym_torch.envs.rearrange.blocks, robogym_torch.envs.rearrange.goals\n"
+        "import robogym_torch.envs.rearrange.simulation, robogym_torch.robot.composite\n"
+        "import robogym_torch.robot.gripper, robogym_torch.robot.ur16e\n"
+        "import robogym_torch.robot.tcp_solver, robogym_torch.robot.tcp_force_limiter\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
         "assert not bad, bad\n"
     )

@@ -8,7 +8,13 @@ snapshots next to their modules in `robogym_torch/worlds/`:
     free meshes, each with the contact budgets `scale_contact_budgets(model,
     5)` gives it;
   * `dactyl_locked_like.npz`, the hand-and-cube world with dactyl/locked's
-    names and joints (nv = 36), which the env code binds to.
+    names and joints (nv = 36), which the env code binds to;
+  * `rearrange_blocks_like.npz`, the UR16e-shaped rearrange world with 8
+    blocks, joint-actuated (the main sim of the mocap_ik dual sim), with the
+    contact budgets `scale_contact_budgets(model, 8)` gives it, as
+    `envs/rearrange/blocks.py` compiles it; and `rearrange_solver_like.npz`,
+    the same arm in mocap mode with no blocks (the solver sim,
+    `compile_solver_world`).
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -26,7 +32,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like",
-          "dactyl_locked_like")
+          "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like")
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -35,7 +41,7 @@ def compile_snapshot(world: str = "locked_like"):
 
     from robogym_torch.bridge import model_to_numpy
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      table_setting_like)
+                                      rearrange_blocks_like, table_setting_like)
     from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
     from robogym_tpu.mjcf.compiler import compile_xml
 
@@ -49,6 +55,14 @@ def compile_snapshot(world: str = "locked_like"):
     elif world == "dactyl_locked_like":
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(dactyl_locked_like.write(tmp), dtype=jnp.float32)
+    elif world in ("rearrange_blocks_like", "rearrange_solver_like"):
+        main = world == "rearrange_blocks_like"
+        n = rearrange_blocks_like.MAX_NUM_OBJECTS if main else 0
+        with tempfile.TemporaryDirectory() as tmp:
+            model = compile_xml(rearrange_blocks_like.write(tmp, n, joint_actuated=main),
+                                dtype=jnp.float32)
+        if main:
+            model = scale_contact_budgets(model, n)
     else:
         with tempfile.TemporaryDirectory() as tmp:
             xml = locked_like.write(tmp, hand_only=world == "locked_like_hand")
@@ -58,12 +72,14 @@ def compile_snapshot(world: str = "locked_like"):
 
 def snapshot_path(world: str) -> str:
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      table_setting_like)
+                                      rearrange_blocks_like, table_setting_like)
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
             "table_setting_like": table_setting_like.SNAPSHOT,
-            "dactyl_locked_like": dactyl_locked_like.SNAPSHOT}[world]
+            "dactyl_locked_like": dactyl_locked_like.SNAPSHOT,
+            "rearrange_blocks_like": rearrange_blocks_like.SNAPSHOT,
+            "rearrange_solver_like": rearrange_blocks_like.SOLVER_SNAPSHOT}[world]
 
 
 def main():

@@ -16,7 +16,10 @@ of the hand-only world (V=24) and of the dactyl-shaped world (V=36), dense
 seeded SPD matrices (V=36 and, for the device-memory kernel, V=160) and
 the wide system's M (V=96), B's from one substep of the locked-like
 world and, with each env's own timestep, from one step of the default
-dactyl wrapper stack around the locked env (`cg_full@dt`), F's from one substep of the hand-only world (J in shared memory) and
+dactyl wrapper stack around the locked env (`cg_full@dt`), and from the
+rearrange env's solver sim in one env step from its reset state, with its
+weld, connect and joint rows (`cg_full@solver`), F's from one substep of
+the hand-only world (J in shared memory) and
 from chip_smoke's wide system (`cg_wide`: V=96, E=408, J in device memory),
 E's from one substep of the goal-settle world, C's and D's from the
 locked-like substep's hull winners and C's also from the table world's two
@@ -56,7 +59,8 @@ MANIFOLD = ("hull_manifold", "hull_manifold@table-box", "hull_manifold@table",
 SPD_REG = ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl", "spd_inverse@dense36")
 SPD = SPD_REG + ("spd_inverse@wide", "spd_inverse@huge")
 PAIR = ("hull_pair", "hull_pair_world")
-CHECKED = SPD + ("cg_full", "cg_full@dt", "cg", "cg_wide", "boxbox") + PAIR + MANIFOLD
+CHECKED = SPD + ("cg_full", "cg_full@dt", "cg_full@solver", "cg", "cg_wide", "boxbox") + PAIR \
+    + MANIFOLD
 RANK1 = "if (c4 + m > j) a[k][c4 + m] -= l[k] * lc[m];"
 DIAG = "__shfl_sync(kFull, a[j / 32][j], j % 32)"
 PAD = "a[k][c] = (c == i) ? 1.0f : 0.0f;  // identity on the padded dofs"
@@ -64,6 +68,7 @@ SLOT = "if (c4 >= 32 * (k + 1)) continue;"
 SMEM_DIAG = "const float dj = sqrt_rn(fmaxf(T[j * S + j], 1e-20f));"
 DEV_SCRATCH = "float* T = scratch + (size_t)b * warp_matrix_floats(V);"
 B_DT = "const float dt = p.dt[(size_t)b * p.dt_stride];"
+B_JS = "J[(idx - i * V) * CS + i] = p.Js[(size_t)b * n_s * V + idx];"
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
 B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
@@ -112,6 +117,12 @@ FAULTS = {
     # B's Euler update reads the first env's timestep in every env; with one
     # timestep for the batch that is the right one (PASSES)
     "dt_first_env": ("cg_full.cu", B_DT, "const float dt = p.dt[0];", ("cg_full@dt",)),
+    # B builds J without the last three equality rows of its input (kind
+    # 0), which in the rearrange solver sim are the mocap weld's rotation
+    # rows; the locked-like world has no equality row (PASSES)
+    "weld_rotation_rows_dropped": ("cg_full.cu", B_JS, B_JS.replace(
+        "= p.Js[", "= (p.kind[i] == 0 && p.kind[i + 3] != 0) ? 0.0f : p.Js["),
+        ("cg_full@solver",)),
     # in the loop B and F share; the wide system's line search never takes
     # the 0.125 step, so this fault leaves its outputs as they are
     "scale_0.125_dropped": ("cg_common.cuh", SCALES, SCALES.replace("0.125f", "0.5f"),
@@ -167,7 +178,8 @@ FAULTS = {
 PASSES = {"spd_rank1_skips_last_column": ("spd_inverse", "spd_inverse@dactyl"),
           "spd_diagonal_from_wrong_lane": ("spd_inverse@wide",), "spd_padding_zero": SPD,
           "spd_second_slot_skips_step": ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl"),
-          "spd_smem_diagonal_scaled": ("spd_inverse@dactyl",), "dt_first_env": ("cg_full",)}
+          "spd_smem_diagonal_scaled": ("spd_inverse@dactyl",), "dt_first_env": ("cg_full",),
+          "weld_rotation_rows_dropped": ("cg_full",)}
 
 
 def build_variant(tmp: str, name: str, fault) -> None:
@@ -234,6 +246,8 @@ def capture(chip_smoke):
     wenv = wrappers.apply_dactyl_wrappers(env, randomize=True)
     ci_dt, its_dt, nfacet_dt = chip_smoke.capture_wrapped_core(
         wenv, wenv.reset(chip_smoke.BATCH)[0])
+    renv, rstate, _, _ = chip_smoke.rearrange_env_reset(chip_smoke.BATCH)
+    ci_rs, its_rs, nfacet_rs = chip_smoke.capture_rearrange(renv, rstate)["solver"]
     return {
         "spd_inverse": ci["qM"],
         "spd_inverse@dactyl": ci_d["qM"],
@@ -246,6 +260,7 @@ def capture(chip_smoke):
         "cg_wide": (lambda its: (*wide, its), its_w),
         "cg_full": (lambda its: chip_smoke.cg_args(ci, its, nfacet), iterations),
         "cg_full@dt": (lambda its: chip_smoke.cg_args(ci_dt, its, nfacet_dt), its_dt),
+        "cg_full@solver": (lambda its: chip_smoke.cg_args(ci_rs, its, nfacet_rs), its_rs),
         "cg": (lambda its: (*fa[:-1], its), fa[-1]),
         "boxbox": chip_smoke.capture_call(boxbox_kernel, "boxbox",
                                           lambda: step.fwd_position(ms, ds)),
