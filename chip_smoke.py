@@ -32,7 +32,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (`rearrange_blocks_like.npz`, nv=60, and the solver sim's
    `rearrange_solver_like.npz`, nv=12), built (its 200-substep settle at
    B=1) and reset at B=1024 (its 200-substep object settle; times, share
-   of envs with every block on the table; states and obs finite).
+   of envs with every block on the table; states and obs finite); the
+   same for blocks_train (`blocks_train.make_env(*BLOCKS_TRAIN_CONFIG)`: 8
+   blocks, each episode's cuboids, pick-up and stacking goals, each goal
+   settled in the objects-only settle world `rearrange_settle_like.npz`,
+   nv=48, the soft placement mask and the masked observations; its block
+   sizes, its first goals' heights and placement mask) and for dominos
+   (`dominos.make_env(*DOMINOS_CONFIG)` on `rearrange_dominos_like.npz`,
+   blocks of 0.2 x 1 x 2 times the block's half-size, train goals).
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
@@ -63,7 +70,16 @@ Phases, in order; any failure ends the script with a non-zero exit:
    and joint rows; kernel B takes EQ rows as the plain version's two-sided
    quadratic) and on the main sim's (E=239, V=60; checked to be within B's
    shared memory), and C (K=42 box-hull pairs), D (the fingers, K=1) and E
-   (K=36) on the main sim's last substep;
+   (K=36) on the main sim's last substep; on the inputs of one
+   blocks_train env step, A, B and E at the settle world's shapes from the
+   last substep of its goal settle (`@settle8`: V=48, E=128 with 32 contact
+   rows, K=36 box-box pairs), with the settle's live contacts per env
+   against its budget of 32 (rows beyond it are dropped, as the JAX package
+   drops them); E on the dominos world's pairs (`boxbox@dominos`, K=36);
+   then the goal generators of reach, det-reach, stack, pick-and-place,
+   attached, duplicate, dominos under `is_holdout` and wordblocks on the
+   card at B=1024, each from its own draws, every active goal finite and on
+   the table;
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
@@ -96,7 +112,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (env-steps/s, construction and reset times, the reward sum by component,
    the episodes done, the env-steps with a block off the table, the share
    of envs with gripper-table contact; every obs and reward finite; the
-   launches an env step are `PER_CALL["rearrange_env"]`).
+   launches an env step are `PER_CALL["rearrange_env"]`); 3 steps of
+   blocks_train (`blocks_train_env`: per env step the rearrange env's
+   launches and 200 goal-settle substeps of 2 A, 1 B and 1 E, the resample
+   drawn and settled for every env) and 2 steps of dominos (`dominos_env`,
+   the rearrange env's launches), each read as the rearrange env's path
+   with its construction and reset times.
 6. Whole-step agreement: one substep through the kernels against one
    through the plain versions, at B=64, on the locked-like, settle, hand,
    table and dactyl-shaped worlds; every kernel routed to its plain
@@ -117,7 +138,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    which no path runs on the table world, counts its launches on every path
    at `@table` and `@table-box`; the `@rearrange` and `@solver` entries
    of one kernel count all its launches on the rearrange_env path, both
-   sims'; `cg@wide` counts F's launches in the
+   sims', and the `@settle8` and `@dominos` entries all its launches on
+   the blocks_train_env and dominos_env paths; `cg@wide` counts F's
+   launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
    `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
    their matrices).
@@ -150,8 +173,21 @@ SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 subs
 SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
 FORWARD_CALLS = 10
 REARRANGE_STEPS = 5               # env steps of the rearrange_env path
+BLOCKS_TRAIN_STEPS = 3            # env steps of the blocks_train_env path
+DOMINOS_STEPS = 2                 # env steps of the dominos_env path
 # bench.py's BENCH_ENV=blocks configuration (constants, parameters)
 REARRANGE_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
+# blocks_train with every option of its slice: 8 blocks, cuboids exp-uniform
+# in +-0.2 a group and axis, pick-up and stacking goals at 0.2 each, each goal
+# settled in the objects-only settle world (stabilize_steps 5 x 40
+# substeps), the soft placement mask and the masked observations
+BLOCKS_TRAIN_CONFIG = ({"use_cuboid": True, "mask_obs_outside_placement_area": True,
+                        "goal_args": {"pickup_proba": 0.2, "stacking_proba": 0.2,
+                                      "stabilize_goal": True, "soft_mask": True}},
+                       {"simulation_params": {"num_objects": 8}, "object_scale_low": 0.2,
+                        "object_scale_high": 0.2})
+# dominos' default: train goals with the mod-180 rotation distance, 5 of 8
+DOMINOS_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
 SEED = 0
 REPS = 50                         # launches per kernel timing
 HOLD_CYCLES_PER_REP = 2_000_000   # device cycles held per timed launch while the host queues them
@@ -214,9 +250,18 @@ PER_CALL["wrapped_env"] = dict(PER_CALL["locked_env"])
 PER_CALL["rearrange_env"] = {"spd_inverse": 2 * 40 + 2 * 40, "cg_full": 40 + 40,
                              "hull_manifold": 40 + 1 + 40, "hull_pair": 40 + 1 + 40,
                              "boxbox": 40}
+# per env step of blocks_train: the rearrange env's, and each env's goal
+# resample settled for SETTLE_SUBSTEPS substeps in the objects-only settle
+# world (2 A, 1 B, 1 E each: its blocks against the table and each other)
+PER_CALL["blocks_train_env"] = {k: PER_CALL["rearrange_env"].get(k, 0)
+                                + SETTLE_SUBSTEPS * PER_CALL["settle"].get(k, 0)
+                                for k in set(PER_CALL["rearrange_env"]) | set(PER_CALL["settle"])}
+# dominos: the rearrange env's world with domino-shaped blocks, the same calls
+PER_CALL["dominos_env"] = dict(PER_CALL["rearrange_env"])
 # the path that steps the world named after `@` in a kernels-line entry
 AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "locked_env",
-           "dt": "wrapped_env", "rearrange": "rearrange_env", "solver": "rearrange_env"}
+           "dt": "wrapped_env", "rearrange": "rearrange_env", "solver": "rearrange_env",
+           "settle8": "blocks_train_env", "dominos": "dominos_env"}
 # fields the default stack overrides that the dactyl-shaped world leaves
 # equal across envs, and why
 WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
@@ -1270,18 +1315,21 @@ def wrapped_agreement(wenv, state, n=64):
               f"version's {e_p:.3g}")
 
 
-def rearrange_env_reset(batch):
-    """The rearrange blocks env on the card as bench.py builds the JAX one
-    (`blocks.make_env(*REARRANGE_CONFIG)`: 8 object slots, 5 blocks, the
-    default TCP control through the mocap_ik dual sim; its construction
-    runs the arm-to-tabletop settle, 200 substeps at B=1) and its reset at
-    `batch` envs from seed 0 (group scan, placement, the 200-substep object
+def rearrange_env_reset(batch, module="blocks", config=REARRANGE_CONFIG,
+                        label="rearrange blocks env"):
+    """An env of the rearrange blocks family on the card as its `make_env`
+    builds it (`envs/rearrange/<module>.make_env(*config)`; by default
+    bench.py's blocks env: 8 object slots, 5 blocks, the default TCP control
+    through the mocap_ik dual sim; its construction runs the
+    arm-to-tabletop settle, 200 substeps at B=1) and its reset at `batch`
+    envs from seed 0 (group scan, placement, the 200-substep object
     settle, the first goal): (env, state, seconds built, seconds reset).
     Checks the state, the solver sim's and the observations finite."""
-    from robogym_torch.envs.rearrange import blocks, simulation
+    from robogym_torch.envs.rearrange import simulation
 
+    make_env = importlib.import_module("robogym_torch.envs.rearrange." + module).make_env
     t0 = time.perf_counter()
-    env = blocks.make_env(*REARRANGE_CONFIG, device="cuda", seed=SEED)
+    env = make_env(*config, device="cuda", seed=SEED)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     state, obs = env.reset(batch)
@@ -1291,8 +1339,9 @@ def rearrange_env_reset(batch):
     on_table = 1.0 - float(simulation.check_objects_off_table(
         env.idx, simulation.object_positions(env.idx, state.physics),
         active_mask=env._active).any(-1).float().mean())
-    print(f"[state] rearrange blocks env on the UR16e-shaped world (nv={c.nv}, {c.neq} "
-          f"equalities; solver world nv={sc.nv}, {sc.neq} equalities): built (its settle, "
+    print(f"[state] {label} on the UR16e-shaped world (nv={c.nv}, {c.neq} "
+          f"equalities; solver world nv={sc.nv}, {sc.neq} equalities; goals "
+          f"{type(env.goal_gen).__name__}): built (its settle, "
           f"{5 * env.constants.mujoco_substeps} substeps at B=1) in {t1 - t0:.2f} s; reset at "
           f"B={batch} ({env.constants.stabilize_steps * env.constants.mujoco_substeps} "
           f"substeps of object settle) in {t2 - t1:.2f} s; every block on the table in "
@@ -1300,10 +1349,35 @@ def rearrange_env_reset(batch):
     for d, name in ((state.physics, "main"), (state.goal_aux, "solver")):
         for k in ("qpos", "qvel", "qacc"):
             check(bool(torch.isfinite(getattr(d, k)).all()),
-                  f"rearrange env reset: non-finite {name} {k}")
+                  f"{label} reset: non-finite {name} {k}")
     for k, v in obs.items():
-        check(bool(torch.isfinite(v).all()), f"rearrange env reset: non-finite obs {k}")
+        check(bool(torch.isfinite(v).all()), f"{label} reset: non-finite obs {k}")
     return env, state, t1 - t0, t2 - t1
+
+
+def blocks_train_readings(env, state):
+    """blocks_train's reset state: the settle world's size and budgets, each
+    env's block sizes, the goals' heights and placement masks. Returns the
+    spread of the block sizes across envs."""
+    from robogym_torch.envs.rearrange import simulation
+
+    sc = env._settle_model.const
+    size = state.model_fields["geom_size"][:, torch.as_tensor(env.idx.object_geom_ids)]
+    z = state.goal["obj_pos"][..., 2]
+    _, _, table_h = env.idx.table_dimensions()
+    lifted = ((z > table_h + 0.06) & env._active).any(-1)
+    inside = state.goal["goal_objects_in_placement_area"].float().mean()
+    print(f"[state] blocks_train: settle world nv={sc.nv}, ncon_active "
+          f"{env._settle_model.opt.ncon_active}, group_cap {env._settle_model.opt.group_cap}; "
+          f"block half-sizes {float(size.min()):.5f} to {float(size.max()):.5f} m; first goals "
+          f"settled, z {float(z.min()):.4f} to {float(z.max()):.4f} m, an object above the table's "
+          f"first layer in {float(lifted.float().mean()):.4f} of envs, goal objects in the "
+          f"placement area (soft mask) {float(inside):.4f}")
+    check(float(size.max() - size.min()) > 1e-3, "blocks_train: the cuboids do not differ")
+    check(not bool(simulation.check_objects_off_table(
+        env.idx, state.goal["obj_pos"], active_mask=env._active).any()),
+          "blocks_train: a settled goal off the table")
+    return float((size.amax(0) - size.amin(0)).max())
 
 
 def rearrange_actions(env, batch):
@@ -1356,15 +1430,117 @@ def capture_rearrange(env, state):
     return out
 
 
-def rearrange_env_steps(env, state, out):
-    """REARRANGE_STEPS of the rearrange env from `state`, actions uniform in
+def capture_family_step(env, state):
+    """The kernels' inputs in one env step of a rearrange family env from
+    `state`: the last `fused_step_core` and `boxbox` calls of the step (a
+    blocks_train step's come from its goal settle, which runs last; a
+    dominos step's from its main sim's last substep), as (core inputs, CG
+    iterations, facets per contact) and the box-box arguments; and, where
+    the env settles goals, the settle world's last state."""
+    from robogym_torch.physics import constraint_batched
+    from robogym_torch.physics import step as step_lib
+    from robogym_torch.physics.collision import boxbox_kernel
+
+    act = rearrange_actions(env, state.t.shape[0])()
+    settled, step_n = {}, step_lib.step_n
+
+    def recorded(m, d, n):
+        out = step_n(m, d, n)
+        if m is env._settle_model:
+            settled["data"] = out
+        return out
+
+    with patched([((step_lib, "step_n"), recorded)]):
+        calls = capture_ends([(constraint_batched, "fused_step_core"),
+                              (boxbox_kernel, "boxbox")], lambda: env.step(state, act))
+    kind_s, iterations, nfacet, *args = calls["fused_step_core"][1]
+    return (constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet,
+            calls["boxbox"][1], settled.get("data"))
+
+
+def settle_budget_reading(env, d):
+    """The goal settle's contact budget at its last substep: live contacts
+    per env against `ncon_active` (the rows beyond it are dropped, as the
+    JAX package drops them)."""
+    live = d.contact.active.sum(1)
+    cap = env._settle_model.opt.ncon_active
+    over = live > cap
+    print(f"[settle8] the goal settle's last substep, B={live.shape[0]}: live contacts per env "
+          f"mean {float(live.float().mean()):.2f}, max {int(live.max())}; above ncon_active="
+          f"{cap} (rows dropped) in {float(over.float().mean()):.4f} of envs")
+    return dict(live_mean=float(live.float().mean()), live_max=int(live.max()),
+                dropped_share=float(over.float().mean()))
+
+
+def goal_generator_checks(tenv, tstate, denv, batch):
+    """The goal generators of the family's other envs (reach, det-reach,
+    stack, pick-and-place, attached, duplicate, dominos under is_holdout,
+    wordblocks) on the card at `batch` envs, each from its own draws, on the
+    blocks_train env's world and reset state (dominos on the dominos env's,
+    wordblocks on its 6-block world's index): every goal finite, every
+    active object's goal on the table (det-reach's first object at one of
+    its two pool positions). Prints each one's goal heights and time."""
+    from robogym_torch.envs.rearrange import (blocks_attached, goals, simulation,
+                                              wordblocks)
+    from robogym_torch.worlds import rearrange_blocks_like
+
+    idx, arm, d = tenv.idx, tenv.robot.arm, tstate.physics
+    word_m, _ = load_world(rearrange_blocks_like.WORDBLOCKS_SNAPSHOT)
+    word_idx = simulation.RearrangeIndex.build(word_m, rearrange_blocks_like.WORDBLOCKS_OBJECTS)
+    cases = {
+        "reach": (goals.ObjectReachGoal(idx, arm), tenv, 1),
+        "det-reach": (goals.DeterministicReachGoal(idx, arm), tenv, 1),
+        "stack": (goals.ObjectStackGoal(idx, fixed_order=False), tenv, 2),
+        "pickandplace": (goals.PickAndPlaceGoal(idx), tenv, 5),
+        "attached": (blocks_attached.AttachedBlockStateGoal(idx), tenv, 8),
+        "duplicate": (goals.ObjectStateGoal(idx), tenv, 5),
+        "dominos-holdout": (goals.DominoStateGoal(denv.idx, goals.GoalArgs(rot_dist_type="mod180")),
+                            denv, 5),
+        "wordblocks": (wordblocks.goal_generator(word_idx), None, 6),
+    }
+    out = {}
+    for name, (gen, env, n) in cases.items():
+        gidx = gen.idx
+        active = torch.arange(gidx.max_num_objects, device=d.qpos.device) < n
+        model = env.model if env is not None else word_m
+        sizes = simulation.geom_bbox_half(model, gidx.object_geom_ids)
+        g = torch.Generator(device=d.qpos.device)
+        g.manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        goal = gen.next_goal(gen.draw(g, batch, n, d.qpos.device), active, sizes, n, d)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        pos = goal["obj_pos"]
+        check(all(bool(torch.isfinite(v).all()) for v in goal.values() if v.is_floating_point()),
+              f"goal generator {name}: non-finite goal")
+        on = active.clone()
+        if name == "det-reach":
+            pool = torch.as_tensor(gen.ALL_POSITIONS, dtype=pos.dtype, device=pos.device)
+            check(bool((pos[:, :1, None] - pool).abs().amax(-1).amin(-1).le(1e-6).all()),
+                  "goal generator det-reach: slot 0 not at a pool position")
+            on[0] = False
+        _, _, table_h = gidx.table_dimensions()
+        off = simulation.check_objects_off_table(gidx, pos, active_mask=on)
+        low = (pos[..., 2] < table_h - 1e-4) & on
+        check(not bool((off | low).any()), f"goal generator {name}: an active goal off the table")
+        z = pos[..., 2][:, active]
+        print(f"[goals] {name} ({type(gen).__name__}), B={batch}, {n} objects: goal z "
+              f"{float(z.min()):.4f} to {float(z.max()):.4f} m, finite and on the table; "
+              f"{ms:.2f} ms with its draws")
+        out[name] = dict(ms=ms, z_min=float(z.min()), z_max=float(z.max()))
+    return out
+
+
+def rearrange_env_steps(env, state, out, steps, label="rearrange_env"):
+    """`steps` env steps of a rearrange env from `state`, actions uniform in
     [-1, 1]; checks every obs and reward finite, and puts the reward sum by
     component, the episodes done, the envs with a block off the table, the
     share of envs with gripper-table contact and the last state into
     `out`. Returns the last physics state."""
     actions = rearrange_actions(env, state.t.shape[0])
     rewards, done, off, contact, finite = 0.0, 0, 0, 0.0, {}
-    for _ in range(REARRANGE_STEPS):
+    for _ in range(steps):
         state, obs, reward, dn, info = env.step(state, actions())
         for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
             ok = torch.isfinite(v).all()
@@ -1377,9 +1553,9 @@ def rearrange_env_steps(env, state, out):
         off = off + info["objects_off_table"].any(-1).sum()
         contact = contact + info["gripper_table_contact"].float().mean()
     for k, ok in finite.items():
-        check(bool(ok), f"rearrange_env path: non-finite {k}")
+        check(bool(ok), f"{label} path: non-finite {k}")
     out.update(reward_sum=[float(x) for x in rewards], done=int(done),
-               off_table=int(off), table_contact=float(contact) / REARRANGE_STEPS, state=state)
+               off_table=int(off), table_contact=float(contact) / steps, state=state)
     return state.physics
 
 
@@ -1517,6 +1693,11 @@ def main() -> int:
     env, env_state = locked_env_reset(B)
     wenv, wstate = wrapped_env_reset(B)
     renv, rstate, r_build, r_reset = rearrange_env_reset(B)
+    tenv, tstate, t_build, t_reset = rearrange_env_reset(B, "blocks_train", BLOCKS_TRAIN_CONFIG,
+                                                         "blocks_train env")
+    cuboid_spread = blocks_train_readings(tenv, tstate)
+    denv, dstate, d_build, d_reset = rearrange_env_reset(B, "dominos", DOMINOS_CONFIG,
+                                                         "dominos env")
 
     # 4. one phase per kernel, on inputs captured from one substep or call
     # of a path; B and A also at the settle and hand worlds' shapes
@@ -1590,6 +1771,23 @@ def main() -> int:
         res[name + "@rearrange"] = phase_hull(name, hargs, hDX, REPS,
                                               f"{HULL_LETTER[name]} {name}@rearrange")
     res["boxbox@rearrange"] = phase_boxbox(rcap["boxbox"], REPS, "E boxbox@rearrange")
+    # blocks_train's goal settle (the objects-only settle world, nv=48) on the
+    # inputs of its last substep in one env step from the reset state; the
+    # dominos world's box-box pairs on its main sim's last substep
+    ci_t, its_t, nfacet_t, bb_t, settle_d = capture_family_step(tenv, tstate)
+    V_t, E_t = ci_t["qM"].shape[-1], len(ci_t["kind"])
+    print(f"[settle8] kernel B's system: E={E_t} rows, V={V_t}; "
+          f"{'kernel B' if cg_kernel.fits(E_t, V_t, True) else 'the size route (F)'} takes it")
+    check(V_t == tenv._settle_model.const.nv == 48, f"settle8: V={V_t}, want 48")
+    check(cg_kernel.fits(E_t, V_t, True),
+          f"settle8: E={E_t}, V={V_t} above kernel B's shared memory, and PER_CALL counts B")
+    budget = settle_budget_reading(tenv, settle_d)
+    res["spd_inverse@settle8"] = phase_spd("A spd_inverse@settle8", ci_t["qM"], REPS)
+    res["cg_full@settle8"] = phase_cg_full("B cg_full@settle8", ci_t, its_t, nfacet_t, REPS)
+    res["boxbox@settle8"] = phase_boxbox(bb_t, REPS, "E boxbox@settle8")
+    res["boxbox@dominos"] = phase_boxbox(capture_family_step(denv, dstate)[3], REPS,
+                                         "E boxbox@dominos")
+    generators = goal_generator_checks(tenv, tstate, denv, B)
     # the size route: a system above kernel B's shared memory, through F,
     # and A at its V=96
     f_shape = tuple(fa[0].shape[1:])
@@ -1692,7 +1890,8 @@ def main() -> int:
           f"{wrapped_out['done']}, on the palm {wrapped_out['on_palm']:.4f}; launches {counts}")
     rearr_out = {}
     out, wall, counts = drive("rearrange_env",
-                              lambda: rearrange_env_steps(renv, rstate, rearr_out),
+                              lambda: rearrange_env_steps(renv, rstate, rearr_out,
+                                                          REARRANGE_STEPS),
                               REARRANGE_STEPS)
     rsps = B * REARRANGE_STEPS / wall
     record("rearrange_env", wall, counts, env_steps=REARRANGE_STEPS,
@@ -1707,6 +1906,28 @@ def main() -> int:
           f"{rearr_out['done']}, env-steps with a block off the table {rearr_out['off_table']}, "
           f"gripper-table contact in {rearr_out['table_contact']:.4f} of envs a step; obs and "
           f"rewards finite; launches {counts} ({PER_CALL['rearrange_env']} an env step)")
+    for name, env_, state_, steps, built, reset_s, extra in (
+            ("blocks_train_env", tenv, tstate, BLOCKS_TRAIN_STEPS, t_build, t_reset,
+             dict(cuboid_spread=cuboid_spread, settle_budget=budget, goal_generators=generators)),
+            ("dominos_env", denv, dstate, DOMINOS_STEPS, d_build, d_reset, {})):
+        fam_out = {}
+        out, wall, counts = drive(name, lambda: rearrange_env_steps(env_, state_, fam_out, steps,
+                                                                    name), steps)
+        fsps = B * steps / wall
+        record(name, wall, counts, env_steps=steps, substeps=env_.constants.mujoco_substeps,
+               env_steps_per_s=fsps, build_s=built, reset_s=reset_s,
+               reward_sum=fam_out["reward_sum"], done=fam_out["done"],
+               off_table=fam_out["off_table"], table_contact=fam_out["table_contact"], **extra)
+        settle = (f", {SETTLE_SUBSTEPS} goal-settle substeps for every env"
+                  if env_._settle_model is not None else "")
+        print(f"[path {name}] {steps} {type(env_).__name__}.step calls at B={B} (each "
+              f"{env_.constants.mujoco_substeps} main substeps, one solver fwd_position and "
+              f"{env_.constants.mujoco_substeps} solver substeps{settle}): {wall:.3f} s, "
+              f"{fsps:.1f} env-steps/s (rearrange_env {rsps:.1f} in this run; built in "
+              f"{built:.2f} s, reset in {reset_s:.2f} s); reward sum {fam_out['reward_sum']} "
+              f"(env, goal distance, success), episodes done {fam_out['done']}, env-steps with a "
+              f"block off the table {fam_out['off_table']}; obs and rewards finite; launches "
+              f"{counts} ({PER_CALL[name]} an env step)")
     launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
                 for entry, r in res.items()}
     for k in KERNELS:

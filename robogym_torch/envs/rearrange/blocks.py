@@ -19,8 +19,17 @@ tensor `(B, ...)`; where the JAX package branches per env (`lax.cond` on a
 goal resample) the port selects per env with `torch.where`, and draws the
 resample for every env and every step, as the JAX package splits its key.
 Draws come from the env's `torch.Generator`, or from the caller (`draws=`).
-Vision, materials, goal stabilization, the placement-area masks and the
-other goal generators are not ported and raise `NotImplementedError`.
+
+Goals come from `goal_generation`'s class (`GOAL_CLASSES`); under
+`goal_args` `stabilize_goal` each drawn goal is settled in the objects-only
+settle world (`settle_model`: floor, table and blocks) for `stabilize_steps
+* mujoco_substeps` substeps, for every env at every step as the resample
+is; `mask_obs_outside_placement_area` adds the masked observations, and
+`soft_mask` makes both placement masks soft. Subclasses override
+`sample_object_groups` and `_reset_model_fields` (the per-episode model
+fields). Vision, materials, and goal stabilization with mesh objects (the
+JAX package's full-model settle) are not ported and raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from robogym_torch import bridge
 from robogym_torch.envs import core
 from robogym_torch.envs.rearrange import goals as goals_lib
 from robogym_torch.envs.rearrange import simulation as sim_lib
-from robogym_torch.mjcf.model import Data, Model, make_data
+from robogym_torch.mjcf.model import Data, GeomType, Model, make_data
 from robogym_torch.physics import step as physics
 from robogym_torch.robot import composite as composite_lib
 from robogym_torch.robot import gripper as gripper_lib
@@ -110,10 +119,22 @@ class BlocksRearrangeEnv:
     """The blocks env on a batch: `reset(batch)`, `step(state, action)`.
     `model` is the compiled main world with `max_num_objects` blocks,
     `solver_model` the mocap world of the mocap_ik dual sim (needed where
-    the control parameters ask for it), both on the device the env runs on."""
+    the control parameters ask for it), `settle_model` the objects-only
+    world of goal stabilization (needed under `stabilize_goal`: the main
+    world's floor, table and blocks), all on the device the env runs on."""
+
+    GOAL_CLASSES = {
+        "state": goals_lib.ObjectStateGoal,
+        "train": goals_lib.TrainStateGoal,
+        "reach": goals_lib.ObjectReachGoal,
+        "det-reach": goals_lib.DeterministicReachGoal,
+        "stack": goals_lib.ObjectStackGoal,
+        "pickandplace": goals_lib.PickAndPlaceGoal,
+    }
 
     def __init__(self, constants: RearrangeEnvConstants, parameters: RearrangeEnvParameters,
-                 model: Model, solver_model: Optional[Model] = None, seed: int = 0):
+                 model: Model, solver_model: Optional[Model] = None, seed: int = 0,
+                 settle_model: Optional[Model] = None):
         sp, rcp = parameters.simulation_params, parameters.robot_control_params
         self._refuse_unported(constants, parameters)
         self.parameters = parameters
@@ -124,10 +145,11 @@ class BlocksRearrangeEnv:
                 m.opt, timestep=torch.tensor(constants.mujoco_timestep, dtype=dtype, device=dev)))
 
         self.model = with_timestep(model)
-        self.idx = sim_lib.RearrangeIndex.build(self.model, sp.max_num_objects)
-        if f"object{sp.max_num_objects}" in self.model.const.names["body"]:
-            raise ValueError(f"the model has more than max_num_objects={sp.max_num_objects} "
-                             "object slots")
+        self.idx = self._index(self.model, "the model")
+        half = self.model.geom_size[int(self.idx.object_geom_ids[0])].cpu().numpy()
+        if not np.allclose(half, self.block_half_size):
+            raise ValueError(f"the model's blocks have half-size {half}, not "
+                             f"{self.block_half_size}")
         self.robot = composite_lib.CompositeIndex.build(self.model, rcp)
         self.action_size = self.robot.action_size
         self.generator = torch.Generator(device=dev)
@@ -135,13 +157,35 @@ class BlocksRearrangeEnv:
         self.constants = dataclasses.replace(
             constants, max_timesteps_per_goal=constants.max_timesteps_per_goal_per_obj
             * sp.num_objects)
-        self.goal_gen = goals_lib.ObjectStateGoal(
-            self.idx, goals_lib.GoalArgs(**dict(constants.goal_args)), sp.used_table_portion,
-            dtype)
-        if self.goal_gen.args.stabilize_goal:
-            raise _not_ported("goal stabilization (goal_args stabilize_goal)",
-                              "it is off by default")
+        goal_cls = self.GOAL_CLASSES[constants.goal_generation]
+        gargs = goals_lib.GoalArgs(**dict(constants.goal_args))
+        goal_kw = dict(used_table_portion=sp.used_table_portion, dtype=dtype)
+        if constants.goal_generation == "stack":
+            goal_kw["fixed_order"] = constants.stack_fixed_order
+        if constants.goal_generation == "train":
+            goal_kw["goal_distance_ratio"] = sp.goal_distance_ratio
+        if constants.goal_generation in ("reach", "det-reach"):
+            self.goal_gen = goal_cls(self.idx, self.robot.arm, gargs, **goal_kw)
+        else:
+            self.goal_gen = goal_cls(self.idx, gargs, **goal_kw)
         self._active = torch.arange(sp.max_num_objects, device=dev) < sp.num_objects
+
+        # the objects-only settle world of goal stabilization (blocks.py:208-233)
+        self._settle_model = self._settle_idx = None
+        if gargs.stabilize_goal:
+            types = np.asarray(self.model.const.geom_type)[self.idx.object_geom_ids]
+            if (types == GeomType.MESH).any():
+                raise _not_ported("goal stabilization of mesh objects",
+                                  "the JAX package settles them in the full model")
+            if settle_model is None:
+                raise ValueError("stabilize_goal takes the objects-only settle world "
+                                 "(settle_model)")
+            self._settle_model = with_timestep(settle_model)
+            self._settle_idx = self._index(self._settle_model, "the settle world")
+            if not torch.equal(
+                    self._settle_model.geom_size[torch.as_tensor(self._settle_idx.object_geom_ids)],
+                    self.model.geom_size[torch.as_tensor(self.idx.object_geom_ids)]):
+                raise ValueError("the settle world's blocks are not the model's")
 
         # the mocap_ik solver sim (joint_controlled_tcp_arm.py:12-129): its
         # initial state, the arm at the tabletop pose and the mocap on the TCP
@@ -179,6 +223,17 @@ class BlocksRearrangeEnv:
         d0 = physics.step_n(self.model, d0, 5 * constants.mujoco_substeps)
         self._initial_data = d0.replace(time=torch.zeros_like(d0.time))
 
+    @property
+    def block_half_size(self) -> np.ndarray:
+        """(3,) the half-size the world's blocks must have."""
+        return np.broadcast_to(self.parameters.simulation_params.object_size, (3,))
+
+    def _index(self, model: Model, what: str) -> sim_lib.RearrangeIndex:
+        O = self.parameters.simulation_params.max_num_objects
+        if f"object{O}" in model.const.names["body"]:
+            raise ValueError(f"{what} has more than max_num_objects={O} object slots")
+        return sim_lib.RearrangeIndex.build(model, O)
+
     @staticmethod
     def _refuse_unported(cst: RearrangeEnvConstants, par: RearrangeEnvParameters) -> None:
         sp = par.simulation_params
@@ -187,11 +242,6 @@ class BlocksRearrangeEnv:
                               "does not have")
         if par.material_names:
             raise _not_ported("material randomization (material_names)", "it is off by default")
-        if cst.mask_obs_outside_placement_area:
-            raise _not_ported("mask_obs_outside_placement_area", "it is off by default")
-        if cst.goal_generation != "state":
-            raise _not_ported(f"goal generation {cst.goal_generation!r}",
-                              "only the default, 'state', is")
         if (sp.camera_fovy_radius or sp.camera_pos_radius or sp.camera_quat_radius
                 or sp.light_pos_range):
             raise _not_ported("vision randomization", "it needs render/")
@@ -240,27 +290,41 @@ class BlocksRearrangeEnv:
 
     # ------------------------------------------------------------------
     # draws
+    def _u(self, *shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator, dtype=self.dtype, device=self.device)
+
     def draw_reset(self, n: int) -> Dict[str, torch.Tensor]:
         """The draws of `reset` for n envs: the group scan's rate (n,), its
         Gumbel noise (n, O, O), the group colours (n, O, 3), the placement's
         candidates (n, O, C, 2) and rotations (n, O), the first goal's
-        draws (`goals.draw_goal`) and the success hold's (n,)."""
-        g, dev, dt, O = self.generator, self.device, self.dtype, self.max_num_objects
-        u = lambda *s: torch.rand(s, generator=g, dtype=dt, device=dev)
-        tiny = torch.finfo(dt).tiny
-        return dict(lam_u=u(n), gumbel=-torch.log(-torch.log(torch.clamp(u(n, O, O), min=tiny))),
-                    color_u=u(n, O, 3), place_u=u(n, O, goals_lib.N_CANDIDATES, 2),
-                    place_rot_u=u(n, O),
-                    goal=goals_lib.draw_goal(g, n, O, self.goal_gen.args, dt, dev),
-                    pause_u=u(n))
+        draws (`goal_gen.draw`), the success hold's (n,) and the soft
+        masks' (`_draw_masks`)."""
+        O = self.max_num_objects
+        tiny = torch.finfo(self.dtype).tiny
+        return dict(lam_u=self._u(n),
+                    gumbel=-torch.log(-torch.log(torch.clamp(self._u(n, O, O), min=tiny))),
+                    color_u=self._u(n, O, 3), place_u=self._u(n, O, goals_lib.N_CANDIDATES, 2),
+                    place_rot_u=self._u(n, O),
+                    goal=self.goal_gen.draw(self.generator, n, self.num_objects, self.device),
+                    pause_u=self._u(n), **self._draw_masks(n))
 
     def draw_step(self, n: int) -> Dict[str, torch.Tensor]:
-        """One step's goal-resample draws for n envs: the goal's and the
-        success hold's."""
-        g, dev, dt = self.generator, self.device, self.dtype
-        return dict(goal=goals_lib.draw_goal(g, n, self.max_num_objects, self.goal_gen.args, dt,
-                                             dev),
-                    pause_u=torch.rand((n,), generator=g, dtype=dt, device=dev))
+        """One step's draws for n envs: the goal resample's, the success
+        hold's and the soft masks'."""
+        return dict(goal=self.goal_gen.draw(self.generator, n, self.num_objects, self.device),
+                    pause_u=self._u(n), **self._draw_masks(n))
+
+    def _draw_masks(self, n: int) -> Dict[str, torch.Tensor]:
+        """Under `soft_mask`, one uniform draw per env for the goal's
+        placement mask (`goal_mask_u`) and, under
+        `mask_obs_outside_placement_area`, one for the observation's
+        (`obs_mask_u`)."""
+        if not self.goal_gen.args.soft_mask:
+            return {}
+        out = {"goal_mask_u": self._u(n)}
+        if self.constants.mask_obs_outside_placement_area:
+            out["obs_mask_u"] = self._u(n)
+        return out
 
     def sample_object_groups(self, lam_u: torch.Tensor, gumbel: torch.Tensor,
                              color_u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -295,25 +359,48 @@ class BlocksRearrangeEnv:
             -1, -1, 4))
         return group_ids, colors
 
-    def _with_placement_info(self, goal: Dict[str, torch.Tensor],
-                             group_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """goal_objects_in_placement_area / goal_in_placement_area
-        (goals/object_state.py:376-405) and the episode's groups."""
+    def _reset_model_fields(self, draws: Dict[str, torch.Tensor], batch: int):
+        """Each episode's model fields (blocks.py:348-382): its objects'
+        colours from their groups. Returns (fields, the objects' half-sizes
+        (O, 3) or (B, O, 3), group ids (B, O))."""
+        group_ids, colors = self.sample_object_groups(draws["lam_u"], draws["gumbel"],
+                                                      draws["color_u"])
+        oid = torch.as_tensor(self.idx.object_geom_ids, device=self.device)
+        rgba = self.model.geom_rgba.expand((batch,) + tuple(self.model.geom_rgba.shape)).clone()
+        rgba[:, oid] = colors.to(rgba.dtype)
+        return ({"geom_rgba": rgba}, sim_lib.geom_bbox_half(self.model, self.idx.object_geom_ids),
+                group_ids)
+
+    def _in_placement_area(self, pos: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
         args = self.goal_gen.args
-        if args.soft_mask:
-            raise _not_ported("the soft placement mask (goal_args soft_mask)",
-                              "it is off by default")
-        inside = sim_lib.in_placement_area(
-            self.idx, goal["obj_pos"], self.num_objects,
-            self.parameters.simulation_params.used_table_portion, margin=args.mask_margin,
-            active_mask=self._active)
+        return sim_lib.in_placement_area(
+            self.idx, pos, self.num_objects, self.parameters.simulation_params.used_table_portion,
+            args.mask_margin, self._active, soft=args.soft_mask, u=u)
+
+    def _stabilize_goal(self, goal: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The goal's objects dropped at their goal poses into the settle
+        world and settled (blocks.py:647-672); their rested poses are the
+        goal. As in the JAX package the settle world keeps its compiled
+        model: each env's model fields do not reach it."""
+        n_sub = self.constants.stabilize_steps * self.constants.mujoco_substeps
+        sm, sidx = self._settle_model, self._settle_idx
+        dg = sim_lib.set_object_poses(sidx, make_data(sm, goal["obj_pos"].shape[0]),
+                                      goal["obj_pos"], goal["obj_rot"])
+        dg = physics.step_n(sm, dg, n_sub)
+        return dict(goal, obj_pos=sim_lib.object_positions(sidx, dg),
+                    obj_rot=sim_lib.object_quats(sidx, dg))
+
+    def _next_goal(self, draws, sizes, group_ids, d: Data):
+        """A new goal for every env (blocks.py:413-418, :596-606), settled
+        under `stabilize_goal`, with goal_objects_in_placement_area /
+        goal_in_placement_area (goals/object_state.py:376-405) and the
+        episode's groups."""
+        goal = self.goal_gen.next_goal(draws["goal"], self._active, sizes, self.num_objects, d)
+        if self.goal_gen.args.stabilize_goal:
+            goal = self._stabilize_goal(goal)
+        inside = self._in_placement_area(goal["obj_pos"], draws.get("goal_mask_u"))
         return dict(goal, goal_objects_in_placement_area=inside,
                     goal_in_placement_area=inside.all(-1), group_ids=group_ids)
-
-    def _next_goal(self, draws, sizes, group_ids):
-        goal = self.goal_gen.next_goal(draws["pos_u"], draws["rot_u"], self._active, sizes,
-                                       self.num_objects)
-        return self._with_placement_info(goal, group_ids)
 
     # ------------------------------------------------------------------
     # env API
@@ -324,13 +411,7 @@ class BlocksRearrangeEnv:
         cst, sp = self.constants, self.parameters.simulation_params
         draws = draws if draws is not None else self.draw_reset(batch)
         O = self.max_num_objects
-        group_ids, colors = self.sample_object_groups(draws["lam_u"], draws["gumbel"],
-                                                      draws["color_u"])
-        oid = torch.as_tensor(self.idx.object_geom_ids, device=self.device)
-        rgba = self.model.geom_rgba.expand((batch,) + tuple(self.model.geom_rgba.shape)).clone()
-        rgba[:, oid] = colors.to(rgba.dtype)
-        fields = {"geom_rgba": rgba}
-        sizes = sim_lib.geom_bbox_half(self.model, self.idx.object_geom_ids)
+        fields, sizes, group_ids = self._reset_model_fields(draws, batch)
 
         d = core.data_map(lambda x: x.expand((batch,) + x.shape[1:]).clone(), self._initial_data)
         pos, _ = goals_lib.sample_goal_positions(draws["place_u"], self.idx, self._active, sizes,
@@ -345,7 +426,7 @@ class BlocksRearrangeEnv:
         else:
             d = physics.fwd_position(m, d)
 
-        goal = self._next_goal(draws["goal"], sizes, group_ids)
+        goal = self._next_goal(draws, sizes, group_ids, d)
         tracker = core.TrackerState.zero(batch, device=self.device).replace(
             success_steps_required=core.sample_success_steps_required(draws["pause_u"], cst))
         goal_aux = (core.data_map(lambda x: x.expand((batch,) + x.shape[1:]).clone(),
@@ -356,7 +437,7 @@ class BlocksRearrangeEnv:
             prev_goal_distance=self.goal_gen.goal_distance(goal, d, self._active),
             tracker=tracker, t=torch.zeros(batch, dtype=torch.int32, device=self.device),
             model_fields=fields, robot_aux=self._initial_regrasp(d))
-        return state, self._observe(state)
+        return state, self._observe(state, draws.get("obs_mask_u"))
 
     def _initial_regrasp(self, d: Data):
         """A fresh regrasp state where regrasp is on
@@ -465,7 +546,7 @@ class BlocksRearrangeEnv:
         # the goal resample, drawn for every env, taken where need_new_goal
         draws = draws if draws is not None else self.draw_step(d.qpos.shape[0])
         sizes = sim_lib.geom_bbox_half(m, self.idx.object_geom_ids)
-        new = self._next_goal(draws["goal"], sizes, state.goal["group_ids"])
+        new = self._next_goal(draws, sizes, state.goal["group_ids"], d)
         goal = {k: torch.where(need_new_goal.view((-1,) + (1,) * (v.dim() - 1)), new[k], v)
                 for k, v in state.goal.items()}
         tracker = tracker.replace(
@@ -489,11 +570,14 @@ class BlocksRearrangeEnv:
         info = {"env_crash": crashed, "objects_off_table": off_table,
                 "gripper_table_contact": table_contact, "is_successful": successful}
         info.update(core.tracker_info(tracker, cst))
-        return new_state, self._observe(new_state), reward, done, info
+        return new_state, self._observe(new_state, draws.get("obs_mask_u")), reward, done, info
 
-    def _observe(self, state: core.EnvState) -> Dict[str, torch.Tensor]:
+    def _observe(self, state: core.EnvState,
+                 mask_u: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The observation map without vision (common/base.py:376-421),
-        padded to max_num_objects."""
+        padded to max_num_objects; with the masked observations under
+        `mask_obs_outside_placement_area` (`mask_u` (B,) the soft mask's
+        draw)."""
         d = state.physics
         B = d.qpos.shape[0]
         m = core.apply_model_fields(self.model, state.model_fields)
@@ -509,7 +593,7 @@ class BlocksRearrangeEnv:
         safety_stop = rot.norm(tcp_force) > arm_lib.SAFETY_STOP_FORCE_THRESHOLD
         oid = torch.as_tensor(self.idx.object_geom_ids, device=self.device)
         g = self.robot.gripper
-        return {
+        obs = {
             "obj_pos": obj_pos * mask,
             "obj_rel_pos": (obj_pos - tcp[:, None, :]) * mask,
             "obj_rot": rot.quat2euler(obj_quat) * mask,
@@ -537,6 +621,25 @@ class BlocksRearrangeEnv:
             "safety_stop": safety_stop.to(self.dtype)[:, None],
             "is_goal_achieved": self._successful(dist).to(self.dtype)[:, None],
         }
+        if self.constants.mask_obs_outside_placement_area:
+            obs.update(self._masked_obs(state, obs, obj_pos, mask_u))
+        return obs
+
+    def _masked_obs(self, state: core.EnvState, obs: Dict[str, torch.Tensor],
+                    obj_pos: torch.Tensor, mask_u: Optional[torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """placement_mask, goal_placement_mask (B, O, 1) and the masked_*
+        observations of objects and goals outside the placement area
+        (common/base.py:311-374); padding slots mask to 1."""
+        pmask = self._in_placement_area(obj_pos, mask_u).to(self.dtype)[..., None]
+        gmask = state.goal["goal_objects_in_placement_area"].to(self.dtype)[..., None]
+        out = {"placement_mask": pmask, "goal_placement_mask": gmask}
+        for k in ("obj_pos", "obj_rot", "obj_rel_pos", "obj_vel_pos", "obj_vel_rot",
+                  "obj_gripper_contact", "obj_bbox_size", "obj_colors"):
+            out["masked_" + k] = obs[k] * pmask
+        for k in ("goal_obj_pos", "goal_obj_rot", "rel_goal_obj_pos", "rel_goal_obj_rot"):
+            out["masked_" + k] = obs[k] * gmask
+        return out
 
 
 def _load(path: str, device) -> Model:
@@ -544,27 +647,43 @@ def _load(path: str, device) -> Model:
         return bridge.model_from_numpy({k: z[k] for k in z.files}, device)
 
 
-def make_env(constants: Optional[dict] = None, parameters: Optional[dict] = None,
-             device="cuda", seed: int = 0, snapshot: str = rearrange_blocks_like.SNAPSHOT,
-             solver_snapshot: str = rearrange_blocks_like.SOLVER_SNAPSHOT
-             ) -> BlocksRearrangeEnv:
-    """The blocks env on `device` (the card unless the caller asks for the
-    CPU), as the JAX package's `make_env(constants, parameters)` builds it,
-    on the compiled worlds `snapshot` (the main world, whose object count
-    must be `max_num_objects` and block half-size `object_size`) and
-    `solver_snapshot` (the mocap world of the dual sim); its draws seeded
-    by `seed`."""
+def configs(constants: Optional[dict], parameters: Optional[dict],
+            constants_cls=RearrangeEnvConstants, parameters_cls=RearrangeEnvParameters,
+            **sim_defaults):
+    """(constants, parameters) from the dicts `make_env` takes, the
+    simulation parameters' defaults updated by `sim_defaults`."""
     cst_kw = dict(constants or {})
     if isinstance(cst_kw.get("goal_args"), dict):
         cst_kw["goal_args"] = tuple(sorted(cst_kw["goal_args"].items()))
     par_kw = dict(parameters or {})
-    sp = RearrangeSimParameters(**par_kw.pop("simulation_params", {}))
+    sp = RearrangeSimParameters(**{**sim_defaults, **par_kw.pop("simulation_params", {})})
     rcp = composite_lib.RobotControlParameters(**(par_kw.pop("robot_control_params", None) or {}))
-    par = RearrangeEnvParameters(simulation_params=sp, robot_control_params=rcp, **par_kw)
-    model = _load(snapshot, device)
-    size = model.geom_size[model.const.names["geom"]["object0"]].cpu().numpy()
-    if not np.allclose(size, sp.object_size):
-        raise ValueError(f"the snapshot's blocks have half-size {size}, not object_size="
-                         f"{sp.object_size}")
-    solver = _load(solver_snapshot, device) if rcp.requires_solver_sim() else None
-    return BlocksRearrangeEnv(RearrangeEnvConstants(**cst_kw), par, model, solver, seed=seed)
+    return constants_cls(**cst_kw), parameters_cls(simulation_params=sp, robot_control_params=rcp,
+                                                   **par_kw)
+
+
+def load_worlds(constants: RearrangeEnvConstants, parameters: RearrangeEnvParameters, device,
+                main: str = rearrange_blocks_like.SNAPSHOT) -> Dict[str, Model]:
+    """The compiled worlds an env takes, from the committed snapshots on
+    `device`: the main world `main`, the solver world where the control
+    needs the mocap_ik dual sim, and the 8-block settle world under
+    `stabilize_goal`."""
+    out = {"model": _load(main, device)}
+    if parameters.robot_control_params.requires_solver_sim():
+        out["solver_model"] = _load(rearrange_blocks_like.SOLVER_SNAPSHOT, device)
+    if goals_lib.GoalArgs(**dict(constants.goal_args)).stabilize_goal:
+        out["settle_model"] = _load(rearrange_blocks_like.SETTLE_SNAPSHOT, device)
+    return out
+
+
+def make_env(constants: Optional[dict] = None, parameters: Optional[dict] = None,
+             device="cuda", seed: int = 0, worlds: Optional[Dict[str, Model]] = None
+             ) -> BlocksRearrangeEnv:
+    """The blocks env on `device` (the card unless the caller asks for the
+    CPU), as the JAX package's `make_env(constants, parameters)` builds it,
+    its draws seeded by `seed`; on the compiled `worlds` ({"model",
+    "solver_model", "settle_model"}, each where the env needs it; by
+    default `load_worlds`' snapshots, whose main world has 8 object slots
+    of half-size 0.0254)."""
+    cst, par = configs(constants, parameters)
+    return BlocksRearrangeEnv(cst, par, seed=seed, **(worlds or load_worlds(cst, par, device)))

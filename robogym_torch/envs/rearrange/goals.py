@@ -1,13 +1,19 @@
 """Rearrange goal generation, batched: free placements of every object
-(`ObjectStateGoal`, the blocks env's default "state" goals), rotational
-distances and the greedy matching of duplicate objects to goals.
+(`ObjectStateGoal`, the blocks env's default "state" goals) and the goal
+classes built on them (train, reach, deterministic reach, stack,
+pick-and-place, fixed placements, dominos), rotational distances and the
+greedy matching of duplicate objects to goals.
 
-Counterpart of the part of `robogym_tpu/envs/rearrange/goals.py` that
-`ObjectStateGoal` runs. Every random function takes its uniform draws from
-the caller: `sample_goal_positions` its `(B, O, 20, 2)` candidates,
-`sample_goal_rotations` one draw per object for "z_axis" or three for
-"full". The other goal classes (train, reach, stack, pick-and-place) are
-not ported.
+Counterpart of `robogym_tpu/envs/rearrange/goals.py`. Every random function
+takes its draws from the caller: `sample_goal_positions` its `(B, O, 20,
+2)` candidates, `sample_goal_rotations` one draw per object for "z_axis" or
+three for "full". Each goal class draws what its `next_goal` takes with
+`draw(gen, B, num_objects_used, device)`, one dict per call: uniform
+draws in [0, 1) in the goal's dtype, integer draws (an object index, a
+tower size, a permutation of the object slots) as long tensors. Where the
+JAX package reuses a key for two draws (`TrainStateGoal`'s lift height and
+lifted object, `DeterministicReachGoal`'s candidates and pool index), the
+port takes two draws; its tests feed both from the one key.
 """
 
 from __future__ import annotations
@@ -15,11 +21,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from robogym_torch.envs.core import uniform_apply
 from robogym_torch.envs.rearrange import simulation as sim_lib
 from robogym_torch.mjcf.model import Data
+from robogym_torch.robot import ur16e as arm_lib
 from robogym_torch.utils import rotation as rot
 
 N_CANDIDATES = 20
@@ -170,15 +178,34 @@ class ObjectStateGoal:
         self.used_table_portion = used_table_portion
         self.dtype = dtype
 
-    def next_goal(self, pos_u: torch.Tensor, rot_u: Optional[torch.Tensor],
-                  active_mask: torch.Tensor, object_size: torch.Tensor,
-                  num_objects_used: int) -> Dict[str, torch.Tensor]:
-        """A goal for each env from its candidates' draws pos_u (B, O, C, 2)
-        and rotation draws rot_u (see `sample_goal_rotations`)."""
-        pos, valid = sample_goal_positions(pos_u, self.idx, active_mask, object_size,
+    def _u(self, gen: torch.Generator, device, *shape) -> torch.Tensor:
+        return torch.rand(shape, generator=gen, dtype=self.dtype, device=device)
+
+    def _perm(self, gen: torch.Generator, B: int, device) -> torch.Tensor:
+        """(B, O) a random permutation of the object slots in each env."""
+        return torch.argsort(self._u(gen, device, B, self.idx.max_num_objects), dim=-1)
+
+    def draw(self, gen: torch.Generator, B: int, num_objects_used: int,
+             device=None) -> Dict[str, torch.Tensor]:
+        """The draws of `next_goal` for B envs: candidates (B, O, C, 2) and,
+        where goals randomize rotations, their draws."""
+        O = self.idx.max_num_objects
+        out = {"pos_u": self._u(gen, device, B, O, N_CANDIDATES, 2), "rot_u": None}
+        if self.args.randomize_goal_rot:
+            shape = (B, O) if self.args.rot_randomize_type == "z_axis" else (B, O, 3)
+            out["rot_u"] = self._u(gen, device, *shape)
+        return out
+
+    def next_goal(self, draws: Dict[str, torch.Tensor], active_mask: torch.Tensor,
+                  object_size: torch.Tensor, num_objects_used: int,
+                  d: Data) -> Dict[str, torch.Tensor]:
+        """A goal for each env from `draws` (see `draw`); `object_size` the
+        objects' half-sizes, (O, 3) or each env's own (B, O, 3); `d` the
+        state the goal is drawn in."""
+        pos, valid = sample_goal_positions(draws["pos_u"], self.idx, active_mask, object_size,
                                            num_objects_used, self.used_table_portion)
-        quat = sample_goal_rotations(rot_u, pos.shape[0], self.idx.max_num_objects, self.args,
-                                     self.dtype, pos.device)
+        quat = sample_goal_rotations(draws["rot_u"], pos.shape[0], self.idx.max_num_objects,
+                                     self.args, self.dtype, pos.device)
         return {"obj_pos": pos, "obj_rot": quat, "goal_valid": valid}
 
     def _match(self, goal: Dict[str, torch.Tensor], cur_pos: torch.Tensor,
@@ -225,15 +252,228 @@ class ObjectStateGoal:
             out["obj_rot"] = torch.zeros_like(pos_dist)
         return out
 
+    # helpers of the classes below
+    def _bounds(self, num_objects_used: int, device):
+        """The placement area's (lo, hi) in the goal's dtype, and the
+        table's height as a scalar tensor."""
+        lo, hi = self.idx.placement_bounds(num_objects_used, self.used_table_portion)
+        _, _, table_h = self.idx.table_dimensions()
+        f = lambda x: torch.as_tensor(x, dtype=self.dtype, device=device)  # noqa: E731
+        return f(lo), f(hi), f(table_h)
 
-def draw_goal(gen: torch.Generator, B: int, O: int, args: GoalArgs, dtype=torch.float32,
-              device=None) -> Dict[str, torch.Tensor]:
-    """The draws of one `ObjectStateGoal.next_goal` for B envs: candidates
-    (B, O, C, 2) and, where goals randomize rotations, their draws."""
-    out = {"pos_u": torch.rand((B, O, N_CANDIDATES, 2), generator=gen, dtype=dtype,
-                               device=device), "rot_u": None}
-    if args.randomize_goal_rot:
-        shape = (B, O) if args.rot_randomize_type == "z_axis" else (B, O, 3)
-        out["rot_u"] = torch.rand(shape, generator=gen, dtype=dtype, device=device)
-    return out
+    def _on_table(self, xy: torch.Tensor, object_size: torch.Tensor, table_h: torch.Tensor,
+                  active_mask: torch.Tensor) -> torch.Tensor:
+        """(B, O, 3) positions at `xy` (B, O, 2) resting on the table, the
+        inactive slots parked."""
+        z = table_h + object_size[..., 2].to(self.dtype)
+        pos = torch.cat([xy, z.expand(xy.shape[:2])[..., None]], dim=-1)
+        park = torch.as_tensor(sim_lib.PARK_POSITION, dtype=self.dtype, device=xy.device)
+        return torch.where(active_mask[:, None], pos, park)
 
+
+def _batch(x: torch.Tensor) -> torch.Tensor:
+    return x[:, None, None]
+
+
+class TrainStateGoal(ObjectStateGoal):
+    """The training goals (goals/train_state.py): each target moves only
+    `goal_distance_ratio` of the way from the object's position; with
+    probability `pickup_proba` one object is lifted into the air, with
+    `stacking_proba` a tower of a random size is built over a random
+    object in a random order. Draws: the free placement's, `p_u` (B,) the
+    branch, `lift_u` (B,) the height, `target_i` (B,) the lifted object,
+    `tower_size` (B,) in [2, max(n, 2)] and `order` (B, O) the tower's."""
+
+    def __init__(self, idx, args: GoalArgs = GoalArgs(), used_table_portion: float = 1.0,
+                 dtype=torch.float32, goal_distance_ratio: float = 1.0):
+        super().__init__(idx, args, used_table_portion, dtype)
+        self.goal_distance_ratio = goal_distance_ratio
+
+    def draw(self, gen, B, num_objects_used, device=None):
+        out = super().draw(gen, B, num_objects_used, device)
+        out.update(p_u=self._u(gen, device, B), lift_u=self._u(gen, device, B),
+                   target_i=torch.randint(0, num_objects_used, (B,), generator=gen, device=device),
+                   tower_size=torch.randint(2, max(num_objects_used, 2) + 1, (B,), generator=gen,
+                                            device=device),
+                   order=self._perm(gen, B, device))
+        return out
+
+    def next_goal(self, draws, active_mask, object_size, num_objects_used, d):
+        goal = super().next_goal(draws, active_mask, object_size, num_objects_used, d)
+        B, O = goal["obj_pos"].shape[:2]
+        dev = goal["obj_pos"].device
+        cur = sim_lib.object_positions(self.idx, d)
+        ratio = torch.tensor(self.goal_distance_ratio, dtype=self.dtype, device=dev)
+        pos = cur + (goal["obj_pos"] - cur) * ratio
+        pos = torch.where(active_mask[:, None], pos, goal["obj_pos"])
+        args = self.args
+        # pickup (train_state.py:44-55)
+        height = uniform_apply(draws["lift_u"], args.height_range[0], args.height_range[1])
+        lift = torch.arange(O, device=dev)[None] == draws["target_i"][:, None]
+        lifted_z = pos[..., 2] + torch.where(lift, (height * ratio)[:, None],
+                                             torch.zeros_like(pos[..., 2]))
+        lifted = torch.cat([pos[..., :2], lifted_z[..., None]], dim=-1)
+        # stacking (train_state.py:57-77)
+        order = draws["order"]
+        base = self._take(pos, order[:, :1])[:, 0]                          # (B, 3)
+        rank = torch.argsort(order, dim=-1)
+        in_tower = (rank < draws["tower_size"][:, None]) & active_mask
+        stacked_z = base[:, 2:3] + rank.to(self.dtype) * 2.0 * object_size[..., 2].to(self.dtype)
+        tower = torch.cat([base[:, None, :2].expand(B, O, 2), stacked_z[..., None]], dim=-1)
+        stacked = torch.where(in_tower[..., None], tower, pos)
+        p = draws["p_u"]
+        pos = torch.where(_batch(p < args.pickup_proba), lifted,
+                          torch.where(_batch(p < args.pickup_proba + args.stacking_proba), stacked,
+                                      pos))
+        return dict(goal, obj_pos=pos)
+
+
+class ObjectReachGoal(ObjectStateGoal):
+    """Reach the first object's goal position with the gripper
+    (goals/object_reach_goal.py:11-40): the distance is the TCP's, at slot
+    0; `arm_idx` is the arm's index."""
+
+    def __init__(self, idx, arm_idx: arm_lib.ArmIndex, args: GoalArgs = GoalArgs(),
+                 used_table_portion: float = 1.0, dtype=torch.float32):
+        super().__init__(idx, args, used_table_portion, dtype)
+        self.arm_idx = arm_idx
+
+    def goal_distance(self, goal, d, active_mask):
+        dist = rot.norm(goal["obj_pos"][:, 0] - arm_lib.tcp_xyz(self.arm_idx, d))
+        out = torch.zeros(dist.shape + (self.idx.max_num_objects,), dtype=dist.dtype,
+                          device=dist.device)
+        out[:, 0] = dist
+        return {"obj_pos": out, "obj_rot": torch.zeros_like(out)}
+
+
+class DeterministicReachGoal(ObjectReachGoal):
+    """Reach goals from a fixed pool of two target positions
+    (goals/object_reach_goal.py:56-81), the pool's index `pool_i` (B,)
+    drawn."""
+
+    ALL_POSITIONS = np.array([[1.50253879, 0.36960144, 0.5170952],
+                              [1.32253879, 0.53960144, 0.5170952]])
+
+    def draw(self, gen, B, num_objects_used, device=None):
+        out = super().draw(gen, B, num_objects_used, device)
+        out["pool_i"] = torch.randint(0, len(self.ALL_POSITIONS), (B,), generator=gen,
+                                      device=device)
+        return out
+
+    def next_goal(self, draws, active_mask, object_size, num_objects_used, d):
+        goal = super().next_goal(draws, active_mask, object_size, num_objects_used, d)
+        pool = torch.as_tensor(self.ALL_POSITIONS, dtype=self.dtype, device=goal["obj_pos"].device)
+        pos = goal["obj_pos"].clone()
+        pos[:, 0] = pool[draws["pool_i"]]
+        return dict(goal, obj_pos=pos)
+
+
+class ObjectStackGoal(ObjectStateGoal):
+    """A tower of the active objects over the first one's placement
+    (goals/object_stack_goal.py:12-60), in slot order under `fixed_order`,
+    else in a random order (`order` (B, O))."""
+
+    def __init__(self, idx, args: GoalArgs = GoalArgs(), used_table_portion: float = 1.0,
+                 dtype=torch.float32, fixed_order: bool = True):
+        super().__init__(idx, args, used_table_portion, dtype)
+        self.fixed_order = fixed_order
+
+    def draw(self, gen, B, num_objects_used, device=None):
+        out = super().draw(gen, B, num_objects_used, device)
+        out["order"] = self._perm(gen, B, device)
+        return out
+
+    def next_goal(self, draws, active_mask, object_size, num_objects_used, d):
+        goal = super().next_goal(draws, active_mask, object_size, num_objects_used, d)
+        B, O = goal["obj_pos"].shape[:2]
+        dev = goal["obj_pos"].device
+        base = goal["obj_pos"][:, 0]
+        rank = (torch.arange(O, device=dev).expand(B, O) if self.fixed_order
+                else torch.argsort(draws["order"], dim=-1))
+        heights = 2.0 * object_size[..., 2].to(self.dtype)
+        stacked_z = base[:, 2:3] + rank.to(self.dtype) * heights
+        tower = torch.cat([base[:, None, :2].expand(B, O, 2), stacked_z[..., None]], dim=-1)
+        return dict(goal, obj_pos=torch.where(active_mask[:, None], tower, goal["obj_pos"]))
+
+
+class PickAndPlaceGoal(ObjectStateGoal):
+    """The first object lifted into the air, the others on the table
+    (goals/pickandplace.py:10-30); `lift_u` (B,) the height in
+    `height_range`."""
+
+    def __init__(self, idx, args: GoalArgs = GoalArgs(), used_table_portion: float = 1.0,
+                 dtype=torch.float32, height_range=(0.05, 0.25)):
+        super().__init__(idx, args, used_table_portion, dtype)
+        self.height_range = height_range
+
+    def draw(self, gen, B, num_objects_used, device=None):
+        out = super().draw(gen, B, num_objects_used, device)
+        out["lift_u"] = self._u(gen, device, B)
+        return out
+
+    def next_goal(self, draws, active_mask, object_size, num_objects_used, d):
+        goal = super().next_goal(draws, active_mask, object_size, num_objects_used, d)
+        lift = uniform_apply(draws["lift_u"], self.height_range[0], self.height_range[1])
+        pos = goal["obj_pos"].clone()
+        pos[:, 0, 2] = pos[:, 0, 2] + lift
+        return dict(goal, obj_pos=pos)
+
+
+class ObjectFixedStateGoal(ObjectStateGoal):
+    """Goals at fixed placements (goals/object_state_fixed.py): each
+    object's (x, y) a fraction `relative_placements` (O, 2) of the
+    placement area, on the table, at its fixed rotation `init_quats`
+    (O, 4). No draws."""
+
+    def __init__(self, idx, args: Optional[GoalArgs] = None, used_table_portion: float = 1.0,
+                 dtype=torch.float32, relative_placements=None, init_quats=None):
+        super().__init__(idx, args or GoalArgs(), used_table_portion, dtype)
+        O = idx.max_num_objects
+        if relative_placements is None:
+            relative_placements = np.tile(np.asarray([[0.5, 0.5]]), (O, 1))
+        if init_quats is None:
+            init_quats = np.tile(np.asarray([[1.0, 0.0, 0.0, 0.0]]), (O, 1))
+        self.relative_placements = np.asarray(relative_placements)
+        self.init_quats = np.asarray(init_quats)
+
+    def draw(self, gen, B, num_objects_used, device=None):
+        return {}
+
+    def next_goal(self, draws, active_mask, object_size, num_objects_used, d):
+        dev = active_mask.device
+        lo, hi, table_h = self._bounds(num_objects_used, dev)
+        frac = torch.as_tensor(self.relative_placements, dtype=self.dtype, device=dev)
+        xy = (lo[:2] + frac * (hi[:2] - lo[:2])).expand((d.qpos.shape[0],) + frac.shape)
+        pos = self._on_table(xy, object_size, table_h, active_mask)
+        quat = torch.as_tensor(self.init_quats, dtype=self.dtype, device=dev)
+        B = pos.shape[0]
+        return {"obj_pos": pos, "obj_rot": quat.expand((B,) + quat.shape).clone(),
+                "goal_valid": torch.ones(B, dtype=torch.bool, device=dev)}
+
+
+class DominoStateGoal(ObjectStateGoal):
+    """Dominos standing along a circular arc, each facing along it
+    (goals/dominos.py): the arc's start angle `ang_u` (B,) in [0, 2 pi)
+    and a jitter of its centre `off_u` (B, 2) in [-0.02, 0.02) m, its
+    radius 0.35 of the placement area's shorter side."""
+
+    def draw(self, gen, B, num_objects_used, device=None):
+        return {"ang_u": self._u(gen, device, B), "off_u": self._u(gen, device, B, 2)}
+
+    def next_goal(self, draws, active_mask, object_size, num_objects_used, d):
+        dev = active_mask.device
+        O = self.idx.max_num_objects
+        lo, hi, table_h = self._bounds(num_objects_used, dev)
+        center = (lo[:2] + hi[:2]) / 2.0
+        radius = torch.minimum(hi[0] - lo[0], hi[1] - lo[1]) * 0.35
+        base = uniform_apply(draws["ang_u"], 0.0, 2 * np.pi)
+        spacing = 2.5 * object_size[..., 0].to(self.dtype).amax(-1)
+        thetas = base[:, None] + torch.arange(O, dtype=self.dtype, device=dev) * (
+            spacing / radius)[..., None]
+        xy = center + radius * torch.stack([torch.cos(thetas), torch.sin(thetas)], dim=-1)
+        xy = xy + uniform_apply(draws["off_u"], -0.02, 0.02)[:, None, :]
+        pos = self._on_table(xy, object_size, table_h, active_mask)
+        z = torch.tensor([0.0, 0.0, 1.0], dtype=self.dtype, device=dev)
+        quat = rot.quat_from_angle_and_axis(thetas + np.pi / 2, z).to(self.dtype)
+        return {"obj_pos": pos, "obj_rot": quat,
+                "goal_valid": torch.ones(pos.shape[0], dtype=torch.bool, device=dev)}

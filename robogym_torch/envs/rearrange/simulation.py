@@ -160,15 +160,24 @@ def check_objects_off_table(idx: RearrangeIndex, pos: torch.Tensor, margin: floa
 
 def in_placement_area(idx: RearrangeIndex, pos: torch.Tensor, num_objects: int,
                       used_table_portion: float = 1.0, margin: float = 0.02,
-                      active_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, O) within the placement area, `margin` the tolerance outside its
-    boundary (simulation/base.py:847-902; the hard mask: the soft one is
-    not ported); inactive slots report True."""
+                      active_mask: Optional[torch.Tensor] = None, soft: bool = False,
+                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, O) within the placement area (simulation/base.py:847-902),
+    `margin` the tolerance outside its boundary; inactive slots report
+    True. With `soft`, an object in the margin band is inside where the
+    env's one uniform draw `u` (B,) exceeds its distance over the margin
+    (the reference's scalar draw, shared by the objects)."""
     lo, hi = idx.placement_bounds(num_objects, used_table_portion)
     lo = torch.as_tensor(lo, dtype=pos.dtype, device=pos.device)
     hi = torch.as_tensor(hi, dtype=pos.dtype, device=pos.device)
     dist = torch.clamp(torch.maximum(pos - hi, lo - pos), min=0.0)
-    inside = dist.amax(-1) < margin
+    max_dist = dist.amax(-1)
+    if soft:
+        if u is None:
+            raise ValueError("the soft placement mask takes a uniform draw per env (u)")
+        inside = u[:, None] > torch.clamp(max_dist / margin, 0.0, 1.0)
+    else:
+        inside = max_dist < margin
     return inside | ~active_mask if active_mask is not None else inside
 
 

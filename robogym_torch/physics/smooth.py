@@ -173,11 +173,11 @@ def com_pos(m: Model, d: Data) -> Data:
     dev, dtype = d.qpos.device, d.qpos.dtype
     S = on_device(c, "subtree_mask", tables.body_subtree_mask(c), dev, dtype)
 
-    mass = m.body_mass
-    msum = S @ mass                                                  # (nbody,)
-    mpos = torch.einsum("ij,xjk->xik", S, mass[:, None] * d.xipos)   # (B, nbody, 3)
-    subtree_com = mpos / torch.clamp(msum, min=1e-12)[:, None]
-    subtree_com = torch.where((msum < 1e-12)[:, None], d.xpos, subtree_com)
+    mass = m.body_mass                                               # (nbody,) or (B, nbody)
+    msum = S @ mass if mass.dim() == 1 else mass @ S.T               # subtree masses
+    mpos = torch.einsum("ij,xjk->xik", S, mass[..., None] * d.xipos)  # (B, nbody, 3)
+    subtree_com = mpos / torch.clamp(msum, min=1e-12)[..., None]
+    subtree_com = torch.where((msum < 1e-12)[..., None], d.xpos, subtree_com)
 
     root_com = subtree_com[:, _ix(c, "body_rootid", c.body_rootid, dev)]
 

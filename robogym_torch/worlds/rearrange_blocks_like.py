@@ -43,8 +43,13 @@ Pure Python and numpy: `write(directory, ...)` writes the STL files and
 returns the MJCF text. The compiled models ship next to this file (see
 `tools/build_locked_like_snapshot.py`): `rearrange_blocks_like.npz`, the
 main world at 8 objects with the contact budgets `scale_contact_budgets(
-model, 8)` gives it, and `rearrange_solver_like.npz`, the mocap world with
-no objects.
+model, 8)` gives it; `rearrange_solver_like.npz`, the mocap world with
+no objects; `rearrange_settle_like.npz`, the objects-only goal-settle world
+(the main world without the arm, the mocap body, actuators and equalities:
+floor, table and 8 blocks, nv = 48) with the default contact budgets;
+`rearrange_dominos_like.npz`, the main world with 8 blocks of half-size
+`BLOCK_HALF * DOMINO_PROPORTIONS`; and `rearrange_wordblocks_like.npz`, the
+main world at 6 blocks.
 """
 
 from __future__ import annotations
@@ -67,6 +72,12 @@ BASE_YAW = 1.2230293389378815
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(_HERE, "rearrange_blocks_like.npz")
 SOLVER_SNAPSHOT = os.path.join(_HERE, "rearrange_solver_like.npz")
+SETTLE_SNAPSHOT = os.path.join(_HERE, "rearrange_settle_like.npz")
+DOMINOS_SNAPSHOT = os.path.join(_HERE, "rearrange_dominos_like.npz")
+WORDBLOCKS_SNAPSHOT = os.path.join(_HERE, "rearrange_wordblocks_like.npz")
+# dominos' half-sizes relative to a block's (simulation/dominos.py:35-40)
+DOMINO_PROPORTIONS = np.array([0.2, 1.0, 2.0])
+WORDBLOCKS_OBJECTS = 6
 
 # (body, parent, pos in parent, quat in parent, joint, hull axis, length, radius,
 #  armature, cascaded-PI gains "Kp Ti iClamp _ _ Kvp Tiv iClamp_v ema max_vel")

@@ -53,7 +53,8 @@ def _snapshot_tool():
 
 @pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like", "table_setting_like",
                                    "dactyl_locked_like", "rearrange_blocks_like",
-                                   "rearrange_solver_like"])
+                                   "rearrange_solver_like", "rearrange_settle_like",
+                                   "rearrange_dominos_like", "rearrange_wordblocks_like"])
 def test_world_snapshot_matches_fresh_compile(world):
     """The hand-only and goal-settle snapshots equal what
     tools/build_locked_like_snapshot.py compiles now, field by field. The
@@ -67,7 +68,12 @@ def test_world_snapshot_matches_fresh_compile(world):
     (6 arm hinges, 6 gripper hinges, 8 free blocks), 7 actuators, a joint
     and two connect equalities, and the budgets of
     `scale_contact_budgets(model, 8)`; the solver one nv = 12, the gripper's
-    actuator only, and the mocap weld besides."""
+    actuator only, and the mocap weld besides; the settle world of the main
+    one floor, table and 8 blocks (nv = 48, no actuator, no equality, no
+    mesh) with the default budgets; the dominos world the main one's
+    structure with blocks of half-size 0.0254 x (0.2, 1, 2); wordblocks'
+    the main one at 6 blocks (nv = 48) with the budgets of
+    `scale_contact_budgets(model, 6)`."""
     tool = _snapshot_tool()
     model, fresh = tool.compile_snapshot(world)
     with np.load(tool.snapshot_path(world)) as z:
@@ -80,10 +86,19 @@ def test_world_snapshot_matches_fresh_compile(world):
         from robogym_torch.mjcf.model import EqType
 
         eq = sorted(int(t) for t in c.eq_type)
-        if world == "rearrange_blocks_like":
+        if world in ("rearrange_blocks_like", "rearrange_dominos_like"):
             assert (c.nq, c.nv, c.nu, c.nmocap) == (68, 60, 7, 1)
             assert eq == sorted([EqType.JOINT, EqType.CONNECT, EqType.CONNECT])
             assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (56, 64)
+            half = fresh["model.geom_size"][c.names["geom"]["object7"]]
+            want = 0.0254 * (np.array([0.2, 1.0, 2.0]) if "dominos" in world else np.ones(3))
+            np.testing.assert_allclose(half, want, rtol=1e-6)
+        elif world == "rearrange_settle_like":
+            assert (c.nq, c.nv, c.nu, c.neq, c.nmesh, c.nmocap) == (56, 48, 0, 0, 0, 0)
+            assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (32, 48)
+        elif world == "rearrange_wordblocks_like":
+            assert (c.nq, c.nv, c.nu) == (54, 48, 7) and "object6" not in c.names["body"]
+            assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (48, 56)
         else:
             assert (c.nq, c.nv, c.nu, c.nmocap) == (12, 12, 1, 1)
             assert eq == sorted([EqType.JOINT, EqType.CONNECT, EqType.CONNECT, EqType.WELD])

@@ -14,7 +14,18 @@ snapshots next to their modules in `robogym_torch/worlds/`:
     contact budgets `scale_contact_budgets(model, 8)` gives it, as
     `envs/rearrange/blocks.py` compiles it; and `rearrange_solver_like.npz`,
     the same arm in mocap mode with no blocks (the solver sim,
-    `compile_solver_world`).
+    `compile_solver_world`);
+  * `rearrange_settle_like.npz`, the objects-only goal-settle world that
+    the blocks env compiles under `stabilize_goal`:
+    `build_settle_world_xml` of the 8-block main world's source, compiled
+    with the default contact budgets, as `envs/rearrange/blocks.py:216-233`
+    compiles it;
+  * `rearrange_dominos_like.npz`, the dominos world: the main world with no
+    blocks plus 8 blocks of half-size `BLOCK_HALF * DOMINO_PROPORTIONS`, with
+    the budgets of `scale_contact_budgets(model, 8)`, as
+    `envs/rearrange/dominos.py` compiles it; and
+    `rearrange_wordblocks_like.npz`, the main world at wordblocks' 6 blocks
+    with the budgets of `scale_contact_budgets(model, 6)`.
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -32,7 +43,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like",
-          "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like")
+          "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like",
+          "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like")
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -42,8 +54,11 @@ def compile_snapshot(world: str = "locked_like"):
     from robogym_torch.bridge import model_to_numpy
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
                                       rearrange_blocks_like, table_setting_like)
+    from robogym_tpu.envs.rearrange import simulation as sim_lib
+    from robogym_tpu.envs.rearrange.dominos import DOMINO_PROPORTIONS
     from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
     from robogym_tpu.mjcf.compiler import compile_xml
+    from robogym_tpu.mjcf.xml_tools import MjcfXML
 
     if world == "blocks_settle_like":
         model = compile_xml(blocks_settle_like.write(), dtype=jnp.float32)
@@ -55,9 +70,23 @@ def compile_snapshot(world: str = "locked_like"):
     elif world == "dactyl_locked_like":
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(dactyl_locked_like.write(tmp), dtype=jnp.float32)
-    elif world in ("rearrange_blocks_like", "rearrange_solver_like"):
-        main = world == "rearrange_blocks_like"
-        n = rearrange_blocks_like.MAX_NUM_OBJECTS if main else 0
+    elif world == "rearrange_settle_like":
+        with tempfile.TemporaryDirectory() as tmp:
+            main = compile_xml(rearrange_blocks_like.write(tmp), dtype=jnp.float32)
+            settle = sim_lib.build_settle_world_xml(main.const._source_xml)
+            model = compile_xml(settle, dtype=jnp.float32)
+    elif world == "rearrange_dominos_like":
+        n = rearrange_blocks_like.MAX_NUM_OBJECTS
+        with tempfile.TemporaryDirectory() as tmp:
+            xml = MjcfXML.from_string(rearrange_blocks_like.write(tmp, 0))
+            for i in range(n):
+                xml.append(sim_lib.make_block_xml(
+                    f"object{i}", rearrange_blocks_like.BLOCK_HALF * DOMINO_PROPORTIONS))
+            model = scale_contact_budgets(compile_xml(xml, dtype=jnp.float32), n)
+    elif world in ("rearrange_blocks_like", "rearrange_solver_like", "rearrange_wordblocks_like"):
+        main = world != "rearrange_solver_like"
+        n = {"rearrange_blocks_like": rearrange_blocks_like.MAX_NUM_OBJECTS,
+             "rearrange_wordblocks_like": rearrange_blocks_like.WORDBLOCKS_OBJECTS}.get(world, 0)
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(rearrange_blocks_like.write(tmp, n, joint_actuated=main),
                                 dtype=jnp.float32)
@@ -79,7 +108,10 @@ def snapshot_path(world: str) -> str:
             "table_setting_like": table_setting_like.SNAPSHOT,
             "dactyl_locked_like": dactyl_locked_like.SNAPSHOT,
             "rearrange_blocks_like": rearrange_blocks_like.SNAPSHOT,
-            "rearrange_solver_like": rearrange_blocks_like.SOLVER_SNAPSHOT}[world]
+            "rearrange_solver_like": rearrange_blocks_like.SOLVER_SNAPSHOT,
+            "rearrange_settle_like": rearrange_blocks_like.SETTLE_SNAPSHOT,
+            "rearrange_dominos_like": rearrange_blocks_like.DOMINOS_SNAPSHOT,
+            "rearrange_wordblocks_like": rearrange_blocks_like.WORDBLOCKS_SNAPSHOT}[world]
 
 
 def main():
