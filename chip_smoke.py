@@ -39,7 +39,15 @@ Phases, in order; any failure ends the script with a non-zero exit:
    nv=48, the soft placement mask and the masked observations; its block
    sizes, its first goals' heights and placement mask) and for dominos
    (`dominos.make_env(*DOMINOS_CONFIG)` on `rearrange_dominos_like.npz`,
-   blocks of 0.2 x 1 x 2 times the block's half-size, train goals).
+   blocks of 0.2 x 1 x 2 times the block's half-size, train goals); and
+   the face-perpendicular Rubik's env (`envs/dactyl/face_perpendicular.py`)
+   on the cubelet world (`rubik_face_like.npz`, nv=48: the hand, a cube of
+   26 box cubelets whose two z faces turn on hinges, each face held to its
+   driver by 8 joint equality rows), bare and in the face stack (the
+   default dactyl stack and the face drivers' damping,
+   `wrappers.apply_face_wrappers`), each built (its settle at B=1) and
+   reset at B=1024 (times, retries, share on the palm, the reset goals'
+   types).
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
@@ -80,6 +88,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    attached, duplicate, dominos under `is_holdout` and wordblocks on the
    card at B=1024, each from its own draws, every active goal finite and on
    the table;
+   on the inputs of the last substep of one face env step from its reset
+   state, A and B at V=48 (`@face`: B's rows hold the 16 equality rows,
+   the hand's 24 limits and 32 x 4 contact rows), C on the cubelets' and
+   the palm's box-mesh pairs (K=32, V1=8, DX=6) and E on the palm's
+   box-box pairs with the cubelets (K=26);
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
@@ -90,34 +103,43 @@ Phases, in order; any failure ends the script with a non-zero exit:
 5. Paths, each driven with every launch count set to 0 just before it and
    read just after; every qpos, qvel and qacc finite; every kernel's count
    equal to its count per substep or call times their number:
-   the locked-like world, `step_n` for 20 env steps of 10 substeps
+   the locked-like world, `step_n` for 10 env steps of 10 substeps
    (env-steps/s); one goal settle, 200 substeps of 1 ms on the settle world
    (substeps/s, settles/s); one env step of 10 substeps on the hand world;
    10 `forward()` calls on the locked-like world; one goal settle of the
    table world, 200 substeps (substeps/s, settles/s); one locked-like env
    step of 10 substeps, after each of which that substep's hull winners are
-   placed in the world and passed to the world-vertex entry points; 20
+   placed in the world and passed to the world-vertex entry points; 10
    steps of the locked env (`LockedEnv.step`, 10 substeps each) from its
    reset state, actions uniform in [-1, 1] from a seeded generator, as
    bench.py drives the JAX env (env-steps/s, the reward sum, the episodes
-   done, the share on the palm; every obs and reward finite); 20 steps of
+   done, the share on the palm; every obs and reward finite); 10 steps of
    the wrapped env (`wrapped_env`) from its reset state, discrete actions
    uniform over the 11 bins from a seeded generator (env-steps/s beside
    the locked env's, the reward sum, the episodes done, the share on the
    palm, each overridden model field's spread across envs: every field
    differs across envs but the two that the dactyl-shaped world leaves
    at the compiled model's, `WRAPPED_SAME`, and the timestep changes at
-   every step); 5 steps of the rearrange env (`rearrange_env`) from its
+   every step); 3 steps of the rearrange env (`rearrange_env`) from its
    reset state, actions uniform in [-1, 1] from a seeded generator
    (env-steps/s, construction and reset times, the reward sum by component,
    the episodes done, the env-steps with a block off the table, the share
    of envs with gripper-table contact; every obs and reward finite; the
-   launches an env step are `PER_CALL["rearrange_env"]`); 3 steps of
+   launches an env step are `PER_CALL["rearrange_env"]`); 2 steps of
    blocks_train (`blocks_train_env`: per env step the rearrange env's
    launches and 200 goal-settle substeps of 2 A, 1 B and 1 E, the resample
-   drawn and settled for every env) and 2 steps of dominos (`dominos_env`,
+   drawn and settled for every env) and 1 step of dominos (`dominos_env`,
    the rearrange env's launches), each read as the rearrange env's path
-   with its construction and reset times.
+   with its construction and reset times; 10 steps of the face env
+   (`face_env`, actions uniform in [-1, 1]) and 10 of the face stack
+   (`wrapped_face_env`, discrete actions), each with the locked env's
+   launches a substep (2 A, 1 B, 1 C, 1 D, 1 E): env-steps/s, the share on
+   the palm after the reset and after the steps, the goals drawn by type
+   (flip, rotation) over the run, the largest |face angle|, the share of
+   envs above the 32-contact budget at the last substep; for the stack
+   each model field's spread (equal in every env only where the cubelet
+   world gives the cube-size scale nothing to scale, `FACE_WRAPPED_SAME`)
+   and `dof_damping` varying across envs on exactly the two driver dofs.
 6. Whole-step agreement: one substep through the kernels against one
    through the plain versions, at B=64, on the locked-like, settle, hand,
    table and dactyl-shaped worlds; every kernel routed to its plain
@@ -127,7 +149,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
    float64 at most NOISE_RATIO times the plain float32 version's. Then one
    substep of each rearrange world (main and solver sim) on the first 64
    envs of the rearrange_env path's last state, kernels against plain
-   versions, held as the five worlds are.
+   versions, held as the five worlds are. Then one env step's physics of
+   the face env on the first 64 envs of each face path's last state (each
+   env's own model fields under the stack), kernels against plain
+   versions by the CPU tests' nudge rule over the whole batch: per group
+   of the env-step envelope, the largest difference at most twice the
+   largest drift of 8 runs of the kernels from qvels nudged by 1e-6, or
+   within the envelope.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
@@ -139,7 +167,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    at `@table` and `@table-box`; the `@rearrange` and `@solver` entries
    of one kernel count all its launches on the rearrange_env path, both
    sims', and the `@settle8` and `@dominos` entries all its launches on
-   the blocks_train_env and dominos_env paths; `cg@wide` counts F's
+   the blocks_train_env and dominos_env paths, the `@face` entries their
+   kernel's launches on the face_env path; `cg@wide` counts F's
    launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
    `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
@@ -153,6 +182,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import importlib
 import json
 import os
@@ -165,16 +195,16 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024                      # envs of every path
-ENV_STEPS = 20                    # env steps of the locked-like path
+ENV_STEPS = 10                    # env steps of the locked-like, locked, wrapped and face paths
 N_ACTION_BINS = 11                # the default stack's discrete actions (wrappers/__init__.py)
 HUGE_V = 160                      # kernel A's device-memory kernel (above 128 dofs)
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
 SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
 SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
 FORWARD_CALLS = 10
-REARRANGE_STEPS = 5               # env steps of the rearrange_env path
-BLOCKS_TRAIN_STEPS = 3            # env steps of the blocks_train_env path
-DOMINOS_STEPS = 2                 # env steps of the dominos_env path
+REARRANGE_STEPS = 3               # env steps of the rearrange_env path
+BLOCKS_TRAIN_STEPS = 2            # env steps of the blocks_train_env path
+DOMINOS_STEPS = 1                 # env steps of the dominos_env path
 # bench.py's BENCH_ENV=blocks configuration (constants, parameters)
 REARRANGE_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
 # blocks_train with every option of its slice: 8 blocks, cuboids exp-uniform
@@ -262,10 +292,26 @@ PER_CALL["dominos_env"] = dict(PER_CALL["rearrange_env"])
 AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "locked_env",
            "dt": "wrapped_env", "rearrange": "rearrange_env", "solver": "rearrange_env",
            "settle8": "blocks_train_env", "dominos": "dominos_env"}
+# the face-perpendicular env on the cubelet world: the locked env's
+# launches a substep (2 A, 1 B; C on the cubelets' and the palm's box-mesh
+# pairs, D on the hand's mesh-mesh pairs, E on the palm's box-box pairs
+# with the cubelets; the floor's pairs launch none)
+PER_CALL["face_env"] = dict(PER_CALL["locked_env"])
+PER_CALL["wrapped_face_env"] = dict(PER_CALL["locked_env"])
+AT_PATH["face"] = "face_env"
 # fields the default stack overrides that the dactyl-shaped world leaves
 # equal across envs, and why
 WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
                 "tendon_range": "its tendons have no range (width 0) to widen"}
+# the same for the face stack on the cubelet world
+FACE_WRAPPED_SAME = dict(WRAPPED_SAME, geom_size="no cube:middle, cube:top or cube:bottom geom "
+                         "for the cube-size scale (its cubelets are cube:cubelet:*)")
+# the env-step envelope of the port's CPU tests (tests/_torch_common.py):
+# cube position (m), qpos, qvel
+ENVELOPE = (("cube position", "qpos", 2e-4), ("qpos", "qpos", 1e-3), ("qvel", "qvel", 5e-2))
+NUDGE = 1e-6                      # the nudged runs' perturbation of every start qvel
+NUDGE_RATIO = 2                   # drift from the reference over the largest nudged drift
+NUDGED_RUNS = 8                   # nudged runs of the face agreement (tests/test_torch_face.py)
 
 
 class SmokeFailure(RuntimeError):
@@ -1162,18 +1208,20 @@ def locked_env_steps(env, state, out):
     return state.physics
 
 
-def wrapped_env_reset(batch):
-    """The default dactyl wrapper stack around a locked env of its own
-    (`apply_dactyl_wrappers(locked.make_env(), randomize=True)`, as
-    bench.py wraps the JAX env under BENCH_WRAPPED=1; its own generator,
-    so that the bare env's path draws what it drew before the stack was
-    ported) and its reset at `batch` envs: (wrapped env, state). Prints the
-    time and the share on the palm; checks the state and the observations
-    finite."""
+def wrapped_env_reset(bare, batch):
+    """The default dactyl wrapper stack around a copy of the locked env
+    `bare` (`apply_dactyl_wrappers(env, randomize=True)`, as bench.py wraps
+    the JAX env under BENCH_WRAPPED=1): its construction shared, a
+    generator of its own seeded as `make_env` seeds one, so that each path
+    draws what a locked env of its own would) and its reset at `batch`
+    envs: (wrapped env, state). Prints the time and the share on the palm;
+    checks the state and the observations finite."""
     from robogym_torch import wrappers
-    from robogym_torch.envs.dactyl import cube_env, locked
+    from robogym_torch.envs.dactyl import cube_env
 
-    env = locked.make_env(device="cuda", seed=SEED)
+    env = copy.copy(bare)
+    env.generator = torch.Generator(device=bare.device)
+    env.generator.manual_seed(SEED)
     wenv = wrappers.apply_dactyl_wrappers(env, randomize=True)
     t0 = time.perf_counter()
     state, obs = wenv.reset(batch)
@@ -1224,31 +1272,31 @@ def wrapped_env_steps(wenv, state, out):
     return state.physics
 
 
-def check_field_spread(wenv, fields, timesteps):
+def check_field_spread(wenv, fields, timesteps, same=WRAPPED_SAME, label="wrapped_env"):
     """Print each overridden model field's spread across envs (the largest
     over its entries of max - min over envs); every field but those of
-    WRAPPED_SAME must differ across envs, those must equal the compiled
-    model's in every env, and the timestep must change at every step.
-    Returns {field: spread}."""
+    `same` must differ across envs, those must equal the compiled model's
+    in every env, and the timestep must change at every step. Returns
+    {field: spread}."""
     from robogym_torch.wrappers.core import model_field
 
     spread = {k: float((v.amax(0) - v.amin(0)).max()) for k, v in fields.items()}
-    print("[path wrapped_env] spread across envs of each model field: " + ", ".join(
+    print(f"[path {label}] spread across envs of each model field: " + ", ".join(
         f"{k} {v:.4g}" for k, v in sorted(spread.items())))
-    check(len(fields) == 12, f"wrapped env: {len(fields)} model fields, want 12")
+    check(len(fields) == 12, f"{label}: {len(fields)} model fields, want 12")
     for k, v in fields.items():
-        if k in WRAPPED_SAME:
+        if k in same:
             base = model_field(wenv.env.model, k)
-            check(bool((v == base).all()), f"wrapped env: {k} differs from the compiled model's")
-            print(f"[path wrapped_env] {k} equal in every env to the compiled model's: "
-                  f"{WRAPPED_SAME[k]} on this world")
+            check(bool((v == base).all()), f"{label}: {k} differs from the compiled model's")
+            print(f"[path {label}] {k} equal in every env to the compiled model's: "
+                  f"{same[k]} on this world")
         else:
-            check(spread[k] > 0, f"wrapped env: {k} equal in every env")
+            check(spread[k] > 0, f"{label}: {k} equal in every env")
     changed = [not torch.equal(a, b) for a, b in zip(timesteps, timesteps[1:])]
-    print(f"[path wrapped_env] opt:timestep changed at {sum(changed)} of {len(changed)} steps; "
+    print(f"[path {label}] opt:timestep changed at {sum(changed)} of {len(changed)} steps; "
           f"last step's range {float(timesteps[-1].min()):.6g} to "
           f"{float(timesteps[-1].max()):.6g} s")
-    check(all(changed), "wrapped env: the timestep did not change at every step")
+    check(all(changed), f"{label}: the timestep did not change at every step")
     return spread
 
 
@@ -1313,6 +1361,229 @@ def wrapped_agreement(wenv, state, n=64):
         check(bool(torch.isfinite(g).all()) and e_k <= NOISE_RATIO * e_p + 1e-6,
               f"wrapped env whole step: {k} err vs float64 {e_k:.3g} > {NOISE_RATIO} x the plain "
               f"version's {e_p:.3g}")
+
+
+def face_env_reset(batch, bare=None):
+    """The face-perpendicular env on the card (`face_perpendicular.make_env`,
+    whose construction runs the zero-control settle, on the cubelet world
+    `rubik_face_like.npz`), or, given the `bare` env, a copy of it with a
+    generator of its own (its construction shared) in the face stack
+    (`wrappers.apply_face_wrappers(env, randomize=True)`: the default
+    dactyl stack and the face drivers' damping), and its reset at `batch`
+    envs from seed 0: (env, state, readings). Prints the construction and
+    reset times, the retries, the share of envs with the cube on the palm
+    and the reset goals' types; checks the state and the obs finite."""
+    from robogym_torch import wrappers
+    from robogym_torch.envs.dactyl import cube_env, face_perpendicular
+
+    wrapped = bare is not None
+    label = "wrapped_face_env" if wrapped else "face_env"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if wrapped:
+        env = copy.copy(bare)
+        env.generator = torch.Generator(device=bare.device)
+        env.generator.manual_seed(SEED)
+    else:
+        env = face_perpendicular.make_env(device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    wenv = wrappers.apply_face_wrappers(env, randomize=True) if wrapped else env
+    state, obs = wenv.reset(batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    on_palm = float(cube_env.is_on_palm(env.cube, state.physics).float().mean())
+    flip = float((state.goal["goal_type"] == 0).float().mean())
+    built = ("the face env's construction, copied" if wrapped else
+             f"built (its settle, {env.constants.reset_initial_steps * env.constants.mujoco_substeps}"
+             f" substeps at B=1) in {t1 - t0:.2f} s")
+    print(f"[state] {label} on the cubelet world (nv={env.model.const.nv}"
+          f"{f', {len(wenv.transforms)} transforms' if wrapped else ''}): {built}; "
+          f"reset at B={batch} in {t2 - t1:.2f} s, {env.reset_retries} "
+          f"retries, on the palm {on_palm:.4f}; reset goals flip {flip:.4f}, rotation "
+          f"{1 - flip:.4f}")
+    for k in ("qpos", "qvel", "qacc"):
+        check(bool(torch.isfinite(getattr(state.physics, k)).all()),
+              f"{label} reset: non-finite {k}")
+    for k, v in obs.items():
+        check(bool(torch.isfinite(v).all()), f"{label} reset: non-finite obs {k}")
+    return wenv, state, dict(build_s=t1 - t0, reset_s=t2 - t1, retries=env.reset_retries,
+                             on_palm_reset=on_palm)
+
+
+def face_env_steps(wenv, state, out, actions, label):
+    """ENV_STEPS of the face env (bare or wrapped) from `state` with
+    `actions()`; checks every obs and reward finite, and puts into `out`
+    the reward sum, the episodes done, the share on the palm, the goals
+    drawn by type over the run (the reset's and each resample's), the
+    largest |face angle|, the last state and, for the wrapped env, each
+    step's timestep field. Returns the last physics state."""
+    from robogym_torch.envs.dactyl import cube_env
+
+    env = getattr(wenv, "env", wenv)
+    rewards, done, finite, timesteps = 0.0, 0, {}, []
+    drawn = torch.stack([(state.goal["goal_type"] == t).sum() for t in (0, 1)])
+    face_max = env.face_angles(state.physics).abs().max()
+    for _ in range(ENV_STEPS):
+        prev = state.tracker.goals_so_far
+        state, obs, reward, dn, _ = wenv.step(state, actions())
+        for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
+            ok = torch.isfinite(v).all()
+            finite[k] = finite[k] & ok if k in finite else ok
+        new = state.tracker.goals_so_far > prev
+        drawn = drawn + torch.stack([(new & (state.goal["goal_type"] == t)).sum() for t in (0, 1)])
+        face_max = torch.maximum(face_max, env.face_angles(state.physics).abs().max())
+        rewards = rewards + reward.sum(0)
+        done = done + dn.sum()
+        if state.model_fields is not None:
+            timesteps.append(state.model_fields["opt:timestep"])
+    for k, ok in finite.items():
+        check(bool(ok), f"{label} path: non-finite {k}")
+    drawn = [int(x) for x in drawn]
+    out.update(reward_sum=[float(x) for x in rewards], done=int(done),
+               on_palm=float(cube_env.is_on_palm(env.cube, state.physics).float().mean()),
+               goals_drawn={"flip": drawn[0], "rotation": drawn[1]},
+               face_angle_max=float(face_max), timesteps=timesteps, state=state)
+    return state.physics
+
+
+def face_budget_reading(label, model, d):
+    """Live contacts per env at the last substep of a path against the
+    contact budget `ncon_active` (the rows beyond it are dropped, as the
+    JAX package drops them)."""
+    live = d.contact.active.sum(1)
+    cap = model.opt.ncon_active
+    over = float((live > cap).float().mean())
+    print(f"[path {label}] the last substep, B={live.shape[0]}: live contacts per env mean "
+          f"{float(live.float().mean()):.2f}, max {int(live.max())}; above ncon_active={cap} "
+          f"(rows dropped) in {over:.4f} of envs")
+    return dict(live_mean=float(live.float().mean()), live_max=int(live.max()),
+                dropped_share=over)
+
+
+def face_path_readings(label, wenv, readings, out, wall, batch):
+    """Print a face path's readings (after `face_env_steps`); returns the
+    path's record fields."""
+    env = getattr(wenv, "env", wenv)
+    sps = batch * ENV_STEPS / wall
+    drawn = out["goals_drawn"]
+    n = drawn["flip"] + drawn["rotation"]
+    budget = face_budget_reading(label, env.model, out["state"].physics)
+    print(f"[path {label}] {ENV_STEPS} env steps x {SUBSTEPS} substeps at B={batch}: "
+          f"{wall:.3f} s, {sps:.1f} env-steps/s; qpos, qvel, obs and rewards finite; on the "
+          f"palm {readings['on_palm_reset']:.4f} after the reset, {out['on_palm']:.4f} after the "
+          f"steps; goals drawn {n}: flip {drawn['flip'] / n:.4f}, rotation "
+          f"{drawn['rotation'] / n:.4f}; largest |face angle| {out['face_angle_max']:.4f} rad; "
+          f"reward sum {out['reward_sum']} (env, goal distance, success), episodes done "
+          f"{out['done']}")
+    return dict(env_steps=ENV_STEPS, substeps=SUBSTEPS, env_steps_per_s=sps,
+                reward_sum=out["reward_sum"], done=out["done"], on_palm=out["on_palm"],
+                goals_drawn=drawn, face_angle_max=out["face_angle_max"], budget=budget,
+                **readings)
+
+
+def face_damping_spread(wenv, fields):
+    """The spread of `dof_damping` across envs on each cube dof: nonzero on
+    exactly the two face drivers (the face-damping transform's dofs), zero
+    on the cube's other dofs."""
+    damp = fields["dof_damping"]
+    env = wenv.env
+    c = env.model.const
+    drivers = [int(c.jnt_dofadr[c.names["joint"]["cube:" + j]])
+               for j in ("cubelet:driver:pos_z", "cubelet:driver:neg_z")]
+    cube_dofs = range(int(env.cube.cube_pos_dof[0]), c.nv)
+    spread = {i: float(damp[:, i].max() - damp[:, i].min()) for i in cube_dofs}
+    varied = sorted(i for i, v in spread.items() if v > 0)
+    print(f"[path wrapped_face_env] dof_damping across envs on the driver dofs {drivers}: "
+          + ", ".join(f"dof {i} {float(damp[:, i].min()):.4g} to {float(damp[:, i].max()):.4g}"
+                      for i in drivers)
+          + f"; cube dofs that differ across envs: {varied}")
+    check(varied == sorted(drivers), f"wrapped face env: dof_damping varies on cube dofs "
+          f"{varied}, want exactly the drivers {drivers}")
+    return {str(i): spread[i] for i in drivers}
+
+
+def capture_face_step(env, state):
+    """The kernels' inputs in the last substep of one face env step from
+    `state`: (core inputs, CG iterations, facets per contact) and the
+    "hull_manifold" and "boxbox" arguments."""
+    from robogym_torch.physics import constraint_batched
+    from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
+
+    act = rearrange_actions(env, state.t.shape[0])()
+    calls = capture_ends([(constraint_batched, "fused_step_core"),
+                          (convex_kernel, "hull_manifold"), (boxbox_kernel, "boxbox")],
+                         lambda: env.step(state, act))
+    kind_s, iterations, nfacet, *args = calls["fused_step_core"][1]
+    return dict(core=(constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet),
+                hull_manifold=calls["hull_manifold"][1], boxbox=calls["boxbox"][1])
+
+
+def nudge_rule(label, got, want, nudged, cube_cols):
+    """The kernels' state `got` against the plain versions' `want` (Data of
+    n envs) by the CPU tests' nudge rule over the whole batch (as
+    tests/_torch_common.py's `assert_physics_close(..., whole=True)` holds
+    a reset's or a rearrange step's many contact-rich substeps): per group
+    of the env-step ENVELOPE, the largest difference over the envs at most
+    NUDGE_RATIO times the largest drift of the kernels' own `nudged` runs
+    from `got`, or within the envelope. Also prints the envs that a nudged
+    run takes out of the envelope (chaotic) and the largest difference on
+    the others."""
+    def err(a, b, field, cols):
+        return (getattr(a, field)[:, cols] - getattr(b, field)[:, cols]).abs().amax(-1)
+
+    groups = [(name, field, cube_cols if name == "cube position" else slice(None), tol)
+              for name, field, tol in ENVELOPE]
+    chaotic = torch.zeros(got.qpos.shape[0], dtype=torch.bool, device=got.qpos.device)
+    for _, field, cols, tol in groups:
+        for dn in nudged:
+            chaotic |= err(dn, got, field, cols) > tol
+    n_chaotic = int(chaotic.sum())
+    for name, field, cols, tol in groups:
+        e = err(got, want, field, cols)
+        drift = max(float(err(dn, got, field, cols).max()) for dn in nudged)
+        worst = float(e.max())
+        calm = float(e[~chaotic].max()) if n_chaotic < e.shape[0] else 0.0
+        line = (f"max {worst:.3g}, the nudged runs' largest drift {drift:.3g} (at most "
+                f"{NUDGE_RATIO} x, or {tol:g}); {n_chaotic} of {e.shape[0]} envs chaotic, the "
+                f"others' max {calm:.3g}")
+        print(f"[whole step] {label}: {name} {line}")
+        check(bool(torch.isfinite(got.qpos).all()) and worst <= max(NUDGE_RATIO * drift, tol),
+              f"whole step {label}: {name} outside the nudge rule: {line}")
+
+
+def face_agreement(label, env, state, n=64):
+    """One env step's physics (SUBSTEPS substeps, each env's own model
+    fields and controls) of the face env on the first n envs of a path's
+    last state, through the kernels and through the plain versions, held
+    by `nudge_rule` with NUDGED_RUNS runs of the kernels from start qvels
+    nudged by NUDGE, stepped as one batch. The rule's per-env form fails
+    here on envs that no nudged run takes out of the envelope (on an H100,
+    one env's qvel 0.122 apart against the envelope's 0.05, PERF.md): over
+    10 substeps the two CG summation orders part further than a 1e-6
+    nudge moves one env."""
+    from robogym_torch.envs import core
+    from robogym_torch.physics import step
+
+    d = core.data_map(lambda x: x[:n], state.physics)
+    fields = {k: v[:n] for k, v in (state.model_fields or {}).items()}
+    m = core.apply_model_fields(env.model, fields)
+    got = step.step_n(m, d, SUBSTEPS)
+    with plain_versions():
+        want = step.step_n(m, d, SUBSTEPS)
+    k = NUDGED_RUNS
+    tiled = core.data_map(lambda x: x.repeat((k,) + (1,) * (x.dim() - 1)), d)
+    gen = torch.Generator(device=d.qvel.device)
+    gen.manual_seed(SEED)
+    qvel = tiled.qvel + NUDGE * torch.randn(tiled.qvel.shape, generator=gen,
+                                            device=d.qvel.device, dtype=d.qvel.dtype)
+    m_k = core.apply_model_fields(env.model, {f: v.repeat((k,) + (1,) * (v.dim() - 1))
+                                              for f, v in fields.items()})
+    runs = step.step_n(m_k, tiled.replace(qvel=qvel), SUBSTEPS)
+    nudged = [core.data_map(lambda x: x[i * n:(i + 1) * n], runs) for i in range(k)]
+    torch.cuda.synchronize()
+    cols = torch.as_tensor(np.asarray(env.cube.cube_pos_qpos), device=d.qpos.device)
+    nudge_rule(f"{label}, B={n} one env step, kernels vs plain versions", got, want, nudged, cols)
 
 
 def rearrange_env_reset(batch, module="blocks", config=REARRANGE_CONFIG,
@@ -1654,6 +1925,7 @@ def main() -> int:
     opts = ap.parse_args()
 
     # 1. device
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -1691,13 +1963,17 @@ def main() -> int:
     for name in ("locked_like", "settle", "table", "dactyl"):
         check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
     env, env_state = locked_env_reset(B)
-    wenv, wstate = wrapped_env_reset(B)
+    wenv, wstate = wrapped_env_reset(env, B)
+    fenv, fstate, f_read = face_env_reset(B)
+    wfenv, wfstate, wf_read = face_env_reset(B, bare=fenv)
     renv, rstate, r_build, r_reset = rearrange_env_reset(B)
     tenv, tstate, t_build, t_reset = rearrange_env_reset(B, "blocks_train", BLOCKS_TRAIN_CONFIG,
                                                          "blocks_train env")
     cuboid_spread = blocks_train_readings(tenv, tstate)
     denv, dstate, d_build, d_reset = rearrange_env_reset(B, "dominos", DOMINOS_CONFIG,
                                                          "dominos env")
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: build and state")
 
     # 4. one phase per kernel, on inputs captured from one substep or call
     # of a path; B and A also at the settle and hand worlds' shapes
@@ -1749,6 +2025,28 @@ def main() -> int:
           f"{float(dt_w.max()):.6g} s")
     res["cg_full@dt"] = phase_cg_full("B cg_full@dt", ci_w, its_w, nfacet_w, REPS)
     check_dt_stride(ci_e, its_w, nfacet_w)
+    # the face env's kernels on the inputs of the last substep of one env
+    # step from its reset state: A and B at its V=48 (the cube's 16 joint
+    # equality rows among B's rows), C on the cubelets' box-mesh pairs, E
+    # on the palm's box-box pairs
+    fcap = capture_face_step(fenv, fstate)
+    ci_f, its_f, nfacet_f = fcap["core"]
+    V_f, E_f = ci_f["qM"].shape[-1], len(ci_f["kind"])
+    eq_f = int((np.asarray(ci_f["kind"]) == constraint.EQ).sum())
+    print(f"[face] kernel B's system: E={E_f} rows ({eq_f} equality rows), V={V_f}; "
+          f"{'kernel B' if cg_kernel.fits(E_f, V_f, True) else 'the size route (F)'} takes it")
+    check(V_f == fenv.model.const.nv == 48, f"face: V={V_f}, want 48")
+    check(eq_f == 16, f"face: {eq_f} equality rows, want 16")
+    check(cg_kernel.fits(E_f, V_f, True),
+          f"face: E={E_f}, V={V_f} above kernel B's shared memory, and PER_CALL counts B")
+    res["spd_inverse@face"] = phase_spd("A spd_inverse@face", ci_f["qM"], REPS)
+    res["cg_full@face"] = phase_cg_full("B cg_full@face", ci_f, its_f, nfacet_f, REPS)
+    *hargs_f, hDX_f = fcap["hull_manifold"]
+    check(hDX_f == 6 and hargs_f[0].shape[-1] == 8,
+          f"face: hull_manifold at V1={hargs_f[0].shape[-1]} DX={hDX_f}, want the boxes' 8, 6")
+    res["hull_manifold@face"] = phase_hull("hull_manifold", hargs_f, hDX_f, REPS,
+                                           "C hull_manifold@face")
+    res["boxbox@face"] = phase_boxbox(fcap["boxbox"], REPS, "E boxbox@face")
     # the rearrange env's kernels on the inputs of one env step from its
     # reset state: A at the main sim's and the solver sim's V, B on the
     # solver sim's system (its weld, connect and joint rows) and on the main
@@ -1796,6 +2094,8 @@ def main() -> int:
     res["spd_inverse@wide"] = phase_spd_one_call("A spd_inverse@wide", wide_qM, REPS)
     res["spd_inverse@huge"] = phase_spd_one_call("A spd_inverse@huge",
                                                  dense_spd(B, HUGE_V, m.device), REPS // 5)
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: kernel phases")
 
     # 5. paths
     paths = {}
@@ -1888,6 +2188,25 @@ def main() -> int:
           f"{wsps:.1f} env-steps/s (locked_env {sps:.1f} in this run, ratio {wsps / sps:.3f}); "
           f"reward sum {wrapped_out['reward_sum']} (env, goal distance, success), episodes done "
           f"{wrapped_out['done']}, on the palm {wrapped_out['on_palm']:.4f}; launches {counts}")
+    face_out = {}
+    out, wall, counts = drive("face_env", lambda: face_env_steps(
+        fenv, fstate, face_out, rearrange_actions(fenv, B), "face_env"), ENV_STEPS * SUBSTEPS)
+    record("face_env", wall, counts, **face_path_readings("face_env", fenv, f_read, face_out,
+                                                          wall, B))
+    print(f"[path face_env] launches {counts}")
+    wface_out = {}
+    out, wall, counts = drive("wrapped_face_env", lambda: face_env_steps(
+        wfenv, wfstate, wface_out, wrapped_actions(B, wfenv.device), "wrapped_face_env"),
+        ENV_STEPS * SUBSTEPS)
+    wf_fields = wface_out["state"].model_fields
+    wf_spread = check_field_spread(wfenv, wf_fields, wface_out["timesteps"], FACE_WRAPPED_SAME,
+                                   "wrapped_face_env")
+    record("wrapped_face_env", wall, counts, field_spread=wf_spread,
+           driver_damping_spread=face_damping_spread(wfenv, wf_fields),
+           **face_path_readings("wrapped_face_env", wfenv, wf_read, wface_out, wall, B))
+    print(f"[path wrapped_face_env] discrete actions ({N_ACTION_BINS} bins), env-steps/s "
+          f"{paths['wrapped_face_env']['env_steps_per_s']:.1f} (face_env "
+          f"{paths['face_env']['env_steps_per_s']:.1f} in this run); launches {counts}")
     rearr_out = {}
     out, wall, counts = drive("rearrange_env",
                               lambda: rearrange_env_steps(renv, rstate, rearr_out,
@@ -1936,6 +2255,8 @@ def main() -> int:
     for entry, n in launches.items():
         check(n > 0, f"{entry}: no launch on the paths it stands for")
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: paths")
+
     # 6. whole-step agreement at B=64: one substep through the kernels
     # against one through the plain versions; qpos to 1e-4 abs, qvel to
     # 1e-3 of its largest value (the CG's float32 noise, phase B)
@@ -1956,7 +2277,10 @@ def main() -> int:
 
     wrapped_agreement(wenv, wrapped_out["state"])
     rearrange_agreement(renv, rearr_out["state"])
+    face_agreement("face_env", fenv, face_out["state"])
+    face_agreement("wrapped_face_env", wfenv.env, wface_out["state"])
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: agreement")
     if opts.profile:
         profile_substeps(m, dm, opts.profile)
 

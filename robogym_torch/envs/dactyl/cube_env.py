@@ -190,10 +190,11 @@ def data_put(d: Data, idx: torch.Tensor, sub: Data) -> Data:
 class CubeEnvBase:
     """Construction and reset randomization shared by the dactyl cube envs.
 
-    `model` is the compiled world (with the cube, target and hand names of
-    `CubeIndex` and `HandIndex`), on the device the env runs on. The
-    zero-control settle of `reset_initial_steps x mujoco_substeps`
-    substeps does not depend on any draw, so it runs once here."""
+    `model` is the compiled world (with the hand names of `HandIndex`, and
+    the cube and target names that `build_cube_index` binds), on the
+    device the env runs on. The zero-control settle of
+    `reset_initial_steps x mujoco_substeps` substeps does not depend on any
+    draw, so it runs once here."""
 
     def __init__(self, constants: DactylCubeEnvConstants, model: Model, seed: int = 0):
         self.constants = constants
@@ -202,7 +203,7 @@ class CubeEnvBase:
             model.opt, timestep=torch.tensor(constants.mujoco_timestep, dtype=dtype, device=dev)))
         self.model = model
         self.hand = hand.HandIndex.build(model)
-        self.cube = CubeIndex.build(model)
+        self.cube = self.build_cube_index(model)
         self.action_size = 20
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
@@ -215,6 +216,12 @@ class CubeEnvBase:
         d0 = physics.step_n(model, d0.replace(ctrl=ctrl0),
                             constants.reset_initial_steps * constants.mujoco_substeps)
         self._settled_data = d0.replace(time=torch.zeros_like(d0.time))
+
+    def build_cube_index(self, model: Model) -> CubeIndex:
+        """The cube's index tables on `model`, bound before the settle: the
+        locked world's names here; an env on a world with other names
+        overrides it."""
+        return CubeIndex.build(model)
 
     @property
     def device(self) -> torch.device:

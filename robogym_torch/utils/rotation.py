@@ -136,6 +136,32 @@ def normalize_angles(angles: torch.Tensor, low=-np.pi, high=np.pi) -> torch.Tens
     return torch.remainder(angles - low, high - low) + low
 
 
+def round_to_straight_angles(angles: torch.Tensor) -> torch.Tensor:
+    """Angles rounded to the nearest multiple of pi/2 (half to even, as
+    `jnp.round`), wrapped into [-pi, pi)."""
+    return normalize_angles(torch.round(angles / (np.pi / 2)) * (np.pi / 2))
+
+
+def round_to_straight_quat(quat: torch.Tensor) -> torch.Tensor:
+    """The quaternion whose euler angles are `quat`'s rounded to multiples
+    of pi/2."""
+    return euler2quat(round_to_straight_angles(quat2euler(quat)))
+
+
+def rot_z_aligned(cube_quat: torch.Tensor, quat_threshold, include_flip: bool = True):
+    """(...,) whether each cube orientation is within `quat_threshold` of a
+    rotation about z (or, with `include_flip`, of one followed by a half
+    turn about x)."""
+    angles = quat2euler(cube_quat)
+    target = angles * torch.tensor([0.0, 0.0, 1.0], dtype=angles.dtype, device=angles.device)
+    x_flip = torch.tensor([np.pi, 0.0, 0.0], dtype=angles.dtype, device=angles.device)
+    ok = quat_magnitude(quat_difference(cube_quat, euler2quat(target))) < quat_threshold
+    if include_flip:
+        ok = ok | (quat_magnitude(quat_difference(cube_quat, euler2quat(target + x_flip)))
+                   < quat_threshold)
+    return ok
+
+
 def quat_average2(q1: torch.Tensor, q2: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     """Weighted average of two unit quaternions (..., 4) with weights w1
     (...,) and 1 - w1: q2 sign-aligned to q1, then the chordal mean with w

@@ -75,9 +75,11 @@ def _cube(prefix: str, pos, target: bool) -> List[str]:
     return out
 
 
-def write(directory: str) -> str:
+def hand_parts(directory: str) -> Dict[str, List[str]]:
     """Write the link hulls as ASCII STL into `directory` and return the
-    MJCF text (mesh paths are absolute)."""
+    hand's MJCF pieces, each a list of lines: its mesh `assets`, its
+    `bodies` (under the worldbody), the `excludes` of each link and its
+    grandparent, its `tendons` and its `actuators`."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     links = locked_like._links()
@@ -115,7 +117,7 @@ def write(directory: str) -> str:
         out.append(f"{pad}</body>")
         return out
 
-    hand = body_xml(children[None][0], 4)
+    bodies = body_xml(children[None][0], 4)
     parent = {link[0]: link[1] for link in links}
     excludes = [
         f'    <exclude body1="{P}{parent[parent[b]]}" body2="{P}{b}"/>'
@@ -142,31 +144,50 @@ def write(directory: str) -> str:
                       ("THJ1", -0.524, 0.524), ("THJ0", -1.571, 0.0)):
         actuators.append(f'    <position name="{P}A_{j}" joint="{P}{j}" kp="1" '
                          f'ctrlrange="{lo} {hi}"/>')
-    cube_pos = (PALM_HALF[0], 0.0, HAND_HEIGHT + PALM_HALF[2] + CUBE_HALF + 0.003)
+    return dict(assets=assets, bodies=bodies, excludes=excludes, tendons=tendons,
+                actuators=actuators)
+
+
+def assemble(directory: str, hand: Dict[str, List[str]], objects: List[str],
+             equality: List[str] = ()) -> str:
+    """The MJCF text of a world: the floor, the hand's pieces, the
+    `objects` lines under the worldbody and the `equality` lines."""
     return "\n".join([
         "<mujoco>",
-        f'  <compiler angle="radian" meshdir="{directory}"/>',
+        f'  <compiler angle="radian" meshdir="{os.path.abspath(directory)}"/>',
         '  <option timestep="0.002" gravity="0 0 -9.81"/>',
         "  <asset>",
-        *assets,
+        *hand["assets"],
         "  </asset>",
         "  <worldbody>",
         '    <geom name="floor" type="plane" size="1 1 0.1" pos="0 0 0"/>',
-        *hand,
-        *_cube("cube:", cube_pos, target=False),
-        *_cube("target:", cube_pos, target=True),
+        *hand["bodies"],
+        *objects,
         "  </worldbody>",
         "  <contact>",
-        *excludes,
+        *hand["excludes"],
         "  </contact>",
+        *(["  <equality>", *equality, "  </equality>"] if equality else []),
         "  <tendon>",
-        *tendons,
+        *hand["tendons"],
         "  </tendon>",
         "  <actuator>",
-        *actuators,
+        *hand["actuators"],
         "  </actuator>",
         "</mujoco>",
     ]) + "\n"
+
+
+# the cube's rest position on the palm
+CUBE_POS = (PALM_HALF[0], 0.0, HAND_HEIGHT + PALM_HALF[2] + CUBE_HALF + 0.003)
+
+
+def write(directory: str) -> str:
+    """Write the link hulls as ASCII STL into `directory` and return the
+    MJCF text (mesh paths are absolute)."""
+    return assemble(directory, hand_parts(directory),
+                    _cube("cube:", CUBE_POS, target=False) + _cube("target:", CUBE_POS,
+                                                                   target=True))
 
 
 def initial_state(arrays, batch: int, seed: int,

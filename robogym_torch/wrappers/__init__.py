@@ -1,10 +1,10 @@
 """The wrapper layer's registry (counterpart of `robogym_tpu/wrappers/__init__.py`;
 reference robogym/wrappers/__init__ and named_wrappers.py): every transform
-by name for `apply_named_wrappers`, and the default dactyl stack.
+by name for `apply_named_wrappers`, the default dactyl stack, and that
+stack with the face-damping transform for the face-perpendicular env.
 
-Not ported yet: `wrappers/face.py` and `wrappers/parametric.py` of the JAX
-package (the face-cube damping and perpendicular cube-size transforms),
-which the default stack does not use."""
+Not ported yet: `wrappers/parametric.py` of the JAX package (the
+perpendicular cube-size transform), which neither stack uses."""
 
 from robogym_torch.wrappers.core import (
     Transform,
@@ -25,6 +25,7 @@ from robogym_torch.wrappers.dactyl import (
     RandomizedWindWrapper,
     StopOnFallWrapper,
 )
+from robogym_torch.wrappers.face import RandomizedFaceDampingWrapper
 from robogym_torch.wrappers.randomizations import (
     ActionDelayWrapper,
     ActionNoiseWrapper,
@@ -124,3 +125,15 @@ def construct_default_dactyl_wrappers(*, randomize: bool = True, n_action_bins: 
 def apply_dactyl_wrappers(env, **kwargs) -> WrappedEnv:
     """The default dactyl stack around `env` (dactyl_cube_wrappers.apply_wrappers)."""
     return apply_named_wrappers(env, construct_default_dactyl_wrappers(**kwargs))
+
+
+def construct_face_wrappers(**kwargs):
+    """The default dactyl stack with the face drivers' damping randomized
+    (`RandomizedFaceDampingWrapper`) added outermost, the stack the
+    face-perpendicular env is wrapped in."""
+    return construct_default_dactyl_wrappers(**kwargs) + [["RandomizedFaceDampingWrapper"]]
+
+
+def apply_face_wrappers(env, **kwargs) -> WrappedEnv:
+    """`construct_face_wrappers` around `env`."""
+    return apply_named_wrappers(env, construct_face_wrappers(**kwargs))

@@ -54,7 +54,8 @@ def _snapshot_tool():
 @pytest.mark.parametrize("world", ["locked_like_hand", "blocks_settle_like", "table_setting_like",
                                    "dactyl_locked_like", "rearrange_blocks_like",
                                    "rearrange_solver_like", "rearrange_settle_like",
-                                   "rearrange_dominos_like", "rearrange_wordblocks_like"])
+                                   "rearrange_dominos_like", "rearrange_wordblocks_like",
+                                   "rubik_face_like"])
 def test_world_snapshot_matches_fresh_compile(world):
     """The hand-only and goal-settle snapshots equal what
     tools/build_locked_like_snapshot.py compiles now, field by field. The
@@ -73,7 +74,10 @@ def test_world_snapshot_matches_fresh_compile(world):
     mesh) with the default budgets; the dominos world the main one's
     structure with blocks of half-size 0.0254 x (0.2, 1, 2); wordblocks'
     the main one at 6 blocks (nv = 48) with the budgets of
-    `scale_contact_budgets(model, 6)`."""
+    `scale_contact_budgets(model, 6)`. The cubelet world has nq = 49 and
+    nv = 48 (24 hinges; the cube's three slides and ball; 18 cubelet
+    hinges, 16 of them held to the 2 drivers by joint equality rows), 26
+    box cubelets and a box palm, and the default budgets."""
     tool = _snapshot_tool()
     model, fresh = tool.compile_snapshot(world)
     with np.load(tool.snapshot_path(world)) as z:
@@ -102,6 +106,14 @@ def test_world_snapshot_matches_fresh_compile(world):
         else:
             assert (c.nq, c.nv, c.nu, c.nmocap) == (12, 12, 1, 1)
             assert eq == sorted([EqType.JOINT, EqType.CONNECT, EqType.CONNECT, EqType.WELD])
+        return
+    if world == "rubik_face_like":
+        from robogym_torch.mjcf.model import EqType
+
+        boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
+        assert (c.nq, c.nv, c.nu, c.ntendon, len(boxes)) == (49, 48, 20, 4, 27)
+        assert sorted(int(t) for t in c.eq_type) == [EqType.JOINT] * 16
+        assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (32, 48)
         return
     if world == "dactyl_locked_like":
         boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
@@ -159,6 +171,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import robogym_torch.envs.rearrange.simulation, robogym_torch.robot.composite\n"
         "import robogym_torch.robot.gripper, robogym_torch.robot.ur16e\n"
         "import robogym_torch.robot.tcp_solver, robogym_torch.robot.tcp_force_limiter\n"
+        "import robogym_torch.envs.dactyl.face_perpendicular, robogym_torch.wrappers.face\n"
+        "import robogym_torch.worlds.rubik_face_like, robogym_torch.wrappers\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
         "assert not bad, bad\n"
     )

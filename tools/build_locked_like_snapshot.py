@@ -25,7 +25,11 @@ snapshots next to their modules in `robogym_torch/worlds/`:
     the budgets of `scale_contact_budgets(model, 8)`, as
     `envs/rearrange/dominos.py` compiles it; and
     `rearrange_wordblocks_like.npz`, the main world at wordblocks' 6 blocks
-    with the budgets of `scale_contact_budgets(model, 6)`.
+    with the budgets of `scale_contact_budgets(model, 6)`;
+  * `rubik_face_like.npz`, the hand and a cube of 26 box cubelets with the
+    face-perpendicular env's names and joints (nv = 48), compiled as
+    `envs/dactyl/face_perpendicular.py` compiles its world: plain
+    `compile_xml`, the default contact budgets.
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -44,7 +48,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like",
           "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like",
-          "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like")
+          "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like",
+          "rubik_face_like")
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -53,7 +58,7 @@ def compile_snapshot(world: str = "locked_like"):
 
     from robogym_torch.bridge import model_to_numpy
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      rearrange_blocks_like, table_setting_like)
+                                      rearrange_blocks_like, rubik_face_like, table_setting_like)
     from robogym_tpu.envs.rearrange import simulation as sim_lib
     from robogym_tpu.envs.rearrange.dominos import DOMINO_PROPORTIONS
     from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
@@ -67,9 +72,10 @@ def compile_snapshot(world: str = "locked_like"):
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(table_setting_like.write(tmp), dtype=jnp.float32)
         model = scale_contact_budgets(model, table_setting_like.N_OBJECTS)
-    elif world == "dactyl_locked_like":
+    elif world in ("dactyl_locked_like", "rubik_face_like"):
+        module = dactyl_locked_like if world == "dactyl_locked_like" else rubik_face_like
         with tempfile.TemporaryDirectory() as tmp:
-            model = compile_xml(dactyl_locked_like.write(tmp), dtype=jnp.float32)
+            model = compile_xml(module.write(tmp), dtype=jnp.float32)
     elif world == "rearrange_settle_like":
         with tempfile.TemporaryDirectory() as tmp:
             main = compile_xml(rearrange_blocks_like.write(tmp), dtype=jnp.float32)
@@ -101,7 +107,7 @@ def compile_snapshot(world: str = "locked_like"):
 
 def snapshot_path(world: str) -> str:
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      rearrange_blocks_like, table_setting_like)
+                                      rearrange_blocks_like, rubik_face_like, table_setting_like)
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
@@ -111,7 +117,8 @@ def snapshot_path(world: str) -> str:
             "rearrange_solver_like": rearrange_blocks_like.SOLVER_SNAPSHOT,
             "rearrange_settle_like": rearrange_blocks_like.SETTLE_SNAPSHOT,
             "rearrange_dominos_like": rearrange_blocks_like.DOMINOS_SNAPSHOT,
-            "rearrange_wordblocks_like": rearrange_blocks_like.WORDBLOCKS_SNAPSHOT}[world]
+            "rearrange_wordblocks_like": rearrange_blocks_like.WORDBLOCKS_SNAPSHOT,
+            "rubik_face_like": rubik_face_like.SNAPSHOT}[world]
 
 
 def main():
