@@ -47,7 +47,15 @@ Phases, in order; any failure ends the script with a non-zero exit:
    default dactyl stack and the face drivers' damping,
    `wrappers.apply_face_wrappers`), each built (its settle at B=1) and
    reset at B=1024 (times, retries, share on the palm, the reset goals'
-   types).
+   types); and the full-perpendicular Rubik's env
+   (`envs/dactyl/full_perpendicular.py`, face_free goals) on the
+   20-cubelet world (`rubik_full_like.npz`, nv=96: the hand, 6 face
+   centres on driver hinges and 20 cubelets on three hinges each, every
+   piece hinge with friction loss), bare and in the full stack (the face
+   stack and the perpendicular cube's size, `wrappers.apply_full_wrappers`),
+   built and reset the same way (50 random quarter turns of the cube
+   before the pose loop), with the share of envs whose cube is legal
+   (`legal_share`) and the share above 32 live contacts.
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
@@ -93,6 +101,17 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the hand's 24 limits and 32 x 4 contact rows), C on the cubelets' and
    the palm's box-mesh pairs (K=32, V1=8, DX=6) and E on the palm's
    box-box pairs with the cubelets (K=26);
+   on the inputs of the last substep of one full env step from its reset
+   state, A at V=96 (`@full`: its 65-128-dof shared-memory kernel, with the
+   linalg.inv and cholesky_inverse times beside it), the solve (E=218: the
+   66 friction-loss rows of the piece hinges, the hand's 24 limits, 32 x 4
+   contact rows) in B where `cg_kernel.fits` says so (`cg_full@full`, with
+   its layout: smem an env, row groups in registers and spilled, envs an
+   SM, waves), else in F on the size route (`cg@full`), C on the pieces'
+   box-mesh pairs and E on the palm's box-box pairs; then the solver hop:
+   a face_cube_solver reset of 16 envs, `goals_solver.solve_and_attach`
+   (host time a solve), every plan non-empty and `solver_plan_empty` false
+   after one step;
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
@@ -139,7 +158,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
    envs above the 32-contact budget at the last substep; for the stack
    each model field's spread (equal in every env only where the cubelet
    world gives the cube-size scale nothing to scale, `FACE_WRAPPED_SAME`)
-   and `dof_damping` varying across envs on exactly the two driver dofs.
+   and `dof_damping` varying across envs on exactly the two driver dofs;
+   5 steps of the full env (`full_env`) and 5 of the full stack
+   (`wrapped_full_env`), read as the face paths, with the launches a
+   substep of the route the system takes (2 A, 1 B or F, 1 C, 1 D, 1 E),
+   `dof_damping` varying on exactly the six driver dofs and `geom_size`
+   on exactly the 26 pieces.
 6. Whole-step agreement: one substep through the kernels against one
    through the plain versions, at B=64, on the locked-like, settle, hand,
    table and dactyl-shaped worlds; every kernel routed to its plain
@@ -152,7 +176,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    versions, held as the five worlds are. Then one env step's physics of
    the face env on the first 64 envs of each face path's last state (each
    env's own model fields under the stack), kernels against plain
-   versions by the CPU tests' nudge rule over the whole batch: per group
+   versions (and the same for the full env and its stack) by the CPU
+   tests' nudge rule over the whole batch: per group
    of the env-step envelope, the largest difference at most twice the
    largest drift of 8 runs of the kernels from qvels nudged by 1e-6, or
    within the envelope.
@@ -168,7 +193,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    of one kernel count all its launches on the rearrange_env path, both
    sims', and the `@settle8` and `@dominos` entries all its launches on
    the blocks_train_env and dominos_env paths, the `@face` entries their
-   kernel's launches on the face_env path; `cg@wide` counts F's
+   kernel's launches on the face_env path, the `@full` entries on the
+   full_env path; `cg@wide` counts F's
    launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
    `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
@@ -183,6 +209,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import importlib
 import json
 import os
@@ -196,6 +223,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024                      # envs of every path
 ENV_STEPS = 10                    # env steps of the locked-like, locked, wrapped and face paths
+FULL_STEPS = 5                    # env steps of the full and wrapped full paths
+SOLVER_HOP_ENVS = 16              # envs of the full env's solver hop
 N_ACTION_BINS = 11                # the default stack's discrete actions (wrappers/__init__.py)
 HUGE_V = 160                      # kernel A's device-memory kernel (above 128 dofs)
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
@@ -299,6 +328,14 @@ AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "lo
 PER_CALL["face_env"] = dict(PER_CALL["locked_env"])
 PER_CALL["wrapped_face_env"] = dict(PER_CALL["locked_env"])
 AT_PATH["face"] = "face_env"
+# the full-perpendicular env on the 20-cubelet world: the locked env's
+# launches a substep (2 A; its solve in B, or where `cg_kernel.fits` says
+# no, in F on the size route, which `main` sets from the captured system;
+# C on the pieces' and the palm's box-mesh pairs, D on the hand's mesh-mesh
+# pairs, E on the palm's box-box pairs with the pieces)
+PER_CALL["full_env"] = dict(PER_CALL["locked_env"])
+PER_CALL["wrapped_full_env"] = dict(PER_CALL["locked_env"])
+AT_PATH["full"] = "full_env"
 # fields the default stack overrides that the dactyl-shaped world leaves
 # equal across envs, and why
 WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
@@ -306,6 +343,11 @@ WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size s
 # the same for the face stack on the cubelet world
 FACE_WRAPPED_SAME = dict(WRAPPED_SAME, geom_size="no cube:middle, cube:top or cube:bottom geom "
                          "for the cube-size scale (its cubelets are cube:cubelet:*)")
+# the same for the full stack on the 20-cubelet world (its perpendicular
+# cube-size scale does reach geom_size, on the pieces)
+FULL_WRAPPED_SAME = dict(WRAPPED_SAME, body_pos="no cube:top or cube:bottom body, and the "
+                         "pieces' bodies at the cube's origin, which the perpendicular scale "
+                         "leaves there")
 # the env-step envelope of the port's CPU tests (tests/_torch_common.py):
 # cube position (m), qpos, qvel
 ENVELOPE = (("cube position", "qpos", 2e-4), ("qpos", "qpos", 1e-3), ("qvel", "qvel", 5e-2))
@@ -788,7 +830,6 @@ def phase_cg_wide(reps, fitting, device):
     entry."""
     from robogym_torch import cuda
     from robogym_torch.physics import cg_kernel, constraint_batched
-    from robogym_torch.physics import factor_kernel as fk
 
     kind_s, its, nfacet, args = wide_core_inputs(BATCH)
     ci = constraint_batched.core_inputs(kind_s, nfacet,
@@ -802,8 +843,25 @@ def phase_cg_wide(reps, fitting, device):
     for (Eb, Vb), (Ef, Vf) in fitting:
         check(cg_kernel.fits(Eb, Vb, True), f"cg@wide: kernel B does not take E={Eb}, V={Vb}")
         check(cuda.cg_scratch_floats(Ef, Vf) == 0, f"cg@wide: F's route at E={Ef}, V={Vf}")
-    f_occupancy("cg@wide", B, E, V)
-    wide_qM = ci["qM"]
+    r = phase_cg_routed("wide", ci, its, nfacet, reps)
+    r["launches"] = r.pop("routed_launches")
+    return r, ci["qM"]
+
+
+def phase_cg_routed(at, ci, its, nfacet, reps):
+    """The size route on the fused core's inputs `ci` (a system that
+    kernel B does not take): F's layout; one routed `cg_full` call, which
+    must launch F once and nothing else, held to `cg_full_plain`
+    (`cg_readings`); then F on that system's solve inputs against
+    `cg_plain`, timed (`phase_cg`). Returns F's entry, with the routed
+    call's launches of F under "routed_launches"."""
+    from robogym_torch import cuda
+    from robogym_torch.physics import cg_kernel
+    from robogym_torch.physics import factor_kernel as fk
+
+    B, n_s, V = ci["rows"]["Js"].shape
+    E = n_s + ci["rows"]["off1"].shape[1] * nfacet
+    f_occupancy("cg@" + at, B, E, V)
 
     def full_args(k):
         return cg_args(ci, k, nfacet)
@@ -813,22 +871,22 @@ def phase_cg_wide(reps, fitting, device):
     cg_kernel.cg_full(*full_args(its))
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
-    print(f"[cg@wide] one routed cg_full call: launches {launches}")
+    print(f"[cg@{at}] one routed cg_full call: launches {launches}")
     check(launches["cg"] == 1 and sum(launches.values()) == 1,
-          f"cg@wide: the routed cg_full launched {launches}, want kernel F once")
+          f"cg@{at}: the routed cg_full launched {launches}, want kernel F once")
     errs, early, noise, failures = cg_readings("cg_full", full_args, its)
-    print(f"[cg@wide] routed cg_full vs cg_full_plain: early {early}; after {its} " + ", ".join(
+    print(f"[cg@{at}] routed cg_full vs cg_full_plain: early {early}; after {its} " + ", ".join(
         f"{k} {errs[k]:.3g} ({noise[k][0]:.3g}, {noise[k][1]:.3g})" for k in errs))
-    check(not failures, "cg@wide routed cg_full: " + "; ".join(failures))
+    check(not failures, f"cg@{at} routed cg_full: " + "; ".join(failures))
 
     Minv = fk.spd_inverse_plain(ci["qM"])
     qs = torch.linalg.solve(ci["qM"], ci["qfrc_smooth"][..., None])[..., 0].contiguous()
     ins = (*cg_kernel.solve_inputs(ci["kind"], nfacet, ci["rows"], ci["maps"], ci["qvel"]),
            ci["qM"], Minv, qs, ci["qacc_prev"])
-    r = phase_cg("cg", "F cg@wide", lambda k: (*ins, k), its, nbytes(*ins),
+    r = phase_cg("cg", "F cg@" + at, lambda k: (*ins, k), its, nbytes(*ins),
                  B * cg_flops(E, V, its, aref=False, qfrc=False), reps)
-    r["launches"] = launches["cg"]
-    return r, wide_qM
+    r["routed_launches"] = launches["cg"]
+    return r
 
 
 def phase_spd_one_call(label, qM, reps):
@@ -1363,21 +1421,42 @@ def wrapped_agreement(wenv, state, n=64):
               f"version's {e_p:.3g}")
 
 
-def face_env_reset(batch, bare=None):
-    """The face-perpendicular env on the card (`face_perpendicular.make_env`,
-    whose construction runs the zero-control settle, on the cubelet world
-    `rubik_face_like.npz`), or, given the `bare` env, a copy of it with a
-    generator of its own (its construction shared) in the face stack
-    (`wrappers.apply_face_wrappers(env, randomize=True)`: the default
-    dactyl stack and the face drivers' damping), and its reset at `batch`
-    envs from seed 0: (env, state, readings). Prints the construction and
-    reset times, the retries, the share of envs with the cube on the palm
-    and the reset goals' types; checks the state and the obs finite."""
-    from robogym_torch import wrappers
-    from robogym_torch.envs.dactyl import cube_env, face_perpendicular
+# the Rubik's envs: their module, the stack they are wrapped in, their
+# stand-in world and its snapshot
+RUBIK = {"face": dict(module="face_perpendicular", wrap="apply_face_wrappers",
+                      world="the cubelet world", steps=ENV_STEPS),
+         "full": dict(module="full_perpendicular", wrap="apply_full_wrappers",
+                      world="the 20-cubelet world", steps=FULL_STEPS)}
 
+
+def legal_share(env, qpos) -> float:
+    """The share of envs whose cube is legal (`goals_solver.legal_cubes`:
+    its faces soft-aligned and its cubelet matrices rounded give nine
+    facelets of each colour, each centre its own)."""
+    from robogym_torch.envs.dactyl import goals_solver
+
+    return float(goals_solver.legal_cubes(env.cubelets, qpos).mean())
+
+
+def rubik_env_reset(batch, kind="face", bare=None):
+    """A Rubik's env on the card (`envs/dactyl/<module>.make_env`, `kind`
+    "face" or "full" of RUBIK, whose construction runs the zero-control
+    settle on its stand-in world), or, given the `bare` env, a copy of it
+    with a generator of its own (its construction shared) in its stack
+    (`wrappers.apply_face_wrappers` or `apply_full_wrappers`, randomize=True:
+    the default dactyl stack, the face drivers' damping, and for the full
+    env the cube's size), and its reset at `batch` envs from seed 0: (env,
+    state, readings). Prints the construction and reset times, the
+    retries, the share of envs with the cube on the palm and the reset
+    goals' types, and for the full env the share of legal cubes
+    (`legal_share`) and of envs above the contact budget; checks the state
+    and the obs finite."""
+    from robogym_torch import wrappers
+    from robogym_torch.envs.dactyl import cube_env
+
+    spec = RUBIK[kind]
     wrapped = bare is not None
-    label = "wrapped_face_env" if wrapped else "face_env"
+    label = f"wrapped_{kind}_env" if wrapped else f"{kind}_env"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if wrapped:
@@ -1385,37 +1464,46 @@ def face_env_reset(batch, bare=None):
         env.generator = torch.Generator(device=bare.device)
         env.generator.manual_seed(SEED)
     else:
-        env = face_perpendicular.make_env(device="cuda", seed=SEED)
+        module = importlib.import_module("robogym_torch.envs.dactyl." + spec["module"])
+        env = module.make_env(device="cuda", seed=SEED)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    wenv = wrappers.apply_face_wrappers(env, randomize=True) if wrapped else env
+    wenv = getattr(wrappers, spec["wrap"])(env, randomize=True) if wrapped else env
     state, obs = wenv.reset(batch)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     on_palm = float(cube_env.is_on_palm(env.cube, state.physics).float().mean())
     flip = float((state.goal["goal_type"] == 0).float().mean())
-    built = ("the face env's construction, copied" if wrapped else
+    built = (f"the {kind} env's construction, copied" if wrapped else
              f"built (its settle, {env.constants.reset_initial_steps * env.constants.mujoco_substeps}"
              f" substeps at B=1) in {t1 - t0:.2f} s")
-    print(f"[state] {label} on the cubelet world (nv={env.model.const.nv}"
+    readings = dict(build_s=t1 - t0, reset_s=t2 - t1, retries=env.reset_retries,
+                    on_palm_reset=on_palm, goal_flip_reset=flip)
+    extra = ""
+    if kind == "full":
+        live = state.physics.contact.active.sum(1)
+        readings.update(legal_reset=legal_share(env, state.physics.qpos),
+                        over_budget_reset=float((live > env.model.opt.ncon_active).float().mean()))
+        extra = (f"; legal cubes {readings['legal_reset']:.4f}; above "
+                 f"{env.model.opt.ncon_active} live contacts {readings['over_budget_reset']:.4f}")
+    print(f"[state] {label} on {spec['world']} (nv={env.model.const.nv}"
           f"{f', {len(wenv.transforms)} transforms' if wrapped else ''}): {built}; "
           f"reset at B={batch} in {t2 - t1:.2f} s, {env.reset_retries} "
           f"retries, on the palm {on_palm:.4f}; reset goals flip {flip:.4f}, rotation "
-          f"{1 - flip:.4f}")
+          f"{1 - flip:.4f}{extra}")
     for k in ("qpos", "qvel", "qacc"):
         check(bool(torch.isfinite(getattr(state.physics, k)).all()),
               f"{label} reset: non-finite {k}")
     for k, v in obs.items():
         check(bool(torch.isfinite(v).all()), f"{label} reset: non-finite obs {k}")
-    return wenv, state, dict(build_s=t1 - t0, reset_s=t2 - t1, retries=env.reset_retries,
-                             on_palm_reset=on_palm)
+    return wenv, state, readings
 
 
-def face_env_steps(wenv, state, out, actions, label):
-    """ENV_STEPS of the face env (bare or wrapped) from `state` with
-    `actions()`; checks every obs and reward finite, and puts into `out`
-    the reward sum, the episodes done, the share on the palm, the goals
-    drawn by type over the run (the reset's and each resample's), the
+def rubik_env_steps(wenv, state, out, actions, label, steps=ENV_STEPS):
+    """`steps` env steps of a Rubik's env (bare or wrapped) from `state`
+    with `actions()`; checks every obs and reward finite, and puts into
+    `out` the reward sum, the episodes done, the share on the palm, the
+    goals drawn by type over the run (the reset's and each resample's), the
     largest |face angle|, the last state and, for the wrapped env, each
     step's timestep field. Returns the last physics state."""
     from robogym_torch.envs.dactyl import cube_env
@@ -1424,7 +1512,7 @@ def face_env_steps(wenv, state, out, actions, label):
     rewards, done, finite, timesteps = 0.0, 0, {}, []
     drawn = torch.stack([(state.goal["goal_type"] == t).sum() for t in (0, 1)])
     face_max = env.face_angles(state.physics).abs().max()
-    for _ in range(ENV_STEPS):
+    for _ in range(steps):
         prev = state.tracker.goals_so_far
         state, obs, reward, dn, _ = wenv.step(state, actions())
         for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
@@ -1447,7 +1535,7 @@ def face_env_steps(wenv, state, out, actions, label):
     return state.physics
 
 
-def face_budget_reading(label, model, d):
+def budget_reading(label, model, d):
     """Live contacts per env at the last substep of a path against the
     contact budget `ncon_active` (the rows beyond it are dropped, as the
     JAX package drops them)."""
@@ -1461,50 +1549,66 @@ def face_budget_reading(label, model, d):
                 dropped_share=over)
 
 
-def face_path_readings(label, wenv, readings, out, wall, batch):
-    """Print a face path's readings (after `face_env_steps`); returns the
-    path's record fields."""
+def rubik_path_readings(label, wenv, readings, out, wall, batch, steps=ENV_STEPS):
+    """Print a Rubik's path's readings (after `rubik_env_steps`); returns
+    the path's record fields."""
     env = getattr(wenv, "env", wenv)
-    sps = batch * ENV_STEPS / wall
+    sps = batch * steps / wall
     drawn = out["goals_drawn"]
     n = drawn["flip"] + drawn["rotation"]
-    budget = face_budget_reading(label, env.model, out["state"].physics)
-    print(f"[path {label}] {ENV_STEPS} env steps x {SUBSTEPS} substeps at B={batch}: "
+    budget = budget_reading(label, env.model, out["state"].physics)
+    print(f"[path {label}] {steps} env steps x {SUBSTEPS} substeps at B={batch}: "
           f"{wall:.3f} s, {sps:.1f} env-steps/s; qpos, qvel, obs and rewards finite; on the "
           f"palm {readings['on_palm_reset']:.4f} after the reset, {out['on_palm']:.4f} after the "
           f"steps; goals drawn {n}: flip {drawn['flip'] / n:.4f}, rotation "
           f"{drawn['rotation'] / n:.4f}; largest |face angle| {out['face_angle_max']:.4f} rad; "
           f"reward sum {out['reward_sum']} (env, goal distance, success), episodes done "
           f"{out['done']}")
-    return dict(env_steps=ENV_STEPS, substeps=SUBSTEPS, env_steps_per_s=sps,
+    return dict(env_steps=steps, substeps=SUBSTEPS, env_steps_per_s=sps,
                 reward_sum=out["reward_sum"], done=out["done"], on_palm=out["on_palm"],
                 goals_drawn=drawn, face_angle_max=out["face_angle_max"], budget=budget,
                 **readings)
 
 
-def face_damping_spread(wenv, fields):
+def damping_spread(wenv, fields, label):
     """The spread of `dof_damping` across envs on each cube dof: nonzero on
-    exactly the two face drivers (the face-damping transform's dofs), zero
-    on the cube's other dofs."""
+    exactly the face drivers (`cube:cubelet:driver:*`, the face-damping
+    transform's dofs), zero on the cube's other dofs."""
     damp = fields["dof_damping"]
     env = wenv.env
     c = env.model.const
-    drivers = [int(c.jnt_dofadr[c.names["joint"]["cube:" + j]])
-               for j in ("cubelet:driver:pos_z", "cubelet:driver:neg_z")]
+    drivers = sorted(int(c.jnt_dofadr[i]) for n, i in c.names["joint"].items()
+                     if n.startswith("cube:cubelet:driver:"))
     cube_dofs = range(int(env.cube.cube_pos_dof[0]), c.nv)
     spread = {i: float(damp[:, i].max() - damp[:, i].min()) for i in cube_dofs}
     varied = sorted(i for i, v in spread.items() if v > 0)
-    print(f"[path wrapped_face_env] dof_damping across envs on the driver dofs {drivers}: "
+    print(f"[path {label}] dof_damping across envs on the driver dofs {drivers}: "
           + ", ".join(f"dof {i} {float(damp[:, i].min()):.4g} to {float(damp[:, i].max()):.4g}"
                       for i in drivers)
           + f"; cube dofs that differ across envs: {varied}")
-    check(varied == sorted(drivers), f"wrapped face env: dof_damping varies on cube dofs "
-          f"{varied}, want exactly the drivers {drivers}")
+    check(varied == drivers, f"{label}: dof_damping varies on cube dofs {varied}, want exactly "
+          f"the drivers {drivers}")
     return {str(i): spread[i] for i in drivers}
 
 
-def capture_face_step(env, state):
-    """The kernels' inputs in the last substep of one face env step from
+def size_spread(wenv, fields, label):
+    """The geoms whose `geom_size` differs across envs: exactly the cube's
+    pieces (`cube:cubelet*`, the perpendicular cube-size transform's)."""
+    size = fields["geom_size"]
+    c = wenv.env.model.const
+    pieces = sorted(i for n, i in c.names["geom"].items() if n.startswith("cube:cubelet"))
+    varied = torch.nonzero((size.amax(0) > size.amin(0)).any(-1)).flatten().tolist()
+    scale = size[:, pieces] / wenv.env.model.geom_size[pieces]
+    print(f"[path {label}] geom_size differs across envs on {len(varied)} geoms (the cube's "
+          f"{len(pieces)} pieces: {varied == pieces}); scale {float(scale.min()):.4f} to "
+          f"{float(scale.max()):.4f}")
+    check(varied == pieces, f"{label}: geom_size varies on geoms {varied}, want the pieces "
+          f"{pieces}")
+    return dict(geoms=len(varied), scale_min=float(scale.min()), scale_max=float(scale.max()))
+
+
+def capture_rubik_step(env, state):
+    """The kernels' inputs in the last substep of one Rubik's env step from
     `state`: (core inputs, CG iterations, facets per contact) and the
     "hull_manifold" and "boxbox" arguments."""
     from robogym_torch.physics import constraint_batched
@@ -1517,6 +1621,50 @@ def capture_face_step(env, state):
     kind_s, iterations, nfacet, *args = calls["fused_step_core"][1]
     return dict(core=(constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet),
                 hull_manifold=calls["hull_manifold"][1], boxbox=calls["boxbox"][1])
+
+
+def b_rows_line(label, E, V):
+    """Kernel B's rows at E rows and V dofs: row groups of 32, those a lane
+    keeps in registers, those spilled to shared memory (cg_full.cu
+    `reg_rows`, `layout`)."""
+    nk = (E + 31) // 32
+    R = min(max(nk, 1), 8) if V <= 32 else 8 if V <= 64 else 4
+    spill = max(nk - R, 0)
+    print(f"[{label}] kernel B's rows: {nk} groups of 32, {min(nk, R)} in registers, {spill} "
+          f"spilled to shared memory ({max(E - 32 * R, 0)} rows)")
+    return dict(row_groups=nk, register_groups=min(nk, R), spilled_groups=spill)
+
+
+def solver_hop(env, n=SOLVER_HOP_ENVS):
+    """The solver goals' host hop on a copy of the full env under
+    face_cube_solver: a reset of n envs (each plan empty), then
+    `goals_solver.solve_and_attach` (one two-phase solve an env, on the
+    host); checks every plan non-empty and `solver_plan_empty` false in
+    every env after one step. Returns the readings."""
+    from robogym_torch.envs.dactyl import goals_solver
+
+    env = copy.copy(env)
+    env.constants = dataclasses.replace(env.constants, goal_generation="face_cube_solver")
+    env.generator = torch.Generator(device=env.device)
+    env.generator.manual_seed(SEED)
+    state, _ = env.reset(n)
+    check(not bool(state.goal_aux[1].any()), "solver hop: a plan before the hop")
+    legal = legal_share(env, state.physics.qpos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = goals_solver.solve_and_attach(env, state)
+    torch.cuda.synchronize()
+    per_solve = (time.perf_counter() - t0) / n
+    lengths = [int(x) for x in state.goal_aux[1]]
+    _, _, _, _, info = env.step(state, rearrange_actions(env, n)())
+    empty = int(info["solver_plan_empty"].sum())
+    print(f"[solver hop] face_cube_solver reset at B={n}: legal cubes {legal:.4f}; "
+          f"solve_and_attach {1e3 * per_solve:.2f} ms of host a solve; plan lengths {lengths}; "
+          f"after one step solver_plan_empty in {empty} envs, plan steps "
+          f"{[int(x) for x in info['solver_plan_step']]}")
+    check(min(lengths) > 0, f"solver hop: empty plans, lengths {lengths}")
+    check(empty == 0, f"solver hop: solver_plan_empty in {empty} envs after a step")
+    return dict(envs=n, legal=legal, host_ms_per_solve=1e3 * per_solve, plan_lengths=lengths)
 
 
 def nudge_rule(label, got, want, nudged, cube_cols):
@@ -1552,9 +1700,9 @@ def nudge_rule(label, got, want, nudged, cube_cols):
               f"whole step {label}: {name} outside the nudge rule: {line}")
 
 
-def face_agreement(label, env, state, n=64):
+def rubik_agreement(label, env, state, n=64):
     """One env step's physics (SUBSTEPS substeps, each env's own model
-    fields and controls) of the face env on the first n envs of a path's
+    fields and controls) of a Rubik's env on the first n envs of a path's
     last state, through the kernels and through the plain versions, held
     by `nudge_rule` with NUDGED_RUNS runs of the kernels from start qvels
     nudged by NUDGE, stepped as one batch. The rule's per-env form fails
@@ -1565,6 +1713,7 @@ def face_agreement(label, env, state, n=64):
     from robogym_torch.envs import core
     from robogym_torch.physics import step
 
+    n = min(n, state.physics.qpos.shape[0])
     d = core.data_map(lambda x: x[:n], state.physics)
     fields = {k: v[:n] for k, v in (state.model_fields or {}).items()}
     m = core.apply_model_fields(env.model, fields)
@@ -1937,7 +2086,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
     print(f"[device] {card} (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     # 2. build
@@ -1964,8 +2112,10 @@ def main() -> int:
         check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
     env, env_state = locked_env_reset(B)
     wenv, wstate = wrapped_env_reset(env, B)
-    fenv, fstate, f_read = face_env_reset(B)
-    wfenv, wfstate, wf_read = face_env_reset(B, bare=fenv)
+    fenv, fstate, f_read = rubik_env_reset(B)
+    wfenv, wfstate, wf_read = rubik_env_reset(B, bare=fenv)
+    uenv, ustate, u_read = rubik_env_reset(B, "full")
+    wuenv, wustate, wu_read = rubik_env_reset(B, "full", bare=uenv)
     renv, rstate, r_build, r_reset = rearrange_env_reset(B)
     tenv, tstate, t_build, t_reset = rearrange_env_reset(B, "blocks_train", BLOCKS_TRAIN_CONFIG,
                                                          "blocks_train env")
@@ -2029,7 +2179,7 @@ def main() -> int:
     # step from its reset state: A and B at its V=48 (the cube's 16 joint
     # equality rows among B's rows), C on the cubelets' box-mesh pairs, E
     # on the palm's box-box pairs
-    fcap = capture_face_step(fenv, fstate)
+    fcap = capture_rubik_step(fenv, fstate)
     ci_f, its_f, nfacet_f = fcap["core"]
     V_f, E_f = ci_f["qM"].shape[-1], len(ci_f["kind"])
     eq_f = int((np.asarray(ci_f["kind"]) == constraint.EQ).sum())
@@ -2047,6 +2197,40 @@ def main() -> int:
     res["hull_manifold@face"] = phase_hull("hull_manifold", hargs_f, hDX_f, REPS,
                                            "C hull_manifold@face")
     res["boxbox@face"] = phase_boxbox(fcap["boxbox"], REPS, "E boxbox@face")
+    # the full env's kernels on the inputs of the last substep of one env
+    # step from its reset state: A at V=96 (its 65-128-dof shared-memory
+    # kernel), the solve (the pieces' 66 friction-loss rows among its
+    # rows) in B or, where B does not take the system, F on the size
+    # route, C on the pieces' box-mesh pairs, E on the palm's box-box pairs
+    ucap = capture_rubik_step(uenv, ustate)
+    ci_u, its_u, nfacet_u = ucap["core"]
+    V_u, E_u = ci_u["qM"].shape[-1], len(ci_u["kind"])
+    fr_u = int((np.asarray(ci_u["kind"]) == constraint.FRICTION).sum())
+    fits_u = cg_kernel.fits(E_u, V_u, True)
+    route_u = "cg_full" if fits_u else "cg"
+    for path in ("full_env", "wrapped_full_env"):
+        PER_CALL[path] = dict(PER_CALL["locked_env"])
+        PER_CALL[path][route_u] = PER_CALL[path].pop("cg_full")
+    print(f"[full] kernel B's system: E={E_u} rows ({fr_u} friction-loss rows), V={V_u}; smem "
+          f"an env {cuda.cg_full_smem_bytes(E_u, V_u, True)} B, limit {cuda.max_smem_bytes()} B: "
+          f"{'kernel B' if fits_u else 'the size route (F)'} takes it")
+    check(V_u == uenv.model.const.nv == 96, f"full: V={V_u}, want 96")
+    check(fr_u == 66, f"full: {fr_u} friction-loss rows, want the 66 piece hinges'")
+    res["spd_inverse@full"] = phase_spd("A spd_inverse@full", ci_u["qM"], REPS)
+    if fits_u:
+        b_rows = b_rows_line("B cg_full@full", E_u, V_u)
+        res["cg_full@full"] = phase_cg_full("B cg_full@full", ci_u, its_u, nfacet_u, REPS)
+        res["cg_full@full"].update(b_rows)
+    else:
+        res["cg@full"] = phase_cg_routed("full", ci_u, its_u, nfacet_u, REPS)
+        res["cg@full"].pop("routed_launches")
+    *hargs_u, hDX_u = ucap["hull_manifold"]
+    check(hDX_u == 6 and hargs_u[0].shape[-1] == 8,
+          f"full: hull_manifold at V1={hargs_u[0].shape[-1]} DX={hDX_u}, want the boxes' 8, 6")
+    res["hull_manifold@full"] = phase_hull("hull_manifold", hargs_u, hDX_u, REPS,
+                                           "C hull_manifold@full")
+    res["boxbox@full"] = phase_boxbox(ucap["boxbox"], REPS, "E boxbox@full")
+    hop = solver_hop(uenv)
     # the rearrange env's kernels on the inputs of one env step from its
     # reset state: A at the main sim's and the solver sim's V, B on the
     # solver sim's system (its weld, connect and joint rows) and on the main
@@ -2188,25 +2372,33 @@ def main() -> int:
           f"{wsps:.1f} env-steps/s (locked_env {sps:.1f} in this run, ratio {wsps / sps:.3f}); "
           f"reward sum {wrapped_out['reward_sum']} (env, goal distance, success), episodes done "
           f"{wrapped_out['done']}, on the palm {wrapped_out['on_palm']:.4f}; launches {counts}")
-    face_out = {}
-    out, wall, counts = drive("face_env", lambda: face_env_steps(
-        fenv, fstate, face_out, rearrange_actions(fenv, B), "face_env"), ENV_STEPS * SUBSTEPS)
-    record("face_env", wall, counts, **face_path_readings("face_env", fenv, f_read, face_out,
-                                                          wall, B))
-    print(f"[path face_env] launches {counts}")
-    wface_out = {}
-    out, wall, counts = drive("wrapped_face_env", lambda: face_env_steps(
-        wfenv, wfstate, wface_out, wrapped_actions(B, wfenv.device), "wrapped_face_env"),
-        ENV_STEPS * SUBSTEPS)
-    wf_fields = wface_out["state"].model_fields
-    wf_spread = check_field_spread(wfenv, wf_fields, wface_out["timesteps"], FACE_WRAPPED_SAME,
-                                   "wrapped_face_env")
-    record("wrapped_face_env", wall, counts, field_spread=wf_spread,
-           driver_damping_spread=face_damping_spread(wfenv, wf_fields),
-           **face_path_readings("wrapped_face_env", wfenv, wf_read, wface_out, wall, B))
-    print(f"[path wrapped_face_env] discrete actions ({N_ACTION_BINS} bins), env-steps/s "
-          f"{paths['wrapped_face_env']['env_steps_per_s']:.1f} (face_env "
-          f"{paths['face_env']['env_steps_per_s']:.1f} in this run); launches {counts}")
+    rubik_out = {}
+    for rubik, (benv, bstate, b_read, wenv_k, wstate_k, w_read, same) in (
+            ("face", (fenv, fstate, f_read, wfenv, wfstate, wf_read, FACE_WRAPPED_SAME)),
+            ("full", (uenv, ustate, u_read, wuenv, wustate, wu_read, FULL_WRAPPED_SAME))):
+        steps, bare, wrapped = RUBIK[rubik]["steps"], f"{rubik}_env", f"wrapped_{rubik}_env"
+        rubik_out[bare] = bout = {}
+        out, wall, counts = drive(bare, lambda: rubik_env_steps(
+            benv, bstate, bout, rearrange_actions(benv, B), bare, steps), steps * SUBSTEPS)
+        record(bare, wall, counts, **rubik_path_readings(bare, benv, b_read, bout, wall, B, steps))
+        print(f"[path {bare}] launches {counts}")
+        rubik_out[wrapped] = wout = {}
+        out, wall, counts = drive(wrapped, lambda: rubik_env_steps(
+            wenv_k, wstate_k, wout, wrapped_actions(B, wenv_k.device), wrapped, steps),
+            steps * SUBSTEPS)
+        w_fields = wout["state"].model_fields
+        extra = dict(field_spread=check_field_spread(wenv_k, w_fields, wout["timesteps"], same,
+                                                     wrapped),
+                     driver_damping_spread=damping_spread(wenv_k, w_fields, wrapped))
+        if rubik == "full":
+            extra["cube_size_spread"] = size_spread(wenv_k, w_fields, wrapped)
+        record(wrapped, wall, counts, **extra,
+               **rubik_path_readings(wrapped, wenv_k, w_read, wout, wall, B, steps))
+        print(f"[path {wrapped}] discrete actions ({N_ACTION_BINS} bins), env-steps/s "
+              f"{paths[wrapped]['env_steps_per_s']:.1f} ({bare} "
+              f"{paths[bare]['env_steps_per_s']:.1f} in this run); launches {counts}")
+    paths["full_env"]["solver_hop"] = hop
+    paths["full_env"]["route"] = route_u
     rearr_out = {}
     out, wall, counts = drive("rearrange_env",
                               lambda: rearrange_env_steps(renv, rstate, rearr_out,
@@ -2277,8 +2469,9 @@ def main() -> int:
 
     wrapped_agreement(wenv, wrapped_out["state"])
     rearrange_agreement(renv, rearr_out["state"])
-    face_agreement("face_env", fenv, face_out["state"])
-    face_agreement("wrapped_face_env", wfenv.env, wface_out["state"])
+    for label, env_k in (("face_env", fenv), ("wrapped_face_env", wfenv.env),
+                         ("full_env", uenv), ("wrapped_full_env", wuenv.env)):
+        rubik_agreement(label, env_k, rubik_out[label]["state"])
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: agreement")
     if opts.profile:
@@ -2296,7 +2489,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"paths": paths, "card": card}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -85,6 +85,32 @@ class CubeIndex:
         )
 
 
+def rubik_cube_index(model: Model) -> CubeIndex:
+    """The Rubik's cube envs' index tables: the slides `cube:cube:tx/ty/tz`,
+    the ball `cube:cube:rot` and the site `cube:center`; no target
+    (face_perpendicular.py:139-165, full_perpendicular.py:95-121)."""
+    c = model.const
+    jn = c.names["joint"]
+
+    def qadr(name, n=1):
+        a = int(c.jnt_qposadr[jn[name]])
+        return np.arange(a, a + n, dtype=np.int64)
+
+    def dadr(name, n=1):
+        a = int(c.jnt_dofadr[jn[name]])
+        return np.arange(a, a + n, dtype=np.int64)
+
+    return CubeIndex(
+        cube_pos_qpos=np.concatenate([qadr(f"cube:cube:t{ax}") for ax in "xyz"]),
+        cube_rot_qpos=qadr("cube:cube:rot", 4),
+        cube_pos_dof=np.concatenate([dadr(f"cube:cube:t{ax}") for ax in "xyz"]),
+        cube_rot_dof=dadr("cube:cube:rot", 3),
+        target_pos_qpos=np.zeros(0, np.int64),
+        target_rot_qpos=np.zeros(0, np.int64),
+        cube_center_site=int(c.names["site"].get("cube:center", 0)),
+    )
+
+
 def _ix(ids, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long, device=like.device)
 
@@ -267,15 +293,18 @@ class CubeEnvBase:
         return self._random_warmup_steps(d, draws["action"])
 
     def reset_physics(self, batch: int,
-                      attempts: Optional[List[Dict[str, torch.Tensor]]] = None) -> Data:
+                      attempts: Optional[List[Dict[str, torch.Tensor]]] = None,
+                      initial: Optional[Data] = None) -> Data:
         """Pose randomization for `batch` envs, retried on the envs whose
         cube is not on the palm, up to `max_pose_resets` times
-        (cube_env.py:330-355). Each retry runs only those envs.
-        `attempts[i]`, if given, holds attempt i's draws for every env
-        (`draw_attempt(batch)`), else they come from the env's generator.
-        Sets `reset_retries` to the retries run."""
-        base = core.data_map(lambda x: x.expand((batch,) + x.shape[1:]).clone(),
-                             self._settled_data)
+        (cube_env.py:330-355). Each retry runs only those envs, from their
+        start: `initial` (`batch` envs, as the full env's scramble leaves
+        them) or else the settled state. `attempts[i]`, if given, holds
+        attempt i's draws for every env (`draw_attempt(batch)`), else they
+        come from the env's generator. Sets `reset_retries` to the retries
+        run."""
+        base = initial if initial is not None else core.data_map(
+            lambda x: x.expand((batch,) + x.shape[1:]).clone(), self._settled_data)
         d = self._attempt(base, attempts[0] if attempts else self.draw_attempt(batch))
         self.reset_retries = 0
         for i in range(self.constants.max_pose_resets):

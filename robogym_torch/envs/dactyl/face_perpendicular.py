@@ -132,28 +132,7 @@ class FacePerpendicularEnv(cube_env.CubeEnvBase):
         super().__init__(constants, model, seed=seed)
 
     def build_cube_index(self, model: Model) -> cube_env.CubeIndex:
-        """The slides `cube:cube:tx/ty/tz`, the ball `cube:cube:rot` and the
-        site `cube:center`; no target (face_perpendicular.py:139-165)."""
-        c = model.const
-        jn = c.names["joint"]
-
-        def qadr(name, n=1):
-            a = int(c.jnt_qposadr[jn[name]])
-            return np.arange(a, a + n, dtype=np.int64)
-
-        def dadr(name, n=1):
-            a = int(c.jnt_dofadr[jn[name]])
-            return np.arange(a, a + n, dtype=np.int64)
-
-        return cube_env.CubeIndex(
-            cube_pos_qpos=np.concatenate([qadr(f"cube:cube:t{ax}") for ax in "xyz"]),
-            cube_rot_qpos=qadr("cube:cube:rot", 4),
-            cube_pos_dof=np.concatenate([dadr(f"cube:cube:t{ax}") for ax in "xyz"]),
-            cube_rot_dof=dadr("cube:cube:rot", 3),
-            target_pos_qpos=np.zeros(0, np.int64),
-            target_rot_qpos=np.zeros(0, np.int64),
-            cube_center_site=int(c.names["site"].get("cube:center", 0)),
-        )
+        return cube_env.rubik_cube_index(model)
 
     # ------------------------------------------------------------------
     def face_angles(self, d: Data) -> torch.Tensor:

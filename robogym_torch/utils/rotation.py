@@ -162,6 +162,18 @@ def rot_z_aligned(cube_quat: torch.Tensor, quat_threshold, include_flip: bool = 
     return ok
 
 
+def rot_xyz_aligned(cube_quat: torch.Tensor, quat_threshold) -> torch.Tensor:
+    """(...,) whether some local axis of each cube points straight up (or
+    down), within `quat_threshold`."""
+    z_up = torch.tensor([0.0, 0.0, 1.0], dtype=cube_quat.dtype, device=cube_quat.device)
+    mtx = quat2mat(cube_quat)
+    dots = mtx[..., 2, :]                   # each local axis's world z
+    axis_nr = torch.argmax(torch.abs(dots), dim=-1)
+    axis = torch.gather(mtx, -1, axis_nr[..., None, None].expand(mtx.shape[:-1] + (1,)))[..., 0]
+    axis = axis * torch.sign(axis[..., 2:3])
+    return quat_magnitude(vectors2quat(axis, z_up.expand(axis.shape))) < quat_threshold
+
+
 def quat_average2(q1: torch.Tensor, q2: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     """Weighted average of two unit quaternions (..., 4) with weights w1
     (...,) and 1 - w1: q2 sign-aligned to q1, then the chordal mean with w
@@ -188,6 +200,21 @@ def uniform_z_quat_apply(u: torch.Tensor) -> torch.Tensor:
                           u * (2.0 * np.pi) - np.pi)
     return quat_from_angle_and_axis(angle, torch.tensor([0.0, 0.0, 1.0], dtype=u.dtype,
                                                         device=u.device))
+
+
+def euler2mat(euler: torch.Tensor) -> torch.Tensor:
+    """Euler angles (..., 3) -> rotation matrix (..., 3, 3) (the JAX
+    package's `euler2mat`: R = R_x(e0) R_y(e1) R_z(e2), the composition of
+    MuJoCo hinges about x, y and z listed in that order in one body)."""
+    ai, aj, ak = -euler[..., 2], -euler[..., 1], -euler[..., 0]
+    si, sj, sk = torch.sin(ai), torch.sin(aj), torch.sin(ak)
+    ci, cj, ck = torch.cos(ai), torch.cos(aj), torch.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    row0 = torch.stack([cj * ci, cj * si, -sj], dim=-1)
+    row1 = torch.stack([sj * cs - sc, sj * ss + cc, cj * sk], dim=-1)
+    row2 = torch.stack([sj * cc + ss, sj * sc - cs, cj * ck], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
 
 
 def euler2quat(euler: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,9 @@
 """The wrapper layer's registry (counterpart of `robogym_tpu/wrappers/__init__.py`;
 reference robogym/wrappers/__init__ and named_wrappers.py): every transform
 by name for `apply_named_wrappers`, the default dactyl stack, and that
-stack with the face-damping transform for the face-perpendicular env.
-
-Not ported yet: `wrappers/parametric.py` of the JAX package (the
-perpendicular cube-size transform), which neither stack uses."""
+stack with the face-damping transform for the face-perpendicular env, and
+that with the perpendicular cube-size transform for the full-perpendicular
+env."""
 
 from robogym_torch.wrappers.core import (
     Transform,
@@ -26,6 +25,7 @@ from robogym_torch.wrappers.dactyl import (
     StopOnFallWrapper,
 )
 from robogym_torch.wrappers.face import RandomizedFaceDampingWrapper
+from robogym_torch.wrappers.parametric import RandomizedPerpendicularCubeSizeWrapper
 from robogym_torch.wrappers.randomizations import (
     ActionDelayWrapper,
     ActionNoiseWrapper,
@@ -137,3 +137,15 @@ def construct_face_wrappers(**kwargs):
 def apply_face_wrappers(env, **kwargs) -> WrappedEnv:
     """`construct_face_wrappers` around `env`."""
     return apply_named_wrappers(env, construct_face_wrappers(**kwargs))
+
+
+def construct_full_wrappers(**kwargs):
+    """The face stack with the perpendicular cube's size randomized
+    (`RandomizedPerpendicularCubeSizeWrapper`) added outermost, the stack
+    the full-perpendicular env is wrapped in."""
+    return construct_face_wrappers(**kwargs) + [["RandomizedPerpendicularCubeSizeWrapper"]]
+
+
+def apply_full_wrappers(env, **kwargs) -> WrappedEnv:
+    """`construct_full_wrappers` around `env`."""
+    return apply_named_wrappers(env, construct_full_wrappers(**kwargs))

@@ -55,7 +55,7 @@ def _snapshot_tool():
                                    "dactyl_locked_like", "rearrange_blocks_like",
                                    "rearrange_solver_like", "rearrange_settle_like",
                                    "rearrange_dominos_like", "rearrange_wordblocks_like",
-                                   "rubik_face_like"])
+                                   "rubik_face_like", "rubik_full_like"])
 def test_world_snapshot_matches_fresh_compile(world):
     """The hand-only and goal-settle snapshots equal what
     tools/build_locked_like_snapshot.py compiles now, field by field. The
@@ -77,7 +77,11 @@ def test_world_snapshot_matches_fresh_compile(world):
     `scale_contact_budgets(model, 6)`. The cubelet world has nq = 49 and
     nv = 48 (24 hinges; the cube's three slides and ball; 18 cubelet
     hinges, 16 of them held to the 2 drivers by joint equality rows), 26
-    box cubelets and a box palm, and the default budgets."""
+    box cubelets and a box palm, and the default budgets. The 20-cubelet
+    world has nq = 97 and nv = 96 (24 hinges; the cube's three slides and
+    ball; 6 face drivers and 20 cubelets on three hinges each, all 66 with
+    friction loss, no equality), 26 box pieces and a box palm, and the
+    default budgets."""
     tool = _snapshot_tool()
     model, fresh = tool.compile_snapshot(world)
     with np.load(tool.snapshot_path(world)) as z:
@@ -113,6 +117,12 @@ def test_world_snapshot_matches_fresh_compile(world):
         boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
         assert (c.nq, c.nv, c.nu, c.ntendon, len(boxes)) == (49, 48, 20, 4, 27)
         assert sorted(int(t) for t in c.eq_type) == [EqType.JOINT] * 16
+        assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (32, 48)
+        return
+    if world == "rubik_full_like":
+        boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
+        assert (c.nq, c.nv, c.nu, c.ntendon, c.neq, len(boxes)) == (97, 96, 20, 4, 0, 27)
+        assert np.count_nonzero(fresh["model.dof_frictionloss"]) == 66
         assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (32, 48)
         return
     if world == "dactyl_locked_like":
@@ -173,6 +183,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import robogym_torch.robot.tcp_solver, robogym_torch.robot.tcp_force_limiter\n"
         "import robogym_torch.envs.dactyl.face_perpendicular, robogym_torch.wrappers.face\n"
         "import robogym_torch.worlds.rubik_face_like, robogym_torch.wrappers\n"
+        "import robogym_torch.envs.dactyl.full_perpendicular, robogym_torch.wrappers.parametric\n"
+        "import robogym_torch.envs.dactyl.cube_manipulator, robogym_torch.envs.dactyl.goals_solver\n"
+        "import robogym_torch.utils.rubik_utils, robogym_torch.worlds.rubik_full_like\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
         "assert not bad, bad\n"
     )

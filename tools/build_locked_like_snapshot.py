@@ -29,7 +29,11 @@ snapshots next to their modules in `robogym_torch/worlds/`:
   * `rubik_face_like.npz`, the hand and a cube of 26 box cubelets with the
     face-perpendicular env's names and joints (nv = 48), compiled as
     `envs/dactyl/face_perpendicular.py` compiles its world: plain
-    `compile_xml`, the default contact budgets.
+    `compile_xml`, the default contact budgets;
+  * `rubik_full_like.npz`, the hand and a cube of 6 face centres and 20
+    cubelets, each on its own hinges (nv = 96), with the full-perpendicular
+    env's names and joints, compiled as `envs/dactyl/full_perpendicular.py`
+    compiles its world: plain `compile_xml`, the default contact budgets.
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -49,7 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like",
           "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like",
           "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like",
-          "rubik_face_like")
+          "rubik_face_like", "rubik_full_like")
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -58,7 +62,8 @@ def compile_snapshot(world: str = "locked_like"):
 
     from robogym_torch.bridge import model_to_numpy
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      rearrange_blocks_like, rubik_face_like, table_setting_like)
+                                      rearrange_blocks_like, rubik_face_like, rubik_full_like,
+                                      table_setting_like)
     from robogym_tpu.envs.rearrange import simulation as sim_lib
     from robogym_tpu.envs.rearrange.dominos import DOMINO_PROPORTIONS
     from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
@@ -72,8 +77,9 @@ def compile_snapshot(world: str = "locked_like"):
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(table_setting_like.write(tmp), dtype=jnp.float32)
         model = scale_contact_budgets(model, table_setting_like.N_OBJECTS)
-    elif world in ("dactyl_locked_like", "rubik_face_like"):
-        module = dactyl_locked_like if world == "dactyl_locked_like" else rubik_face_like
+    elif world in ("dactyl_locked_like", "rubik_face_like", "rubik_full_like"):
+        module = {"dactyl_locked_like": dactyl_locked_like, "rubik_face_like": rubik_face_like,
+                  "rubik_full_like": rubik_full_like}[world]
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(module.write(tmp), dtype=jnp.float32)
     elif world == "rearrange_settle_like":
@@ -107,7 +113,8 @@ def compile_snapshot(world: str = "locked_like"):
 
 def snapshot_path(world: str) -> str:
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      rearrange_blocks_like, rubik_face_like, table_setting_like)
+                                      rearrange_blocks_like, rubik_face_like, rubik_full_like,
+                                      table_setting_like)
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
@@ -118,7 +125,8 @@ def snapshot_path(world: str) -> str:
             "rearrange_settle_like": rearrange_blocks_like.SETTLE_SNAPSHOT,
             "rearrange_dominos_like": rearrange_blocks_like.DOMINOS_SNAPSHOT,
             "rearrange_wordblocks_like": rearrange_blocks_like.WORDBLOCKS_SNAPSHOT,
-            "rubik_face_like": rubik_face_like.SNAPSHOT}[world]
+            "rubik_face_like": rubik_face_like.SNAPSHOT,
+            "rubik_full_like": rubik_full_like.SNAPSHOT}[world]
 
 
 def main():
