@@ -55,7 +55,19 @@ Phases, in order; any failure ends the script with a non-zero exit:
    stack and the perpendicular cube's size, `wrappers.apply_full_wrappers`),
    built and reset the same way (50 random quarter turns of the cube
    before the pose loop), with the share of envs whose cube is legal
-   (`legal_share`) and the share above 32 live contacts.
+   (`legal_share`) and the share above 32 live contacts; the reach env
+   (`envs/dactyl/reach.make_env`, BASELINE config 1) on the reach stand-in
+   world (`dactyl_reach_like.npz`, nv=24: the hand alone at the
+   reference's mount pose over a floor, force-limited), built (its
+   200-substep settle at B=1) and reset at B=1024 (each env's first goal
+   from a 20-substep goal sim); a copy of it under an `EnvRandomization`
+   whose simulation chain draws gravity, joint margins, geom solref, and
+   `GenericSimRandomizer` on the `robot0:` dofs' damping and geoms'
+   friction, its ADR values set by path (`REACH_ADR`), applied as per-env
+   model fields on its reset state; and the locked env with
+   `vision_observation_provider="dummy_vision"` built and reset at B=1024
+   (its images (B, 3, 200, 200, 3) uint8 zeros, the goal images cached in
+   `goal_aux`).
 4. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
@@ -112,6 +124,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
    a face_cube_solver reset of 16 envs, `goals_solver.solve_and_attach`
    (host time a solve), every plan non-empty and `solver_plan_empty` false
    after one step;
+   on the inputs of the last substep of the reach env's physics from its
+   reset state under a relative zero action (`@reach`), A and B at V=24
+   (E=152), C on the palm's box-mesh pairs with the
+   fingers (K=12, V1=8, DX=6) and D on the fingers' mesh-mesh pairs (K=8,
+   V=64); then one substep of the reach model under effort control
+   (`shadow_hand.effort_control_model`) at B=1024 with a seeded command in
+   [-1, 1], `actuator_effort` held to the command to 1e-5, clipped where
+   the control range [-1, 1] clips the force (the wrist, THJ4, THJ3);
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
@@ -163,7 +183,21 @@ Phases, in order; any failure ends the script with a non-zero exit:
    (`wrapped_full_env`), read as the face paths, with the launches a
    substep of the route the system takes (2 A, 1 B or F, 1 C, 1 D, 1 E),
    `dof_damping` varying on exactly the six driver dofs and `geom_size`
-   on exactly the 26 pieces.
+   on exactly the 26 pieces; 5 steps of the reach env (`reach_env`,
+   actions uniform in [-1, 1], one env in 8 pending a success before the
+   first step, so that the goal sim runs on the gathered envs; the kept
+   goals unchanged, the resampled ones finite: env-steps/s, construction
+   and reset times, the success share, the goal sims and the envs they
+   resampled; per
+   substep 2 A, 1 B, 1 C, 1 D, the goal sims' substeps counted in) and 5
+   of the randomized reach env (`randomized_reach_env`, read the same way,
+   each randomized field varying across envs on exactly the rows its
+   randomizer selects and equal to the compiled model's elsewhere); 3
+   steps of the locked env with dummy vision (`locked_dummy_vision_env`,
+   the locked env's launches; one env in 8 holds a pending success, so its
+   goal resamples at the first step; the goal images read for exactly the
+   envs that resample, and carried over as the same tensor in a step with
+   none).
 6. Whole-step agreement: one substep through the kernels against one
    through the plain versions, at B=64, on the locked-like, settle, hand,
    table and dactyl-shaped worlds; every kernel routed to its plain
@@ -180,7 +214,11 @@ Phases, in order; any failure ends the script with a non-zero exit:
    tests' nudge rule over the whole batch: per group
    of the env-step envelope, the largest difference at most twice the
    largest drift of 8 runs of the kernels from qvels nudged by 1e-6, or
-   within the envelope.
+   within the envelope. Then one substep of the reach env's physics on the
+   first 64 envs of the reach path's last state, kernels against plain
+   versions, as the five worlds; and one substep of the randomized reach
+   env's physics (each env's own fields) at B=64 against the plain
+   versions in float32 and float64, as the wrapped env's.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
@@ -194,7 +232,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    sims', and the `@settle8` and `@dominos` entries all its launches on
    the blocks_train_env and dominos_env paths, the `@face` entries their
    kernel's launches on the face_env path, the `@full` entries on the
-   full_env path; `cg@wide` counts F's
+   full_env path, the `@reach` entries on the reach_env path; `cg@wide` counts F's
    launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
    `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
@@ -247,6 +285,14 @@ BLOCKS_TRAIN_CONFIG = ({"use_cuboid": True, "mask_obs_outside_placement_area": T
                         "object_scale_high": 0.2})
 # dominos' default: train goals with the mod-180 rotation distance, 5 of 8
 DOMINOS_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
+REACH_STEPS = 5                   # env steps of the reach and randomized reach paths
+VISION_STEPS = 3                  # env steps of the locked_dummy_vision_env path
+EFFORT_TOL = 1e-5                 # actuator_effort against its command after an effort substep
+# the randomized reach env's ADR values (paths of its EnvRandomization)
+REACH_ADR = (("sim:gravity:value", 0.3), ("sim:jnt_margin:value", 0.2),
+             ("sim:geom_solref:timeconst_std", 0.2), ("sim:geom_solref:dampratio_std", 0.2),
+             ("sim:dof_damping:mean", 0.1), ("sim:dof_damping:std", 0.3),
+             ("sim:geom_friction:std", 0.3))
 SEED = 0
 REPS = 50                         # launches per kernel timing
 HOLD_CYCLES_PER_REP = 2_000_000   # device cycles held per timed launch while the host queues them
@@ -336,6 +382,15 @@ AT_PATH["face"] = "face_env"
 PER_CALL["full_env"] = dict(PER_CALL["locked_env"])
 PER_CALL["wrapped_full_env"] = dict(PER_CALL["locked_env"])
 AT_PATH["full"] = "full_env"
+# the reach env on its stand-in world (the hand alone): per substep 2 A,
+# 1 B, C on the palm's box-mesh pairs with the fingers, D on the fingers'
+# mesh-mesh pairs (the floor's pairs launch none); a goal sim launches the
+# same per substep, on the envs that resample (`drive`'s calls count them)
+PER_CALL["reach_env"] = {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 1, "hull_pair": 1}
+PER_CALL["randomized_reach_env"] = dict(PER_CALL["reach_env"])
+AT_PATH["reach"] = "reach_env"
+# the locked env with dummy vision: the locked env's launches a substep
+PER_CALL["locked_dummy_vision_env"] = dict(PER_CALL["locked_env"])
 # fields the default stack overrides that the dactyl-shaped world leaves
 # equal across envs, and why
 WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
@@ -1389,19 +1444,20 @@ def check_dt_stride(ci, iterations, nfacet):
     check(all(equal.values()), f"cg_full: stride 0 and stride 1 outputs differ: {equal}")
 
 
-def wrapped_agreement(wenv, state, n=64):
+def wrapped_agreement(wenv, state, n=64, model=None, label="wrapped_env"):
     """One substep of the wrapped env's physics on its first n envs (each
     env's own model fields, the state of the wrapped path's last step)
     through the kernels, through the plain versions, and through the plain
     versions in float64: the kernels' relative error against float64 at
     most NOISE_RATIO times the plain float32 version's (+1e-6), on qpos and
-    qvel."""
+    qvel. `model` and `label` name another env's compiled model and path
+    (the randomized reach env's)."""
     from robogym_torch import bridge
     from robogym_torch.envs import core
     from robogym_torch.physics import step
 
     fields = {k: v[:n] for k, v in state.model_fields.items()}
-    m = core.apply_model_fields(wenv.env.model, fields)
+    m = core.apply_model_fields(model if model is not None else wenv.env.model, fields)
     d = core.data_map(lambda x: x[:n], state.physics)
     got = step.step(m, d)
     with plain_versions():
@@ -1413,11 +1469,11 @@ def wrapped_agreement(wenv, state, n=64):
     for k in ("qpos", "qvel"):
         g, w, x = (getattr(o, k) for o in (got, want, exact))
         e_k, e_p = rel_err(g.double(), x), rel_err(w.double(), x)
-        print(f"[whole step] wrapped_env, B={n} one substep with per-env model fields: {k} rel "
+        print(f"[whole step] {label}, B={n} one substep with per-env model fields: {k} rel "
               f"err vs float64: kernels {e_k:.3g}, plain versions {e_p:.3g} (at most "
               f"{NOISE_RATIO} x + 1e-6)")
         check(bool(torch.isfinite(g).all()) and e_k <= NOISE_RATIO * e_p + 1e-6,
-              f"wrapped env whole step: {k} err vs float64 {e_k:.3g} > {NOISE_RATIO} x the plain "
+              f"{label} whole step: {k} err vs float64 {e_k:.3g} > {NOISE_RATIO} x the plain "
               f"version's {e_p:.3g}")
 
 
@@ -1735,6 +1791,326 @@ def rubik_agreement(label, env, state, n=64):
     nudge_rule(f"{label}, B={n} one env step, kernels vs plain versions", got, want, nudged, cols)
 
 
+def reach_env_reset(batch):
+    """The reach env on the card (`reach.make_env`, whose construction
+    settles one env for 200 substeps) and its reset at `batch` envs (each
+    env's first goal from a goal sim of 20 substeps): (env, state,
+    construction s, reset s). Checks the state and the observations
+    finite."""
+    from robogym_torch.envs.dactyl import reach
+
+    t0 = time.perf_counter()
+    env = reach.make_env(device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, obs = env.reset(batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    c = env.model.const
+    print(f"[state] reach env on the reach stand-in world (nv={c.nv}, "
+          f"{len(c.collision_pairs)} collision pairs): built (its settle, "
+          f"{20 * env.constants.mujoco_substeps} substeps at B=1) in {t1 - t0:.2f} s; "
+          f"ReachEnv.reset at B={batch} in {t2 - t1:.2f} s (goal sim "
+          f"{env.constants.goal_stabilize_steps * env.constants.mujoco_substeps} substeps); "
+          f"first goals' distance mean {float(state.prev_goal_distance['fingertip_pos'].mean()):.4f} m")
+    for k in ("qpos", "qvel", "qacc"):
+        check(bool(torch.isfinite(getattr(state.physics, k)).all()), f"reach env reset: non-finite {k}")
+    for k, v in obs.items():
+        check(bool(torch.isfinite(v).all()), f"reach env reset: non-finite obs {k}")
+    return env, state, t1 - t0, t2 - t1
+
+
+def reach_env_steps(env, state, out, steps=REACH_STEPS):
+    """`steps` ReachEnv.step calls from `state` (each env's `model_fields`
+    applied), actions uniform in [-1, 1] from a seeded generator; one env
+    in 8 holds a pending success before the first step, so that the goal
+    sim runs on the gathered resampling envs at load. After that step the
+    envs whose goal did not resample must keep their goals unchanged, and
+    the resampled goals must be finite. Checks every obs and reward finite
+    and puts the reward sum, the episodes done, the success share over the
+    steps, the goal sims, the envs they resampled and the last state into
+    `out`. Returns the last physics state."""
+    B = state.t.shape[0]
+    pending = torch.zeros(B, dtype=torch.bool, device=env.device)
+    pending[::8] = True
+    state = state.replace(tracker=state.tracker.replace(success_and_no_goal_reset=pending))
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(SEED)
+    sims, envs = env.goal_sims, env.goal_sim_envs
+    rewards, done, success, finite = 0.0, 0, 0.0, {}
+    for i in range(steps):
+        action = torch.rand((B, env.action_size), generator=gen, device=env.device) * 2.0 - 1.0
+        before, goals = dict(state.goal, goal_aux=state.goal_aux), state.tracker.goals_so_far
+        state, obs, reward, dn, info = env.step(state, action)
+        if i == 0:
+            new = state.tracker.goals_so_far != goals
+            n = int(new.sum())
+            check(bool(new[pending].all()) and env.goal_sim_envs - envs == n,
+                  f"reach path: {n} goals resampled, {env.goal_sim_envs - envs} goal-sim envs, "
+                  f"{int(pending.sum())} pending")
+            for k, v in dict(state.goal, goal_aux=state.goal_aux).items():
+                check(bool((v[~new] == before[k][~new]).all()), f"reach path: kept goal {k} moved")
+                check(bool(torch.isfinite(v[new]).all()), f"reach path: resampled goal {k} not finite")
+        for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
+            ok = torch.isfinite(v).all()
+            finite[k] = finite[k] & ok if k in finite else ok
+        rewards = rewards + reward.sum(0)
+        done = done + dn.sum()
+        success = success + info["is_successful"].float().mean()
+    for k, ok in finite.items():
+        check(bool(ok), f"reach path: non-finite {k}")
+    out.update(reward_sum=[float(x) for x in rewards], done=int(done),
+               success_share=float(success) / steps, goal_sims=env.goal_sims - sims,
+               goal_resamples=env.goal_sim_envs - envs, state=state)
+    return state.physics
+
+
+def reach_calls(env, out, steps=REACH_STEPS):
+    """The substeps of a reach path: each step's and each goal sim's."""
+    return lambda: (steps + out["goal_sims"] * env.constants.goal_stabilize_steps) * SUBSTEPS
+
+
+def reach_path_line(label, env, out, wall, batch, steps=REACH_STEPS):
+    sps = batch * steps / wall
+    print(f"[path {label}] {steps} ReachEnv.step calls x {SUBSTEPS} substeps at B={batch}: "
+          f"{wall:.3f} s, {sps:.1f} env-steps/s; reward sum {out['reward_sum']} (env, goal "
+          f"distance, success), episodes done {out['done']}, success share "
+          f"{out['success_share']:.4f}, goal sims {out['goal_sims']} resampling "
+          f"{out['goal_resamples']} envs")
+    return dict(env_steps=steps, substeps=SUBSTEPS, env_steps_per_s=sps,
+                reward_sum=out["reward_sum"], done=out["done"], success_share=out["success_share"],
+                goal_sims=out["goal_sims"], goal_resamples=out["goal_resamples"])
+
+
+def capture_reach_substep(env, state):
+    """The kernels' inputs in the last of SUBSTEPS substeps of the reach
+    env's physics from `state` under a relative zero action (an env step's
+    main sim, no goal sim): (core inputs, CG iterations, facets per
+    contact) and the "hull_manifold" and "hull_pair" arguments."""
+    from robogym_torch.physics import constraint_batched, step
+    from robogym_torch.physics.collision import convex_kernel
+    from robogym_torch.robot import shadow_hand
+
+    d = state.physics
+    ctrl = shadow_hand.denormalize_position_control(
+        env.hand, env.model, d, torch.zeros((d.qpos.shape[0], 20), device=env.device),
+        relative_action=True)
+    calls = capture_ends([(constraint_batched, "fused_step_core"),
+                          (convex_kernel, "hull_manifold"), (convex_kernel, "hull_pair")],
+                         lambda: step.step_n(env.model, d.replace(ctrl=ctrl), SUBSTEPS))
+    kind_s, iterations, nfacet, *args = calls["fused_step_core"][1]
+    return dict(core=(constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet),
+                hull_manifold=calls["hull_manifold"][1], hull_pair=calls["hull_pair"][1])
+
+
+def effort_check(env, state):
+    """One substep of the reach model under effort control
+    (`shadow_hand.effort_control_model`) from `state` at its batch, a
+    seeded command in [-1, 1]: `actuator_effort` must give the command
+    back to EFFORT_TOL (tests/test_parity_extras.py's check), clipped where
+    it clips: the actuation clamps the control to its range [-1, 1] before
+    the force limit, so on an actuator whose limit is above 1 (the
+    wrist's, THJ4's, THJ3's) a command above 1 / limit comes back as
+    1 / limit."""
+    from robogym_torch.physics import step
+    from robogym_torch.robot import shadow_hand
+
+    m = shadow_hand.effort_control_model(env.hand, env.model)
+    d = state.physics
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(SEED)
+    cmd = torch.rand((d.qpos.shape[0], 20), generator=gen, device=env.device) * 2.0 - 1.0
+    d = step.step(m, d.replace(ctrl=shadow_hand.set_effort_control(env.hand, m, d, cmd)))
+    ids = torch.as_tensor(env.hand.actuator_ids, device=env.device)
+    limits, cr = m.actuator_forcerange[ids], m.actuator_ctrlrange[ids]
+    raw = shadow_hand.denormalize_by_limit(cmd, limits)
+    force = torch.clamp(raw, cr[:, 0], cr[:, 1])
+    want = shadow_hand.normalize_by_limits(torch.clamp(force, limits[:, 0], limits[:, 1]), limits)
+    clipped = float((force != raw).float().mean())
+    err = float((shadow_hand.actuator_effort(env.hand, m, d) - want).abs().max())
+    print(f"[effort] one effort-control substep of the reach model at B={cmd.shape[0]}: "
+          f"actuator_effort vs the command (clipped to the control range on "
+          f"{100 * clipped:.2f} % of the entries) max abs err {err:.3g} (tol {EFFORT_TOL}); "
+          f"qvel finite {bool(torch.isfinite(d.qvel).all())}")
+    check(err <= EFFORT_TOL and bool(torch.isfinite(d.qvel).all()),
+          f"effort control: actuator_effort {err:.3g} from its command")
+    return dict(batch=cmd.shape[0], max_abs_err=err, clipped_share=clipped)
+
+
+def reach_randomization(env):
+    """The randomized reach env's EnvRandomization: a simulation chain of
+    gravity, joint margins, geom solref, and GenericSimRandomizer on
+    dof_damping (joints `robot0:`) and geom_friction (geoms `robot0:`),
+    bound to the env's model, its ADR values set by path (REACH_ADR)."""
+    from robogym_torch.randomization import env as renv
+    from robogym_torch.randomization import sim
+
+    sims = [sim.GravityRandomizer(), sim.JointMarginRandomizer(), sim.GeomSolrefRandomizer(),
+            sim.GenericSimRandomizer("dof_damping", "dof_damping", dof_jnt_prefix="robot0:"),
+            sim.GenericSimRandomizer("geom_friction", "geom_friction", geom_prefix="robot0:")]
+    for r in sims:
+        r.initialize(env.model)
+    rand = renv.build_env_randomization(simulation_randomizers=sims)
+    for path, value in REACH_ADR:
+        rand.update_parameter(path, value)
+    return rand
+
+
+def randomized_reach_reset(bare, batch):
+    """A copy of the reach env `bare` with a generator of its own, seeded as
+    `make_env` seeds one, its simulation chain's draws for `batch` envs
+    applied as per-env model fields on its reset state: (env, chain,
+    state)."""
+    env = copy.copy(bare)
+    env.generator = torch.Generator(device=bare.device)
+    env.generator.manual_seed(SEED)
+    chain = reach_randomization(env).get_randomizer("sim")
+    t0 = time.perf_counter()
+    fields = chain.apply({}, chain.draw(env.generator, batch), chain.param_values())
+    state, _ = env.reset(batch)
+    state = state.replace(model_fields=fields)
+    torch.cuda.synchronize()
+    print(f"[state] randomized reach env: {len(chain.get_randomizers())} sim randomizers, "
+          f"ADR values {dict(REACH_ADR)}; drawn, applied and reset at B={batch} in "
+          f"{time.perf_counter() - t0:.2f} s; per-env fields {sorted(fields)}")
+    return env, chain, state
+
+
+def sim_field_spread(env, chain, fields, label="randomized_reach_env"):
+    """Each randomized field must vary across envs on exactly the ids its
+    randomizer selects (gravity's three components, every joint's margin,
+    every geom's solref, the `robot0:` dofs' damping and geoms' friction)
+    and equal the compiled model's on the others. Returns {field:
+    spread}."""
+    from robogym_torch.randomization.sim import GenericSimRandomizer
+    from robogym_torch.wrappers.core import model_field
+
+    c = env.model.const
+    want = {"opt:gravity": range(3), "jnt_margin": range(c.njnt), "geom_solref": range(c.ngeom)}
+    for r in chain.get_randomizers():
+        if isinstance(r, GenericSimRandomizer):
+            want[r.field_name] = r.ids
+    spread = {}
+    for k, v in fields.items():
+        per_row = (v.amax(0) - v.amin(0)).reshape(v.shape[1], -1).amax(-1)
+        varied = sorted(int(i) for i in torch.nonzero(per_row > 0).flatten())
+        spread[k] = float(per_row.max())
+        print(f"[path {label}] {k} varies across envs on {len(varied)} of {v.shape[1]} rows, "
+              f"spread {spread[k]:.4g}")
+        check(varied == sorted(int(i) for i in want[k]),
+              f"{label}: {k} varies on rows {varied}, want {sorted(int(i) for i in want[k])}")
+        base = model_field(env.model, k).expand_as(v)
+        rest = per_row <= 0
+        check(bool((v == base)[:, rest].all()), f"{label}: {k} moved on unselected rows")
+    check(sorted(fields) == sorted(want), f"{label}: fields {sorted(fields)}")
+    return spread
+
+
+def vision_env_reset(batch):
+    """The locked env with dummy vision (`locked.make_env` with
+    `vision_observation_provider="dummy_vision"`) and its reset at
+    `batch` envs: (env, state). Checks the images: (B, 3, 200, 200, 3)
+    uint8 zeros, the goal images cached in `goal_aux`."""
+    from robogym_torch.envs.dactyl import locked
+
+    t0 = time.perf_counter()
+    env = locked.make_env({"vision_observation_provider": "dummy_vision"}, device="cuda",
+                          seed=SEED)
+    state, obs = env.reset(batch)
+    torch.cuda.synchronize()
+    check_images("locked dummy-vision reset", obs, batch)
+    cache = state.goal_aux[1]
+    check(cache["goal_dummy_vision"]["vision_goal"] is obs["vision_goal"],
+          "locked dummy-vision reset: vision_goal is not the cached tensor")
+    print(f"[state] locked env with dummy vision: built and reset at B={batch} in "
+          f"{time.perf_counter() - t0:.2f} s; cache {sorted(cache)}, vision_goal "
+          f"{tuple(obs['vision_goal'].shape)} {obs['vision_goal'].dtype}, "
+          f"{obs['vision_goal'].numel() * 2 / 1e6:.1f} MB of images an observation")
+    return env, state
+
+
+def check_images(label, obs, batch, size=200):
+    for k in ("vision", "vision_goal"):
+        v = obs[k]
+        check(tuple(v.shape) == (batch, 3, size, size, 3) and v.dtype == torch.uint8,
+              f"{label}: {k} {tuple(v.shape)} {v.dtype}")
+        check(not bool(v.any()), f"{label}: {k} not zero")
+
+
+def vision_env_steps(env, state, out, steps=VISION_STEPS):
+    """`steps` LockedEnv.step calls with dummy vision, actions uniform in
+    [-1, 1]; one env in 8 holds a pending success before the first step,
+    so its goal resamples there. The goal images' provider is counted: it
+    must read exactly the envs that resample, and a step with none must
+    carry the cached goal images over as the same tensor. Puts the reads,
+    the resamples a step and the last state into `out`. Returns the last
+    physics state."""
+    from robogym_torch.observation import common as obs_common
+
+    B = state.t.shape[0]
+    pending = torch.zeros(B, dtype=torch.bool, device=env.device)
+    pending[::8] = True
+    state = state.replace(tracker=state.tracker.replace(success_and_no_goal_reset=pending))
+    stack = env.obs_stack
+    provider = stack.providers["goal_dummy_vision"]
+    reads = []
+
+    def counting(e, s):
+        reads.append(s.physics.qpos.shape[0])
+        return provider.read(e, s)
+
+    env.obs_stack = obs_common.ObservationStack(dict(
+        stack.providers, goal_dummy_vision=dataclasses.replace(provider, read=counting)))
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(SEED)
+    resampled = []
+    try:
+        for _ in range(steps):
+            before = state.goal_aux[1]["goal_dummy_vision"]["vision_goal"]
+            goals = state.tracker.goals_so_far
+            n_reads = len(reads)
+            action = torch.rand((B, env.action_size), generator=gen, device=env.device) * 2 - 1
+            state, obs, reward, _, _ = env.step(state, action)
+            n = int((state.tracker.goals_so_far != goals).sum())
+            resampled.append(n)
+            new_reads = reads[n_reads:]
+            check(new_reads == ([n] if n else []),
+                  f"locked_dummy_vision_env: goal images read for {new_reads} envs, {n} resampled")
+            after = state.goal_aux[1]["goal_dummy_vision"]["vision_goal"]
+            check((after is before) == (n == 0),
+                  f"locked_dummy_vision_env: goal images copied with {n} envs resampling")
+            check_images("locked_dummy_vision_env step", obs, B)
+            check(bool(torch.isfinite(reward).all()), "locked_dummy_vision_env: non-finite reward")
+    finally:
+        env.obs_stack = stack
+    check(resampled[0] >= int(pending.sum()), f"locked_dummy_vision_env: resamples {resampled}")
+    out.update(resampled=resampled, reads=reads, state=state)
+    return state.physics
+
+
+def reach_agreement(env, state, n=64):
+    """One substep of the reach env's physics on the first n envs of the
+    reach path's last state (its controls), through the kernels and
+    through the plain versions: qpos to 1e-4 abs, qvel to 1e-3 of its
+    largest value, as the five worlds."""
+    from robogym_torch.envs import core
+    from robogym_torch.physics import step
+
+    d = core.data_map(lambda x: x[:n], state.physics)
+    got = step.step(env.model, d)
+    with plain_versions():
+        want = step.step(env.model, d)
+    torch.cuda.synchronize()
+    for k in ("qpos", "qvel"):
+        g, w = getattr(got, k), getattr(want, k)
+        e = float((g - w).abs().max())
+        tol = 1e-4 if k == "qpos" else 1e-3 * float(w.abs().max())
+        print(f"[whole step] reach, B={n} one substep, kernels vs plain versions: {k} max abs "
+              f"err {e:.3g} (tol {tol:.3g})")
+        check(bool(torch.isfinite(g).all()) and e <= tol,
+              f"whole step reach: {k} differs by {e:.3g} > {tol:.3g}")
+
+
 def rearrange_env_reset(batch, module="blocks", config=REARRANGE_CONFIG,
                         label="rearrange blocks env"):
     """An env of the rearrange blocks family on the card as its `make_env`
@@ -2007,8 +2383,9 @@ def rearrange_agreement(env, state, n=64):
 
 def drive(name, run, calls):
     """Run a path with every launch count set to 0 just before it and read
-    just after; check finiteness and the launch counts. Returns (final
-    state, seconds, launches)."""
+    just after; check finiteness and the launch counts (`calls` substeps or
+    calls of PER_CALL[name], or a function that gives them after the run).
+    Returns (final state, seconds, launches)."""
     from robogym_torch import cuda
 
     torch.cuda.synchronize()
@@ -2018,6 +2395,7 @@ def drive(name, run, calls):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
+    calls = calls() if callable(calls) else calls
     for k in ("qpos", "qvel", "qacc"):
         check(bool(torch.isfinite(getattr(d, k)).all()), f"{name} path: non-finite {k}")
     for kernel, n in launches.items():
@@ -2122,6 +2500,9 @@ def main() -> int:
     cuboid_spread = blocks_train_readings(tenv, tstate)
     denv, dstate, d_build, d_reset = rearrange_env_reset(B, "dominos", DOMINOS_CONFIG,
                                                          "dominos env")
+    qenv, qstate, q_build, q_reset = reach_env_reset(B)
+    qrenv, qchain, qrstate = randomized_reach_reset(qenv, B)
+    venv, vstate = vision_env_reset(B)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: build and state")
 
@@ -2231,6 +2612,25 @@ def main() -> int:
                                            "C hull_manifold@full")
     res["boxbox@full"] = phase_boxbox(ucap["boxbox"], REPS, "E boxbox@full")
     hop = solver_hop(uenv)
+    # the reach env's kernels on the inputs of the last substep of its
+    # physics from the reset state: A and B at its V=24, C on the palm's
+    # box-mesh pairs with the fingers, D on the fingers' mesh-mesh pairs;
+    # then one substep under effort control
+    qcap = capture_reach_substep(qenv, qstate)
+    ci_q, its_q, nfacet_q = qcap["core"]
+    V_q, E_q = ci_q["qM"].shape[-1], len(ci_q["kind"])
+    print(f"[reach] kernel B's system: E={E_q} rows, V={V_q}; "
+          f"{'kernel B' if cg_kernel.fits(E_q, V_q, True) else 'the size route (F)'} takes it")
+    check(V_q == qenv.model.const.nv == 24, f"reach: V={V_q}, want 24")
+    check(cg_kernel.fits(E_q, V_q, True),
+          f"reach: E={E_q}, V={V_q} above kernel B's shared memory, and PER_CALL counts B")
+    res["spd_inverse@reach"] = phase_spd("A spd_inverse@reach", ci_q["qM"], REPS)
+    res["cg_full@reach"] = phase_cg_full("B cg_full@reach", ci_q, its_q, nfacet_q, REPS)
+    for name in ("hull_manifold", "hull_pair"):
+        *hargs, hDX = qcap[name]
+        res[name + "@reach"] = phase_hull(name, hargs, hDX, REPS,
+                                          f"{HULL_LETTER[name]} {name}@reach")
+    effort = effort_check(qenv, qstate)
     # the rearrange env's kernels on the inputs of one env step from its
     # reset state: A at the main sim's and the solver sim's V, B on the
     # solver sim's system (its weld, connect and joint rows) and on the main
@@ -2439,6 +2839,35 @@ def main() -> int:
               f"(env, goal distance, success), episodes done {fam_out['done']}, env-steps with a "
               f"block off the table {fam_out['off_table']}; obs and rewards finite; launches "
               f"{counts} ({PER_CALL[name]} an env step)")
+    reach_out = {}
+    out, wall, counts = drive("reach_env", lambda: reach_env_steps(qenv, qstate, reach_out),
+                              reach_calls(qenv, reach_out))
+    record("reach_env", wall, counts, build_s=q_build, reset_s=q_reset, effort=effort,
+           **reach_path_line("reach_env", qenv, reach_out, wall, B))
+    print(f"[path reach_env] built in {q_build:.2f} s, reset in {q_reset:.2f} s; launches "
+          f"{counts} ({PER_CALL['reach_env']} a substep, the goal sims' included)")
+    rr_out = {}
+    out, wall, counts = drive("randomized_reach_env",
+                              lambda: reach_env_steps(qrenv, qrstate, rr_out),
+                              reach_calls(qrenv, rr_out))
+    spread = sim_field_spread(qrenv, qchain, rr_out["state"].model_fields)
+    record("randomized_reach_env", wall, counts, field_spread=spread,
+           **reach_path_line("randomized_reach_env", qrenv, rr_out, wall, B))
+    print(f"[path randomized_reach_env] env-steps/s "
+          f"{paths['randomized_reach_env']['env_steps_per_s']:.1f} (reach_env "
+          f"{paths['reach_env']['env_steps_per_s']:.1f} in this run); launches {counts}")
+    vis_out = {}
+    out, wall, counts = drive("locked_dummy_vision_env",
+                              lambda: vision_env_steps(venv, vstate, vis_out),
+                              VISION_STEPS * SUBSTEPS)
+    vsps = B * VISION_STEPS / wall
+    record("locked_dummy_vision_env", wall, counts, env_steps=VISION_STEPS, substeps=SUBSTEPS,
+           env_steps_per_s=vsps, resampled=vis_out["resampled"],
+           goal_image_reads=vis_out["reads"])
+    print(f"[path locked_dummy_vision_env] {VISION_STEPS} LockedEnv.step calls with dummy "
+          f"vision x {SUBSTEPS} substeps at B={B}: {wall:.3f} s, {vsps:.1f} env-steps/s; goals "
+          f"resampled a step {vis_out['resampled']}, goal images read for {vis_out['reads']} "
+          f"envs; images zero, uint8; launches {counts}")
     launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
                 for entry, r in res.items()}
     for k in KERNELS:
@@ -2472,6 +2901,8 @@ def main() -> int:
     for label, env_k in (("face_env", fenv), ("wrapped_face_env", wfenv.env),
                          ("full_env", uenv), ("wrapped_full_env", wuenv.env)):
         rubik_agreement(label, env_k, rubik_out[label]["state"])
+    reach_agreement(qenv, reach_out["state"])
+    wrapped_agreement(None, rr_out["state"], model=qrenv.model, label="randomized_reach_env")
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: agreement")
     if opts.profile:

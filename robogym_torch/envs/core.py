@@ -242,6 +242,30 @@ def data_where(mask: torch.Tensor, a: Data, b: Data) -> Data:
     return data_map(lambda x, y: torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
+def tree_map(fn, tree):
+    """`fn` over the tensors of a tree of dicts, tuples, lists, states and
+    tensors; any other leaf stays as it is."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, Data):
+        return data_map(fn, tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: tree_map(fn, getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree)})
+    return tree
+
+
+def take_envs(state: EnvState, envs: torch.Tensor) -> EnvState:
+    """The env state of the envs `envs` (k,) of the batch."""
+    return tree_map(lambda x: x[envs], state)
+
+
 def divergence_guard(d_prev: Data, d: Data, qvel_limit: float = 1e6) -> Tuple[Data, torch.Tensor]:
     """Non-finite or exploding state after the physics step -> crashed. A
     crashed env keeps its pre-step physics, over every field, contact set

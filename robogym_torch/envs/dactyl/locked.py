@@ -14,8 +14,14 @@ semantics:
 `reset(batch)` and `step(state, action)` work on a batch of envs, each
 tensor `(B, ...)`; where the JAX package branches per env (`lax.cond` on a
 goal resample) the port selects per env with `torch.where`. Draws come
-from the env's `torch.Generator`, or from the caller (`draws=`). The
-vision observation providers are not ported.
+from the env's `torch.Generator`, or from the caller (`draws=`).
+
+With `vision_observation_provider="dummy_vision"` the env adds zero images
+to its observations through an `ObservationStack` (JAX `locked.py:
+122-134`): `vision` read at every observe, `vision_goal` cached in the
+state, `goal_aux = (inner goal_aux, cache)`, and read again only for the
+envs whose goal resamples, on their post-step state with the new goal.
+The `"raycast"` provider is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from robogym_torch import bridge
 from robogym_torch.envs import core
 from robogym_torch.envs.dactyl import cube_env
 from robogym_torch.mjcf.model import Data, Model
+from robogym_torch.observation import common as obs_common
+from robogym_torch.observation import dummy_vision
 from robogym_torch.physics import step as physics
 from robogym_torch.robot import shadow_hand as hand
 from robogym_torch.utils import rotation as rot
@@ -41,9 +49,11 @@ class LockedEnvConstants(cube_env.DactylCubeEnvConstants):
     """(locked.py:51-68)."""
 
     success_threshold_cube_quat: float = 0.4
-    # "" (off); the JAX package's "dummy_vision" and "raycast" providers
-    # are not ported
+    # vision observations: "" (off) or "dummy_vision" (zero images, the
+    # reference's default for locked vision configs, cube_env.py:295-306);
+    # the JAX package's "raycast" is not ported
     vision_observation_provider: str = ""
+    vision_image_size: int = 200
 
 
 class LockedEnv(cube_env.CubeEnvBase):
@@ -52,12 +62,20 @@ class LockedEnv(cube_env.CubeEnvBase):
     def __init__(self, constants: Optional[LockedEnvConstants] = None,
                  model: Optional[Model] = None, seed: int = 0):
         constants = constants or LockedEnvConstants()
-        if constants.vision_observation_provider:
-            raise NotImplementedError("the vision observation providers need observation/ and "
-                                      "render/, which the port does not have")
+        if constants.vision_observation_provider == "raycast":
+            raise NotImplementedError("the raycast vision provider needs render/raycast.py, "
+                                      "which the port does not have")
         if model is None:
             raise ValueError("LockedEnv takes a compiled model (see make_env)")
         super().__init__(constants, model, seed=seed)
+        self.obs_stack = None
+        if constants.vision_observation_provider == "dummy_vision":
+            size = constants.vision_image_size
+            self.obs_stack = obs_common.ObservationStack({
+                "dummy_vision": dummy_vision.make_dummy_vision_provider(image_size=size),
+                "goal_dummy_vision": dummy_vision.make_dummy_goal_vision_provider(
+                    image_size=size),
+            })
 
     # goals (LockedParallelGoal)
     def draw_step(self, n: int) -> Dict[str, torch.Tensor]:
@@ -94,10 +112,15 @@ class LockedEnv(cube_env.CubeEnvBase):
         tracker = core.TrackerState.zero(batch, device=self.device).replace(
             success_steps_required=core.sample_success_steps_required(draws["pause_u"],
                                                                       self.constants))
+        goal_aux = torch.zeros(batch, dtype=self.dtype, device=self.device)
         state = core.EnvState(
-            physics=d, goal=goal, goal_aux=torch.zeros(batch, dtype=self.dtype, device=self.device),
+            physics=d, goal=goal, goal_aux=goal_aux,
             prev_goal_distance=self._goal_distance(goal, d), tracker=tracker,
             t=torch.zeros(batch, dtype=torch.int32, device=self.device))
+        if self.obs_stack is not None:
+            # the RESET sync reads the cached providers; the cache rides in goal_aux
+            cache = self.obs_stack.sync(self, state, None, obs_common.SyncType.RESET)
+            state = state.replace(goal_aux=(goal_aux, cache))
         return state, self._observe(state)
 
     def step(self, state: core.EnvState, action: torch.Tensor,
@@ -143,7 +166,19 @@ class LockedEnv(cube_env.CubeEnvBase):
                                               tracker.consecutive_successes))
         resampled = self._goal_distance(goal, d)
         dist_after = {k: torch.where(need_new_goal, resampled[k], v) for k, v in dist.items()}
-        new_state = core.EnvState(physics=d, goal=goal, goal_aux=state.goal_aux,
+        goal_aux = state.goal_aux
+        if self.obs_stack is not None:
+            # the RESET_GOAL providers are read again for the envs that
+            # resample only, on the post-step state with the new goal;
+            # elsewhere the cache carries over, uncopied
+            inner_aux, cache = goal_aux
+            envs = torch.nonzero(need_new_goal).flatten()
+            if envs.numel():
+                synced = core.take_envs(state.replace(physics=d, goal=goal), envs)
+                cache = self.obs_stack.sync(self, synced, cache, obs_common.SyncType.RESET_GOAL,
+                                            envs=envs)
+            goal_aux = (inner_aux, cache)
+        new_state = core.EnvState(physics=d, goal=goal, goal_aux=goal_aux,
                                   prev_goal_distance=dist_after, tracker=tracker,
                                   t=state.t + 1, model_fields=state.model_fields)
         reward = torch.stack([env_reward, goal_distance_reward.to(self.dtype),
@@ -163,7 +198,7 @@ class LockedEnv(cube_env.CubeEnvBase):
             tips = cube_env.relative_fingertip_positions(self.hand, self.model, d)
         else:
             tips = hand.fingertip_positions(self.hand, d)
-        return {
+        obs = {
             "cube_pos": cube_env.cube_pos(self.cube, d),
             "cube_quat": cube_env.cube_quat(self.cube, d),
             "qpos": d.qpos,
@@ -174,6 +209,14 @@ class LockedEnv(cube_env.CubeEnvBase):
             "goal_quat": state.goal["cube_quat"],
             "is_goal_achieved": core.is_successful(dist, self._thresholds)[:, None].to(self.dtype),
         }
+        if self.obs_stack is not None:
+            # STEP providers are read now; the others come from the cache
+            # (robot_env.py:273-301)
+            _, cache = state.goal_aux
+            for name, p in self.obs_stack.providers.items():
+                obs.update(p.read(self, state) if p.sync_type == obs_common.SyncType.STEP
+                           else cache[name])
+        return obs
 
 
 def make_env(constants: Optional[dict] = None, device="cuda", seed: int = 0,

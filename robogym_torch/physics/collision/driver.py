@@ -160,8 +160,9 @@ def contact_frame(normal: torch.Tensor) -> torch.Tensor:
 
 def _mix_params(m: Model, g1, g2):
     """Contact solref/solimp/friction/margin/gap for static pair ids; the
-    friction (B, n, 5) where the model's geom friction is each env's
-    own."""
+    solref (B, n, 2), solimp (B, n, 5) or friction (B, n, 5) where the
+    model's geom solref, solimp or friction is each env's own (read by
+    `Model.take`, which indexes a per-env field's geom axis)."""
     p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
     m1, m2 = m.geom_solmix[g1], m.geom_solmix[g2]
     w1 = m1 / torch.clamp(m1 + m2, min=1e-12)
@@ -170,12 +171,12 @@ def _mix_params(m: Model, g1, g2):
     w1 = torch.where((m1 < 1e-12) & (m2 >= 1e-12), zero, w1)
     w1 = torch.where((m2 < 1e-12) & (m1 >= 1e-12), one, w1)
     w1 = w1[:, None]
-    sr1, sr2 = m.geom_solref[g1], m.geom_solref[g2]
-    si1, si2 = m.geom_solimp[g1], m.geom_solimp[g2]
+    sr1, sr2 = m.take("geom_solref", g1), m.take("geom_solref", g2)
+    si1, si2 = m.take("geom_solimp", g1), m.take("geom_solimp", g2)
     f1, f2 = m.take("geom_friction", g1), m.take("geom_friction", g2)
     solref_mix = w1 * sr1 + (1 - w1) * sr2
-    direct = (sr1[:, 0] <= 0) | (sr2[:, 0] <= 0)
-    solref = torch.where(direct[:, None], torch.minimum(sr1, sr2), solref_mix)
+    direct = (sr1[..., 0] <= 0) | (sr2[..., 0] <= 0)
+    solref = torch.where(direct[..., None], torch.minimum(sr1, sr2), solref_mix)
     solimp = w1 * si1 + (1 - w1) * si2
     fric = torch.maximum(f1, f2)
     margin = torch.maximum(m.geom_margin[g1], m.geom_margin[g2])
@@ -192,9 +193,9 @@ def _mix_params(m: Model, g1, g2):
 
 def _model_cache(m: Model, group_cap: int):
     """Model-only quantities, computed once per Model: per-group pair
-    tables (solver params + ids; (B, n, 19) where the geom friction is
-    each env's own), mesh tables in the local frame and the local
-    bounding-capsule fits of the meshes."""
+    tables (solver params + ids; (B, n, 19) where the geom solref, solimp
+    or friction is each env's own), mesh tables in the local frame and the
+    local bounding-capsule fits of the meshes."""
     key = f"_collision_cache_{group_cap}"
     cache = m.__dict__.get(key)
     if cache is not None:
@@ -215,7 +216,7 @@ def _model_cache(m: Model, group_cap: int):
         parts = [solref, solimp, fric5, margin[:, None], gap[:, None],
                  col(grp["condim"]), col(grp["g1"]), col(grp["g2"]),
                  col(bodyid[grp["g1"]]), col(bodyid[grp["g2"]])]
-        lead = fric5.shape[:-2]
+        lead = torch.broadcast_shapes(*(p.shape[:-2] for p in parts))
         ptab = torch.cat([p.expand(lead + p.shape[-2:]) for p in parts], dim=-1)  # (n, 19)
         groups.append(dict(g1=g1, g2=g2, ptab=ptab, margin=margin))
     cache = dict(groups=groups)

@@ -206,14 +206,15 @@ def scalar_blocks(m: Model, d: Data):
         dist_hi = jr[..., 1] - qv
         dist = torch.minimum(dist_lo, dist_hi)
         sign = torch.where(dist_lo < dist_hi, torch.ones_like(dist), -torch.ones_like(dist))
+        margin = m.take("jnt_margin", jids)       # (n,), or (B, n) per env
         onehot = np.zeros((n, nv), np.float32)
         onehot[np.arange(n), dadr_np] = 1.0
         blocks.append((
             on_device(c, "sb_lim_onehot", onehot, dev, dtype) * sign[..., None],
-            dist - m.jnt_margin[jids],
+            dist - margin,
             ex(m.jnt_solref[jids]), ex(m.jnt_solimp[jids]),
             torch.zeros((B, n), dtype=dtype, device=dev),
-            dist < m.jnt_margin[jids],
+            dist < margin,
             np.full(n, ONESIDED, np.int32), dof_iw0[dadr_np],
         ))
 

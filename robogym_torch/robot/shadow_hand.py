@@ -1,10 +1,9 @@
-"""The Shadow Hand in position control, batched: name tables, the 20 <-> 24
-coupled-joint projections, [-1, 1] action denormalisation (relative or
-absolute) and the hand's observations.
+"""The Shadow Hand, batched: name tables, the 20 <-> 24 coupled-joint
+projections, [-1, 1] position actions (relative or absolute), effort
+control and the hand's observations.
 
-Counterpart of the position-control half of
-`robogym_tpu/robot/shadow_hand.py`; every state tensor carries a leading
-env axis `(B, ...)`.
+Counterpart of `robogym_tpu/robot/shadow_hand.py`; every state tensor
+carries a leading env axis `(B, ...)`.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from robogym_torch.mjcf.model import Data, Model
+from robogym_torch.mjcf.model import BiasType, Data, GainType, Model
 
 ACTUATORS: List[str] = [
     "A_WRJ1", "A_WRJ0",
@@ -164,3 +163,55 @@ def denormalize_by_limit(interpolation: torch.Tensor, limits: torch.Tensor) -> t
     (hand_utils.py:12-18)."""
     return torch.where(interpolation < 0, limits[:, 0] * torch.abs(interpolation),
                        limits[:, 1] * interpolation)
+
+
+# ---------------------------------------------------------------------------
+# effort (torque) control
+# ---------------------------------------------------------------------------
+
+
+def effort_control_model(idx: HandIndex, m: Model) -> Model:
+    """The model with the hand's actuators in effort (direct-torque) mode:
+    FIXED gain 1, no bias, control range [-1, 1]
+    (mujoco_shadow_hand.py:139-156). The gain and bias types are the
+    const's structure, and the actuator partition and the index tables are
+    cached on the const (`physics.actuation`, `physics.tables.on_device`),
+    so the effort model gets a new const (`dataclasses.replace`), which
+    carries none of the position model's caches."""
+    c = m.const
+    ids = np.asarray(idx.actuator_ids)
+    gt = np.array(c.actuator_gaintype, copy=True)
+    bt = np.array(c.actuator_biastype, copy=True)
+    gt[ids] = GainType.FIXED
+    bt[ids] = BiasType.NONE
+    const = dataclasses.replace(c, actuator_gaintype=gt, actuator_biastype=bt)
+    jids = _ix(ids, m.actuator_gainprm)
+    gp = m.actuator_gainprm.clone()
+    gp[jids, 0] = 1.0
+    bp = m.actuator_biasprm.clone()
+    bp[jids] = 0.0
+    cr = m.actuator_ctrlrange.clone()
+    cr[jids, 0] = -1.0
+    cr[jids, 1] = 1.0
+    return m.replace(const=const, actuator_gainprm=gp, actuator_biasprm=bp,
+                     actuator_ctrlrange=cr)
+
+
+def set_effort_control(idx: HandIndex, m: Model, d: Data, control: torch.Tensor) -> torch.Tensor:
+    """(B, 20) effort commands in [-1, 1] -> the full (B, nu) ctrl: each
+    denormalized by its actuator's force limits
+    (mujoco_shadow_hand.py:139-156). With a model from
+    `effort_control_model`, ctrl is the force."""
+    ids = _ix(idx.actuator_ids, d.ctrl)
+    force = denormalize_by_limit(control, m.actuator_forcerange[ids])
+    full = d.ctrl.clone()
+    full[:, ids] = force.to(full.dtype)
+    return full
+
+
+def actuator_effort(idx: HandIndex, m: Model, d: Data) -> torch.Tensor:
+    """(B, 20) applied actuator force normalized to [-1, 1] by the force
+    limits, the MuJoCoObservation.actuator_effort channel
+    (mujoco_shadow_hand.py:44-55)."""
+    ids = _ix(idx.actuator_ids, d.actuator_force)
+    return normalize_by_limits(d.actuator_force[:, ids], m.actuator_forcerange[ids])

@@ -193,6 +193,16 @@ def uniform_quat_apply(u: torch.Tensor) -> torch.Tensor:
         [torch.cos(t2) * s2, torch.sin(t1) * s1, torch.cos(t1) * s1, torch.sin(t2) * s2], dim=-1))
 
 
+def random_unity2_apply(u: torch.Tensor) -> torch.Tensor:
+    """Uniform random unit 3-vectors (..., 3) from two uniform draws in
+    [0, 1) (..., 2), computed in u's dtype: the azimuth in [0, 2 pi), then
+    the polar angle's cosine in [-1, 1) (`random_unity2`)."""
+    phi = torch.clamp(u[..., 0] * (2.0 * np.pi), min=0.0)
+    costheta = torch.clamp(u[..., 1] * 2.0 - 1.0, min=-1.0)
+    sintheta = torch.sqrt(torch.clamp(1.0 - costheta ** 2, min=0.0))
+    return torch.stack([sintheta * torch.cos(phi), sintheta * torch.sin(phi), costheta], dim=-1)
+
+
 def uniform_z_quat_apply(u: torch.Tensor) -> torch.Tensor:
     """Rotations about z at angles uniform in [-pi, pi) from draws u (...,)
     in [0, 1), computed in u's dtype (`uniform_z_quat`)."""

@@ -148,10 +148,14 @@ def hand_parts(directory: str) -> Dict[str, List[str]]:
                 actuators=actuators)
 
 
+FLOOR = '    <geom name="floor" type="plane" size="1 1 0.1" pos="0 0 0"/>'
+
+
 def assemble(directory: str, hand: Dict[str, List[str]], objects: List[str],
-             equality: List[str] = ()) -> str:
-    """The MJCF text of a world: the floor, the hand's pieces, the
-    `objects` lines under the worldbody and the `equality` lines."""
+             equality: List[str] = (), floor: str = FLOOR) -> str:
+    """The MJCF text of a world: the `floor` lines (a plane at the origin
+    by default), the hand's pieces, the `objects` lines under the
+    worldbody and the `equality` lines."""
     return "\n".join([
         "<mujoco>",
         f'  <compiler angle="radian" meshdir="{os.path.abspath(directory)}"/>',
@@ -160,7 +164,7 @@ def assemble(directory: str, hand: Dict[str, List[str]], objects: List[str],
         *hand["assets"],
         "  </asset>",
         "  <worldbody>",
-        '    <geom name="floor" type="plane" size="1 1 0.1" pos="0 0 0"/>',
+        floor,
         *hand["bodies"],
         *objects,
         "  </worldbody>",

@@ -225,9 +225,10 @@ NUDGE_RATIO = 2     # drift from the reference over the largest nudged drift (te
 
 
 def _groups(idx):
-    """(name, field, columns, envelope) of the physics comparison."""
-    return (("cube position", "qpos", idx.cube_pos_qpos, CUBE_POS_TOL),
-            ("qpos", "qpos", slice(None), QPOS_TOL), ("qvel", "qvel", slice(None), QVEL_TOL))
+    """(name, field, columns, envelope) of the physics comparison; no cube
+    group where `idx` is None (a world with no cube)."""
+    cube = () if idx is None else (("cube position", "qpos", idx.cube_pos_qpos, CUBE_POS_TOL),)
+    return cube + (("qpos", "qpos", slice(None), QPOS_TOL), ("qvel", "qvel", slice(None), QVEL_TOL))
 
 
 def _env_err(a, b, field, cols):
@@ -246,21 +247,24 @@ def chaotic_envs(td, nudged, idx):
     return out
 
 
-def assert_physics_close(td, jd, idx, nudged=(), whole=False):
+def assert_physics_close(td, jd, idx, nudged=(), whole=False, ref_nudged=()):
     """Two `data_to_numpy` states, the port's `td` and a reference's `jd`
     (the JAX package's, or the plain versions'): finite, and each env
     within the env-step envelope, except the `chaotic_envs` of the port's
-    `nudged` runs (every env if `whole`), whose largest drift from the
-    reference per group may be at most NUDGE_RATIO times their largest nudged drift (the rule of
-    test_torch_step.py's goal-settle envelopes); `idx` is the world's
-    `CubeIndex`. Returns the chaotic envs."""
+    `nudged` runs and of the reference's own `ref_nudged` runs (every env
+    if `whole`), whose largest drift from the reference per group may be
+    at most NUDGE_RATIO times their largest nudged drift, each package's
+    runs against its own result (the rule of test_torch_step.py's
+    goal-settle envelopes); `idx` is the world's `CubeIndex`, or None for
+    a world with no cube. Returns the chaotic envs."""
     assert np.isfinite(td["qpos"]).all() and np.isfinite(td["qvel"]).all()
-    chaotic = chaotic_envs(td, nudged, idx) | whole
+    chaotic = chaotic_envs(td, nudged, idx) | chaotic_envs(jd, ref_nudged, idx) | whole
     for name, field, cols, tol in _groups(idx):
         err = _env_err(td, jd, field, cols)
         assert (err[~chaotic] <= tol).all(), (name, err, tol)
         if chaotic.any():
-            drift = max(_env_err(tn, td, field, cols)[chaotic].max() for tn in nudged)
+            drift = max([_env_err(tn, td, field, cols)[chaotic].max() for tn in nudged]
+                        + [_env_err(rn, jd, field, cols)[chaotic].max() for rn in ref_nudged])
             assert err[chaotic].max() <= max(NUDGE_RATIO * drift, tol), (name, err, drift)
     return chaotic
 

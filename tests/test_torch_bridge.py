@@ -55,7 +55,7 @@ def _snapshot_tool():
                                    "dactyl_locked_like", "rearrange_blocks_like",
                                    "rearrange_solver_like", "rearrange_settle_like",
                                    "rearrange_dominos_like", "rearrange_wordblocks_like",
-                                   "rubik_face_like", "rubik_full_like"])
+                                   "rubik_face_like", "rubik_full_like", "dactyl_reach_like"])
 def test_world_snapshot_matches_fresh_compile(world):
     """The hand-only and goal-settle snapshots equal what
     tools/build_locked_like_snapshot.py compiles now, field by field. The
@@ -81,7 +81,10 @@ def test_world_snapshot_matches_fresh_compile(world):
     world has nq = 97 and nv = 96 (24 hinges; the cube's three slides and
     ball; 6 face drivers and 20 cubelets on three hinges each, all 66 with
     friction loss, no equality), 26 box pieces and a box palm, and the
-    default budgets."""
+    default budgets. The reach world has the hand alone (nq = nv = 24, 20
+    force-limited actuators, 4 tendons), its palm at the mount pose's
+    (1, 1.5, 0.15), five target sites, one box (the palm) and the default
+    budgets."""
     tool = _snapshot_tool()
     model, fresh = tool.compile_snapshot(world)
     with np.load(tool.snapshot_path(world)) as z:
@@ -123,6 +126,13 @@ def test_world_snapshot_matches_fresh_compile(world):
         boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
         assert (c.nq, c.nv, c.nu, c.ntendon, c.neq, len(boxes)) == (97, 96, 20, 4, 0, 27)
         assert np.count_nonzero(fresh["model.dof_frictionloss"]) == 66
+        assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (32, 48)
+        return
+    if world == "dactyl_reach_like":
+        boxes = np.flatnonzero(np.asarray(c.geom_type) == 6)
+        assert (c.nq, c.nv, c.nu, c.ntendon, len(boxes)) == (24, 24, 20, 4, 1)
+        assert np.asarray(c.actuator_forcelimited).all()
+        assert sum(n.startswith("target:") for n in c.names["site"]) == 5
         assert (int(fresh["opt.ncon_active"]), int(fresh["opt.group_cap"])) == (32, 48)
         return
     if world == "dactyl_locked_like":

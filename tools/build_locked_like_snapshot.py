@@ -33,7 +33,11 @@ snapshots next to their modules in `robogym_torch/worlds/`:
   * `rubik_full_like.npz`, the hand and a cube of 6 face centres and 20
     cubelets, each on its own hinges (nv = 96), with the full-perpendicular
     env's names and joints, compiled as `envs/dactyl/full_perpendicular.py`
-    compiles its world: plain `compile_xml`, the default contact budgets.
+    compiles its world: plain `compile_xml`, the default contact budgets;
+  * `dactyl_reach_like.npz`, the hand alone at dactyl/reach's mount pose
+    over a floor, force-limited, with five target sites (nv = 24),
+    compiled as `envs/dactyl/reach.py` compiles its world: plain
+    `compile_xml`, the default contact budgets.
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -53,7 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like",
           "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like",
           "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like",
-          "rubik_face_like", "rubik_full_like")
+          "rubik_face_like", "rubik_full_like", "dactyl_reach_like")
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -61,9 +65,9 @@ def compile_snapshot(world: str = "locked_like"):
     import jax.numpy as jnp
 
     from robogym_torch.bridge import model_to_numpy
-    from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      rearrange_blocks_like, rubik_face_like, rubik_full_like,
-                                      table_setting_like)
+    from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, dactyl_reach_like,
+                                      locked_like, rearrange_blocks_like, rubik_face_like,
+                                      rubik_full_like, table_setting_like)
     from robogym_tpu.envs.rearrange import simulation as sim_lib
     from robogym_tpu.envs.rearrange.dominos import DOMINO_PROPORTIONS
     from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
@@ -77,9 +81,10 @@ def compile_snapshot(world: str = "locked_like"):
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(table_setting_like.write(tmp), dtype=jnp.float32)
         model = scale_contact_budgets(model, table_setting_like.N_OBJECTS)
-    elif world in ("dactyl_locked_like", "rubik_face_like", "rubik_full_like"):
+    elif world in ("dactyl_locked_like", "rubik_face_like", "rubik_full_like",
+                   "dactyl_reach_like"):
         module = {"dactyl_locked_like": dactyl_locked_like, "rubik_face_like": rubik_face_like,
-                  "rubik_full_like": rubik_full_like}[world]
+                  "rubik_full_like": rubik_full_like, "dactyl_reach_like": dactyl_reach_like}[world]
         with tempfile.TemporaryDirectory() as tmp:
             model = compile_xml(module.write(tmp), dtype=jnp.float32)
     elif world == "rearrange_settle_like":
@@ -112,9 +117,9 @@ def compile_snapshot(world: str = "locked_like"):
 
 
 def snapshot_path(world: str) -> str:
-    from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, locked_like,
-                                      rearrange_blocks_like, rubik_face_like, rubik_full_like,
-                                      table_setting_like)
+    from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, dactyl_reach_like,
+                                      locked_like, rearrange_blocks_like, rubik_face_like,
+                                      rubik_full_like, table_setting_like)
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
@@ -126,7 +131,8 @@ def snapshot_path(world: str) -> str:
             "rearrange_dominos_like": rearrange_blocks_like.DOMINOS_SNAPSHOT,
             "rearrange_wordblocks_like": rearrange_blocks_like.WORDBLOCKS_SNAPSHOT,
             "rubik_face_like": rubik_face_like.SNAPSHOT,
-            "rubik_full_like": rubik_full_like.SNAPSHOT}[world]
+            "rubik_full_like": rubik_full_like.SNAPSHOT,
+            "dactyl_reach_like": dactyl_reach_like.SNAPSHOT}[world]
 
 
 def main():
