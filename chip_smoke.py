@@ -197,7 +197,24 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the locked env's launches; one env in 8 holds a pending success, so its
    goal resamples at the first step; the goal images read for exactly the
    envs that resample, and carried over as the same tensor in a step with
-   none).
+   none); 3 steps of the YCB env (`ycb_env`, `envs/rearrange/ycb.make_env`
+   with 5 of 8 mesh slots on the YCB stand-in world, the five candidates of
+   64 hull verts (`YCB_MESHES`), actions uniform in
+   [-1, 1]: env-steps/s, construction and reset times, the candidates
+   drawn per slot, `mesh_convex_vert` varying across envs on exactly the
+   slots' meshes, live mesh-mesh and box-mesh contacts, the env-steps with
+   an object off the table; per env step 160 A, 80 B, 121 C, 81 D: the
+   main sim's box-mesh and mesh-mesh groups are C calls); 1 step of the
+   same env under `stabilize_goal` (`ycb_stabilized_env`: its reset
+   settles every env's first goal in the full model; one env in 8 pending
+   a success before the step, so the goal settle runs, 200 substeps of the
+   main model, on exactly the resampling envs; exactly those envs' goals
+   change and are finite; the settle's seconds); and 3 steps of the
+   stand-in holdout (`holdout_env`, built from its jsonnet config through
+   `utils/env_utils.load_env`; its reset equal to the saved initial
+   state; the live pairs of each round-geom group, sphere-mesh and
+   cylinder-box, at every step, which must not be zero over the steps;
+   per env step 160 A, 80 B, 81 C, 81 D).
 6. Whole-step agreement: one substep through the kernels against one
    through the plain versions, at B=64, on the locked-like, settle, hand,
    table and dactyl-shaped worlds; every kernel routed to its plain
@@ -218,7 +235,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
    first 64 envs of the reach path's last state, kernels against plain
    versions, as the five worlds; and one substep of the randomized reach
    env's physics (each env's own fields) at B=64 against the plain
-   versions in float32 and float64, as the wrapped env's.
+   versions in float32 and float64, as the wrapped env's. Then one substep
+   of the YCB env's and of the holdout's main world on the first 64 envs
+   of their paths' last states (the YCB env's with each env's hulls),
+   kernels against plain versions, as the rearrange worlds.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
@@ -232,7 +252,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
    sims', and the `@settle8` and `@dominos` entries all its launches on
    the blocks_train_env and dominos_env paths, the `@face` entries their
    kernel's launches on the face_env path, the `@full` entries on the
-   full_env path, the `@reach` entries on the reach_env path; `cg@wide` counts F's
+   full_env path, the `@reach` entries on the reach_env path, the `@ycb`
+   entries on the ycb_env path and the `@holdout` entries on the
+   holdout_env path; `cg@wide` counts F's
    launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
    `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
@@ -286,6 +308,20 @@ BLOCKS_TRAIN_CONFIG = ({"use_cuboid": True, "mask_obs_outside_placement_area": T
 # dominos' default: train goals with the mod-180 rotation distance, 5 of 8
 DOMINOS_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
 REACH_STEPS = 5                   # env steps of the reach and randomized reach paths
+YCB_STEPS = 3                     # env steps of the ycb_env path
+# The YCB paths' bank: the stand-in candidates of 64 hull verts, not the
+# die (12 verts, padded). In an env that holds a padded mesh the plane-mesh
+# contact picks verts by index (a fault of the reference that the port
+# repeats: ROADMAP section 3, item 5), its objects sink and spin, and on
+# such a batch's state one env of 1024 met a near-tie of kernel B's line
+# search within 2 iterations, where the kernel took the float64 run's step
+# and the float32 plain version the other (PERF.md, PR 19). The CPU tests
+# run the die and the bank's padding.
+YCB_MESHES = ["banana", "bottle", "bowl", "can", "cracker_box"]
+YCB_CONFIG = ({}, {"simulation_params": {"num_objects": 5}, "mesh_names": YCB_MESHES})
+YCB_STABILIZED_CONFIG = ({"goal_args": {"stabilize_goal": True}},
+                         {"simulation_params": {"num_objects": 5}, "mesh_names": YCB_MESHES})
+HOLDOUT_STEPS = 3                 # env steps of the holdout_env path
 VISION_STEPS = 3                  # env steps of the locked_dummy_vision_env path
 EFFORT_TOL = 1e-5                 # actuator_effort against its command after an effort substep
 # the randomized reach env's ADR values (paths of its EnvRandomization)
@@ -391,6 +427,25 @@ PER_CALL["randomized_reach_env"] = dict(PER_CALL["reach_env"])
 AT_PATH["reach"] = "reach_env"
 # the locked env with dummy vision: the locked env's launches a substep
 PER_CALL["locked_dummy_vision_env"] = dict(PER_CALL["locked_env"])
+# the YCB env on its stand-in world: a main substep launches 2 A, 1 B, 2 C
+# (the table's box-mesh group, and the mesh-mesh group of the objects with
+# each other and with the arm's and gripper's links, each env's own
+# hulls) and 1 D (the fingers); the solver sim as the rearrange env's; no
+# E: the world has no box-box pair. A goal settle's substep is a main one.
+PER_CALL["ycb_main"] = {"spd_inverse": 2, "cg_full": 1, "hull_manifold": 2, "hull_pair": 1}
+PER_CALL["ycb_env"] = {"spd_inverse": 2 * 40 + 2 * 40, "cg_full": 40 + 40,
+                       "hull_manifold": 2 * 40 + 1 + 40, "hull_pair": 40 + 1 + 40}
+AT_PATH["ycb"] = "ycb_env"
+# under stabilize_goal, a step in which any env resamples adds one goal
+# settle: SETTLE_SUBSTEPS main substeps on the gathered resampling envs
+PER_CALL["ycb_stabilized_env"] = {k: v + SETTLE_SUBSTEPS * PER_CALL["ycb_main"][k]
+                                  for k, v in PER_CALL["ycb_env"].items()}
+# the stand-in holdout: a main substep launches 2 A, 1 B, 1 C (the table
+# against the links), 1 D (the platform against the links, the fingers);
+# its round-geom groups launch no kernel; the solver sim as above
+PER_CALL["holdout_env"] = {"spd_inverse": 2 * 40 + 2 * 40, "cg_full": 40 + 40,
+                           "hull_manifold": 40 + 1 + 40, "hull_pair": 40 + 1 + 40}
+AT_PATH["holdout"] = "holdout_env"
 # fields the default stack overrides that the dactyl-shaped world leaves
 # equal across envs, and why
 WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
@@ -2206,20 +2261,20 @@ def capture_ends(targets, run):
     return store
 
 
-def capture_rearrange(env, state):
+def capture_rearrange(env, state, kernels=("hull_manifold", "hull_pair", "boxbox")):
     """The kernels' inputs in one rearrange env step from `state`: the
     solver sim's come first in a step (its fwd_position, then its
     substeps), the main sim's last. Returns {"main" and "solver": (core
     inputs, CG iterations, facets per contact), and the main sim's last
-    substep's "hull_manifold", "hull_pair" and "boxbox" arguments}."""
+    substep's arguments of each of `kernels`}."""
     from robogym_torch.physics import constraint_batched
     from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
     act = rearrange_actions(env, state.t.shape[0])()
-    calls = capture_ends([(constraint_batched, "fused_step_core"),
-                          (convex_kernel, "hull_manifold"), (convex_kernel, "hull_pair"),
-                          (boxbox_kernel, "boxbox")], lambda: env.step(state, act))
-    out = {name: calls[name][1] for name in ("hull_manifold", "hull_pair", "boxbox")}
+    calls = capture_ends([(constraint_batched, "fused_step_core")]
+                         + [(boxbox_kernel if k == "boxbox" else convex_kernel, k)
+                            for k in kernels], lambda: env.step(state, act))
+    out = {name: calls[name][1] for name in kernels}
     for key, (kind_s, iterations, nfacet, *args) in zip(("solver", "main"),
                                                          calls["fused_step_core"]):
         out[key] = (constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet)
@@ -2328,16 +2383,19 @@ def goal_generator_checks(tenv, tstate, denv, batch):
     return out
 
 
-def rearrange_env_steps(env, state, out, steps, label="rearrange_env"):
+def rearrange_env_steps(env, state, out, steps, label="rearrange_env", per_step=None):
     """`steps` env steps of a rearrange env from `state`, actions uniform in
     [-1, 1]; checks every obs and reward finite, and puts the reward sum by
     component, the episodes done, the envs with a block off the table, the
     share of envs with gripper-table contact and the last state into
-    `out`. Returns the last physics state."""
+    `out`; `per_step(state)` reads each step's state. Returns the last
+    physics state."""
     actions = rearrange_actions(env, state.t.shape[0])
     rewards, done, off, contact, finite = 0.0, 0, 0, 0.0, {}
     for _ in range(steps):
         state, obs, reward, dn, info = env.step(state, actions())
+        if per_step is not None:
+            per_step(state)
         for k, v in dict(obs, reward=reward).items():   # read after the run: no sync here
             ok = torch.isfinite(v).all()
             finite[k] = finite[k] & ok if k in finite else ok
@@ -2355,17 +2413,20 @@ def rearrange_env_steps(env, state, out, steps, label="rearrange_env"):
     return state.physics
 
 
-def rearrange_agreement(env, state, n=64):
-    """One substep of each rearrange world, the main sim and the solver sim,
-    on the first n envs of the path's last state, through the kernels
-    against the plain versions: qpos to 1e-4 abs, qvel to 1e-3 of its
-    largest value (the whole-step agreement of the other worlds)."""
+def rearrange_agreement(env, state, n=64, label="rearrange", path="rearrange_env", solver=True):
+    """One substep of each rearrange world, the main sim (each env's own
+    model fields) and, with `solver`, the solver sim, on the first n envs
+    of the path's last state, through the kernels against the plain
+    versions: qpos to 1e-4 abs, qvel to 1e-3 of its largest value (the
+    whole-step agreement of the other worlds)."""
     from robogym_torch.envs import core
     from robogym_torch.physics import step
 
-    fields = {k: v[:n] for k, v in state.model_fields.items()}
-    for name, m, d in (("rearrange", core.apply_model_fields(env.model, fields), state.physics),
-                       ("solver", env.solver_model, state.goal_aux)):
+    fields = {k: v[:n] for k, v in (state.model_fields or {}).items()}
+    worlds = [(label, core.apply_model_fields(env.model, fields), state.physics)]
+    if solver:
+        worlds.append(("solver", env.solver_model, state.goal_aux))
+    for name, m, d in worlds:
         d = core.data_map(lambda x: x[:n], d)
         got = step.step(m, d)
         with plain_versions():
@@ -2375,10 +2436,159 @@ def rearrange_agreement(env, state, n=64):
             g, w = getattr(got, k), getattr(want, k)
             e = float((g - w).abs().max())
             tol = 1e-4 if k == "qpos" else 1e-3 * float(w.abs().max())
-            print(f"[whole step] {name}, B={n} one substep of the rearrange_env path's last "
+            print(f"[whole step] {name}, B={n} one substep of the {path} path's last "
                   f"state, kernels vs plain versions: {k} max abs err {e:.3g} (tol {tol:.3g})")
             check(bool(torch.isfinite(g).all()) and e <= tol,
                   f"whole step {name}: {k} differs by {e:.3g} > {tol:.3g}")
+
+
+def group_slots(model):
+    """{(kind, type 1, type 2, contacts a pair): the group's contact slots}
+    of a world's collision groups, in the Contact's row order."""
+    from robogym_torch.physics.collision import driver
+
+    out, base = {}, 0
+    for g in driver.build_groups(model.const, model.opt.group_cap):
+        n = g["K"] * g["ncon"]
+        out[(g["kind"], int(g["t1"]), int(g["t2"]), g["ncon"])] = slice(base, base + n)
+        base += n
+    return out
+
+
+def live_pairs(model, d, groups):
+    """Live contacts of each group of `groups` (keys of `group_slots`)
+    summed over the batch (a device tensor each: no sync)."""
+    slots = group_slots(model)
+    return {key: d.contact.active[:, slots[key]].sum() for key in groups}
+
+
+def mesh_groups(model):
+    """The YCB world's mesh-mesh group of free bodies (4-point manifold)
+    and its box-mesh group."""
+    from robogym_torch.mjcf.model import GeomType
+
+    return [(k, t1, t2, n) for k, t1, t2, n in group_slots(model)
+            if (k, t1, t2, n) in (("convex", GeomType.MESH, GeomType.MESH, 4),
+                                  ("box_convex", GeomType.BOX, GeomType.MESH, 4))]
+
+
+def ycb_readings(env, state, label):
+    """The YCB env's reset state: each slot's candidate by env (read back
+    from each env's hulls), the mesh rows of `mesh_convex_vert` that vary
+    across envs (they must be exactly the object slots' meshes), each
+    env's masses. Returns the readings."""
+    fields = state.model_fields
+    mv = fields["mesh_convex_vert"]                                       # (B, nmesh, V, 3)
+    mids = torch.as_tensor(env._slot_mesh_ids, device=mv.device)
+    hit = (mv[:, mids][:, :, None] == env.bank.hull_vert[None, None]).all(-1).all(-1)
+    check(bool((hit.sum(-1) >= 1).all()), f"{label}: a slot's hull is no candidate's")
+    cand = hit.float().argmax(-1)                                         # (B, O)
+    hist = [[int((cand[:, o] == c).sum()) for c in range(env.bank.num_candidates)]
+            for o in range(env.max_num_objects)]
+    varies = (mv != mv[:1]).flatten(2).any(-1).any(0)
+    rows = sorted(int(i) for i in torch.nonzero(varies).flatten())
+    check(rows == sorted(env._slot_mesh_ids.tolist()),
+          f"{label}: mesh_convex_vert varies on mesh rows {rows}, want the slots' "
+          f"{sorted(env._slot_mesh_ids.tolist())}")
+    print(f"[state] {label}: candidates {list(env.bank.names)}; per slot, the envs that drew "
+          f"each: {hist}; mesh_convex_vert varies across envs on exactly the {len(rows)} slot "
+          f"meshes {rows} of {mv.shape[1]}; per-env mesh table {mv.numel() * 4 / 1e6:.1f} MB")
+    return dict(candidate_histogram=hist, varying_mesh_rows=rows)
+
+
+def ycb_stabilized_steps(env, state, out):
+    """One step of the YCB env under `stabilize_goal` from `state`, one env
+    in 8 holding a pending success, actions uniform in [-1, 1]. The goal
+    settle must run once, on exactly the resampling envs; exactly their
+    goals change, finite, the others' stay. Puts the settle's seconds,
+    the envs it ran on and the last state into `out`. Returns the last
+    physics state."""
+    B = state.t.shape[0]
+    pending = torch.zeros(B, dtype=torch.bool, device=env.device)
+    pending[::8] = True
+    state = state.replace(tracker=state.tracker.replace(success_and_no_goal_reset=pending))
+    settles, envs, secs = env.goal_settles, env.goal_settle_envs, []
+    settle = env._settle_in_model
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = settle(*args, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return res
+
+    goals = state.tracker.goals_so_far
+    before = dict(state.goal)
+    env._settle_in_model = timed
+    try:
+        state, obs, reward, _, _ = env.step(state, rearrange_actions(env, B)())
+    finally:
+        del env._settle_in_model
+    new = state.tracker.goals_so_far != goals
+    n = int(new.sum())
+    check(bool(new[pending].all()) and env.goal_settles - settles == 1
+          and env.goal_settle_envs - envs == n,
+          f"ycb_stabilized_env: {n} goals resampled, {env.goal_settles - settles} settles on "
+          f"{env.goal_settle_envs - envs} envs, {int(pending.sum())} pending")
+    for k in ("obj_pos", "obj_rot"):
+        v = state.goal[k]
+        check(bool((v[~new] == before[k][~new]).all()), f"ycb_stabilized_env: kept goal {k} moved")
+        check(bool((v[new] != before[k][new]).flatten(1).any(-1).all()),
+              f"ycb_stabilized_env: a resampled goal {k} did not change")
+        check(bool(torch.isfinite(v[new]).all()), f"ycb_stabilized_env: resampled {k} not finite")
+    for k, v in dict(obs, reward=reward).items():
+        check(bool(torch.isfinite(v).all()), f"ycb_stabilized_env: non-finite {k}")
+    out.update(settle_s=secs[0], settled_envs=n, state=state)
+    return state.physics
+
+
+def holdout_env_reset(batch):
+    """The stand-in holdout from its jsonnet config (`env_utils.load_env`)
+    on the card and its reset at `batch` envs: (env, state, seconds built,
+    seconds reset). Checks the state finite, the objects at the saved
+    initial state and the goals from the saved goal states."""
+    from robogym_torch.envs.rearrange import simulation
+    from robogym_torch.utils import env_utils
+    from robogym_torch.worlds import holdout_ball_like
+
+    t0 = time.perf_counter()
+    env = env_utils.load_env(holdout_ball_like.CONFIG, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, obs = env.reset(batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    c = env.model.const
+    init = torch.as_tensor(env._initial_state["obj_pos"], dtype=env.dtype, device=env.device)
+    pos = simulation.object_positions(env.idx, state.physics)
+    err = float((pos - init).abs().max())
+    gerr = float((state.goal["obj_pos"] - env.goal_gen.pool_pos[0]).abs().max())
+    print(f"[state] holdout env from {os.path.basename(holdout_ball_like.CONFIG)} (nv={c.nv}, "
+          f"{len(c.collision_pairs)} collision pairs, {env.num_objects} task objects, scene "
+          f"bodies {env._scene_bodies}): built in {t1 - t0:.2f} s; reset at B={batch} in "
+          f"{t2 - t1:.2f} s; objects vs the saved initial state max abs {err:.3g} m; goals vs "
+          f"the saved goal state {gerr:.3g} m")
+    check(err <= 1e-6 and gerr <= 1e-6, "holdout reset: not the saved initial and goal states")
+    for d, name in ((state.physics, "main"), (state.goal_aux, "solver")):
+        for k in ("qpos", "qvel", "qacc"):
+            check(bool(torch.isfinite(getattr(d, k)).all()), f"holdout reset: non-finite {name} {k}")
+    for k, v in obs.items():
+        check(bool(torch.isfinite(v).all()), f"holdout reset: non-finite obs {k}")
+    return env, state, t1 - t0, t2 - t1
+
+
+def round_groups(model):
+    """The holdout world's round-geom groups that its stand-in must keep
+    live: the ball against the platform (sphere-mesh) and the cylinder
+    against the table (cylinder-box)."""
+    from robogym_torch.mjcf.model import GeomType
+
+    want = [("convex", GeomType.SPHERE, GeomType.MESH, 1),
+            ("convex", GeomType.CYLINDER, GeomType.BOX, 1)]
+    have = group_slots(model)
+    check(all(k in have for k in want), f"holdout: round-geom groups {want} not all in {list(have)}")
+    return want
 
 
 def drive(name, run, calls):
@@ -2503,6 +2713,14 @@ def main() -> int:
     qenv, qstate, q_build, q_reset = reach_env_reset(B)
     qrenv, qchain, qrstate = randomized_reach_reset(qenv, B)
     venv, vstate = vision_env_reset(B)
+    yenv, ystate, y_build, y_reset = rearrange_env_reset(B, "ycb", YCB_CONFIG, "YCB env")
+    y_read = ycb_readings(yenv, ystate, "ycb_env")
+    ysenv, ysstate, ys_build, ys_reset = rearrange_env_reset(
+        B, "ycb", YCB_STABILIZED_CONFIG, "YCB env under stabilize_goal")
+    check(ysenv.goal_settles == 1 and ysenv.goal_settle_envs == B,
+          f"ycb_stabilized_env reset: {ysenv.goal_settles} goal settles on "
+          f"{ysenv.goal_settle_envs} envs, want 1 on {B}")
+    henv, hstate, h_build, h_reset = holdout_env_reset(B)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: build and state")
 
@@ -2653,6 +2871,34 @@ def main() -> int:
         res[name + "@rearrange"] = phase_hull(name, hargs, hDX, REPS,
                                               f"{HULL_LETTER[name]} {name}@rearrange")
     res["boxbox@rearrange"] = phase_boxbox(rcap["boxbox"], REPS, "E boxbox@rearrange")
+    # the YCB env's and the holdout's kernels on the inputs of the main
+    # sim's last substep of one env step from their reset states: A and B
+    # at their V, C on the YCB env's mesh-mesh group (each env's own hulls:
+    # its verts differ across envs) and on the holdout's box-mesh group, D
+    # on the fingers (the YCB env swaps no link's hull: the same in every
+    # env) and on the holdout's platform against the links
+    for at, env_k, state_k in (("ycb", yenv, ystate), ("holdout", henv, hstate)):
+        cap = capture_rearrange(env_k, state_k, ("hull_manifold", "hull_pair"))
+        ci_k, its_k, nfacet_k = cap["main"]
+        V_k, E_k = ci_k["qM"].shape[-1], len(ci_k["kind"])
+        print(f"[{at}] kernel B's system: E={E_k} rows, V={V_k}; "
+              f"{'kernel B' if cg_kernel.fits(E_k, V_k, True) else 'the size route (F)'} takes it")
+        check(V_k == env_k.model.const.nv, f"{at}: V={V_k}, want {env_k.model.const.nv}")
+        check(cg_kernel.fits(E_k, V_k, True),
+              f"{at}: E={E_k}, V={V_k} above kernel B's shared memory, and PER_CALL counts B")
+        res["spd_inverse@" + at] = phase_spd("A spd_inverse@" + at, ci_k["qM"], REPS)
+        res["cg_full@" + at] = phase_cg_full("B cg_full@" + at, ci_k, its_k, nfacet_k, REPS)
+        for name in ("hull_manifold", "hull_pair"):
+            *hargs, hDX = cap[name]
+            per_env = [bool((v != v[:1]).any()) for v in (hargs[0], hargs[3])]
+            print(f"[{at}] {name}: K={hargs[0].shape[1]}, V1={hargs[0].shape[-1]}, "
+                  f"V2={hargs[3].shape[-1]}, DX={hDX}; local verts differ across envs "
+                  f"(side 1, side 2): {per_env}")
+            if at == "ycb" and name == "hull_manifold":
+                check(all(per_env) and hargs[0].shape[-1] == 64,
+                      "ycb: the mesh-mesh hull_manifold call's verts are not each env's own")
+            res[f"{name}@{at}"] = phase_hull(name, hargs, hDX, REPS,
+                                             f"{HULL_LETTER[name]} {name}@{at}")
     # blocks_train's goal settle (the objects-only settle world, nv=48) on the
     # inputs of its last substep in one env step from the reset state; the
     # dominos world's box-box pairs on its main sim's last substep
@@ -2868,6 +3114,59 @@ def main() -> int:
           f"vision x {SUBSTEPS} substeps at B={B}: {wall:.3f} s, {vsps:.1f} env-steps/s; goals "
           f"resampled a step {vis_out['resampled']}, goal images read for {vis_out['reads']} "
           f"envs; images zero, uint8; launches {counts}")
+    ycb_out, ycb_live = {}, []
+    ygroups = mesh_groups(yenv.model)
+    out, wall, counts = drive("ycb_env", lambda: rearrange_env_steps(
+        yenv, ystate, ycb_out, YCB_STEPS, "ycb_env",
+        per_step=lambda st: ycb_live.append(live_pairs(yenv.model, st.physics, ygroups))),
+        YCB_STEPS)
+    ysps = B * YCB_STEPS / wall
+    live_y = {f"{k[0]} {k[1]}-{k[2]}": [int(step[k]) for step in ycb_live] for k in ygroups}
+    record("ycb_env", wall, counts, env_steps=YCB_STEPS, substeps=yenv.constants.mujoco_substeps,
+           env_steps_per_s=ysps, build_s=y_build, reset_s=y_reset,
+           reward_sum=ycb_out["reward_sum"], done=ycb_out["done"],
+           off_table=ycb_out["off_table"], table_contact=ycb_out["table_contact"],
+           live_contacts=live_y, **y_read)
+    print(f"[path ycb_env] {YCB_STEPS} YcbRearrangeEnv.step calls at B={B}: {wall:.3f} s, "
+          f"{ysps:.1f} env-steps/s (rearrange_env {rsps:.1f} in this run; built in "
+          f"{y_build:.2f} s, reset in {y_reset:.2f} s); live contacts over the batch a step "
+          f"(mesh-mesh of free bodies, box-mesh) {live_y}; reward sum {ycb_out['reward_sum']}, "
+          f"episodes done {ycb_out['done']}, env-steps with an object off the table "
+          f"{ycb_out['off_table']}; obs and rewards finite; launches {counts} "
+          f"({PER_CALL['ycb_env']} an env step)")
+    check(all(sum(v) > 0 for v in live_y.values()), f"ycb_env: a mesh group never live {live_y}")
+    ys_out = {}
+    out, wall, counts = drive("ycb_stabilized_env",
+                              lambda: ycb_stabilized_steps(ysenv, ysstate, ys_out), 1)
+    record("ycb_stabilized_env", wall, counts, env_steps=1, build_s=ys_build, reset_s=ys_reset,
+           settle_s=ys_out["settle_s"], settled_envs=ys_out["settled_envs"])
+    print(f"[path ycb_stabilized_env] one step at B={B} under stabilize_goal: {wall:.3f} s; the "
+          f"goal settle ({SETTLE_SUBSTEPS} main substeps) on exactly the "
+          f"{ys_out['settled_envs']} resampling envs in {ys_out['settle_s']:.3f} s; the others' "
+          f"goals kept; built in {ys_build:.2f} s, reset (every env's goal settled) in "
+          f"{ys_reset:.2f} s; launches {counts} ({PER_CALL['ycb_stabilized_env']} a step with "
+          f"one settle)")
+    hold_out, hold_live = {}, []
+    hgroups = round_groups(henv.model)
+    out, wall, counts = drive("holdout_env", lambda: rearrange_env_steps(
+        henv, hstate, hold_out, HOLDOUT_STEPS, "holdout_env",
+        per_step=lambda st: hold_live.append(live_pairs(henv.model, st.physics, hgroups))),
+        HOLDOUT_STEPS)
+    hsps = B * HOLDOUT_STEPS / wall
+    live_h = {f"{k[0]} {k[1]}-{k[2]}": [int(step[k]) for step in hold_live] for k in hgroups}
+    record("holdout_env", wall, counts, env_steps=HOLDOUT_STEPS,
+           substeps=henv.constants.mujoco_substeps, env_steps_per_s=hsps, build_s=h_build,
+           reset_s=h_reset, reward_sum=hold_out["reward_sum"], done=hold_out["done"],
+           off_table=hold_out["off_table"], round_group_live=live_h)
+    print(f"[path holdout_env] {HOLDOUT_STEPS} HoldoutRearrangeEnv.step calls at B={B}: "
+          f"{wall:.3f} s, {hsps:.1f} env-steps/s (built in {h_build:.2f} s, reset in "
+          f"{h_reset:.2f} s); live pairs over the batch a step of the round-geom groups "
+          f"(sphere=2, cylinder=5, box=6, mesh=7) {live_h}; reward sum "
+          f"{hold_out['reward_sum']}, episodes done {hold_out['done']}, env-steps with an object "
+          f"off the table {hold_out['off_table']}; launches {counts} "
+          f"({PER_CALL['holdout_env']} an env step)")
+    check(all(sum(v) > 0 for v in live_h.values()),
+          f"holdout_env: a round-geom group had no live pair over the steps {live_h}")
     launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
                 for entry, r in res.items()}
     for k in KERNELS:
@@ -2903,6 +3202,9 @@ def main() -> int:
         rubik_agreement(label, env_k, rubik_out[label]["state"])
     reach_agreement(qenv, reach_out["state"])
     wrapped_agreement(None, rr_out["state"], model=qrenv.model, label="randomized_reach_env")
+    rearrange_agreement(yenv, ycb_out["state"], label="ycb", path="ycb_env", solver=False)
+    rearrange_agreement(henv, hold_out["state"], label="holdout", path="holdout_env",
+                        solver=False)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: agreement")
     if opts.profile:

@@ -18,7 +18,9 @@ do the same for an env state (`physics.<field>`, `goal.<key>`,
 `t`, each with its leading env axis; `goal_aux` as one array, or, where it
 is a tree (a wrapper stack's `(inner goal_aux, transform states)`), as
 `goal_aux.tree`, its structure in JSON, and its leaves `goal_aux.<i>`);
-the JAX state's PRNG key is not carried.
+the JAX state's PRNG key is not carried. `mesh_bank_from_numpy` builds the
+port's mesh object bank from a bank's arrays (the JAX package's
+`MeshObjectBank` or the port's), as the weights of a model are carried.
 """
 
 from __future__ import annotations
@@ -116,6 +118,17 @@ def model_from_numpy(arrays, device="cuda") -> Model:
         if key in arrays:
             kw[f.name] = t(key)
     return Model(const=const_from_numpy(arrays), opt=Option(**opt_kw), **kw)
+
+
+def mesh_bank_from_numpy(bank, device="cuda"):
+    """The port's `MeshObjectBank` on `device` from any object with its
+    fields (`names`, then `hull_vert`, `hull_mask`, `mass`, `inertia`,
+    `iquat`, `bbox_half` as arrays), each array's values and dtype kept."""
+    from robogym_torch.envs.rearrange.mesh import MeshObjectBank
+
+    return MeshObjectBank(names=tuple(bank.names), **{
+        f.name: torch.as_tensor(np.array(getattr(bank, f.name)), device=device)
+        for f in dataclasses.fields(MeshObjectBank) if f.name != "names"})
 
 
 def model_to(model: Model, device, dtype=None) -> Model:

@@ -101,6 +101,16 @@ def apply_model_fields(model: Model, fields) -> Model:
     return model.replace(env_fields=model.env_fields | frozenset(fields))
 
 
+def take_model_envs(model: Model, envs: torch.Tensor) -> Model:
+    """The model of the envs `envs` (k,) of the batch: each per-env field
+    (`env_fields`) cut to those envs' rows."""
+    plain = {k: getattr(model, k)[envs] for k in model.env_fields if not k.startswith("opt:")}
+    opt = {k[4:]: getattr(model.opt, k[4:])[envs] for k in model.env_fields
+           if k.startswith("opt:")}
+    model = model.replace(**plain)
+    return model.replace(opt=dataclasses.replace(model.opt, **opt)) if opt else model
+
+
 @dataclasses.dataclass(frozen=True)
 class EnvConstants:
     """Static env configuration: the fields of the JAX package's

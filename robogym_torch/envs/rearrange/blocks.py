@@ -21,15 +21,17 @@ resample for every env and every step, as the JAX package splits its key.
 Draws come from the env's `torch.Generator`, or from the caller (`draws=`).
 
 Goals come from `goal_generation`'s class (`GOAL_CLASSES`); under
-`goal_args` `stabilize_goal` each drawn goal is settled in the objects-only
-settle world (`settle_model`: floor, table and blocks) for `stabilize_steps
-* mujoco_substeps` substeps, for every env at every step as the resample
-is; `mask_obs_outside_placement_area` adds the masked observations, and
+`goal_args` `stabilize_goal` each drawn goal is settled for
+`stabilize_steps * mujoco_substeps` substeps: primitive objects in the
+objects-only settle world (`settle_model`: floor, table and blocks), for
+every env at every step as the resample is; mesh objects, whose hulls are
+each env's own model fields, in the full model from the env's own state
+(`_settle_in_model`), at a step only on the envs that resample.
+`mask_obs_outside_placement_area` adds the masked observations, and
 `soft_mask` makes both placement masks soft. Subclasses override
-`sample_object_groups` and `_reset_model_fields` (the per-episode model
-fields). Vision, materials, and goal stabilization with mesh objects (the
-JAX package's full-model settle) are not ported and raise
-`NotImplementedError`.
+`sample_object_groups`, `_reset_model_fields` (the per-episode model
+fields) and `_check_objects`. Vision and materials are not ported and
+raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -146,10 +148,7 @@ class BlocksRearrangeEnv:
 
         self.model = with_timestep(model)
         self.idx = self._index(self.model, "the model")
-        half = self.model.geom_size[int(self.idx.object_geom_ids[0])].cpu().numpy()
-        if not np.allclose(half, self.block_half_size):
-            raise ValueError(f"the model's blocks have half-size {half}, not "
-                             f"{self.block_half_size}")
+        self._check_objects()
         self.robot = composite_lib.CompositeIndex.build(self.model, rcp)
         self.action_size = self.robot.action_size
         self.generator = torch.Generator(device=dev)
@@ -170,13 +169,14 @@ class BlocksRearrangeEnv:
             self.goal_gen = goal_cls(self.idx, gargs, **goal_kw)
         self._active = torch.arange(sp.max_num_objects, device=dev) < sp.num_objects
 
-        # the objects-only settle world of goal stabilization (blocks.py:208-233)
+        # the objects-only settle world of goal stabilization (blocks.py:208-233);
+        # mesh objects settle in the full model (`_settle_in_model`)
         self._settle_model = self._settle_idx = None
-        if gargs.stabilize_goal:
-            types = np.asarray(self.model.const.geom_type)[self.idx.object_geom_ids]
-            if (types == GeomType.MESH).any():
-                raise _not_ported("goal stabilization of mesh objects",
-                                  "the JAX package settles them in the full model")
+        # full-model goal settles run, and the envs they ran on
+        self.goal_settles = 0
+        self.goal_settle_envs = 0
+        types = np.asarray(self.model.const.geom_type)[self.idx.object_geom_ids]
+        if gargs.stabilize_goal and not (types == GeomType.MESH).any():
             if settle_model is None:
                 raise ValueError("stabilize_goal takes the objects-only settle world "
                                  "(settle_model)")
@@ -227,6 +227,14 @@ class BlocksRearrangeEnv:
     def block_half_size(self) -> np.ndarray:
         """(3,) the half-size the world's blocks must have."""
         return np.broadcast_to(self.parameters.simulation_params.object_size, (3,))
+
+    def _check_objects(self) -> None:
+        """Raise unless the model's objects are the blocks the parameters
+        ask for."""
+        half = self.model.geom_size[int(self.idx.object_geom_ids[0])].cpu().numpy()
+        if not np.allclose(half, self.block_half_size):
+            raise ValueError(f"the model's blocks have half-size {half}, not "
+                             f"{self.block_half_size}")
 
     def _index(self, model: Model, what: str) -> sim_lib.RearrangeIndex:
         O = self.parameters.simulation_params.max_num_objects
@@ -390,14 +398,40 @@ class BlocksRearrangeEnv:
         return dict(goal, obj_pos=sim_lib.object_positions(sidx, dg),
                     obj_rot=sim_lib.object_quats(sidx, dg))
 
-    def _next_goal(self, draws, sizes, group_ids, d: Data):
+    def _settle_in_model(self, goal: Dict[str, torch.Tensor], m: Model, d: Data,
+                         envs: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The goal settle of mesh objects (blocks.py:673-680): the objects
+        teleported to their goal poses in each env's own state, arm
+        included, the full model stepped under each env's own model fields,
+        the rested poses read back. Only on the envs `envs` (k,) (all where
+        None), gathered, their results scattered back; none runs where
+        `envs` is empty."""
+        if envs is None:
+            envs = torch.arange(d.qpos.shape[0], device=d.qpos.device)
+        if not envs.numel():
+            return goal
+        self.goal_settles += 1
+        self.goal_settle_envs += int(envs.numel())
+        n_sub = self.constants.stabilize_steps * self.constants.mujoco_substeps
+        dg = sim_lib.set_object_poses(self.idx, core.data_map(lambda x: x[envs], d),
+                                      goal["obj_pos"][envs], goal["obj_rot"][envs])
+        dg = physics.step_n(core.take_model_envs(m, envs), dg, n_sub)
+        rested = {"obj_pos": sim_lib.object_positions(self.idx, dg),
+                  "obj_rot": sim_lib.object_quats(self.idx, dg)}
+        return dict(goal, **{k: goal[k].index_put((envs,), v.to(goal[k].dtype))
+                             for k, v in rested.items()})
+
+    def _next_goal(self, draws, sizes, group_ids, d: Data, m: Optional[Model] = None,
+                   envs: Optional[torch.Tensor] = None):
         """A new goal for every env (blocks.py:413-418, :596-606), settled
-        under `stabilize_goal`, with goal_objects_in_placement_area /
+        under `stabilize_goal` (mesh objects in the model `m`, on the envs
+        `envs`: `_settle_in_model`), with goal_objects_in_placement_area /
         goal_in_placement_area (goals/object_state.py:376-405) and the
         episode's groups."""
         goal = self.goal_gen.next_goal(draws["goal"], self._active, sizes, self.num_objects, d)
         if self.goal_gen.args.stabilize_goal:
-            goal = self._stabilize_goal(goal)
+            goal = (self._stabilize_goal(goal) if self._settle_model is not None
+                    else self._settle_in_model(goal, m, d, envs))
         inside = self._in_placement_area(goal["obj_pos"], draws.get("goal_mask_u"))
         return dict(goal, goal_objects_in_placement_area=inside,
                     goal_in_placement_area=inside.all(-1), group_ids=group_ids)
@@ -426,7 +460,7 @@ class BlocksRearrangeEnv:
         else:
             d = physics.fwd_position(m, d)
 
-        goal = self._next_goal(draws, sizes, group_ids, d)
+        goal = self._next_goal(draws, sizes, group_ids, d, m)
         tracker = core.TrackerState.zero(batch, device=self.device).replace(
             success_steps_required=core.sample_success_steps_required(draws["pause_u"], cst))
         goal_aux = (core.data_map(lambda x: x.expand((batch,) + x.shape[1:]).clone(),
@@ -544,9 +578,11 @@ class BlocksRearrangeEnv:
                       - torch.where(in_safety_stop, sp.penalty_safety_stop, 0.0)).to(self.dtype)
 
         # the goal resample, drawn for every env, taken where need_new_goal
+        # (the full-model settle runs on those envs only)
         draws = draws if draws is not None else self.draw_step(d.qpos.shape[0])
         sizes = sim_lib.geom_bbox_half(m, self.idx.object_geom_ids)
-        new = self._next_goal(draws, sizes, state.goal["group_ids"], d)
+        new = self._next_goal(draws, sizes, state.goal["group_ids"], d, m,
+                              torch.nonzero(need_new_goal).flatten())
         goal = {k: torch.where(need_new_goal.view((-1,) + (1,) * (v.dim() - 1)), new[k], v)
                 for k, v in state.goal.items()}
         tracker = tracker.replace(

@@ -3,13 +3,18 @@
 Counterpart of the parts of `robogym_tpu/physics/collision/convex.py` that
 the collision driver uses: the icosahedron direction set `DIRS12` (and the
 42-direction set it extends to) and per-geom support functions, batched
-over leading axes: `sup(direction (..., 3)) -> point (..., 3)`.
+over leading axes: `sup(direction (..., 3)) -> point (..., 3)`; and
+`support_multi`, the JAX driver's `_support_multi`: each geom type's
+support over a set of directions per pair, as the round-geom branch of the
+convex narrowphase calls it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from robogym_torch.mjcf.model import GeomType
 
 BIG = 1e10
 
@@ -96,3 +101,52 @@ def make_ellipsoid_support(xpos, xmat, size):
         v = v / (_norm(size * local) + 1e-12)[..., None]
         return xpos + torch.matmul(xmat, v[..., None])[..., 0]
     return sup
+
+
+def _unit(d: torch.Tensor) -> torch.Tensor:
+    return d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True) + 1e-12)
+
+
+def support_multi(gtype: int, data, dirs: torch.Tensor) -> torch.Tensor:
+    """Support points (..., D, 3) of one pair side along directions
+    `dirs` (..., D, 3); `data` as the collision driver gathers a side
+    (xpos, xmat, size, and a mesh's local verts `vloc` and world
+    `center`). A mesh picks its vertex by bfloat16 dots of the centred
+    world verts (`convex_kernel` rounds them as the JAX package's jitted
+    step does) and averages the verts of a tie, which is then the support
+    point."""
+    from robogym_torch.physics.collision import convex_kernel as ck
+
+    xpos, xmat, size = data["xpos"], data["xmat"], data["size"]
+    if gtype == GeomType.MESH:
+        wv = xpos[..., :, None] + torch.matmul(xmat, data["vloc"])      # world verts (..., 3, V)
+        cv = ck._bf(wv - data["center"][..., :, None])
+        dots = ck._bf_dots(ck._bf(dirs), cv)                            # (..., D, V)
+        onehot = (dots >= torch.max(dots, dim=-1, keepdim=True).values).to(wv.dtype)
+        onehot = onehot / torch.sum(onehot, dim=-1, keepdim=True)
+        return torch.sum(onehot[..., :, None, :] * wv[..., None, :, :], dim=-1)
+    if gtype == GeomType.BOX:
+        local = torch.sum(xmat[..., None, :, :] * dirs[..., :, :, None], dim=-2)
+        corner = torch.sign(local) * size[..., None, :]
+        return xpos[..., None, :] + torch.sum(xmat[..., None, :, :] * corner[..., :, None, :],
+                                              dim=-1)
+    if gtype == GeomType.SPHERE:
+        return xpos[..., None, :] + _unit(dirs) * size[..., None, :1]
+    if gtype in (GeomType.CAPSULE, GeomType.CYLINDER):
+        n = _unit(dirs)
+        axis = xmat[..., :, 2]
+        ax = torch.sum(axis[..., None, :] * n, dim=-1)
+        out = xpos[..., None, :] + torch.sign(ax)[..., None] * axis[..., None, :] \
+            * size[..., None, 1:2]
+        if gtype == GeomType.CAPSULE:
+            return out + n * size[..., None, :1]
+        radial = n - ax[..., None] * axis[..., None, :]
+        rn = torch.linalg.vector_norm(radial, dim=-1, keepdim=True) + 1e-12
+        return out + radial / rn * size[..., None, :1]
+    if gtype == GeomType.ELLIPSOID:
+        local = torch.sum(xmat[..., None, :, :] * dirs[..., :, :, None], dim=-2)
+        v = size[..., None, :] ** 2 * local
+        v = v / (torch.linalg.vector_norm(size[..., None, :] * local, dim=-1, keepdim=True)
+                 + 1e-12)
+        return xpos[..., None, :] + torch.sum(xmat[..., None, :, :] * v[..., :, None, :], dim=-1)
+    raise NotImplementedError(f"support of geom type {gtype}")

@@ -26,6 +26,7 @@ import torch
 from robogym_torch.mjcf.model import Contact, Data, GeomType, JointType, Model, ModelConst
 from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 from robogym_torch.physics.collision import primitives as prim
+from robogym_torch.physics.collision.convex import DIRS12, support_multi
 from robogym_torch.physics.tables import on_device
 from robogym_torch.utils.rotation import cross
 
@@ -195,7 +196,10 @@ def _model_cache(m: Model, group_cap: int):
     """Model-only quantities, computed once per Model: per-group pair
     tables (solver params + ids; (B, n, 19) where the geom solref, solimp
     or friction is each env's own), mesh tables in the local frame and the
-    local bounding-capsule fits of the meshes."""
+    local bounding-capsule fits of the meshes. Where `mesh_convex_vert` is
+    each env's own (a mesh env's per-episode hulls), the mesh tables are
+    too: verts (B, ngeom, 3, V), 4 * 3 * V bytes a geom and env, and the
+    capsules (B, nmesh, ...)."""
     key = f"_collision_cache_{group_cap}"
     cache = m.__dict__.get(key)
     if cache is not None:
@@ -222,11 +226,11 @@ def _model_cache(m: Model, group_cap: int):
     cache = dict(groups=groups)
     if c.nmesh:
         mids = torch.as_tensor(np.clip(c.geom_dataid, 0, c.nmesh - 1).astype(np.int64), device=dev)
-        verts = m.mesh_convex_vert[mids].transpose(1, 2)               # (ngeom, 3, V)
-        mask = m.mesh_convex_mask[mids]                                # (ngeom, V)
-        cloc = m.mesh_convex_center[mids]                              # (ngeom, 3)
+        verts = m.mesh_convex_vert[..., mids, :, :].transpose(-1, -2)  # ([B,] ngeom, 3, V)
+        mask = m.mesh_convex_mask[..., mids, :]                        # ([B,] ngeom, V)
+        cloc = m.mesh_convex_center[..., mids, :]                      # ([B,] ngeom, 3)
         # padded verts parked at the local center: never a support point
-        vloc = torch.where(mask[:, None, :] > 0, verts, cloc[:, :, None])
+        vloc = torch.where(mask[..., None, :] > 0, verts, cloc[..., :, None])
         cache["mesh"] = (vloc.contiguous(), mask, cloc)
         cache["mesh_capsule"] = _mesh_capsules(m)
     object.__setattr__(m, key, cache)
@@ -234,31 +238,32 @@ def _model_cache(m: Model, group_cap: int):
 
 
 def _mesh_capsules(m: Model):
-    """Local bounding capsules of the meshes: endpoints (nmesh, 3) x2 and
-    radius (nmesh,), about the principal axis of the vertex covariance."""
-    c = m.const
+    """Local bounding capsules of the meshes: endpoints ([B,] nmesh, 3) x2
+    and radius ([B,] nmesh), about the principal axis of the vertex
+    covariance; per env where the mesh table is."""
     mv = m.mesh_convex_vert
     mask = m.mesh_convex_mask > 0
     ctr = m.mesh_convex_center
-    cv = torch.where(mask[:, :, None], mv - ctr[:, None, :], torch.zeros_like(mv))
-    C = torch.einsum("mvi,mvj->mij", cv, cv)
-    u = torch.full((c.nmesh, 3), 1.0 / np.sqrt(3.0), dtype=mv.dtype, device=mv.device)
+    cv = torch.where(mask[..., None], mv - ctr[..., :, None, :], torch.zeros_like(mv))
+    C = torch.einsum("...mvi,...mvj->...mij", cv, cv)
+    u = torch.full(C.shape[:-1], 1.0 / np.sqrt(3.0), dtype=mv.dtype, device=mv.device)
     for _ in range(8):
-        u = torch.einsum("mij,mj->mi", C, u)
+        u = torch.einsum("...mij,...mj->...mi", C, u)
         u = u / (torch.linalg.vector_norm(u, dim=-1, keepdim=True) + 1e-20)
-    tp = torch.einsum("mvi,mi->mv", cv, u)
+    tp = torch.einsum("...mvi,...mi->...mv", cv, u)
     zero = torch.zeros_like(tp)
-    tmin = torch.min(torch.where(mask, tp, zero), dim=1).values
-    tmax = torch.max(torch.where(mask, tp, zero), dim=1).values
-    perp = cv - tp[:, :, None] * u[:, None, :]
-    rper = torch.sqrt(torch.max(torch.where(mask, torch.sum(perp * perp, dim=-1), zero), dim=1).values)
-    return ctr + u * tmin[:, None], ctr + u * tmax[:, None], rper
+    tmin = torch.min(torch.where(mask, tp, zero), dim=-1).values
+    tmax = torch.max(torch.where(mask, tp, zero), dim=-1).values
+    perp = cv - tp[..., None] * u[..., None, :]
+    rper = torch.sqrt(torch.max(torch.where(mask, torch.sum(perp * perp, dim=-1), zero),
+                                dim=-1).values)
+    return ctr + u * tmin[..., None], ctr + u * tmax[..., None], rper
 
 
 def geom_capsules(m: Model, d: Data):
     """Per-geom conservative world-frame bounding capsule: endpoints
     (B, ngeom, 3) x2 and radius (ngeom,), or (B, ngeom) where the geom
-    sizes are each env's own."""
+    sizes or the mesh table are each env's own."""
     c = m.const
     t = np.asarray(c.geom_type)
     s = m.geom_size
@@ -287,12 +292,12 @@ def geom_capsules(m: Model, d: Data):
         a_loc_m, b_loc_m, rper = _model_cache(m, m.opt.group_cap)["mesh_capsule"]
         mids = on_device(c, "cap_mids", np.clip(c.geom_dataid, 0, c.nmesh - 1), dev, torch.long)
         is_mesh = flag("mesh", t == GeomType.MESH)
-        a_loc = torch.where(is_mesh[:, None], a_loc_m[mids], -off_loc)
-        b_loc = torch.where(is_mesh[:, None], b_loc_m[mids], off_loc)
-        radius = torch.where(is_mesh, rper[mids], radius)
+        a_loc = torch.where(is_mesh[:, None], a_loc_m[..., mids, :], -off_loc)
+        b_loc = torch.where(is_mesh[:, None], b_loc_m[..., mids, :], off_loc)
+        radius = torch.where(is_mesh, rper[..., mids], radius)
     else:
         a_loc, b_loc = -off_loc, off_loc
-    spec = "xgij,xgj->xgi" if m.per_env("geom_size") else "xgij,gj->xgi"
+    spec = "xgij,xgj->xgi" if a_loc.dim() == 3 else "xgij,gj->xgi"
     a_w = xp + torch.einsum(spec, xm, a_loc)
     b_w = xp + torch.einsum(spec, xm, b_loc)
     return a_w, b_w, radius
@@ -362,10 +367,15 @@ def _side(m: Model, d: Data, G: torch.Tensor, gtype: int, cache, need_mask=False
     data = dict(xpos=d.geom_xpos[bi, G], xmat=d.geom_xmat[bi, G], size=m.take("geom_size", G))
     if gtype == GeomType.MESH:
         vloc, mask, cloc = cache["mesh"]
-        data["vloc"] = vloc[G]
+
+        def rows(t, shared_dim):                # each env's own rows where t is per env
+            return t[bi, G] if t.dim() > shared_dim else t[G]
+
+        data["vloc"] = rows(vloc, 3)
         if need_mask:
-            data["mask"] = mask[G]
-        data["center"] = data["xpos"] + torch.einsum("xkij,xkj->xki", data["xmat"], cloc[G])
+            data["mask"] = rows(mask, 2)
+        data["center"] = data["xpos"] + torch.einsum("xkij,xkj->xki", data["xmat"],
+                                                     rows(cloc, 2))
     else:
         data["center"] = data["xpos"]
     return data
@@ -382,12 +392,17 @@ def _hull_locs(t, data):
     return data["vloc"].contiguous(), xm9, data["xpos"].contiguous(), data["center"].contiguous()
 
 
+def _box_face_normals(xmat: torch.Tensor) -> torch.Tensor:
+    """A box's six face normals (..., 6, 3): its axes, then their negatives."""
+    xt = xmat.transpose(-1, -2)
+    return torch.cat([xt, -xt], dim=-2)
+
+
 def _hull_extra_dirs(t1, t2, data1, data2):
     """Per-pair extra separating-axis candidates: box face normals."""
     for t, data in ((t1, data1), (t2, data2)):
         if t == GeomType.BOX:
-            xt = data["xmat"].transpose(-1, -2)
-            return torch.cat([xt, -xt], dim=-2).contiguous(), 6
+            return _box_face_normals(data["xmat"]).contiguous(), 6
     c = data1["center"]
     return torch.zeros(c.shape[:-1] + (1, 3), dtype=c.dtype, device=c.device), 0
 
@@ -397,6 +412,47 @@ def _hull_args(t1, t2, data1, data2):
     v2l, xm2, xp2, c2 = _hull_locs(t2, data2)
     xd, DX = _hull_extra_dirs(t1, t2, data1, data2)
     return (v1l, xm1, xp1, v2l, xm2, xp2, c1, c2, xd), DX
+
+
+def _best_direction(t1, t2, data1, data2, dirs):
+    """The direction of `dirs` (B, K, D, 3) with the least separation
+    (first on ties) and that separation: (n (B, K, 3), sep (B, K))."""
+    p1 = support_multi(t1, data1, dirs)
+    p2 = support_multi(t2, data2, -dirs)
+    seps = torch.sum(dirs * (p1 - p2), dim=-1)
+    k = torch.argmin(seps, dim=-1, keepdim=True)
+    n = torch.gather(dirs, -2, k[..., None].expand(k.shape + (3,)))[..., 0, :]
+    return n, torch.gather(seps, -1, k)[..., 0]
+
+
+def _collide_round_group(t1, t2, data1, data2):
+    """Single-point convex collision of pairs with a round geom (sphere,
+    capsule, cylinder or ellipsoid) by support functions, as the JAX
+    driver's `_collide_convex_group`: the least separation over the 12
+    shared directions, the centre line and any box's face normals, refined
+    twice on a ring of 8 directions about the incumbent (radius 0.3, then
+    0.08). Returns dist (B, K), pos (B, K, 3), normal (B, K, 3)."""
+    c1, c2 = data1["center"], data2["center"]
+    d0 = c2 - c1
+    d0 = d0 / (torch.linalg.vector_norm(d0, dim=-1, keepdim=True) + 1e-12)
+    dirs = [torch.as_tensor(DIRS12, dtype=c1.dtype, device=c1.device).expand(
+        c1.shape[:-1] + DIRS12.shape), d0[..., None, :]]
+    dirs += [_box_face_normals(d["xmat"]) for t, d in ((t1, data1), (t2, data2))
+             if t == GeomType.BOX]
+    n, s_best = _best_direction(t1, t2, data1, data2, torch.cat(dirs, dim=-2))
+    ring = torch.as_tensor(convex_kernel.ring_np(), dtype=c1.dtype, device=c1.device)
+    for radius in convex_kernel.RING_RADII:
+        t1v = _orthogonal(n)
+        t2v = cross(n, t1v)
+        cand = n[..., None, :] + radius * (ring[:, :1] * t1v[..., None, :]
+                                           + ring[:, 1:] * t2v[..., None, :])
+        cand = cand / (torch.linalg.vector_norm(cand, dim=-1, keepdim=True) + 1e-12)
+        n, s_best = _best_direction(t1, t2, data1, data2,
+                                    torch.cat([n[..., None, :], cand], dim=-2))
+    nd = n[..., None, :]
+    p1 = support_multi(t1, data1, nd)[..., 0, :]
+    p2 = support_multi(t2, data2, -nd)[..., 0, :]
+    return -s_best, 0.5 * (p1 + p2), n
 
 
 def _plane_convex(data1, data2):
@@ -459,19 +515,18 @@ def collision(m: Model, d: Data, group_cap: int = DEFAULT_GROUP_CAP) -> Data:
         elif grp["kind"] == "plane_convex":
             dist, pos, normal = _plane_convex(_side(m, d, G1, t1, cache),
                                               _side(m, d, G2, t2, cache, need_mask=True))
-        else:
-            d1, d2 = _side(m, d, G1, t1, cache), _side(m, d, G2, t2, cache)
-            if not (t1 in _HULL_TYPES and t2 in _HULL_TYPES):
-                raise NotImplementedError(
-                    "convex pairs with a round geom (sphere/capsule/cylinder/ellipsoid "
-                    "against a hull) are not ported yet")
-            args, DX = _hull_args(t1, t2, d1, d2)
+        elif t1 in _HULL_TYPES and t2 in _HULL_TYPES:
+            args, DX = _hull_args(t1, t2, _side(m, d, G1, t1, cache), _side(m, d, G2, t2, cache))
             if grp["kind"] == "box_convex" or ncon == 4:
                 dist, pos, n_ = convex_kernel.hull_manifold(*args, DX)
                 normal = n_[..., None, :].expand(pos.shape)
             else:
                 dist, pos, n_, _ = convex_kernel.hull_pair(*args, DX)
                 dist, pos, normal = dist[..., None], pos[..., None, :], n_[..., None, :]
+        else:
+            dist, pos, n_ = _collide_round_group(t1, t2, _side(m, d, G1, t1, cache),
+                                                 _side(m, d, G2, t2, cache))
+            dist, pos, normal = dist[..., None], pos[..., None, :], n_[..., None, :]
 
         dist = torch.where(active_bp[..., None], dist, torch.full_like(dist, BIG))
         wincols = torch.cat([(pk[..., 12] - pk[..., 13])[..., None], pk[..., 14:19]], dim=-1)

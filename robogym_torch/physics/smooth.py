@@ -134,7 +134,8 @@ def kinematics(m: Model, d: Data) -> Data:
         xquat[:, bids] = xq
 
     xmat = rot.quat2mat(xquat)
-    xipos = xpos + torch.einsum("xbij,bj->xbi", xmat, m.body_ipos)
+    ispec = "xbij,xbj->xbi" if m.per_env("body_ipos") else "xbij,bj->xbi"
+    xipos = xpos + torch.einsum(ispec, xmat, m.body_ipos)
     ximat = torch.matmul(xmat, rot.quat2mat(m.body_iquat))
     gb = _ix(c, "geom_bodyid", c.geom_bodyid, dev)
     geom_xmat = torch.matmul(xmat[:, gb], rot.quat2mat(m.geom_quat))

@@ -37,7 +37,16 @@ snapshots next to their modules in `robogym_torch/worlds/`:
   * `dactyl_reach_like.npz`, the hand alone at dactyl/reach's mount pose
     over a floor, force-limited, with five target sites (nv = 24),
     compiled as `envs/dactyl/reach.py` compiles its world: plain
-    `compile_xml`, the default contact budgets.
+    `compile_xml`, the default contact budgets;
+  * `rearrange_ycb_like.npz`, the YCB env's world: the main world with no
+    blocks and a plane on the table's top, plus 8 mesh slots of the first stand-in candidate
+    (`rearrange_ycb_like.MESH_DIR`), with the budgets of
+    `scale_contact_budgets(model, 8)`, as `envs/rearrange/mesh.py:211-227`
+    compiles it (`ycb_stand_in`);
+  * `holdout_ball_like.npz`, the stand-in holdout's world: the main world
+    with no blocks plus the config's task and scene objects, with the
+    budgets of `scale_contact_budgets(model, 2, 1)`, as
+    `envs/rearrange/holdout.py:150-179` compiles it (`holdout_stand_in`).
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -46,7 +55,9 @@ test rebuilds each and checks that it matches the committed file field by
 field.
 """
 
+import contextlib
 import os
+import shutil
 import sys
 import tempfile
 
@@ -57,7 +68,92 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_setting_like",
           "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like",
           "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like",
-          "rubik_face_like", "rubik_full_like", "dactyl_reach_like")
+          "rubik_face_like", "rubik_full_like", "dactyl_reach_like", "rearrange_ycb_like",
+          "holdout_ball_like")
+
+
+@contextlib.contextmanager
+def ycb_stand_in(root: str):
+    """Inside, the JAX mesh env composes its world from the stand-in's
+    writer and finds its candidates, copies of the committed stand-in STLs,
+    under `root/stls/ycb`. Yields {name: [STL path]}."""
+    from robogym_torch.worlds import rearrange_blocks_like, rearrange_ycb_like
+    from robogym_tpu.envs.rearrange import mesh as j_mesh
+    from robogym_tpu.envs.rearrange import simulation as j_sim
+    from robogym_tpu.mjcf.xml_tools import MjcfXML
+    from robogym_tpu.robot import composite as j_comp
+
+    stls = os.path.join(root, "stls")
+    shutil.copytree(rearrange_ycb_like.MESH_DIR, os.path.join(stls, "ycb"))
+
+    def write(max_num_objects, block_size=0.0254, robot_control_params=None,
+              mujoco_timestep=0.001):
+        rcp = robot_control_params or j_comp.RobotControlParameters()
+        return MjcfXML.from_string(rearrange_blocks_like.write(
+            stls, max_num_objects, block_size, rcp.is_joint_actuated(), mujoco_timestep)).append(
+                MjcfXML.from_string(rearrange_ycb_like.table_top_xml()))
+
+    orig = j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR
+    j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR = write, root
+    try:
+        yield j_mesh.find_meshes_by_dirname("ycb")
+    finally:
+        j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR = orig
+
+
+@contextlib.contextmanager
+def holdout_stand_in(root: str):
+    """Inside, the JAX holdout env composes its world from the stand-in's
+    writer (its STLs, and the platform's, under `root`) and reads the
+    stand-in holdout's object XMLs and saved states."""
+    from robogym_torch.worlds import holdout_ball_like, rearrange_blocks_like
+    from robogym_tpu.envs.rearrange import holdout as j_holdout
+    from robogym_tpu.envs.rearrange import simulation as j_sim
+    from robogym_tpu.mjcf.xml_tools import MjcfXML
+    from robogym_tpu.robot import composite as j_comp
+
+    shutil.copy(holdout_ball_like.PLATFORM_STL, root)
+
+    def write(max_num_objects, block_size=0.0254, robot_control_params=None,
+              mujoco_timestep=0.001):
+        rcp = robot_control_params or j_comp.RobotControlParameters()
+        return MjcfXML.from_string(rearrange_blocks_like.write(
+            root, max_num_objects, block_size, rcp.is_joint_actuated(), mujoco_timestep))
+
+    orig = j_sim.build_blocks_world_xml, j_holdout.ASSETS_DIR, j_holdout.STATE_DIR
+    j_sim.build_blocks_world_xml = write
+    j_holdout.ASSETS_DIR, j_holdout.STATE_DIR = holdout_ball_like.DIR, holdout_ball_like.STATE_DIR
+    try:
+        with sorted_pair_table():
+            yield
+    finally:
+        j_sim.build_blocks_world_xml, j_holdout.ASSETS_DIR, j_holdout.STATE_DIR = orig
+
+
+@contextlib.contextmanager
+def sorted_pair_table():
+    """Inside, the JAX compiler finds every pair type of its table. It
+    looks a pair up by its two geom types in ascending order, but keys four
+    of its entries the other way round (box-cylinder, box-ellipsoid,
+    mesh-cylinder, mesh-ellipsoid), so it drops those pairs: a cylinder
+    falls through a table. The stand-in holdout's cylinder stands on the
+    table, so its world is compiled with the keys in ascending order."""
+    from robogym_tpu.mjcf import compiler
+
+    orig = compiler._PAIR_NCON
+    compiler._PAIR_NCON = {(min(a, b), max(a, b)): n for (a, b), n in orig.items()}
+    try:
+        yield
+    finally:
+        compiler._PAIR_NCON = orig
+
+
+def j_sim_blocks_world(max_num_objects: int):
+    """The JAX package's `build_blocks_world_xml`, as patched by the
+    stand-in contexts above."""
+    from robogym_tpu.envs.rearrange import simulation as j_sim
+
+    return j_sim.build_blocks_world_xml(max_num_objects)
 
 
 def compile_snapshot(world: str = "locked_like"):
@@ -66,15 +162,49 @@ def compile_snapshot(world: str = "locked_like"):
 
     from robogym_torch.bridge import model_to_numpy
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, dactyl_reach_like,
-                                      locked_like, rearrange_blocks_like, rubik_face_like,
-                                      rubik_full_like, table_setting_like)
+                                      holdout_ball_like, locked_like, rearrange_blocks_like,
+                                      rearrange_ycb_like, rubik_face_like, rubik_full_like,
+                                      table_setting_like)
     from robogym_tpu.envs.rearrange import simulation as sim_lib
     from robogym_tpu.envs.rearrange.dominos import DOMINO_PROPORTIONS
     from robogym_tpu.envs.rearrange.simulation import scale_contact_budgets
     from robogym_tpu.mjcf.compiler import compile_xml
     from robogym_tpu.mjcf.xml_tools import MjcfXML
 
-    if world == "blocks_settle_like":
+    if world == "rearrange_ycb_like":
+        from robogym_tpu.envs.rearrange import mesh as j_mesh
+
+        with tempfile.TemporaryDirectory() as tmp, ycb_stand_in(tmp) as files:
+            xml = j_sim_blocks_world(0)
+            first = sorted(files)[0]
+            for i in range(rearrange_ycb_like.MAX_NUM_OBJECTS):
+                xml.append(j_mesh.make_mesh_object_xml(f"object{i}", files[first][0], 1.0))
+            model = scale_contact_budgets(compile_xml(xml, dtype=jnp.float32),
+                                          rearrange_ycb_like.MAX_NUM_OBJECTS)
+    elif world == "holdout_ball_like":
+        from robogym_tpu.envs.rearrange import holdout as j_holdout
+        from robogym_tpu.utils import jsonnet as j_jsonnet
+
+        sim = j_jsonnet.evaluate_file(holdout_ball_like.CONFIG)["make_env"]["args"][
+            "parameters"]["simulation_params"]
+        with tempfile.TemporaryDirectory() as tmp, holdout_stand_in(tmp):
+            xml = j_sim_blocks_world(0)
+            i = 0
+            for cfg in sim["task_object_configs"]:
+                for _ in range(int(cfg.get("count", 1))):
+                    xml.append(j_holdout._load_object_xml(cfg["xml_path"], f"object{i}",
+                                                          cfg.get("tag_args", {}),
+                                                          cfg.get("material_args", {})))
+                    i += 1
+            for s_i, cfg in enumerate(sim["scene_object_configs"]):
+                for c_i in range(int(cfg.get("count", 1))):
+                    xml.append(j_holdout._load_object_xml(cfg["xml_path"], f"scene{s_i}_{c_i}",
+                                                          cfg.get("tag_args", {}),
+                                                          cfg.get("material_args", {})))
+            model = compile_xml(xml, dtype=jnp.float32)
+            n_scene = sum(1 for nm in model.const.names["geom"] if nm.startswith("scene"))
+            model = scale_contact_budgets(model, i, n_scene)
+    elif world == "blocks_settle_like":
         model = compile_xml(blocks_settle_like.write(), dtype=jnp.float32)
         model = scale_contact_budgets(model, blocks_settle_like.N_BLOCKS)
     elif world == "table_setting_like":
@@ -118,8 +248,9 @@ def compile_snapshot(world: str = "locked_like"):
 
 def snapshot_path(world: str) -> str:
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, dactyl_reach_like,
-                                      locked_like, rearrange_blocks_like, rubik_face_like,
-                                      rubik_full_like, table_setting_like)
+                                      holdout_ball_like, locked_like, rearrange_blocks_like,
+                                      rearrange_ycb_like, rubik_face_like, rubik_full_like,
+                                      table_setting_like)
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
@@ -132,7 +263,9 @@ def snapshot_path(world: str) -> str:
             "rearrange_wordblocks_like": rearrange_blocks_like.WORDBLOCKS_SNAPSHOT,
             "rubik_face_like": rubik_face_like.SNAPSHOT,
             "rubik_full_like": rubik_full_like.SNAPSHOT,
-            "dactyl_reach_like": dactyl_reach_like.SNAPSHOT}[world]
+            "dactyl_reach_like": dactyl_reach_like.SNAPSHOT,
+            "rearrange_ycb_like": rearrange_ycb_like.SNAPSHOT,
+            "holdout_ball_like": holdout_ball_like.SNAPSHOT}[world]
 
 
 def main():
