@@ -24,6 +24,7 @@ stand-ins of `worlds/rearrange_ycb_like.py`) on the compiled world
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import os
 from typing import Dict, List, Optional, Tuple
@@ -165,8 +166,7 @@ class MeshRearrangeEnv(blocks_lib.BlocksRearrangeEnv):
         """Each episode's model fields from its candidates `draws["cand"]`
         (B, O) and its colour groups (mesh.py:230-271): (fields, the
         objects' half-sizes (B, O, 3), group ids (B, O))."""
-        O, m, bank = self.max_num_objects, self.model, self.bank
-        cand = draws["cand"].to(torch.long)
+        O = self.max_num_objects
         if self.constants.use_grey_colors:
             colors = torch.tensor([0.5, 0.5, 0.5, 1.0], dtype=self.dtype,
                                   device=self.device).expand(batch, O, 4)
@@ -174,23 +174,38 @@ class MeshRearrangeEnv(blocks_lib.BlocksRearrangeEnv):
         else:
             group_ids, colors = self.sample_object_groups(draws["lam_u"], draws["gumbel"],
                                                           draws["color_u"])
+        return self._fields_for_candidates(draws["cand"].to(torch.long), group_ids, colors, batch)
+
+    def _per_env(self, field: str, rows: torch.Tensor, values: torch.Tensor, batch: int):
+        """Model field `field` for `batch` envs, its rows `rows` each env's
+        `values` (B, len(rows), ...)."""
+        v = getattr(self.model, field)
+        out = v.expand((batch,) + tuple(v.shape)).clone()
+        out[:, rows] = values.to(out.dtype)
+        return out
+
+    def _slot_ids(self):
+        """The object slots' mesh, body and geom ids on the device."""
         dev = self.device
-        mids = torch.as_tensor(self._slot_mesh_ids, device=dev)
-        bids = torch.as_tensor(np.asarray(self.idx.object_body_ids, np.int64), device=dev)
-        gids = torch.as_tensor(np.asarray(self.idx.object_geom_ids, np.int64), device=dev)
+        return (torch.as_tensor(self._slot_mesh_ids, device=dev),
+                torch.as_tensor(np.asarray(self.idx.object_body_ids, np.int64), device=dev),
+                torch.as_tensor(np.asarray(self.idx.object_geom_ids, np.int64), device=dev))
 
-        def per_env(field, rows, values):
-            out = getattr(m, field).expand((batch,) + tuple(getattr(m, field).shape)).clone()
-            out[:, rows] = values.to(out.dtype)
-            return out
-
+    def _fields_for_candidates(self, cand: torch.Tensor, group_ids, colors, batch: int):
+        """The bank's rows of the candidates `cand` (B, O) written into each
+        env's model fields, with the objects' colours (B, O, 4): (fields,
+        half-sizes (B, O, 3), group_ids)."""
+        O, bank = self.max_num_objects, self.bank
+        mids, bids, gids = self._slot_ids()
+        per_env = functools.partial(self._per_env, batch=batch)
         fields = {
             "mesh_convex_vert": per_env("mesh_convex_vert", mids, bank.hull_vert[cand]),
             "mesh_convex_mask": per_env("mesh_convex_mask", mids, bank.hull_mask[cand]),
             "body_mass": per_env("body_mass", bids, bank.mass[cand]),
             "body_inertia": per_env("body_inertia", bids, bank.inertia[cand]),
             "body_iquat": per_env("body_iquat", bids, bank.iquat[cand]),
-            "body_ipos": per_env("body_ipos", bids, torch.zeros((batch, O, 3), device=dev)),
+            "body_ipos": per_env("body_ipos", bids, torch.zeros((batch, O, 3),
+                                                                device=self.device)),
             "geom_size": per_env("geom_size", gids, bank.bbox_half[cand]),
             "geom_rgba": per_env("geom_rgba", gids, colors),
         }

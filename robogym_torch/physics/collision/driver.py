@@ -161,8 +161,8 @@ def contact_frame(normal: torch.Tensor) -> torch.Tensor:
 
 def _mix_params(m: Model, g1, g2):
     """Contact solref/solimp/friction/margin/gap for static pair ids; the
-    solref (B, n, 2), solimp (B, n, 5) or friction (B, n, 5) where the
-    model's geom solref, solimp or friction is each env's own (read by
+    solref (B, n, 2), solimp (B, n, 5), friction (B, n, 5), margin or gap
+    (B, n) where the model's geom field is each env's own (read by
     `Model.take`, which indexes a per-env field's geom axis)."""
     p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
     m1, m2 = m.geom_solmix[g1], m.geom_solmix[g2]
@@ -180,8 +180,8 @@ def _mix_params(m: Model, g1, g2):
     solref = torch.where(direct[..., None], torch.minimum(sr1, sr2), solref_mix)
     solimp = w1 * si1 + (1 - w1) * si2
     fric = torch.maximum(f1, f2)
-    margin = torch.maximum(m.geom_margin[g1], m.geom_margin[g2])
-    gap = torch.maximum(m.geom_gap[g1], m.geom_gap[g2])
+    margin = torch.maximum(m.take("geom_margin", g1), m.take("geom_margin", g2))
+    gap = torch.maximum(m.take("geom_gap", g1), m.take("geom_gap", g2))
     use1 = (p1 > p2)[:, None]
     use2 = (p2 > p1)[:, None]
     solref = torch.where(use1, sr1, torch.where(use2, sr2, solref))
@@ -194,8 +194,8 @@ def _mix_params(m: Model, g1, g2):
 
 def _model_cache(m: Model, group_cap: int):
     """Model-only quantities, computed once per Model: per-group pair
-    tables (solver params + ids; (B, n, 19) where the geom solref, solimp
-    or friction is each env's own), mesh tables in the local frame and the
+    tables (solver params + ids; (B, n, 19) where the geom solref, solimp,
+    friction, margin or gap is each env's own), mesh tables in the local frame and the
     local bounding-capsule fits of the meshes. Where `mesh_convex_vert` is
     each env's own (a mesh env's per-episode hulls), the mesh tables are
     too: verts (B, ngeom, 3, V), 4 * 3 * V bytes a geom and env, and the
@@ -217,7 +217,7 @@ def _model_cache(m: Model, group_cap: int):
         def col(a):
             return torch.as_tensor(np.asarray(a, np.float32), dtype=dtype, device=dev)[:, None].expand(n, 1)
 
-        parts = [solref, solimp, fric5, margin[:, None], gap[:, None],
+        parts = [solref, solimp, fric5, margin[..., None], gap[..., None],
                  col(grp["condim"]), col(grp["g1"]), col(grp["g2"]),
                  col(bodyid[grp["g1"]]), col(bodyid[grp["g2"]])]
         lead = torch.broadcast_shapes(*(p.shape[:-2] for p in parts))

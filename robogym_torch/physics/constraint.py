@@ -13,8 +13,11 @@ CG. Two entry points:
     `constraint_batched.solve_core` (the CG kernel without the Euler
     update) where the model has contact slots; otherwise `make_efc`
     assembles J, aref and the row weights and `cg_kernel.cg` solves.
-
-The Newton solver is not ported.
+    Under `opt.solver == "newton"` it assembles the rows with `make_efc`
+    and runs `opt.iterations` Newton steps (`_solve_newton`): a batched
+    Cholesky of the Hessian and a line search over six fixed step sizes.
+    The JAX package factors that Hessian outside any Pallas kernel, so
+    this branch has no kernel of its own.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ FRICTION = 2
 
 # line-search safeguard scales around the frozen-active-set Newton step
 LS_SCALES = (2.0, 1.0, 0.5, 0.125)
+# the Newton solve's line-search step sizes, in the JAX package's order
+NEWTON_ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.02, 0.0)
 
 
 def _impedance(solimp: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -439,10 +444,11 @@ def _contact_forces(d: Data, f: torch.Tensor, sel, n_s: int, nfacet: int) -> tor
 
 def solve(m: Model, d: Data, Minv: torch.Tensor = None) -> Data:
     """The constraint solve for qacc (d.qacc_smooth filled): fills qacc,
-    qfrc_constraint and the contact forces. Where the model has contact
-    slots, the post-gather CG core without the Euler update; otherwise
-    `make_efc` and the CG kernel on its J."""
-    if Minv is None:
+    qfrc_constraint and the contact forces. Under the CG solver, where the
+    model has contact slots, the post-gather CG core without the Euler
+    update; otherwise `make_efc` and the CG kernel on its J. Under the
+    Newton solver, `make_efc` and `_solve_newton`, which need no M^-1."""
+    if m.opt.solver == "cg" and Minv is None:
         from robogym_torch.physics import factor_kernel
 
         Minv = factor_kernel.spd_inverse(d.qM)
@@ -454,10 +460,59 @@ def solve(m: Model, d: Data, Minv: torch.Tensor = None) -> Data:
     if efc is None:
         return d.replace(qacc=d.qacc_smooth, qfrc_constraint=torch.zeros_like(d.qacc_smooth))
     if m.opt.solver != "cg":
-        raise NotImplementedError(
-            "constraint.solve: the Newton solver branch is not ported; only the CG solver "
-            f"(the default) is, and this model sets solver={m.opt.solver!r}")
+        return _solve_newton(m, d, efc)
     return _solve_cg(m, d, efc, Minv)
+
+
+def _newton_rows(D, floss, kind, jar: torch.Tensor):
+    """The rows' cost derivative, Hessian weight and cost at residuals jar
+    (..., E), D and floss broadcast against it: quadratic on equality rows
+    and on violated one-sided rows, Huber on friction-loss rows."""
+    is_eq, is_one, is_fric = (torch.as_tensor(kind == k, device=jar.device)
+                              for k in (EQ, ONESIDED, FRICTION))
+    quad = is_eq | (is_one & (jar < 0))
+    inside = torch.abs(D * jar) < floss
+    deriv = D * jar * quad + torch.clamp(D * jar, -floss, floss) * is_fric
+    w = D * (quad | (is_fric & inside))
+    c_fric = torch.where(inside, 0.5 * D * jar * jar,
+                         floss * torch.abs(jar) - 0.5 * floss * floss / torch.clamp(D, min=1e-12))
+    return deriv, w, 0.5 * D * jar * jar * quad + c_fric * is_fric
+
+
+def _solve_newton(m: Model, d: Data, efc) -> Data:
+    """`opt.iterations` Newton steps from qacc_smooth on `make_efc`'s rows
+    (constraint.py:548 of the JAX package): the gradient
+    M (x - qacc_smooth) + J' deriv, the Hessian M + J' diag(w) J + 1e-10 I
+    factored by a batched Cholesky, and the least cost of the six steps
+    `NEWTON_ALPHAS` along its direction (first on ties), each cost on the
+    residuals jar + a J p without another product with J."""
+    J, aref, D, floss, kind = efc["J"], efc["aref"], efc["D"], efc["floss"], efc["kind"]
+    M, qs = d.qM, d.qacc_smooth
+    nv = M.shape[-1]
+    Jt = J.transpose(-1, -2)
+    eye = torch.eye(nv, dtype=M.dtype, device=M.device)
+    alphas = torch.as_tensor(NEWTON_ALPHAS, dtype=M.dtype, device=M.device)
+    x = qs
+    for _ in range(int(m.opt.iterations)):
+        jar = mv(J, x) - aref
+        deriv, w, _ = _newton_rows(D, floss, kind, jar)
+        grad = mv(M, x - qs) + mv(Jt, deriv)
+        H = M + torch.matmul(Jt * w[:, None, :], J) + 1e-10 * eye
+        L = torch.linalg.cholesky_ex(H).L
+        p = -torch.cholesky_solve(grad[..., None], L)[..., 0]
+        Jp = mv(J, p)
+        dx = x[:, None] + alphas[:, None] * p[:, None] - qs[:, None]   # (B, 6, nv)
+        _, _, rows = _newton_rows(D[:, None], floss[:, None], kind,
+                                  jar[:, None] + alphas[:, None] * Jp[:, None])
+        costs = (0.5 * torch.sum(dx * torch.matmul(dx, M.transpose(-1, -2)), dim=-1)
+                 + torch.sum(rows, dim=-1))
+        a = alphas[torch.argmin(costs, dim=-1)]
+        x = x + a[:, None] * p
+    deriv, _, _ = _newton_rows(D, floss, kind, mv(J, x) - aref)
+    f = -deriv
+    return d.replace(qacc=x, qfrc_constraint=mv(Jt, f),
+                     efc_force_contact=_contact_forces(d, f, efc["contact_sel"],
+                                                       efc["n_scalar"], efc["nfacet"]))
 
 
 def _solve_cg_post_gather(m: Model, d: Data, Minv: torch.Tensor):

@@ -139,7 +139,8 @@ def kinematics(m: Model, d: Data) -> Data:
     ximat = torch.matmul(xmat, rot.quat2mat(m.body_iquat))
     gb = _ix(c, "geom_bodyid", c.geom_bodyid, dev)
     geom_xmat = torch.matmul(xmat[:, gb], rot.quat2mat(m.geom_quat))
-    geom_xpos = xpos[:, gb] + torch.einsum("xgij,gj->xgi", xmat[:, gb], m.geom_pos)
+    gspec = "xgij,xgj->xgi" if m.per_env("geom_pos") else "xgij,gj->xgi"
+    geom_xpos = xpos[:, gb] + torch.einsum(gspec, xmat[:, gb], m.geom_pos)
     if c.nsite:
         sb = _ix(c, "site_bodyid", c.site_bodyid, dev)
         site_xmat = torch.matmul(xmat[:, sb], rot.quat2mat(m.site_quat))

@@ -150,3 +150,52 @@ def test_per_env_fields_equal_to_shared_give_shared_outputs(world):
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_per_env_geom_margin_gap_and_pos_reach_the_collision():
+    """Each env's own geom_margin, geom_gap and geom_pos, written by the
+    port's `GenericSimRandomizer` (additive modes: the compiled margin and
+    gap are zero) on the ball-and-box world settled into contact: the
+    contact table of `fwd_position` and geom_xpos against the JAX package's
+    under `jax.vmap`. The physics once read margin and gap by plain
+    indexing, which indexes a per-env field's env axis, and took geom_pos
+    shared only."""
+    from _torch_common import ball_box_models, ball_box_state
+    from robogym_torch.randomization import sim as t_sim
+
+    jm, tm = ball_box_models()
+    d = ball_box_state(tm, B)
+    rng = np.random.default_rng(3)
+    ng = tm.const.ngeom
+    fields = {}
+    for name, mode, value, draws in (
+            ("geom_margin", "max_additive", np.log(1.03), {"uniform": rng.uniform(0, 1, (B, ng))}),
+            ("geom_gap", "max_additive", np.log(1.01), {"uniform": rng.uniform(0, 1, (B, ng))}),
+            ("geom_pos", "variance_additive", np.log(1.01),
+             {"normal": rng.standard_normal((B, ng, 3))})):
+        r = t_sim.GenericSimRandomizer(name, name, mode)
+        r.initialize(tm)
+        r.get_parameters()[0].set_value(value)
+        fields = r.apply(fields, {k: torch.as_tensor(v, dtype=torch.float32)
+                                  for k, v in draws.items()}, r.param_values())
+    assert sorted(fields) == ["geom_gap", "geom_margin", "geom_pos"]
+    for v in fields.values():
+        assert (v != v[:1]).any()
+    m = t_core.apply_model_fields(tm, fields)
+    got = bridge.data_to_numpy(t_step.fwd_position(m, d))
+    fwd = jax.jit(jax.vmap(lambda mf, x: j_step.fwd_position(j_core.apply_model_fields(jm, mf),
+                                                             x)))
+    want = bridge.data_to_numpy(fwd({k: jax.numpy.asarray(v.numpy()) for k, v in fields.items()},
+                                    to_jax(d)))
+    np.testing.assert_allclose(got["geom_xpos"], want["geom_xpos"], rtol=0, atol=1e-6)
+    assert got["contact.active"].any(1).all()
+    np.testing.assert_array_equal(got["contact.active"], want["contact.active"])
+    for k in ("dist", "includemargin", "pos", "normal"):
+        np.testing.assert_allclose(got["contact." + k], want["contact." + k], rtol=0, atol=1e-5,
+                                   err_msg=k)
+    for k in ("geom1", "geom2", "condim"):
+        np.testing.assert_array_equal(got["contact." + k], want["contact." + k], err_msg=k)
+    # the fields matter: the shared model's contacts differ
+    shared = bridge.data_to_numpy(t_step.fwd_position(tm, d))
+    assert (shared["contact.includemargin"] != got["contact.includemargin"]).any()
+    assert np.abs(shared["geom_xpos"] - got["geom_xpos"]).max() > 1e-3

@@ -46,7 +46,12 @@ snapshots next to their modules in `robogym_torch/worlds/`:
   * `holdout_ball_like.npz`, the stand-in holdout's world: the main world
     with no blocks plus the config's task and scene objects, with the
     budgets of `scale_contact_budgets(model, 2, 1)`, as
-    `envs/rearrange/holdout.py:150-179` compiles it (`holdout_stand_in`).
+    `envs/rearrange/holdout.py:150-179` compiles it (`holdout_stand_in`);
+  * `rearrange_table_setting_like.npz`, `rearrange_chessboard_like.npz`,
+    `rearrange_mixture_like.npz` and `rearrange_composer_like.npz`, the
+    worlds of the table setting, chessboard, mixture and composer envs on
+    the stand-ins of `rearrange_mesh_family_like`, each compiled by the
+    JAX env's own `_compile_world` (`mesh_family_world`).
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -69,36 +74,102 @@ WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_settin
           "dactyl_locked_like", "rearrange_blocks_like", "rearrange_solver_like",
           "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like",
           "rubik_face_like", "rubik_full_like", "dactyl_reach_like", "rearrange_ycb_like",
-          "holdout_ball_like")
+          "holdout_ball_like", "rearrange_table_setting_like", "rearrange_chessboard_like",
+          "rearrange_mixture_like", "rearrange_composer_like")
+MESH_FAMILY = {"rearrange_table_setting_like": "table_setting",
+               "rearrange_chessboard_like": "chessboard", "rearrange_mixture_like": "mixture",
+               "rearrange_composer_like": "composer"}
 
 
 @contextlib.contextmanager
-def ycb_stand_in(root: str):
-    """Inside, the JAX mesh env composes its world from the stand-in's
-    writer and finds its candidates, copies of the committed stand-in STLs,
-    under `root/stls/ycb`. Yields {name: [STL path]}."""
-    from robogym_torch.worlds import rearrange_blocks_like, rearrange_ycb_like
+def ycb_stand_in(root: str, ycb_dir: str = None, extra_xml: str = None):
+    """Inside, the JAX mesh envs compose their worlds from the stand-in's
+    writer (and `extra_xml`, where given) and find their candidates,
+    copies of the committed stand-in STLs, under `root/stls`: `ycb` (by
+    default the YCB stand-ins of `rearrange_ycb_like.MESH_DIR`; the table
+    setting's tableware where `ycb_dir` names it), `chess` and `geom`. The
+    mesh env's and the composer's asset directory (`mesh.ASSETS_DIR`,
+    `xml_tools.ASSETS_DIR`) is `root`. Yields the `ycb` candidates, {name:
+    [STL path]}."""
+    from robogym_torch.worlds import (rearrange_blocks_like, rearrange_mesh_family_like,
+                                      rearrange_ycb_like)
     from robogym_tpu.envs.rearrange import mesh as j_mesh
     from robogym_tpu.envs.rearrange import simulation as j_sim
+    from robogym_tpu.mjcf import xml_tools
     from robogym_tpu.mjcf.xml_tools import MjcfXML
     from robogym_tpu.robot import composite as j_comp
 
     stls = os.path.join(root, "stls")
-    shutil.copytree(rearrange_ycb_like.MESH_DIR, os.path.join(stls, "ycb"))
+    shutil.copytree(ycb_dir or rearrange_ycb_like.MESH_DIR, os.path.join(stls, "ycb"))
+    for name in ("chess", "geom"):
+        shutil.copytree(os.path.join(rearrange_mesh_family_like.MESH_ROOT, name),
+                        os.path.join(stls, name))
 
     def write(max_num_objects, block_size=0.0254, robot_control_params=None,
               mujoco_timestep=0.001):
         rcp = robot_control_params or j_comp.RobotControlParameters()
-        return MjcfXML.from_string(rearrange_blocks_like.write(
+        xml = MjcfXML.from_string(rearrange_blocks_like.write(
             stls, max_num_objects, block_size, rcp.is_joint_actuated(), mujoco_timestep)).append(
                 MjcfXML.from_string(rearrange_ycb_like.table_top_xml()))
+        return xml.append(MjcfXML.from_string(extra_xml)) if extra_xml else xml
 
-    orig = j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR
-    j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR = write, root
+    orig = j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR, xml_tools.ASSETS_DIR
+    j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR, xml_tools.ASSETS_DIR = write, root, root
     try:
         yield j_mesh.find_meshes_by_dirname("ycb")
     finally:
-        j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR = orig
+        j_sim.build_blocks_world_xml, j_mesh.ASSETS_DIR, xml_tools.ASSETS_DIR = orig
+
+
+def family_stand_in(env: str):
+    """`ycb_stand_in`'s `ycb_dir` and `extra_xml` for a mesh-family env:
+    the table setting's tableware and its contact exclusions."""
+    from robogym_torch.worlds import rearrange_mesh_family_like as family
+
+    if env == "table_setting":
+        return family.TABLEWARE_DIR, family.table_setting_contact_xml()
+    return None, None
+
+
+def mesh_family_world(env: str, files):
+    """The JAX Model of `env`'s world ("table_setting", "chessboard",
+    "mixture" or "composer"), compiled by the JAX env's `_compile_world`
+    inside `ycb_stand_in` on the candidates `files` ({name: [STL path]},
+    the env's bank before any filter by name) at the stand-in's slot
+    count."""
+    import types
+
+    import jax.numpy as jnp
+
+    from robogym_torch.worlds import rearrange_mesh_family_like as family
+    from robogym_tpu.envs.rearrange import blocks as j_blocks
+    from robogym_tpu.envs.rearrange import composer as j_composer
+    from robogym_tpu.envs.rearrange import mesh as j_mesh
+    from robogym_tpu.robot import composite as j_comp
+
+    O = family.SLOTS[env]
+    sp = j_blocks.RearrangeSimParameters(num_objects=min(O, 5), max_num_objects=O)
+    cls, cst = j_mesh.MeshRearrangeEnv, j_mesh.MeshRearrangeEnvConstants()
+    if env == "composer":
+        cls, cst = j_composer.ComposerRearrangeEnv, j_composer.ComposerEnvConstants()
+    shim = types.SimpleNamespace(_mesh_files=files, constants=cst, dtype=jnp.float32)
+    return cls._compile_world(shim, sp, j_comp.RobotControlParameters())[0]
+
+
+def mesh_family_files(env: str):
+    """The candidates of `env`'s bank inside `ycb_stand_in`, as the JAX
+    env gathers them: the mixture's merged under "<dirname>/<name>"."""
+    from robogym_tpu.envs.rearrange import mesh as j_mesh
+
+    if env == "mixture":
+        return {f"{d}/{k}": v for d in ("ycb", "geom")
+                for k, v in j_mesh.find_meshes_by_dirname(d).items()}
+    if env == "table_setting":
+        from robogym_tpu.envs.rearrange.table_setting import MESH_NAMES
+
+        return {k: v for k, v in j_mesh.find_meshes_by_dirname("ycb").items()
+                if k in MESH_NAMES}
+    return j_mesh.find_meshes_by_dirname("chess" if env == "chessboard" else "ycb")
 
 
 @contextlib.contextmanager
@@ -171,7 +242,13 @@ def compile_snapshot(world: str = "locked_like"):
     from robogym_tpu.mjcf.compiler import compile_xml
     from robogym_tpu.mjcf.xml_tools import MjcfXML
 
-    if world == "rearrange_ycb_like":
+    if world in MESH_FAMILY:
+        from robogym_torch.worlds import rearrange_mesh_family_like as family
+
+        env = MESH_FAMILY[world]
+        with tempfile.TemporaryDirectory() as tmp, ycb_stand_in(tmp, *family_stand_in(env)):
+            model = mesh_family_world(env, mesh_family_files(env))
+    elif world == "rearrange_ycb_like":
         from robogym_tpu.envs.rearrange import mesh as j_mesh
 
         with tempfile.TemporaryDirectory() as tmp, ycb_stand_in(tmp) as files:
@@ -249,8 +326,11 @@ def compile_snapshot(world: str = "locked_like"):
 def snapshot_path(world: str) -> str:
     from robogym_torch.worlds import (blocks_settle_like, dactyl_locked_like, dactyl_reach_like,
                                       holdout_ball_like, locked_like, rearrange_blocks_like,
-                                      rearrange_ycb_like, rubik_face_like, rubik_full_like,
-                                      table_setting_like)
+                                      rearrange_mesh_family_like, rearrange_ycb_like,
+                                      rubik_face_like, rubik_full_like, table_setting_like)
+
+    if world in MESH_FAMILY:
+        return rearrange_mesh_family_like.SNAPSHOTS[MESH_FAMILY[world]]
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,

@@ -2,11 +2,16 @@
 """Find the envs where kernel B leaves its plain version, and show the line
 search there.
 
-    python3 tools/cg_near_tie.py [--world settle|locked_like|table] [--seed N]
+    python3 tools/cg_near_tie.py [--world settle|locked_like|table|table_setting|
+                                          chessboard|mixture|composer] [--seed N]
+                                 [--capture step|path] [--earliest]
 
 Runs on an NVIDIA GPU. It captures kernel B's inputs from one substep of a
 world at B=1024 as `chip_smoke.py` does (start states from `--seed`, by
-default chip_smoke.py's), runs the kernel and the plain version for 1 to
+default chip_smoke.py's; for a mesh-family env, the main sim's last
+substep of its path, `make_env`, reset and `FAMILY_STEPS` steps, or with
+`--capture step` of one env step from the reset, where `chip_smoke.py`
+takes B's inputs), runs the kernel and the plain version for 1 to
 15 CG iterations, and finds the envs whose qacc after some iteration
 differs from the plain version's by more than `chip_smoke.CG_EARLY_TOL`
 of the batch's largest |qacc|. For each (the ten
@@ -17,7 +22,8 @@ float32 and in a float64 run on the same inputs, the step each picks (the
 least cost below 0, else 0), and the step the kernel took there (its move
 along the plain version's search direction). Two picks that differ where
 two costs lie within float32's rounding of each other are a near-tie of
-the discrete line search, not a fault of the kernel.
+the discrete line search, not a fault of the kernel. `--earliest` lists
+the ten envs that leave the plain version first instead.
 """
 
 from __future__ import annotations
@@ -42,10 +48,38 @@ def traced_plain(chip_smoke, args):
     return trace
 
 
+def family_core(chip_smoke, name, seed, capture):
+    """Kernel B's inputs from a mesh-family env's reset state at B=1024:
+    the main sim's last substep of one env step (`capture` "step", where
+    `chip_smoke.py` holds B) or of its path's `FAMILY_STEPS` steps ("path")."""
+    import importlib
+
+    from robogym_torch.physics import constraint_batched
+
+    make_env = importlib.import_module("robogym_torch.envs.rearrange." + name).make_env
+    env = make_env(*chip_smoke.FAMILY_CONFIGS[name], device="cuda", seed=seed)
+    state, _ = env.reset(chip_smoke.BATCH)
+    if capture == "step":
+        return chip_smoke.capture_rearrange(env, state, ())["main"]
+    last = {}
+    with chip_smoke.patched([((constraint_batched, "fused_step_core"),
+                              lambda *a, fn=constraint_batched.fused_step_core:
+                              last.update(args=a) or fn(*a))]):
+        chip_smoke.family_path(name, env, state, {}, [])
+    kind_s, its, nfacet, *args = last["args"]
+    return constraint_batched.core_inputs(kind_s, nfacet, *args), its, nfacet
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--world", default="settle", choices=("settle", "locked_like", "table"))
+    ap.add_argument("--world", default="settle",
+                    choices=("settle", "locked_like", "table", "table_setting", "chessboard",
+                             "mixture", "composer"))
     ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--capture", choices=("step", "path"), default="path",
+                    help="a mesh-family env's capture point (see family_core)")
+    ap.add_argument("--earliest", action="store_true",
+                    help="list the envs that leave the plain version first")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("cg_near_tie: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -56,10 +90,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"[device] {chip_smoke.card_line()}", flush=True)
-    m, arrays, kw = chip_smoke.worlds()[opts.world]
     seed = chip_smoke.SEED if opts.seed is None else opts.seed
-    d = chip_smoke.start_states(m, arrays, chip_smoke.BATCH, seed, **kw)
-    ci, its, nfacet = chip_smoke.capture_core(m, d)
+    if opts.world in chip_smoke.FAMILY_CONFIGS:
+        ci, its, nfacet = family_core(chip_smoke, opts.world, seed, opts.capture)
+    else:
+        m, arrays, kw = chip_smoke.worlds()[opts.world]
+        d = chip_smoke.start_states(m, arrays, chip_smoke.BATCH, seed, **kw)
+        ci, its, nfacet = chip_smoke.capture_core(m, d)
     x_k, x_p = [], []
     for k in range(its + 1):
         a = chip_smoke.cg_args(ci, k, nfacet)
@@ -74,8 +111,11 @@ def main() -> int:
     envs = off.any(0).nonzero()[:, 0]
     print(f"[{opts.world} seed {seed}] B={x_k[0].shape[0]}: {len(envs)} envs leave the plain "
           f"version by more than {chip_smoke.CG_EARLY_TOL} of max |qacc| within {its} iterations")
-    for env in sorted(envs.tolist(), key=lambda e: -float(final[e]))[:10]:
-        k0 = int(off[:, env].nonzero()[0, 0]) + 1
+    first = {e: int(off[:, e].nonzero()[0, 0]) + 1 for e in envs.tolist()}
+    order = (sorted(first, key=lambda e: (first[e], -float(final[e]))) if opts.earliest
+             else sorted(first, key=lambda e: -float(final[e])))
+    for env in order[:10]:
+        k0 = first[env]
         p, dc32, pick32 = (t[env] for t in tr32[k0 - 1])
         _, dc64, pick64 = (t[env] for t in tr64[k0 - 1])
         step = x_k[k0][env] - x_k[k0 - 1][env]
