@@ -260,16 +260,43 @@ at their placements (the spoon turned by 0.38 rad), the composer's
 `geom_pos` differing across envs on exactly its sub-geoms past the roots
 and its sub-geoms' contacts live. Their kernels' inputs come from one env
 step from each reset state (`capture_rearrange`, as the YCB env's) and
-give the entries `spd_inverse@newton` and A, B and C `@tableware` and
-`@composer`. The chessboard's and the mixture's paths wait
-(`FAMILY_WAITING`): at their states B's checks fail on float32 line-search
-near-ties (ROADMAP section 3, item 2), and `tools/family_cg_check.py`
-measures their kernels and checks their reset states. To pay for the new
-paths the older ones run fewer steps (`ENV_STEPS` 3, `FULL_STEPS` 2, one
-rearrange, blocks_train, YCB and holdout step), each kernel is timed over
-`REPS` = 20 launches, and the YCB env is built once: its own reset starts
-the ycb_env path, and a copy of it under `stabilize_goal` resets for the
-ycb_stabilized_env path.
+give the entries `spd_inverse@newton` and A, B and C `@tableware`,
+`@chess`, `@mixture` and `@composer`, and C on each mesh world's box-mesh
+call (`@ycb-box`, `@tableware-box`, ...) and on the solver sim's calls
+(`hull_manifold@solver`, `hull_pair@solver`). `chessboard_env` runs as
+the other family paths; the mixture's path waits (`FAMILY_WAITING`: B's
+noise check fails at its state against the tie-following reference too),
+and `tools/family_cg_check.py` measures its kernels and checks its reset
+state.
+
+A CG kernel's check follows float32 ties (`cg_readings`,
+`tie_reference`): where an env leaves the plain version within 15
+iterations, the plain version takes the kernel's choice wherever a float32
+tie of the line search (two costs within `TIE_ULPS` x 2^-23 of the terms
+summed into them) or of a row's state leaves it open, at most
+`MAX_FORCED` times an env; an env that leaves otherwise fails the check
+by name. The early and noise checks then hold the kernel to that forced
+plain version (and the noise check to a float64 run forced alike), and
+each CG phase prints the excused envs with their witnesses.
+
+The vision paths (B=1024): `locked_real_image_env`, the real-image locked
+env on the dactyl-shaped world with the vision cameras
+(`worlds/vision_like.py`), 200-pixel images of three cameras, a pool of 16
+goals, cameras and lights randomized, reset and `REAL_IMAGE_STEPS` steps
+(the locked env's launches a substep); env 0's `vision` held to the same
+env rendered alone and shown to see the cube and the hand, `vision_goal`
+the pool's image at `goal_idx`. `rearrange_vision_env`, the blocks env with
+vision (front and wrist cameras), vision randomization, every stand-in
+material, block goal rotations and the icp distance, reset and one step
+(the rearrange env's launches and the goal image's fwd_position: 1 C, 1 D,
+1 E). Each prints its rate, the renders' share of its steps, the
+renderer's env chunks and the peak device memory.
+
+To pay for the new paths the older ones run fewer steps (`ENV_STEPS` 3,
+`FULL_STEPS` 2, one rearrange, blocks_train, YCB and holdout step), each
+kernel is timed over `REPS` launches, and the YCB env is built once: its
+own reset starts the ycb_env path, and a copy of it under `stabilize_goal`
+resets for the ycb_stabilized_env path.
 7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
    line has an entry per phase of step 4: `k` for kernel k at the shapes
@@ -301,6 +328,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -313,15 +341,15 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 1024                      # envs of every path
-ENV_STEPS = 3                     # env steps of the locked-like, locked, wrapped and face paths
-FULL_STEPS = 2                    # env steps of the full and wrapped full paths
+ENV_STEPS = 2                     # env steps of the locked-like, locked, wrapped and face paths
+FULL_STEPS = 1                    # env steps of the full and wrapped full paths
 SOLVER_HOP_ENVS = 16              # envs of the full env's solver hop
 N_ACTION_BINS = 11                # the default stack's discrete actions (wrappers/__init__.py)
 HUGE_V = 160                      # kernel A's device-memory kernel (above 128 dofs)
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
 SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
 SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
-FORWARD_CALLS = 10
+FORWARD_CALLS = 5
 REARRANGE_STEPS = 1               # env steps of the rearrange_env path
 BLOCKS_TRAIN_STEPS = 1            # env steps of the blocks_train_env path
 DOMINOS_STEPS = 1                 # env steps of the dominos_env path
@@ -351,8 +379,8 @@ YCB_STEPS = 1                     # env steps of the ycb_env path
 YCB_MESHES = ["banana", "bottle", "bowl", "can", "cracker_box"]
 YCB_CONFIG = ({}, {"simulation_params": {"num_objects": 5}, "mesh_names": YCB_MESHES})
 HOLDOUT_STEPS = 1                 # env steps of the holdout_env path
-NEWTON_SUBSTEPS = 10              # substeps of the newton_step path
-FAMILY_STEPS = 2                  # env steps of each mesh-family path
+NEWTON_SUBSTEPS = 5               # substeps of the newton_step path
+FAMILY_STEPS = 1                  # env steps of each mesh-family path
 # each mesh-family env's make_env arguments: the mixture's and the
 # composer's YCB candidates kept to the 64-vert ones (a padded hull sinks
 # and spins)
@@ -367,20 +395,35 @@ FAMILY_CONFIGS = {
         {"simulation_params": {"num_objects": 5}}),
     "composer": ({}, {"simulation_params": {"num_objects": 5}, "mesh_names": YCB_MESHES}),
 }
-# the mesh-family envs whose paths wait for the revised CG gate (ROADMAP
-# section 3, item 2): at their states kernel B's checks below fail on
-# float32 line-search near-ties, and a path runs here only where each of its
-# kernels is held (`tools/family_cg_check.py` measures B, A and C there)
-FAMILY_WAITING = {
-    "chessboard": "B's early check (1e-4 after 1 and 2 iterations) fails",
-    "mixture": "B's 15-iteration noise check fails",
-}
+# the mesh-family envs whose paths wait for the CG check: at the mixture's
+# state kernel B's 15-iteration noise check fails against the tie-following
+# reference too (float32 noise grown through stiff rows, no tie: ROADMAP
+# section 3, item 2), and a path runs here only where each of its kernels is
+# held (`tools/family_cg_check.py` measures B, A and C there)
+FAMILY_WAITING = {"mixture": "B's 15-iteration noise check fails"}
 # the mesh-family paths driven here
 FAMILY = tuple(k for k in FAMILY_CONFIGS if k not in FAMILY_WAITING)
 # the kernels-line name of each mesh-family world
 FAMILY_AT = {"table_setting": "tableware", "chessboard": "chess", "mixture": "mixture",
              "composer": "composer"}
-VISION_STEPS = 3                  # env steps of the locked_dummy_vision_env path
+VISION_STEPS = 2                  # env steps of the locked_dummy_vision_env path
+# the real-image locked env at full width: 200-pixel images of the three
+# vision cameras, a pool of 16 goals, cameras and lights randomized
+LOCKED_REAL_IMAGE_CONFIG = dict(vision_image_size=200, goal_pool_size=16, camera_fovy_radius=2.0,
+                                camera_pos_radius=0.01, camera_quat_radius=0.05,
+                                light_pos_range=0.3)
+REAL_IMAGE_STEPS = 2              # env steps of the locked_real_image_env path
+# the blocks env with vision (200-pixel front and wrist cameras), vision
+# randomization, every stand-in material, block goal rotations and the
+# icp rotational distance
+REARRANGE_VISION_CONFIG = (
+    {"vision": True, "goal_args": {"randomize_goal_rot": True, "rot_randomize_type": "block",
+                                   "rot_dist_type": "icp"}},
+    {"simulation_params": {"num_objects": 5, "camera_fovy_radius": 2.0,
+                           "camera_pos_radius": 0.01, "camera_quat_radius": 0.05,
+                           "light_pos_range": 0.3},
+     "material_names": ("all",)})
+REARRANGE_VISION_STEPS = 1        # env steps of the rearrange_vision_env path
 EFFORT_TOL = 1e-5                 # actuator_effort against its command after an effort substep
 # the randomized reach env's ADR values (paths of its EnvRandomization)
 REACH_ADR = (("sim:gravity:value", 0.3), ("sim:jnt_margin:value", 0.2),
@@ -388,12 +431,23 @@ REACH_ADR = (("sim:gravity:value", 0.3), ("sim:jnt_margin:value", 0.2),
              ("sim:dof_damping:mean", 0.1), ("sim:dof_damping:std", 0.3),
              ("sim:geom_friction:std", 0.3))
 SEED = 0
-REPS = 20                         # launches per kernel timing
+REPS = 10                         # launches per kernel timing
 HOLD_CYCLES_PER_REP = 2_000_000   # device cycles held per timed launch while the host queues them
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
 CG_EARLY_TOL = 1e-4               # a CG kernel vs plain after 1 and 2 iterations, relative
 NOISE_RATIO = 2                   # a CG kernel's float32 error vs the plain version's, both vs float64
+# A float32 tie of a CG solve's discrete choices (`tie_masks`): two
+# line-search costs within TIE_ULPS x 2^-23 of the magnitudes summed into
+# each (pen(0), pen(a), |a c1|, a^2 c2 / 2), or a row's jar at a state's
+# edge within as much of the magnitudes summed into it; fixed before any
+# sweep (PERF.md, PR 21)
+TIE_ULPS = 4
+F32_EPS = 2.0 ** -23
+MAX_FORCED = 4                    # forced choices an env of the CG check may take
+MAX_TRIES = 64                    # ties of an env tried at one departure, the latest first
+CANDIDATE_CHUNK = 2048            # forced plain runs batched at once in the CG check
+EARLY_ITERATIONS = (1, 2)         # the CG check's early iterations (CG_EARLY_TOL)
 SPD_TOL = 1e-5                    # A vs plain, relative to the plain version's largest entry
 SPD_COLUMN_RATIO = 4              # A's worst per-column error vs float64 over the plain version's
 NEAR_TIE_TOL = 5e-3               # witness check of a hull pair on a bf16 near-tie (m)
@@ -510,13 +564,22 @@ AT_PATH["holdout"] = "holdout_env"
 # Cholesky) and euler (1 A), C and D on the hand's hulls; no B, no E
 PER_CALL["newton_step"] = {"spd_inverse": 2, "hull_manifold": 1, "hull_pair": 1}
 AT_PATH["newton"] = "newton_step"
+# the real-image locked env: the locked env's launches a substep (its goal
+# images come from the pool: no render poses a goal)
+PER_CALL["locked_real_image_env"] = dict(PER_CALL["locked_env"])
+# the blocks env with vision: the rearrange env's launches an env step, and
+# the goal image's fwd_position of the main sim in each observation (its
+# collision: 1 C, 1 D, 1 E)
+PER_CALL["rearrange_vision_env"] = {k: v + (k in ("hull_manifold", "hull_pair", "boxbox"))
+                                    for k, v in PER_CALL["rearrange_env"].items()}
 # the mesh-family envs driven here: the YCB env's launches an env step (their
 # worlds have its groups: box-mesh, mesh-mesh of free bodies, the fingers,
 # plane-mesh); `main` moves the composer's B launches to F where
 # `cg_kernel.fits` sends its system there
 for _name in FAMILY:
     PER_CALL[_name + "_env"] = dict(PER_CALL["ycb_env"])
-    AT_PATH[FAMILY_AT[_name]] = _name + "_env"
+    AT_PATH[FAMILY_AT[_name]] = AT_PATH[FAMILY_AT[_name] + "-box"] = _name + "_env"
+AT_PATH["ycb-box"] = "ycb_env"
 # fields the default stack overrides that the dactyl-shaped world leaves
 # equal across envs, and why
 WRAPPED_SAME = {"body_pos": "no cube:top or cube:bottom body for the cube-size scale",
@@ -791,12 +854,205 @@ def cg_args(ci, iterations, nfacet):
             Minv_imp, ci["qvel"], ci["qfrc_smooth"], ci["qacc_prev"], ci["dt"])
 
 
-def cg_readings(name, args_of, iterations):
-    """CG kernel `name` against its plain version on the same inputs
-    (`args_of(iterations)` gives them). Returns (errs, early, noise,
-    failures): the full solve's relative errors kernel vs plain; the same
-    after 1 and 2 iterations; and per output (kernel vs float64, plain vs
-    float64), the float64 run being the plain version's.
+def take_envs(x, idx, B):
+    """The envs `idx` of a CG kernel's arguments: every tensor whose leading
+    axis is the batch's (B), inside dicts, tuples and lists; the rest as is."""
+    if isinstance(x, torch.Tensor):
+        return x[idx] if x.dim() > 0 and x.shape[0] == B else x
+    if isinstance(x, dict):
+        return {k: take_envs(v, idx, B) for k, v in x.items()}
+    if isinstance(x, (tuple, list)) and any(isinstance(v, (torch.Tensor, dict)) for v in x):
+        return type(x)(take_envs(v, idx, B) for v in x)
+    return x
+
+
+def forced_plain(name, args, force=None, trace=None):
+    """CG kernel `name`'s plain version on `args`, its line search and row
+    states overridden by `force` (`cg_kernel.Forced`) and traced into
+    `trace` (`cg_kernel.cg_plain`)."""
+    from robogym_torch.physics import cg_kernel
+
+    solve = functools.partial(cg_kernel.cg_plain, trace=trace, force=force)
+    if name == "cg":
+        return solve(*args)
+    return wrapper(name, plain=True)(*args, solve=solve)
+
+
+def tie_bound(mag):
+    """The float32 rounding bound of a line-search cost whose summed terms
+    have magnitude `mag` (`cg_kernel.cg_plain`'s trace): TIE_ULPS x 2^-23 x
+    mag."""
+    return TIE_ULPS * F32_EPS * mag
+
+
+def tie_masks(trace, rows):
+    """The discrete choices that a float32 tie leaves open in a `cg_plain`
+    trace of L envs (`rows`: their Deq, Done, Dfr, floss (L, E)), at every
+    traced iteration: (pick (L, k, 5) a line-search candidate, 0 to 3 or 4
+    for no step at cost 0, whose cost lies within the two costs'
+    `tie_bound`s of the pick's; neg (L, k, E) a row with Done > 0 whose
+    jar lies within the rounding of jar (`tie_bound` of the magnitudes
+    summed into it) of 0; inside (L, k, E) a row with Dfr > 0 whose |Dfr
+    jar| lies within as much of floss), and the traced costs, bounds, jar
+    and its bounds for the witnesses."""
+    cost = torch.stack([t["dcost"] for t in trace], 1).double()
+    cost = torch.cat([cost, torch.zeros_like(cost[..., :1])], -1)              # (L, k, 5)
+    bnd = tie_bound(torch.stack([t["mag"] for t in trace], 1).double())
+    bnd = torch.cat([bnd, torch.zeros_like(bnd[..., :1])], -1)
+    pick = torch.stack([t["pick"] for t in trace], 1)                           # (L, k)
+    c_r = torch.gather(cost, -1, pick[..., None])
+    b_r = torch.gather(bnd, -1, pick[..., None])
+    alt = torch.arange(5, device=cost.device) != pick[..., None]
+    ties = alt & ((cost - c_r).abs() <= bnd + b_r)
+    jar = torch.stack([t["jar"] for t in trace], 1).double()                    # (L, k, E)
+    jmag = torch.stack([t["jmag"] for t in trace], 1).double()
+    jb = tie_bound(jmag)
+    Deq, Done, Dfr, floss = (r.double()[:, None, :] for r in rows)
+    neg = (Done > 0) & (jar.abs() <= jb)
+    inside = (Dfr > 0) & (((Dfr * jar).abs() - floss).abs() <= tie_bound(Dfr * jmag + floss))
+    return ties, neg, inside, dict(cost=cost, bnd=bnd, pick=pick, jar=jar, jb=jb)
+
+
+def tie_witness(info, l, j, kind, idx):
+    """The witness of one tie of `tie_masks` (env l of the trace, iteration
+    j, 1-based): a dict for the check's report."""
+    if kind == "pick":
+        r = int(info["pick"][l, j - 1])
+        c, b = info["cost"][l, j - 1], info["bnd"][l, j - 1]
+        return dict(kind="pick", picks=(r, idx), costs=(float(c[r]), float(c[idx])),
+                    diff=float((c[idx] - c[r]).abs()), bound=float(b[idx] + b[r]))
+    return dict(kind=kind, row=idx, jar=float(info["jar"][l, j - 1, idx]),
+                bound=float(info["jb"][l, j - 1, idx]))
+
+
+def row_weights(name, args):
+    """(Deq, Done, Dfr, floss) (B, E) of a CG kernel's system."""
+    from robogym_torch.physics import constraint as cl
+
+    if name == "cg":
+        return args[2:6]
+    maps = args[4]
+    D = torch.where(maps["active"] > 0, 1.0 / maps["rcoef"], torch.zeros_like(maps["rcoef"]))
+    return (*cl.kind_masked_D(args[0], D), maps["floss"])
+
+
+def envs_off(got, want, scale):
+    """(B,) bool: the envs in which some output of `got` leaves `want` by
+    more than CG_EARLY_TOL of that output's largest entry in `scale`."""
+    off = torch.zeros(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    for g, w, s in zip(got, want, scale):
+        off |= (g - w).abs().reshape(g.shape[0], -1).amax(-1) > CG_EARLY_TOL * s.abs().max()
+    return off
+
+
+def tie_reference(name, args_of, iterations):
+    """The forced plain version of CG kernel `name`: the plain version's
+    discrete choices made as the kernel made them wherever a float32 tie
+    leaves them open, and only there. For k = 1 to `iterations`, the envs
+    whose outputs after k iterations leave the current reference by more
+    than CG_EARLY_TOL of the batch's largest entry are taken together: the
+    ties of iterations k, k - 1, ..., 1 of each env's reference
+    (`tie_masks`, at most MAX_TRIES an env) are tried as one more forced
+    choice each, all envs' in one batch, and for each env the first after
+    which the kernel's outputs agree with the forced plain version's at
+    iteration k to CG_EARLY_TOL is kept. An env may take MAX_FORCED forced
+    choices; one that leaves with no such tie is not excused. Returns
+    (force, excused, unexcused): `cg_kernel.Forced` over the batch, [(env,
+    iteration of the tie, witness)] and [(env, k, why)]."""
+    from robogym_torch.physics import cg_kernel
+
+    kern = wrapper(name)
+    a = args_of(iterations)
+    B = (a[0] if name == "cg" else a[5]).shape[0]
+    rows = row_weights(name, a)
+    E = rows[0].shape[1]
+    dev = rows[0].device
+    force = cg_kernel.Forced.free(B, iterations, E, dev)
+    forced = torch.zeros(B, dtype=torch.long, device=dev)
+    given_up = torch.zeros(B, dtype=torch.bool, device=dev)
+    excused, unexcused = [], []
+    for k in range(1, iterations + 1):
+        ak = args_of(k)
+        got = kern(*ak)
+        want = forced_plain(name, ak, force)
+        off = envs_off(got, want, want) & ~given_up
+        over = off & (forced >= MAX_FORCED)
+        for env in over.nonzero()[:, 0].tolist():
+            unexcused.append((env, k, f"leaves after {MAX_FORCED} forced choices"))
+        given_up |= over
+        envs = (off & ~over).nonzero()[:, 0]
+        if not envs.numel():
+            continue
+        trace = []
+        forced_plain(name, take_envs(ak, envs, B), force.take(envs), trace)
+        ties, neg, inside, info = tie_masks(trace, [r[envs] for r in rows])
+        # the candidates: iteration k first, back to 1; picks, then rows
+        order = []
+        host = [m.cpu() for m in (ties, neg, inside)]
+        for l in range(envs.numel()):
+            c = [(j, kind, int(i)) for j in range(k, 0, -1)
+                 for kind, m in zip(("pick", "neg", "inside"), host)
+                 for i in m[l, j - 1].nonzero()[:, 0]]
+            order.append(c[:MAX_TRIES])
+        cand_env = [l for l, c in enumerate(order) for _ in c]
+        tried = [t for c in order for t in c]
+        chosen = {}
+        if tried:
+            li = torch.as_tensor(cand_env, device=dev)
+            cand = force.take(envs[li])
+            for n, (j, kind, i) in enumerate(tried):
+                if kind == "pick":
+                    cand.pick[n, j - 1] = i
+                else:
+                    t = cand.flip_neg if kind == "neg" else cand.flip_inside
+                    t[n, j - 1, i] = ~t[n, j - 1, i]
+            agree = []
+            for c0 in range(0, len(tried), CANDIDATE_CHUNK):
+                part = slice(c0, c0 + CANDIDATE_CHUNK)
+                idx = envs[li[part]]
+                outs = forced_plain(name, take_envs(ak, idx, B), cand.take(part))
+                agree.append(~envs_off([g[idx] for g in got], outs, want))
+            agree = torch.cat(agree).cpu().tolist()
+            for n, ok in enumerate(agree):
+                if ok and cand_env[n] not in chosen:
+                    chosen[cand_env[n]] = n
+        for l, env in enumerate(envs.tolist()):
+            if l not in chosen:
+                unexcused.append((env, k, "leaves with no tie" if not order[l] else
+                                  f"leaves; none of its {len(order[l])} ties brings it back"))
+                given_up[env] = True
+                continue
+            n = chosen[l]
+            force.pick[env] = cand.pick[n]
+            force.flip_neg[env] = cand.flip_neg[n]
+            force.flip_inside[env] = cand.flip_inside[n]
+            forced[env] += 1
+            j, kind, i = tried[n]
+            excused.append((env, j, tie_witness(info, l, j, kind, i)))
+    return force, excused, unexcused
+
+
+def witness_text(env, it, w):
+    """One excused env's witness, as the CG phases print it."""
+    if w["kind"] == "pick":
+        return (f"env {env} iteration {it}: picks {w['picks'][0]} / {w['picks'][1]} costs "
+                f"{w['costs'][0]:.9g} / {w['costs'][1]:.9g}, diff {w['diff']:.3g} <= bound "
+                f"{w['bound']:.3g}")
+    return (f"env {env} iteration {it}: row {w['row']} state {w['kind']} at its edge, jar "
+            f"{w['jar']:.3g}, bound {w['bound']:.3g}")
+
+
+def cg_readings(name, args_of, iterations, report=None):
+    """CG kernel `name` against its forced plain version (`tie_reference`)
+    on the same inputs (`args_of(iterations)` gives them). Returns (errs,
+    early, noise, failures): the full solve's relative errors kernel vs
+    forced plain; the same after 1 and 2 iterations; and per output
+    (kernel vs float64, forced plain vs float64), the float64 run being
+    the plain version's forced to the same choices. A dict `report` gets
+    the excused envs under "excused" ([(env, iteration of the tie,
+    witness)]), the forced choices under "force", and under "drifting"
+    the envs that leave the forced plain version after the early
+    iterations with no tie ([(env, iteration, why)]).
 
     The kernel sums in another order than the plain version, and 15
     unconverged CG iterations with a discrete line search carry float32's
@@ -804,18 +1060,33 @@ def cg_readings(name, args_of, iterations):
     differs from a float64 run of it by 5e-2). So the full solve is held to
     float32's own noise, its error against the float64 run at most
     NOISE_RATIO times the plain version's, and the first two iterations,
-    before the noise has grown, to CG_EARLY_TOL."""
-    kern, plain, outputs = wrapper(name), wrapper(name, plain=True), KERNELS[name]["outputs"]
-    failures, early = [], {}
-    for its in (1, 2):
+    before the noise has grown, to CG_EARLY_TOL. Where the two sums part on
+    a discrete choice that a float32 tie leaves open, the reference follows
+    the kernel, and only there; an env that leaves it otherwise within the
+    early iterations fails the check by name."""
+    kern, outputs = wrapper(name), KERNELS[name]["outputs"]
+    force, excused, unexcused = tie_reference(name, args_of, iterations)
+    # an env that leaves within the early check's iterations with no tie
+    # fails by name; later, float32 noise grows through stiff rows without
+    # any discrete choice (PERF.md, PR 21), and the noise check holds it
+    named = [(env, k, why) for env, k, why in unexcused if k <= EARLY_ITERATIONS[-1]]
+    if report is not None:
+        report.update(excused=excused, force=force,
+                      drifting=[u for u in unexcused if u[1] > EARLY_ITERATIONS[-1]])
+    failures = [f"env {env} after {k} iteration(s): {why} (tie bound {TIE_ULPS} x 2^-23)"
+                for env, k, why in named[:8]]
+    if len(named) > 8:
+        failures.append(f"{len(named) - 8} more envs leave the forced plain version")
+    early = {}
+    for its in EARLY_ITERATIONS:
         a = args_of(its)
-        got, want = kern(*a), plain(*a)
+        got, want = kern(*a), forced_plain(name, a, force)
         early[its] = {n: rel_err(g, w) for n, g, w in zip(outputs, got, want)}
         failures += [f"{n} after {its} iteration(s): rel err {e:.3g} > {CG_EARLY_TOL}"
                      for n, e in early[its].items() if not e <= CG_EARLY_TOL]
     a = args_of(iterations)
-    got, want = kern(*a), plain(*a)
-    exact = plain(*to_float64(a))
+    got, want = kern(*a), forced_plain(name, a, force)
+    exact = forced_plain(name, to_float64(a), force)
     errs, noise = {}, {}
     for out, g, w, x in zip(outputs, got, want, exact):
         if not bool(torch.isfinite(g).all()):
@@ -832,7 +1103,9 @@ def phase_cg(name, label, args_of, iterations, n_bytes_in, flops, reps, hold=Tru
     """A CG kernel's phase: `cg_readings`, then the kernel's and the plain
     version's times and the bound. With `hold` False a failed check does
     not stop the phase: its failures go into the result."""
-    errs, early, noise, failures = cg_readings(name, args_of, iterations)
+    report = {}
+    errs, early, noise, failures = cg_readings(name, args_of, iterations, report)
+    excused_line(label, report["excused"], report["drifting"])
     for its, e in early.items():
         print(f"[{label}] after {its} iteration(s), rel err kernel vs plain (tol "
               f"{CG_EARLY_TOL}): " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
@@ -842,7 +1115,7 @@ def phase_cg(name, label, args_of, iterations, n_bytes_in, flops, reps, hold=Tru
     check(not hold or not failures, f"{name}: " + "; ".join(failures))
     kern, plain = wrapper(name), wrapper(name, plain=True)
     args = args_of(iterations)
-    got, want = kern(*args), plain(*args)
+    got, want = kern(*args), forced_plain(name, args, report["force"])
     ms = timed_ms(lambda: kern(*args), reps)
     plain_ms = timed_ms(lambda: plain(*args), max(2, reps // 10))
     b_ms, b_by = bound(n_bytes_in + nbytes(*got), flops)
@@ -850,6 +1123,17 @@ def phase_cg(name, label, args_of, iterations, n_bytes_in, flops, reps, hold=Tru
     return dict(max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
                 max_err=max(errs.values()), errs=errs, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, failures=failures)
+
+
+def excused_line(label, witnesses, drifting=(), first=4):
+    """Print how many envs a CG check excused on ties, the witnesses of
+    the first few, and how many envs drift from the forced plain version
+    after the early iterations with no tie."""
+    envs = sorted({env for env, _, _ in witnesses})
+    print(f"[{label}] envs excused on float32 ties: {len(envs)} ({len(witnesses)} forced "
+          f"choices)" + "".join(f"; {witness_text(*w)}" for w in witnesses[:first])
+          + f"; envs drifting past {CG_EARLY_TOL} after iteration {EARLY_ITERATIONS[-1]} with "
+          f"no tie (held by the noise check): {len(drifting)}")
 
 
 def iteration_split(name, label, args_of, iterations, reps):
@@ -1057,7 +1341,9 @@ def phase_cg_routed(at, ci, its, nfacet, reps):
     print(f"[cg@{at}] one routed cg_full call: launches {launches}")
     check(launches["cg"] == 1 and sum(launches.values()) == 1,
           f"cg@{at}: the routed cg_full launched {launches}, want kernel F once")
-    errs, early, noise, failures = cg_readings("cg_full", full_args, its)
+    report = {}
+    errs, early, noise, failures = cg_readings("cg_full", full_args, its, report)
+    excused_line(f"cg@{at}", report["excused"], report["drifting"])
     print(f"[cg@{at}] routed cg_full vs cg_full_plain: early {early}; after {its} " + ", ".join(
         f"{k} {errs[k]:.3g} ({noise[k][0]:.3g}, {noise[k][1]:.3g})" for k in errs))
     check(not failures, f"cg@{at} routed cg_full: " + "; ".join(failures))
@@ -2228,6 +2514,249 @@ def vision_env_steps(env, state, out, steps=VISION_STEPS):
     return state.physics
 
 
+@contextlib.contextmanager
+def timed_renders(out):
+    """Inside, every `observation.vision.render_cameras` call is timed on
+    the device (synchronized before and after) into out["render_s"], and
+    the renderer's env chunks are kept in out["chunks"]."""
+    from robogym_torch.observation import vision as vision_lib
+    from robogym_torch.render import raycast
+
+    fn = vision_lib.render_cameras
+    out.setdefault("render_s", 0.0)
+    out.setdefault("chunks", set())
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = fn(*args, **kw)
+        torch.cuda.synchronize()
+        out["render_s"] += time.perf_counter() - t0
+        out["chunks"].add((raycast.LAST_CHUNK["envs"], raycast.LAST_CHUNK["batch"]))
+        return img
+
+    with patched([((vision_lib, "render_cameras"), timed)]):
+        yield out
+
+
+def env0_images(env, state, cams, size, prefixes):
+    """Env 0's images of its own state rendered alone, the geoms of the
+    bodies named by `prefixes` hidden: (cameras, S, S, 3) uint8."""
+    from robogym_torch.envs import core
+    from robogym_torch.observation import vision as vision_lib
+
+    one = torch.zeros(1, dtype=torch.long, device=env.device)
+    m = core.take_model_envs(core.apply_model_fields(env.model, state.model_fields), one)
+    vis = vision_lib.robot_hidden_mask(m, prefixes) if prefixes else None
+    return vision_lib.render_cameras(m, core.data_map(lambda x: x[one], state.physics), cams,
+                                     size, geom_visible=vis)[0]
+
+
+def images_close(label, got, want, share=0.995):
+    """uint8 images within 1 level on at least `share` of the pixels."""
+    off = (got.int() - want.int()).abs().amax(-1) > 1
+    part = float(off.float().mean())
+    check(part <= 1.0 - share, f"{label}: {part:.4f} of the pixels part by more than 1 level")
+    return part
+
+
+def pixels_differ(a, b) -> int:
+    return int(((a.int() - b.int()).abs().amax(-1) > 8).sum())
+
+
+def pool_goal_without_cube(env):
+    """The real-image env's first pool goal rendered as the pool renders it,
+    with the cube hidden too: (cameras, S, S, 3) uint8."""
+    from robogym_torch.envs import core
+    from robogym_torch.observation import dummy_vision
+    from robogym_torch.observation import vision as vision_lib
+    from robogym_torch.physics import step
+
+    d = core.data_map(lambda x: x[:1].clone(), env._settled_data)
+    qpos = d.qpos.clone()
+    qpos[:, torch.as_tensor(env.cube.cube_rot_qpos, device=env.device)] = env.pool_quats[:1]
+    d = step.fwd_position(env.model, d.replace(qpos=qpos))
+    hide = vision_lib.robot_hidden_mask(env.model, ("target:", "robot0:", "cube:"))
+    return vision_lib.render_cameras(env.model, d, dummy_vision.DEFAULT_CAMERA_NAMES,
+                                     env.constants.vision_image_size, geom_visible=hide)[0]
+
+
+def vision_path_line(name, wall, out, steps, batch, reset_read, **extra):
+    """The readings of a vision path, printed: env-steps/s, the renders'
+    share of the steps, the renderer's env chunks and the peak device
+    memory of the steps (the caller resets the peak before them)."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    read = dict(env_steps=steps, env_steps_per_s=batch * steps / wall,
+                render_s=out["render_s"], render_share=out["render_s"] / wall,
+                chunks=sorted(out["chunks"]), peak_gb=peak, **reset_read, **extra)
+    print(f"[path {name}] {steps} env steps at B={batch}: {wall:.3f} s, "
+          f"{read['env_steps_per_s']:.1f} env-steps/s (built in {reset_read['build_s']:.2f} s, "
+          f"reset in {reset_read['reset_s']:.2f} s); renders {out['render_s']:.3f} s, "
+          f"{read['render_share']:.3f} of the steps, env chunks {read['chunks']}; peak device "
+          f"memory {peak:.2f} GB; {extra}")
+    return read
+
+
+def phase_box_mesh(at, cap):
+    """C on a mesh world's box-mesh call (the table's box against the
+    meshes: the last but one hull_manifold call of the main sim's last
+    substep)."""
+    *hargs, hDX = cap["hull_manifold@prev"]
+    print(f"[{at}] box-mesh hull_manifold: K={hargs[0].shape[1]}, V1={hargs[0].shape[-1]}, "
+          f"V2={hargs[3].shape[-1]}, DX={hDX}")
+    check(hDX == 6 and hargs[0].shape[-1] == 8, f"{at}: the box-mesh call is not the table's box")
+    return phase_hull("hull_manifold", hargs, hDX, REPS, f"C hull_manifold@{at}-box")
+
+
+def real_image_env_reset(batch):
+    """The real-image locked env (`locked_real_image.make_env`,
+    LOCKED_REAL_IMAGE_CONFIG) on the dactyl-shaped world with the vision
+    cameras, built and reset at `batch` envs: (env, state, readings).
+    Checks the images: (B, 3, S, S, 3) uint8; env 0's `vision` against
+    the same env rendered alone, showing the cube and the hand (hiding
+    either changes the image); its `vision_goal` the pool's first image,
+    which shows the cube; each env's cameras and lights its own."""
+    from robogym_torch.envs.dactyl import locked_real_image
+    from robogym_torch.observation import dummy_vision
+
+    cams = dummy_vision.DEFAULT_CAMERA_NAMES
+    size = LOCKED_REAL_IMAGE_CONFIG["vision_image_size"]
+    t0 = time.perf_counter()
+    env = locked_real_image.make_env(LOCKED_REAL_IMAGE_CONFIG, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rend = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_renders(rend):
+        state, obs = env.reset(batch)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    for k in ("vision", "vision_goal"):
+        v = obs[k]
+        check(tuple(v.shape) == (batch, len(cams), size, size, 3) and v.dtype == torch.uint8,
+              f"locked_real_image reset: {k} {tuple(v.shape)} {v.dtype}")
+    check(bool((state.goal["goal_idx"] == 0).all()), "locked_real_image reset: goal_idx not 0")
+    alone = env0_images(env, state, cams, size, ("target:",))
+    part = images_close("locked_real_image reset: env 0 alone vs batched", obs["vision"][0], alone)
+    no_cube = env0_images(env, state, cams, size, ("target:", "cube:"))
+    no_hand = env0_images(env, state, cams, size, ("target:", "robot0:"))
+    cube_px, hand_px = pixels_differ(alone, no_cube), pixels_differ(alone, no_hand)
+    check(cube_px > 100 and hand_px > 100,
+          f"locked_real_image reset: the cube ({cube_px} px) or the hand ({hand_px} px) not seen")
+    check(torch.equal(obs["vision_goal"][0], env.pool_images[0]),
+          "locked_real_image reset: vision_goal is not the pool's first image")
+    pool_px = pixels_differ(env.pool_images[0], pool_goal_without_cube(env))
+    check(pool_px > 100, f"locked_real_image: the pool's first goal image shows no cube "
+          f"({pool_px} px)")
+    fov = state.model_fields["cam_fovy"]
+    check(bool((fov != fov[:1]).any()), "locked_real_image reset: cameras equal across envs")
+    read = dict(build_s=build_s, reset_s=reset_s, render_s_reset=rend["render_s"],
+                chunks_reset=sorted(rend["chunks"]), peak_gb_reset=torch.cuda.max_memory_allocated() / 1e9,
+                env0_parting_share=part, cube_pixels=cube_px, hand_pixels=hand_px,
+                pool_cube_pixels=pool_px)
+    print(f"[state] locked_real_image env: built in {build_s:.2f} s (a pool of "
+          f"{env.pool_images.shape[0]} goals rendered), reset at B={batch} in {reset_s:.2f} s "
+          f"(renders {rend['render_s']:.2f} s, env chunks {sorted(rend['chunks'])}, peak "
+          f"{read['peak_gb_reset']:.2f} GB); env 0 alone vs batched: {part:.5f} of pixels part; "
+          f"hiding the cube changes {cube_px} px, the hand {hand_px} px; cameras' fovy "
+          f"{float(fov.min()):.3f} to {float(fov.max()):.3f}")
+    return env, state, read
+
+
+def real_image_steps(env, state, out, steps=REAL_IMAGE_STEPS):
+    """`steps` steps of the real-image env, actions uniform in [-1, 1]; one
+    env in 8 holds a pending success, so its goal advances to the pool's
+    next; the served goal image is the pool's at each env's `goal_idx`.
+    Puts the renders' time and chunks, the advances and the last state
+    into `out`. Returns the last physics state."""
+    B = state.t.shape[0]
+    pending = torch.zeros(B, dtype=torch.bool, device=env.device)
+    pending[::8] = True
+    state = state.replace(tracker=state.tracker.replace(success_and_no_goal_reset=pending))
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(SEED)
+    advanced = []
+    with timed_renders(out):
+        for _ in range(steps):
+            idx = state.goal["goal_idx"]
+            action = torch.rand((B, env.action_size), generator=gen, device=env.device) * 2 - 1
+            state, obs, reward, _, _ = env.step(state, action)
+            moved = state.goal["goal_idx"] != idx
+            advanced.append(int(moved.sum()))
+            check(bool((state.goal["goal_idx"][moved] == (idx[moved] + 1) % env.pool_quats.shape[0])
+                       .all()), "locked_real_image_env: a goal did not advance to the next")
+            check(torch.equal(obs["vision_goal"], env.pool_images[state.goal["goal_idx"]]),
+                  "locked_real_image_env: vision_goal is not the pool's image at goal_idx")
+            check(bool(torch.isfinite(reward).all()), "locked_real_image_env: non-finite reward")
+    check(advanced[0] >= int(pending.sum()), f"locked_real_image_env: advances {advanced}")
+    out.update(advanced=advanced, state=state)
+    return state.physics
+
+
+def rearrange_vision_reset(batch):
+    """The blocks env with vision (REARRANGE_VISION_CONFIG: front and wrist
+    cameras, vision randomization, every stand-in material, block goal
+    rotations, the icp distance) on the UR16e-shaped world with the vision
+    cameras, built and reset at `batch` envs: (env, state, readings).
+    Checks the three image keys' shapes, env 0's `vision_obs` against the
+    same env rendered alone and that hiding the blocks changes it, and
+    that the materials' and the cameras' fields vary across envs on their
+    rows."""
+    from robogym_torch.envs.rearrange import blocks
+
+    cst, par = REARRANGE_VISION_CONFIG
+    size = cst.get("vision_image_size", 200)
+    t0 = time.perf_counter()
+    env = blocks.make_env(cst, par, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rend = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_renders(rend):
+        state, obs = env.reset(batch)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    ncam = {"vision_obs": len(env.constants.vision_camera_names),
+            "vision_obs_mobile": len(env.constants.vision_mobile_camera_names),
+            "vision_goal": len(env.constants.vision_camera_names)}
+    for k, n in ncam.items():
+        v = obs[k]
+        check(tuple(v.shape) == (batch, n, size, size, 3) and v.dtype == torch.uint8,
+              f"rearrange_vision reset: {k} {tuple(v.shape)} {v.dtype}")
+    cams = env.constants.vision_camera_names
+    alone = env0_images(env, state, cams, size, ())
+    part = images_close("rearrange_vision reset: env 0 alone vs batched", obs["vision_obs"][0],
+                        alone)
+    objects = tuple(f"object{i}" for i in range(env.num_objects))
+    blocks_px = pixels_differ(alone, env0_images(env, state, cams, size, objects))
+    check(blocks_px > 50, f"rearrange_vision reset: the blocks not seen ({blocks_px} px)")
+    goal_px = pixels_differ(obs["vision_obs"][0], obs["vision_goal"][0])
+    check(goal_px > 0, "rearrange_vision reset: the goal image is the live one")
+    gids = torch.as_tensor(env.idx.object_geom_ids, device=env.device)
+    spread = {}
+    for k in ("geom_friction", "geom_margin", "geom_solref", "body_mass", "cam_fovy", "cam_pos",
+              "light_pos"):
+        v = state.model_fields[k]
+        if k.startswith("geom"):
+            v = v[:, gids]
+        elif k == "body_mass":
+            v = v[:, torch.as_tensor(env.idx.object_body_ids, device=env.device)]
+        spread[k] = float((v - v[:1]).abs().max())
+        check(spread[k] > 0, f"rearrange_vision reset: {k} equal across envs")
+    read = dict(build_s=build_s, reset_s=reset_s, render_s_reset=rend["render_s"],
+                chunks_reset=sorted(rend["chunks"]), peak_gb_reset=torch.cuda.max_memory_allocated() / 1e9,
+                env0_parting_share=part, blocks_pixels=blocks_px, goal_pixels=goal_px,
+                field_spread=spread, materials=list(env._material_table.names))
+    print(f"[state] rearrange vision env: built in {build_s:.2f} s, reset at B={batch} in "
+          f"{reset_s:.2f} s (renders {rend['render_s']:.2f} s, env chunks "
+          f"{sorted(rend['chunks'])}, peak {read['peak_gb_reset']:.2f} GB); env 0 alone vs "
+          f"batched: {part:.5f} of pixels part; hiding the blocks changes {blocks_px} px; "
+          f"materials {read['materials']}; fields' spread across envs {spread}")
+    return env, state, read
+
+
 def reach_agreement(env, state, n=64):
     """One substep of the reach env's physics on the first n envs of the
     reach path's last state (its controls), through the kernels and
@@ -2337,16 +2866,17 @@ def rearrange_actions(env, batch):
                               device=env.device) * 2.0 - 1.0
 
 
-def capture_ends(targets, run):
-    """The arguments of the first and the last call of each
+def capture_ends(targets, run, last=1):
+    """The arguments of the first and the `last` last calls of each
     `module.<name>` of `targets` while `run()` runs (tensors cloned):
-    {name: (first, last)}."""
+    {name: (first, ..., last)}."""
     store = {}
 
     def recorder(name, fn):
         def rec(*args):
             c = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
-            store.setdefault(name, [c, c])[1] = c
+            calls = store.setdefault(name, [c] * (1 + last))
+            calls[1:] = calls[2:] + [c]
             return fn(*args)
         return rec
 
@@ -2362,18 +2892,22 @@ def capture_rearrange(env, state, kernels=("hull_manifold", "hull_pair", "boxbox
     """The kernels' inputs in one rearrange env step from `state`: the
     solver sim's come first in a step (its fwd_position, then its
     substeps), the main sim's last. Returns {"main" and "solver": (core
-    inputs, CG iterations, facets per contact), and the main sim's last
-    substep's arguments of each of `kernels`}."""
+    inputs, CG iterations, facets per contact), the main sim's last
+    substep's arguments of each of `kernels`, and under "<kernel>@first"
+    and "<kernel>@prev" the step's first call's (the solver's
+    fwd_position) and the last but one call's}."""
     from robogym_torch.physics import constraint_batched
     from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
     act = rearrange_actions(env, state.t.shape[0])()
     calls = capture_ends([(constraint_batched, "fused_step_core")]
                          + [(boxbox_kernel if k == "boxbox" else convex_kernel, k)
-                            for k in kernels], lambda: env.step(state, act))
-    out = {name: calls[name][1] for name in kernels}
+                            for k in kernels], lambda: env.step(state, act), last=2)
+    out = {name: calls[name][2] for name in kernels}
+    out.update({name + "@first": calls[name][0] for name in kernels})
+    out.update({name + "@prev": calls[name][1] for name in kernels})
     for key, (kind_s, iterations, nfacet, *args) in zip(("solver", "main"),
-                                                         calls["fused_step_core"]):
+                                                         calls["fused_step_core"][::2]):
         out[key] = (constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet)
     return out
 
@@ -2906,6 +3440,8 @@ def main() -> int:
     qenv, qstate, q_build, q_reset = reach_env_reset(B)
     qrenv, qchain, qrstate = randomized_reach_reset(qenv, B)
     venv, vstate = vision_env_reset(B)
+    ienv, istate, i_read = real_image_env_reset(B)
+    xenv, xstate, x_read = rearrange_vision_reset(B)
     # the YCB env, built once; its own reset starts the ycb_env path, and a
     # copy under stabilize_goal (the same construction) resets for the
     # ycb_stabilized_env path, every env's first goal settled in the full
@@ -2933,10 +3469,10 @@ def main() -> int:
     henv, hstate, h_build, h_reset = holdout_env_reset(B)
     # the mesh-family envs, each built by its make_env and reset; the
     # composer's system in B or, above B's shared memory, in F
-    for name, why in FAMILY_WAITING.items():
-        print(f"[state] {name} env: not driven here until the revised CG gate; {why} at its "
-              "states (tools/family_cg_check.py)")
     fam = {}
+    for name, why in FAMILY_WAITING.items():
+        print(f"[state] {name} env: not driven here; {why} at its state "
+              "(tools/family_cg_check.py)")
     for name in FAMILY:
         draws = {}
         env_k, state_k, built_k, reset_k = rearrange_env_reset(
@@ -3103,6 +3639,13 @@ def main() -> int:
         res[name + "@rearrange"] = phase_hull(name, hargs, hDX, REPS,
                                               f"{HULL_LETTER[name]} {name}@rearrange")
     res["boxbox@rearrange"] = phase_boxbox(rcap["boxbox"], REPS, "E boxbox@rearrange")
+    # the solver sim's C and D: its fwd_position's calls, the first of a step
+    for name in ("hull_manifold", "hull_pair"):
+        *hargs, hDX = rcap[name + "@first"]
+        print(f"[solver] {name}: K={hargs[0].shape[1]}, V1={hargs[0].shape[-1]}, "
+              f"V2={hargs[3].shape[-1]}, DX={hDX}")
+        res[name + "@solver"] = phase_hull(name, hargs, hDX, REPS,
+                                           f"{HULL_LETTER[name]} {name}@solver")
     # the YCB env's and the holdout's kernels on the inputs of the main
     # sim's last substep of one env step from their reset states: A and B
     # at their V, C on the YCB env's mesh-mesh group (each env's own hulls:
@@ -3131,6 +3674,8 @@ def main() -> int:
                       "ycb: the mesh-mesh hull_manifold call's verts are not each env's own")
             res[f"{name}@{at}"] = phase_hull(name, hargs, hDX, REPS,
                                              f"{HULL_LETTER[name]} {name}@{at}")
+        if at == "ycb":
+            res["hull_manifold@ycb-box"] = phase_box_mesh(at, cap)
     # blocks_train's goal settle (the objects-only settle world, nv=48) on the
     # inputs of its last substep in one env step from the reset state; the
     # dominos world's box-box pairs on its main sim's last substep
@@ -3362,6 +3907,23 @@ def main() -> int:
           f"vision x {SUBSTEPS} substeps at B={B}: {wall:.3f} s, {vsps:.1f} env-steps/s; goals "
           f"resampled a step {vis_out['resampled']}, goal images read for {vis_out['reads']} "
           f"envs; images zero, uint8; launches {counts}")
+    img_out = {}
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, counts = drive("locked_real_image_env",
+                              lambda: real_image_steps(ienv, istate, img_out, REAL_IMAGE_STEPS),
+                              REAL_IMAGE_STEPS * SUBSTEPS)
+    record("locked_real_image_env", wall, counts, **vision_path_line(
+        "locked_real_image_env", wall, img_out, REAL_IMAGE_STEPS, B, i_read,
+        advanced=img_out["advanced"]))
+    x_out = {}
+    torch.cuda.reset_peak_memory_stats()
+    with timed_renders(x_out):
+        out, wall, counts = drive("rearrange_vision_env", lambda: rearrange_env_steps(
+            xenv, xstate, x_out, REARRANGE_VISION_STEPS, "rearrange_vision_env"),
+            REARRANGE_VISION_STEPS)
+    record("rearrange_vision_env", wall, counts, **vision_path_line(
+        "rearrange_vision_env", wall, x_out, REARRANGE_VISION_STEPS, B, x_read,
+        reward_sum=x_out["reward_sum"], done=x_out["done"], off_table=x_out["off_table"]))
     ycb_out, ycb_live = {}, []
     ygroups = mesh_groups(yenv.model)
     out, wall, counts = drive("ycb_env", lambda: rearrange_env_steps(
@@ -3476,6 +4038,7 @@ def main() -> int:
               f"{at}: the last hull_manifold call is not the mesh-mesh group")
         res["hull_manifold@" + at] = phase_hull("hull_manifold", hargs, hDX, REPS,
                                                 "C hull_manifold@" + at)
+        res[f"hull_manifold@{at}-box"] = phase_box_mesh(at, cap)
     launches = {entry: r["launches"] if "launches" in r else entry_launches(entry, res, paths)
                 for entry, r in res.items()}
     for k in KERNELS:

@@ -21,7 +21,12 @@ to its observations through an `ObservationStack` (JAX `locked.py:
 122-134`): `vision` read at every observe, `vision_goal` cached in the
 state, `goal_aux = (inner goal_aux, cache)`, and read again only for the
 envs whose goal resamples, on their post-step state with the new goal.
-The `"raycast"` provider is not ported.
+With `"raycast"` the same two keys are rendered images of the three vision
+cameras (`render/raycast.py`, JAX `locked.py:75-120`): `vision` of the live
+state with the target hidden, `vision_goal` of the cube posed at the goal
+quat through `fwd_position` with the target and the hand hidden; the
+cameras and lights may be jittered each episode (`camera_*_radius`,
+`light_*`: `randomization/vision.py`), as per-env model fields.
 """
 
 from __future__ import annotations
@@ -38,7 +43,9 @@ from robogym_torch.envs.dactyl import cube_env
 from robogym_torch.mjcf.model import Data, Model
 from robogym_torch.observation import common as obs_common
 from robogym_torch.observation import dummy_vision
+from robogym_torch.observation import vision as vision_lib
 from robogym_torch.physics import step as physics
+from robogym_torch.randomization import vision as vision_rand
 from robogym_torch.robot import shadow_hand as hand
 from robogym_torch.utils import rotation as rot
 from robogym_torch.worlds import dactyl_locked_like
@@ -49,11 +56,19 @@ class LockedEnvConstants(cube_env.DactylCubeEnvConstants):
     """(locked.py:51-68)."""
 
     success_threshold_cube_quat: float = 0.4
-    # vision observations: "" (off) or "dummy_vision" (zero images, the
-    # reference's default for locked vision configs, cube_env.py:295-306);
-    # the JAX package's "raycast" is not ported
+    # vision observations: "" (off), "dummy_vision" (zero images, the
+    # reference's default for locked vision configs, cube_env.py:295-306)
+    # or "raycast" (images rendered by render/raycast.py)
     vision_observation_provider: str = ""
     vision_image_size: int = 200
+    # the raycast images' camera and light randomization
+    # (randomization/vision.py)
+    camera_fovy_radius: float = 0.0
+    camera_pos_radius: float = 0.0
+    camera_quat_radius: float = 0.0
+    light_pos_range: float = 0.0
+    light_diffuse_intensity: float = 0.4
+    light_ambient_intensity: float = 0.1
 
 
 class LockedEnv(cube_env.CubeEnvBase):
@@ -62,20 +77,72 @@ class LockedEnv(cube_env.CubeEnvBase):
     def __init__(self, constants: Optional[LockedEnvConstants] = None,
                  model: Optional[Model] = None, seed: int = 0):
         constants = constants or LockedEnvConstants()
-        if constants.vision_observation_provider == "raycast":
-            raise NotImplementedError("the raycast vision provider needs render/raycast.py, "
-                                      "which the port does not have")
         if model is None:
             raise ValueError("LockedEnv takes a compiled model (see make_env)")
         super().__init__(constants, model, seed=seed)
         self.obs_stack = None
-        if constants.vision_observation_provider == "dummy_vision":
+        if constants.vision_observation_provider == "raycast":
+            cams = tuple(dummy_vision.DEFAULT_CAMERA_NAMES)
+            missing = [c for c in cams if c not in model.const.names["camera"]]
+            if missing:
+                raise ValueError(f"the raycast provider renders cameras {missing}, which the "
+                                 "model lacks (worlds/vision_like.py has them)")
+            size = constants.vision_image_size
+            hide_tgt = vision_lib.robot_hidden_mask(self.model, ("target:",))
+            hide_all = vision_lib.robot_hidden_mask(self.model, ("target:", "robot0:"))
+
+            def read_vision(env, state):
+                m = core.apply_model_fields(env.model, state.model_fields)
+                return {"vision": vision_lib.render_cameras(m, state.physics, cams, size,
+                                                            geom_visible=hide_tgt)}
+
+            def read_goal_vision(env, state):
+                m = core.apply_model_fields(env.model, state.model_fields)
+                return {"vision_goal": vision_lib.render_cameras(
+                    m, physics.fwd_position(m, env.goal_pose(state)), cams, size,
+                    geom_visible=hide_all)}
+
+            self.obs_stack = obs_common.ObservationStack({
+                "vision": obs_common.ObservationProvider(
+                    name="vision", read=read_vision, sync_type=obs_common.SyncType.STEP),
+                "goal_vision": obs_common.ObservationProvider(
+                    name="goal_vision", read=read_goal_vision,
+                    sync_type=obs_common.SyncType.RESET_GOAL),
+            })
+        elif constants.vision_observation_provider == "dummy_vision":
             size = constants.vision_image_size
             self.obs_stack = obs_common.ObservationStack({
                 "dummy_vision": dummy_vision.make_dummy_vision_provider(image_size=size),
                 "goal_dummy_vision": dummy_vision.make_dummy_goal_vision_provider(
                     image_size=size),
             })
+
+    @property
+    def vision_params(self) -> vision_rand.VisionRandomizationParams:
+        cst = self.constants
+        return vision_rand.VisionRandomizationParams(
+            camera_fovy_radius=cst.camera_fovy_radius, camera_pos_radius=cst.camera_pos_radius,
+            camera_quat_radius=cst.camera_quat_radius, light_pos_range=cst.light_pos_range,
+            light_diffuse_intensity=cst.light_diffuse_intensity,
+            light_ambient_intensity=cst.light_ambient_intensity)
+
+    def _vision_active(self) -> bool:
+        return bool(self.constants.vision_observation_provider) and \
+            self.vision_params.any_active()
+
+    def draw_vision(self, n: int) -> Optional[Dict[str, torch.Tensor]]:
+        """The camera and light draws of n episodes, where the env
+        randomizes them (`randomization/vision.py`)."""
+        if not self._vision_active():
+            return None
+        return vision_rand.draw_vision(self.generator, n, self.model)
+
+    def goal_pose(self, state: core.EnvState) -> Data:
+        """The state with the cube turned to its goal quat (not positioned)."""
+        qpos = state.physics.qpos.clone()
+        qpos[:, torch.as_tensor(self.cube.cube_rot_qpos, device=qpos.device)] = \
+            state.goal["cube_quat"].to(qpos.dtype)
+        return state.physics.replace(qpos=qpos)
 
     # goals (LockedParallelGoal)
     def draw_step(self, n: int) -> Dict[str, torch.Tensor]:
@@ -86,7 +153,10 @@ class LockedEnv(cube_env.CubeEnvBase):
         pause = torch.rand((n,), generator=self.generator, dtype=self.dtype, device=self.device)
         return dict(goal_u=u, goal_choice=choice, pause_u=pause)
 
-    def _next_goal(self, draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _next_goal(self, draws: Dict[str, torch.Tensor],
+                   prev_goal: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """A new goal for every env from `draws`; `prev_goal` the goal it
+        replaces (None at a reset)."""
         return {"cube_quat": cube_env.sample_parallel_goal_quat(draws["goal_u"],
                                                                 draws["goal_choice"])}
 
@@ -100,14 +170,18 @@ class LockedEnv(cube_env.CubeEnvBase):
 
     # env API
     def reset(self, batch: int, attempts: Optional[List[Dict[str, torch.Tensor]]] = None,
-              draws: Optional[Dict[str, torch.Tensor]] = None
+              draws: Optional[Dict[str, torch.Tensor]] = None,
+              vision_draws: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[core.EnvState, Dict[str, torch.Tensor]]:
         """`batch` new episodes: (state, obs). `attempts` are the reset
         attempts' draws (`CubeEnvBase.reset_physics`), `draws` the goal's
-        and hold's (`draw_step`); by default both come from the env's
-        generator."""
+        and hold's (`draw_step`), `vision_draws` the cameras' and lights'
+        (`draw_vision`); by default each comes from the env's generator."""
         d = self.reset_physics(batch, attempts)
         draws = draws if draws is not None else self.draw_step(batch)
+        vision_draws = vision_draws if vision_draws is not None else self.draw_vision(batch)
+        fields = (vision_rand.apply_vision(self.model, vision_draws, self.vision_params)
+                  if vision_draws is not None and self._vision_active() else None)
         goal = self._next_goal(draws)
         tracker = core.TrackerState.zero(batch, device=self.device).replace(
             success_steps_required=core.sample_success_steps_required(draws["pause_u"],
@@ -116,7 +190,7 @@ class LockedEnv(cube_env.CubeEnvBase):
         state = core.EnvState(
             physics=d, goal=goal, goal_aux=goal_aux,
             prev_goal_distance=self._goal_distance(goal, d), tracker=tracker,
-            t=torch.zeros(batch, dtype=torch.int32, device=self.device))
+            t=torch.zeros(batch, dtype=torch.int32, device=self.device), model_fields=fields)
         if self.obs_stack is not None:
             # the RESET sync reads the cached providers; the cache rides in goal_aux
             cache = self.obs_stack.sync(self, state, None, obs_common.SyncType.RESET)
@@ -154,8 +228,9 @@ class LockedEnv(cube_env.CubeEnvBase):
             env_reward = torch.where(fallen, cst.drop_reward, 0.0).to(self.dtype)
 
         draws = draws if draws is not None else self.draw_step(d.qpos.shape[0])
-        new = self._next_goal(draws)
-        goal = {k: torch.where(need_new_goal[:, None], new[k], v) for k, v in state.goal.items()}
+        new = self._next_goal(draws, state.goal)
+        goal = {k: torch.where(need_new_goal.reshape((-1,) + (1,) * (v.dim() - 1)), new[k], v)
+                for k, v in state.goal.items()}
         succ_req = torch.where(need_new_goal,
                                core.sample_success_steps_required(draws["pause_u"], cst),
                                tracker.success_steps_required)

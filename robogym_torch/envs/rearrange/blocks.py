@@ -30,8 +30,13 @@ each env's own model fields, in the full model from the env's own state
 `mask_obs_outside_placement_area` adds the masked observations, and
 `soft_mask` makes both placement masks soft. Subclasses override
 `sample_object_groups`, `_reset_model_fields` (the per-episode model
-fields) and `_check_objects`. Vision and materials are not ported and
-raise `NotImplementedError`.
+fields) and `_check_objects`. `material_names` gives each object group
+a material (`materials.py`) as per-env geom and body fields; `vision` adds
+the rendered images `vision_obs`, `vision_obs_mobile` and `vision_goal`
+(the goal state, the robot hidden) to every observation
+(`render/raycast.py`), on a world with the vision cameras
+(`worlds/vision_like.py`); the cameras' and lights' randomization
+(`camera_*_radius`, `light_*`) draws per-env model fields at each reset.
 """
 
 from __future__ import annotations
@@ -45,16 +50,19 @@ import torch
 from robogym_torch import bridge
 from robogym_torch.envs import core
 from robogym_torch.envs.rearrange import goals as goals_lib
+from robogym_torch.envs.rearrange import materials as materials_lib
 from robogym_torch.envs.rearrange import simulation as sim_lib
 from robogym_torch.mjcf.model import Data, GeomType, Model, make_data
+from robogym_torch.observation import vision as vision_lib
 from robogym_torch.physics import step as physics
+from robogym_torch.randomization import vision as vision_rand
 from robogym_torch.robot import composite as composite_lib
 from robogym_torch.robot import gripper as gripper_lib
 from robogym_torch.robot import tcp_force_limiter as limiter
 from robogym_torch.robot import tcp_solver
 from robogym_torch.robot import ur16e as arm_lib
 from robogym_torch.utils import rotation as rot
-from robogym_torch.worlds import rearrange_blocks_like
+from robogym_torch.worlds import rearrange_blocks_like, vision_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +121,6 @@ class RearrangeEnvParameters:
     material_names: Tuple[str, ...] = ()
 
 
-def _not_ported(what: str, why: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported: {why}")
-
-
 class BlocksRearrangeEnv:
     """The blocks env on a batch: `reset(batch)`, `step(state, action)`.
     `model` is the compiled main world with `max_num_objects` blocks,
@@ -138,7 +142,6 @@ class BlocksRearrangeEnv:
                  model: Model, solver_model: Optional[Model] = None, seed: int = 0,
                  settle_model: Optional[Model] = None):
         sp, rcp = parameters.simulation_params, parameters.robot_control_params
-        self._refuse_unported(constants, parameters)
         self.parameters = parameters
         dev, dtype = model.device, model.dtype
 
@@ -168,6 +171,18 @@ class BlocksRearrangeEnv:
         else:
             self.goal_gen = goal_cls(self.idx, gargs, **goal_kw)
         self._active = torch.arange(sp.max_num_objects, device=dev) < sp.num_objects
+        if gargs.rot_dist_type == "icp":
+            # the blocks' corner clouds (O, 8, 3) for the icp rotational distance
+            half = np.asarray(sim_lib.geom_bbox_half(self.model, self.idx.object_geom_ids).cpu(),
+                              np.float64)
+            signs = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                              for sz in (-1, 1)], np.float32)
+            self.goal_gen.icp_verts = torch.as_tensor(half[:, None, :] * signs[None], dtype=dtype,
+                                                      device=dev)
+        names = parameters.material_names
+        if names == ("all",):
+            names = tuple(materials_lib.load_all_materials())
+        self._material_table = materials_lib.MaterialTable(names) if names else None
 
         # the objects-only settle world of goal stabilization (blocks.py:208-233);
         # mesh objects settle in the full model (`_settle_in_model`)
@@ -242,18 +257,6 @@ class BlocksRearrangeEnv:
             raise ValueError(f"{what} has more than max_num_objects={O} object slots")
         return sim_lib.RearrangeIndex.build(model, O)
 
-    @staticmethod
-    def _refuse_unported(cst: RearrangeEnvConstants, par: RearrangeEnvParameters) -> None:
-        sp = par.simulation_params
-        if cst.vision:
-            raise _not_ported("vision", "it needs render/ and observation/, which the port "
-                              "does not have")
-        if par.material_names:
-            raise _not_ported("material randomization (material_names)", "it is off by default")
-        if (sp.camera_fovy_radius or sp.camera_pos_radius or sp.camera_quat_radius
-                or sp.light_pos_range):
-            raise _not_ported("vision randomization", "it needs render/")
-
     def _with_tabletop_arm(self, d: Data, arm: arm_lib.ArmIndex) -> Data:
         qpos = d.qpos.clone()
         qpos[:, torch.as_tensor(arm.joint_qpos_ids, device=qpos.device)] = torch.as_tensor(
@@ -314,7 +317,28 @@ class BlocksRearrangeEnv:
                     color_u=self._u(n, O, 3), place_u=self._u(n, O, goals_lib.N_CANDIDATES, 2),
                     place_rot_u=self._u(n, O),
                     goal=self.goal_gen.draw(self.generator, n, self.num_objects, self.device),
-                    pause_u=self._u(n), **self._draw_masks(n))
+                    pause_u=self._u(n), **self._draw_masks(n), **self._draw_model_fields(n))
+
+    @property
+    def vision_params(self) -> vision_rand.VisionRandomizationParams:
+        sp = self.parameters.simulation_params
+        return vision_rand.VisionRandomizationParams(
+            camera_fovy_radius=sp.camera_fovy_radius, camera_pos_radius=sp.camera_pos_radius,
+            camera_quat_radius=sp.camera_quat_radius, light_pos_range=sp.light_pos_range,
+            light_diffuse_intensity=sp.light_diffuse_intensity,
+            light_ambient_intensity=sp.light_ambient_intensity)
+
+    def _draw_model_fields(self, n: int) -> Dict[str, torch.Tensor]:
+        """The draws of the per-episode cameras and lights (`vision`, where
+        the env randomizes them) and material (`mat_group`: one material a
+        group, (n, O)), where the env samples materials."""
+        out = {}
+        if self.vision_params.any_active():
+            out["vision"] = vision_rand.draw_vision(self.generator, n, self.model)
+        if self._material_table is not None:
+            out["mat_group"] = self._material_table.draw(self.generator, n, self.max_num_objects,
+                                                         self.device)
+        return out
 
     def draw_step(self, n: int) -> Dict[str, torch.Tensor]:
         """One step's draws for n envs: the goal resample's, the success
@@ -376,8 +400,17 @@ class BlocksRearrangeEnv:
         oid = torch.as_tensor(self.idx.object_geom_ids, device=self.device)
         rgba = self.model.geom_rgba.expand((batch,) + tuple(self.model.geom_rgba.shape)).clone()
         rgba[:, oid] = colors.to(rgba.dtype)
-        return ({"geom_rgba": rgba}, sim_lib.geom_bbox_half(self.model, self.idx.object_geom_ids),
-                group_ids)
+        fields = {"geom_rgba": rgba}
+        if "vision" in draws:
+            fields.update(vision_rand.apply_vision(self.model, draws["vision"],
+                                                   self.vision_params))
+        if self._material_table is not None:
+            # one material a group (common/base.py:568-585), gathered per object
+            O = self.max_num_objects
+            mat_idx = torch.gather(draws["mat_group"], 1, torch.clamp(group_ids, 0, O - 1))
+            fields.update(self._material_table.model_fields(
+                self.model, self.idx.object_geom_ids, self.idx.object_body_ids, mat_idx))
+        return fields, sim_lib.geom_bbox_half(self.model, self.idx.object_geom_ids), group_ids
 
     def _in_placement_area(self, pos: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
         args = self.goal_gen.args
@@ -659,7 +692,27 @@ class BlocksRearrangeEnv:
         }
         if self.constants.mask_obs_outside_placement_area:
             obs.update(self._masked_obs(state, obs, obj_pos, mask_u))
+        if self.constants.vision:
+            obs.update(self._observe_vision(m, d, obs["qpos_goal"]))
         return obs
+
+    def _observe_vision(self, m: Model, d: Data, qpos_goal: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+        """`vision_obs` and `vision_obs_mobile`, the fixed and the wrist
+        cameras' images of the state, and `vision_goal`, the fixed cameras'
+        of the goal state (the objects at their goals, positioned) with the
+        robot hidden (common/base.py:230-296)."""
+        cst = self.constants
+        size = cst.vision_image_size
+        out = {"vision_obs": vision_lib.render_cameras(m, d, cst.vision_camera_names, size),
+               "vision_obs_mobile": vision_lib.render_cameras(
+                   m, d, cst.vision_mobile_camera_names, size)}
+        d_goal = physics.fwd_position(m, d.replace(qpos=qpos_goal))
+        vis = (vision_lib.robot_hidden_mask(m, ("robot0:",) + tuple(self.idx.GRIPPER_BODIES))
+               if cst.goal_hide_robot else None)
+        out["vision_goal"] = vision_lib.render_cameras(m, d_goal, cst.vision_camera_names, size,
+                                                       geom_visible=vis)
+        return out
 
     def _masked_obs(self, state: core.EnvState, obs: Dict[str, torch.Tensor],
                     obj_pos: torch.Tensor, mask_u: Optional[torch.Tensor]
@@ -699,11 +752,15 @@ def configs(constants: Optional[dict], parameters: Optional[dict],
 
 
 def load_worlds(constants: RearrangeEnvConstants, parameters: RearrangeEnvParameters, device,
-                main: str = rearrange_blocks_like.SNAPSHOT) -> Dict[str, Model]:
+                main: Optional[str] = None) -> Dict[str, Model]:
     """The compiled worlds an env takes, from the committed snapshots on
-    `device`: the main world `main`, the solver world where the control
-    needs the mocap_ik dual sim, and the 8-block settle world under
-    `stabilize_goal`."""
+    `device`: the main world `main` (by default the 8-block world, with
+    the vision cameras where the env renders them), the solver world where
+    the control needs the mocap_ik dual sim, and the 8-block settle world
+    under `stabilize_goal`."""
+    if main is None:
+        main = vision_like.REARRANGE_SNAPSHOT if constants.vision else \
+            rearrange_blocks_like.SNAPSHOT
     out = {"model": _load(main, device)}
     if parameters.robot_control_params.requires_solver_sim():
         out["solver_model"] = _load(rearrange_blocks_like.SOLVER_SNAPSHOT, device)

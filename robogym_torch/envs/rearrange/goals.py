@@ -6,8 +6,8 @@ greedy matching of duplicate objects to goals.
 
 Counterpart of `robogym_tpu/envs/rearrange/goals.py`. Every random function
 takes its draws from the caller: `sample_goal_positions` its `(B, O, 20,
-2)` candidates, `sample_goal_rotations` one draw per object for "z_axis" or
-three for "full". Each goal class draws what its `next_goal` takes with
+2)` candidates, `sample_goal_rotations` one draw per object for "z_axis",
+three for "full", or one and a cube rotation's index for "block". Each goal class draws what its `next_goal` takes with
 `draw(gen, B, num_objects_used, device)`, one dict per call: uniform
 draws in [0, 1) in the goal's dtype, integer draws (an object index, a
 tower size, a permutation of the object slots) as long tensors. Where the
@@ -28,6 +28,7 @@ from robogym_torch.envs.core import uniform_apply
 from robogym_torch.envs.rearrange import simulation as sim_lib
 from robogym_torch.mjcf.model import Data
 from robogym_torch.robot import ur16e as arm_lib
+from robogym_torch.utils import icp as icp_lib
 from robogym_torch.utils import rotation as rot
 
 N_CANDIDATES = 20
@@ -89,10 +90,13 @@ def sample_goal_positions(u: torch.Tensor, idx: sim_lib.RearrangeIndex,
 
 
 def sample_goal_rotations(u: Optional[torch.Tensor], B: int, O: int, args: GoalArgs,
-                          dtype=torch.float32, device=None) -> torch.Tensor:
+                          dtype=torch.float32, device=None,
+                          choice: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, O, 4) object rotations: identity unless `args.randomize_goal_rot`,
-    else about z from u (B, O) ("z_axis") or uniform from u (B, O, 3)
-    ("full"), each computed in u's dtype and cast to `dtype`."""
+    else about z from u (B, O) ("z_axis"), uniform from u (B, O, 3)
+    ("full"), or about z from u (B, O) times the cube rotation
+    `PARALLEL_QUATS`[choice] (choice (B, O) in [0, 24), "block"), each
+    computed in u's dtype and cast to `dtype`."""
     if not args.randomize_goal_rot:
         q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
         return q.expand(B, O, 4).clone()
@@ -100,7 +104,10 @@ def sample_goal_rotations(u: Optional[torch.Tensor], B: int, O: int, args: GoalA
         return rot.uniform_z_quat_apply(u).to(dtype)
     if args.rot_randomize_type == "full":
         return rot.uniform_quat_apply(u).to(dtype)
-    raise NotImplementedError(f"rot_randomize_type {args.rot_randomize_type!r} is not ported")
+    if args.rot_randomize_type == "block":
+        parallel = torch.as_tensor(rot.get_parallel_rotations(), dtype=dtype, device=u.device)
+        return rot.quat_mul(rot.uniform_z_quat_apply(u).to(dtype), parallel[choice])
+    raise ValueError(f"rot_randomize_type {args.rot_randomize_type!r}")
 
 
 def _symmetry_quats(dist_type: str, like: torch.Tensor) -> torch.Tensor:
@@ -109,14 +116,21 @@ def _symmetry_quats(dist_type: str, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(sym, dtype=like.dtype, device=like.device)
 
 
-def rot_distance(q1: torch.Tensor, q2: torch.Tensor, dist_type: str = "full") -> torch.Tensor:
+def rot_distance(q1: torch.Tensor, q2: torch.Tensor, dist_type: str = "full",
+                 verts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., O) rotational distance of quats (..., O, 4): the full quat
-    distance, or its minimum over the box's symmetries ("mod90": the 24
-    cube rotations, "mod180": the 4 made of multiples of pi)."""
+    distance, its minimum over the box's symmetries ("mod90": the 24 cube
+    rotations, "mod180": the 4 made of multiples of pi), or the angle of
+    the rotation ICP finds between each object's vertex cloud (`verts` (O,
+    V, 3) in the object's frame) turned by q1 and by q2 ("icp")."""
     if dist_type == "full":
         return rot.quat_magnitude(rot.quat_normalize(rot.quat_difference(q1, q2)))
+    if dist_type == "icp":
+        if verts is None:
+            raise ValueError("the icp rotational distance takes the objects' vertex clouds")
+        return icp_lib.icp_rotation_distance(verts.to(q1.dtype), q1, q2)
     if dist_type not in ("mod90", "mod180"):
-        raise NotImplementedError(f"rot_dist_type {dist_type!r} is not ported")
+        raise ValueError(f"rot_dist_type {dist_type!r}")
     sym = _symmetry_quats(dist_type, q1)
     cands = rot.quat_magnitude(rot.quat_normalize(rot.quat_difference(
         rot.quat_mul(q1[..., None, :], sym), q2[..., None, :])))
@@ -126,11 +140,12 @@ def rot_distance(q1: torch.Tensor, q2: torch.Tensor, dist_type: str = "full") ->
 def relative_rot_euler(q_goal: torch.Tensor, q_cur: torch.Tensor,
                        dist_type: str = "full") -> torch.Tensor:
     """(..., O, 3) each object's rotation to its goal as euler angles, after
-    the symmetry reduction of `dist_type` (goals/object_state.py:196-201)."""
-    if dist_type == "full":
+    the symmetry reduction of `dist_type` (goals/object_state.py:196-201);
+    "icp" reports the full difference, as the JAX package does."""
+    if dist_type in ("full", "icp"):
         return rot.quat2euler(rot.quat_normalize(rot.quat_difference(q_goal, q_cur)))
     if dist_type not in ("mod90", "mod180"):
-        raise NotImplementedError(f"rot_dist_type {dist_type!r} is not ported")
+        raise ValueError(f"rot_dist_type {dist_type!r}")
     sym = _symmetry_quats(dist_type, q_goal)
     diffs = rot.quat_normalize(rot.quat_difference(rot.quat_mul(q_goal[..., None, :], sym),
                                                    q_cur[..., None, :]))
@@ -170,10 +185,10 @@ class ObjectStateGoal:
 
     def __init__(self, idx: sim_lib.RearrangeIndex, args: GoalArgs = GoalArgs(),
                  used_table_portion: float = 1.0, dtype=torch.float32):
-        if args.rot_dist_type == "icp":
-            raise NotImplementedError("the icp rotational distance needs utils/icp.py, which "
-                                      "the port does not have")
         self.idx = idx
+        # (O, V, 3) the objects' vertex clouds in their frames, for the icp
+        # rotational distance (the env sets them)
+        self.icp_verts: Optional[torch.Tensor] = None
         self.args = args
         self.used_table_portion = used_table_portion
         self.dtype = dtype
@@ -192,8 +207,11 @@ class ObjectStateGoal:
         O = self.idx.max_num_objects
         out = {"pos_u": self._u(gen, device, B, O, N_CANDIDATES, 2), "rot_u": None}
         if self.args.randomize_goal_rot:
-            shape = (B, O) if self.args.rot_randomize_type == "z_axis" else (B, O, 3)
+            shape = (B, O, 3) if self.args.rot_randomize_type == "full" else (B, O)
             out["rot_u"] = self._u(gen, device, *shape)
+            if self.args.rot_randomize_type == "block":
+                out["rot_choice"] = torch.randint(0, len(rot.get_parallel_rotations()), (B, O),
+                                                  generator=gen, device=device)
         return out
 
     def next_goal(self, draws: Dict[str, torch.Tensor], active_mask: torch.Tensor,
@@ -205,7 +223,7 @@ class ObjectStateGoal:
         pos, valid = sample_goal_positions(draws["pos_u"], self.idx, active_mask, object_size,
                                            num_objects_used, self.used_table_portion)
         quat = sample_goal_rotations(draws["rot_u"], pos.shape[0], self.idx.max_num_objects,
-                                     self.args, self.dtype, pos.device)
+                                     self.args, self.dtype, pos.device, draws.get("rot_choice"))
         return {"obj_pos": pos, "obj_rot": quat, "goal_valid": valid}
 
     def _match(self, goal: Dict[str, torch.Tensor], cur_pos: torch.Tensor,
@@ -246,7 +264,7 @@ class ObjectStateGoal:
         out = {"obj_pos": pos_dist * mask}
         if self.args.randomize_goal_rot:
             rdist = rot_distance(self._take(goal["obj_rot"], match), cur_quat,
-                                 self.args.rot_dist_type)
+                                 self.args.rot_dist_type, self.icp_verts)
             out["obj_rot"] = rdist * mask
         else:
             out["obj_rot"] = torch.zeros_like(pos_dist)

@@ -33,6 +33,7 @@ qacc_prev, qs, x0 (V,); dt a 0-dim tensor, one timestep for the batch, or
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -76,16 +77,51 @@ def contact_rows(off1, off2, frame, fric, m1, m2, cdof, nfacet: int) -> torch.Te
     return torch.stack(facets, dim=2).reshape(B, S * nfacet, -1)
 
 
-def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, trace=None):
+@dataclasses.dataclass
+class Forced:
+    """Overrides of `cg_plain`'s discrete choices, per env and iteration.
+    `pick` (B, iterations) int64: -1 leaves the line search free, 0 to 3
+    takes the step a1 x `LS_SCALES`[i], 4 takes no step. `flip_neg` and
+    `flip_inside` (B, iterations, E) bool, or None: flip a row's state
+    (jar < 0; |Dfr jar| < floss) in the effective weight `deff` of the
+    Newton step a1, the only place where a row's state is not continuous
+    in jar. A run of k iterations reads the first k columns."""
+
+    pick: torch.Tensor
+    flip_neg: torch.Tensor | None = None
+    flip_inside: torch.Tensor | None = None
+
+    @staticmethod
+    def free(B: int, iterations: int, E: int, device) -> "Forced":
+        none = torch.zeros((B, iterations, E), dtype=torch.bool, device=device)
+        return Forced(torch.full((B, iterations), -1, dtype=torch.long, device=device),
+                      none, none.clone())
+
+    def take(self, idx) -> "Forced":
+        """The overrides of envs `idx`."""
+        return Forced(*(None if t is None else t[idx]
+                        for t in (self.pick, self.flip_neg, self.flip_inside)))
+
+
+def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, trace=None,
+             force: Forced | None = None):
     """M^-1-preconditioned Polak-Ribière+ nonlinear CG on the soft-
     constraint cost with a frozen-active-set Newton line search (the JAX
     package's reference solve, `constraint._scan_cg_solve`), batched over a
     leading env axis: J (B, E, V), row vectors (B, E), M/Minv (B, V, V),
-    qs/x0 (B, V). Returns (qacc (B, V), efc_force (B, E)). A list `trace`
-    gets each iteration's line search: the search direction (B, V), the
-    four costs (B, 4) of `LS_SCALES` and the step taken (B,)."""
+    qs/x0 (B, V). Returns (qacc (B, V), efc_force (B, E)).
 
-    def force(jar):
+    A list `trace` gets a dict for each iteration: the search direction
+    "p" (B, V), the four steps "a" and their costs "dcost" (B, 4) of
+    `LS_SCALES`, "mag" (B, 4) the magnitudes of the terms summed into each
+    cost (pen(0) + pen(a) + |a c1| + a^2 c2 / 2), the choice "pick" (B,)
+    (0 to 3, or 4 for no step) and "step" (B,) taken, and the rows' "jar"
+    (B, E) at the iteration's start with "jmag" (B, E), the magnitudes of
+    the terms summed into it. `force` (`Forced`) overrides the choices of
+    the envs and iterations it names; without it the result is the same
+    bit for bit."""
+
+    def force_of(jar):
         neg = (jar < 0).to(jar.dtype)
         return Deq * jar + Done * jar * neg + torch.minimum(torch.maximum(Dfr * jar, -floss), floss)
 
@@ -99,25 +135,32 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
         return torch.sum(c_quad + c_fric, dim=-1)
 
     def grad(x, jar):
-        return mv(M, x - qs) + mv(J.transpose(-1, -2), force(jar))
+        return mv(M, x - qs) + mv(J.transpose(-1, -2), force_of(jar))
 
     def dot(a, b):
         return torch.sum(a * b, dim=-1)
 
     x = x0
     jar = mv(J, x0) - aref
+    if trace is not None:
+        Jabs = J.abs()
+        jmag = mv(Jabs, x0.abs()) + aref.abs()
     g = grad(x0, jar)
     Mg = mv(Minv, g)
     p = -Mg
-    for _ in range(iterations):
+    for it in range(iterations):
         Jp = mv(J, p)
         dx0 = x - qs
         Mp = mv(M, p)
         c1 = dot(dx0, Mp)
         c2 = dot(p, Mp)
-        f0 = force(jar)
-        neg = (jar < 0).to(x.dtype)
-        inside = (torch.abs(Dfr * jar) < floss).to(x.dtype)
+        f0 = force_of(jar)
+        negb = jar < 0
+        insideb = torch.abs(Dfr * jar) < floss
+        if force is not None and force.flip_neg is not None:
+            negb = negb ^ force.flip_neg[:, it]
+            insideb = insideb ^ force.flip_inside[:, it]
+        neg, inside = negb.to(x.dtype), insideb.to(x.dtype)
         deff = Deq + Done * neg + Dfr * inside
         phi_p = c1 + dot(f0, Jp)
         phi_pp = torch.clamp(c2 + dot(deff * Jp, Jp), min=1e-12)
@@ -125,16 +168,32 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
         pen0 = penalty_cost(jar)
         best_cost = torch.zeros_like(c1)
         best_a = torch.zeros_like(c1)
-        dcosts = []
-        for s in cl.LS_SCALES:
+        best_i = torch.full(c1.shape, len(cl.LS_SCALES), dtype=torch.long, device=c1.device)
+        steps, dcosts, mags = [], [], []
+        for i, s in enumerate(cl.LS_SCALES):
             a = a1 * s
-            dcost = a * c1 + 0.5 * a * a * c2 + penalty_cost(jar + a[:, None] * Jp) - pen0
+            pen_a = penalty_cost(jar + a[:, None] * Jp)
+            dcost = a * c1 + 0.5 * a * a * c2 + pen_a - pen0
             take = dcost < best_cost
             best_cost = torch.where(take, dcost, best_cost)
             best_a = torch.where(take, a, best_a)
-            dcosts.append(dcost)
+            if trace is not None or force is not None:
+                best_i = torch.where(take, i, best_i)
+                steps.append(a)
+            if trace is not None:
+                dcosts.append(dcost)
+                mags.append(pen0 + pen_a + torch.abs(a * c1) + 0.5 * a * a * c2)
+        if force is not None:
+            cand = torch.stack(steps + [torch.zeros_like(c1)], -1)
+            pick = force.pick[:, it]
+            best_a = torch.where(pick >= 0, cand.gather(-1, pick.clamp(min=0)[:, None])[:, 0],
+                                 best_a)
+            best_i = torch.where(pick >= 0, pick, best_i)
         if trace is not None:
-            trace.append((p, torch.stack(dcosts, -1), best_a))
+            trace.append(dict(p=p, a=torch.stack(steps, -1), dcost=torch.stack(dcosts, -1),
+                              mag=torch.stack(mags, -1), pick=best_i, step=best_a, jar=jar,
+                              jmag=jmag))
+            jmag = jmag + best_a.abs()[:, None] * mv(Jabs, p.abs())
         x = x + best_a[:, None] * p
         jar = jar + best_a[:, None] * Jp
         g_new = grad(x, jar)
@@ -144,7 +203,7 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
         beta = torch.clamp(num / den, min=0.0)
         p = -Mg_new + beta[:, None] * p
         g, Mg = g_new, Mg_new
-    return x, -force(jar)
+    return x, -force_of(jar)
 
 
 def solve_inputs(kind, nfacet, rows, maps, qvel):

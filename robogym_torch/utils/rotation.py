@@ -252,6 +252,31 @@ def mat2euler(mat: torch.Tensor) -> torch.Tensor:
     return torch.stack([e0, e1, e2], dim=-1)
 
 
+def mat2quat(mat: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) to quaternions with w >= 0 by
+    Shepperd's four branches, selected per element (the JAX package's
+    `mat2quat`)."""
+    m00, m01, m02 = mat[..., 0, 0], mat[..., 0, 1], mat[..., 0, 2]
+    m10, m11, m12 = mat[..., 1, 0], mat[..., 1, 1], mat[..., 1, 2]
+    m20, m21, m22 = mat[..., 2, 0], mat[..., 2, 1], mat[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=1e-18))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], -1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], -1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], -1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], -1)
+    q = torch.where((tr > 0.0)[..., None], q0, torch.where(
+        ((m00 >= m11) & (m00 >= m22))[..., None], q1, torch.where((m11 >= m22)[..., None], q2, q3)))
+    return quat_normalize(q / norm(q, keepdim=True))
+
+
 def quat2euler(quat: torch.Tensor) -> torch.Tensor:
     return mat2euler(quat2mat(quat))
 

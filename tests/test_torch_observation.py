@@ -185,7 +185,9 @@ def _assert_vision(obs):
 
 
 def test_raycast_still_raises():
-    with pytest.raises(NotImplementedError, match="render/raycast.py"):
+    """The raycast provider is ported (tests/test_torch_vision.py); on the
+    dactyl-shaped world, which has no camera, the env refuses it by name."""
+    with pytest.raises(ValueError, match="vision_cam_top"):
         t_locked.make_env({"vision_observation_provider": "raycast"}, device="cpu")
 
 

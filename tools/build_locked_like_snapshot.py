@@ -51,7 +51,10 @@ snapshots next to their modules in `robogym_torch/worlds/`:
     `rearrange_mixture_like.npz` and `rearrange_composer_like.npz`, the
     worlds of the table setting, chessboard, mixture and composer envs on
     the stand-ins of `rearrange_mesh_family_like`, each compiled by the
-    JAX env's own `_compile_world` (`mesh_family_world`).
+    JAX env's own `_compile_world` (`mesh_family_world`);
+  * `dactyl_vision_like.npz` and `rearrange_vision_like.npz`, the
+    dactyl-shaped and the UR16e-shaped blocks worlds with vision cameras
+    and a light (`vision_like`), compiled as their camera-less twins are.
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -75,7 +78,8 @@ WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_settin
           "rearrange_settle_like", "rearrange_dominos_like", "rearrange_wordblocks_like",
           "rubik_face_like", "rubik_full_like", "dactyl_reach_like", "rearrange_ycb_like",
           "holdout_ball_like", "rearrange_table_setting_like", "rearrange_chessboard_like",
-          "rearrange_mixture_like", "rearrange_composer_like")
+          "rearrange_mixture_like", "rearrange_composer_like", "dactyl_vision_like",
+          "rearrange_vision_like")
 MESH_FAMILY = {"rearrange_table_setting_like": "table_setting",
                "rearrange_chessboard_like": "chessboard", "rearrange_mixture_like": "mixture",
                "rearrange_composer_like": "composer"}
@@ -281,6 +285,17 @@ def compile_snapshot(world: str = "locked_like"):
             model = compile_xml(xml, dtype=jnp.float32)
             n_scene = sum(1 for nm in model.const.names["geom"] if nm.startswith("scene"))
             model = scale_contact_budgets(model, i, n_scene)
+    elif world == "dactyl_vision_like":
+        from robogym_torch.worlds import vision_like
+
+        with tempfile.TemporaryDirectory() as tmp:
+            model = compile_xml(vision_like.write_dactyl(tmp), dtype=jnp.float32)
+    elif world == "rearrange_vision_like":
+        from robogym_torch.worlds import vision_like
+
+        with tempfile.TemporaryDirectory() as tmp:
+            model = compile_xml(vision_like.write_rearrange(tmp), dtype=jnp.float32)
+        model = scale_contact_budgets(model, rearrange_blocks_like.MAX_NUM_OBJECTS)
     elif world == "blocks_settle_like":
         model = compile_xml(blocks_settle_like.write(), dtype=jnp.float32)
         model = scale_contact_budgets(model, blocks_settle_like.N_BLOCKS)
@@ -331,6 +346,11 @@ def snapshot_path(world: str) -> str:
 
     if world in MESH_FAMILY:
         return rearrange_mesh_family_like.SNAPSHOTS[MESH_FAMILY[world]]
+    if world in ("dactyl_vision_like", "rearrange_vision_like"):
+        from robogym_torch.worlds import vision_like
+
+        return {"dactyl_vision_like": vision_like.DACTYL_SNAPSHOT,
+                "rearrange_vision_like": vision_like.REARRANGE_SNAPSHOT}[world]
 
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
