@@ -55,6 +55,7 @@ struct Params {
   float* x;            // (B, V)
   float* f;            // (B, E)
   float* scratch;      // (B, scratch floats), J in device memory only
+  float* trace;        // (B, iterations + 1, trace_floats) or null
   int E, V, iterations;
 };
 
@@ -254,7 +255,8 @@ __global__ void __launch_bounds__(32) cg_kernel(Params p) {
     jar0(k, sp.jar[i], sp.Jp[i]);
   }
 
-  cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Ms, p.iterations);
+  float* tr = p.trace ? p.trace + (size_t)b * (p.iterations + 1) * trace_floats(V, E) : nullptr;
+  cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Ms, p.iterations, tr);
   store_vec(p.x + bV, x, V);
 }
 
@@ -333,16 +335,18 @@ extern "C" int robogym_cg_blocks_per_sm(int E, int V) {
 }
 
 // Returns cudaErrorInvalidValue, and launches nothing, when V > 256, E < 0,
-// or the route needs device scratch and `scratch` is null.
+// or the route needs device scratch and `scratch` is null. A non-null
+// `trace` gets each env's solve state as kernel B's does (cg_full.cu).
 extern "C" int robogym_cg(const float* J, const float* aref, const float* Deq, const float* Done,
                           const float* Dfr, const float* floss, const float* M, const float* Minv,
                           const float* qs, const float* x0, float* x, float* f, float* scratch,
-                          int B, int E, int V, int iterations, cudaStream_t stream) {
+                          float* trace, int B, int E, int V, int iterations, cudaStream_t stream) {
   Plan pl;
   const cudaError_t e = configure(E, V, device_route(E, V), &pl);
   if (e != cudaSuccess) return (int)e;
   if (pl.scratch && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  Params p{J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, x, f, scratch, E, V, iterations};
+  Params p{J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, x, f, scratch, trace, E, V,
+           iterations};
   pl.fn<<<B, 32, pl.smem, stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -344,18 +344,50 @@ struct ColSys {
   }
 };
 
+// Floats of one slot of a CG solve's trace for V dofs and E rows: x (V),
+// jar (E), the search direction pd, g and M^-1 g (V each), the line
+// search's pick and beta.
+__host__ __device__ inline int trace_floats(int V, int E) { return 4 * V + E + 2; }
+
+// Writes the state that the next CG iteration reads into one slot of an
+// env's trace (`trace_floats`): x, jar, pd, g, Mg, the pick (0 to 3 for
+// the step a1 x {2, 1, 0.5, 0.125}, 4 for no step, -1 for the set-up) and
+// beta.
+template <int DPL, class Sys>
+__device__ __forceinline__ void trace_state(float* tr, Sys& sys, const float (&x)[DPL],
+                                            const float (&pd)[DPL], const float (&g)[DPL],
+                                            const float (&Mg)[DPL], int pick, float beta, int V) {
+  const int E = sys.E;
+  store_vec(tr, x, V);
+  sys.rows([&](int k, float& j, float&, const RowW&) {
+    const int r = threadIdx.x + 32 * k;
+    if (r < E) tr[V + r] = j;
+  });
+  store_vec(tr + V + E, pd, V);
+  store_vec(tr + 2 * V + E, g, V);
+  store_vec(tr + 3 * V + E, Mg, V);
+  if (threadIdx.x == 0) {
+    tr[4 * V + E] = (float)pick;
+    tr[4 * V + E + 1] = beta;
+  }
+}
+
 // The CG solve of one env. `sys` holds the env's J and row state: sys.jp(v)
 // sets its J p to J v, sys.jtf(out) sets out = J^T sys.fs, sys.rows(fn)
 // calls fn(k, jar, Jp, w) on each of the lane's row slots (`for_rows`), and
 // sys.fs (E,) is the row forces that J^T f reads. From x (the warmstart)
 // and jar = J x - aref, it leaves the solution in x and jar, and f =
 // -force(jar) in sys.fs and f_out (the env's E rows). M and Minv have row
-// stride Vs.
+// stride Vs. A non-null `trace` (the env's iterations + 1 slots of
+// `trace_floats`) gets the state after the set-up in slot 0 and after
+// iteration it in slot it + 1 (`trace_state`); null leaves the arithmetic
+// as it is.
 template <int DPL, class Sys, class MatT>
 __device__ __forceinline__ void cg_solve(Sys& sys, const MatT& M, const MatT& Minv,
                                          float (&x)[DPL], const float (&qs)[DPL], float* f_out,
-                                         int V, int Vs, int iterations) {
+                                         int V, int Vs, int iterations, float* trace) {
   const int lane = threadIdx.x, E = sys.E;
+  const int T = trace_floats(V, E);
   float* fs = sys.fs;
 
   // g = M (x - qs) + J^T force(jar); Mg = M^-1 g; p = -Mg
@@ -374,6 +406,7 @@ __device__ __forceinline__ void cg_solve(Sys& sys, const MatT& M, const MatT& Mi
   Minv.apply(g, Mg, V, Vs);
 #pragma unroll
   for (int q = 0; q < DPL; ++q) pd[q] = -Mg[q];
+  if (trace) trace_state(trace, sys, x, pd, g, Mg, -1, 0.0f, V);
 
   const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};
   for (int it = 0; it < iterations; ++it) {
@@ -409,6 +442,7 @@ __device__ __forceinline__ void cg_solve(Sys& sys, const MatT& M, const MatT& Mi
     });
     warp_sums(pen);
     float best_cost = 0.0f, best_a = 0.0f;
+    int best_k = 4;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float a = a1 * scales[k];
@@ -416,6 +450,7 @@ __device__ __forceinline__ void cg_solve(Sys& sys, const MatT& M, const MatT& Mi
       if (dcost < best_cost) {
         best_cost = dcost;
         best_a = a;
+        best_k = k;
       }
     }
 
@@ -450,6 +485,7 @@ __device__ __forceinline__ void cg_solve(Sys& sys, const MatT& M, const MatT& Mi
       g[q] = gn[q];
       Mg[q] = Mgn[q];
     }
+    if (trace) trace_state(trace + (size_t)(it + 1) * T, sys, x, pd, g, Mg, best_k, beta, V);
   }
 
   // f = -force(jar)

@@ -91,6 +91,7 @@ struct Params {
   float* qfrc;            // (B, V) J^T f
   float* qvel_new;        // (B, V), with the Euler update
   float* qs;              // (B, V) qacc_smooth, with the Euler update
+  float* trace;           // (B, iterations + 1, trace_floats) or null
   int n_s, S, F, V, iterations;
   int dt_stride;          // 0: one dt for the batch; 1: a (B,) tensor
 };
@@ -330,7 +331,8 @@ __global__ void __launch_bounds__(32) cg_full_kernel(Params p) {
   }
 
   // the solve; f = -force(jar), qfrc = J^T f
-  cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);
+  float* tr = p.trace ? p.trace + (size_t)b * (p.iterations + 1) * trace_floats(V, E) : nullptr;
+  cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations, tr);
   float t[DPL];
   store_vec(p.x + bV, x, V);
   __syncwarp();
@@ -427,19 +429,23 @@ extern "C" int robogym_cg_full_blocks_per_sm(int E, int V, int euler) {
 }
 
 // Both entry points return cudaErrorInvalidValue, and launch nothing, when
-// V > 256 or the env's arrays do not fit in one block's shared memory.
+// V > 256 or the env's arrays do not fit in one block's shared memory. A
+// non-null `trace` (B, iterations + 1, robogym_cg_trace_floats(V, E)) gets
+// each env's solve state after the set-up and after every iteration.
+extern "C" long long robogym_cg_trace_floats(int V, int E) { return trace_floats(V, E); }
+
 extern "C" int robogym_cg_full(
     const float* Js, const float* off1, const float* off2, const float* frame, const float* fric,
     const float* m1, const float* m2, const float* cdof, const float* pos, const float* kimp,
     const float* bref, const float* rcoef, const float* active, const float* floss,
     const float* M, const float* Minv, const float* Mimp, const float* Minv_imp,
     const float* qvel, const float* qfrc_smooth, const float* qacc_prev, const int* kind,
-    const float* dt, float* x, float* f, float* qfrc, float* qvel_new, float* qs,
+    const float* dt, float* x, float* f, float* qfrc, float* qvel_new, float* qs, float* trace,
     int B, int n_s, int S, int F, int V, int iterations, int dt_stride, cudaStream_t stream) {
   if (Mimp == nullptr || (dt_stride != 0 && dt_stride != 1)) return (int)cudaErrorInvalidValue;
   Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
            M, Minv, Mimp, Minv_imp, qvel, qfrc_smooth, qacc_prev, nullptr, nullptr, kind, dt,
-           x, f, qfrc, qvel_new, qs, n_s, S, F, V, iterations, dt_stride};
+           x, f, qfrc, qvel_new, qs, trace, n_s, S, F, V, iterations, dt_stride};
   return launch(p, B, stream);
 }
 
@@ -448,10 +454,10 @@ extern "C" int robogym_cg_full_noeuler(
     const float* m1, const float* m2, const float* cdof, const float* pos, const float* kimp,
     const float* bref, const float* rcoef, const float* active, const float* floss,
     const float* M, const float* Minv, const float* qvel, const float* qs, const float* x0,
-    const int* kind, float* x, float* f, float* qfrc,
+    const int* kind, float* x, float* f, float* qfrc, float* trace,
     int B, int n_s, int S, int F, int V, int iterations, cudaStream_t stream) {
   Params p{Js, off1, off2, frame, fric, m1, m2, cdof, pos, kimp, bref, rcoef, active, floss,
            M, Minv, nullptr, nullptr, qvel, nullptr, nullptr, qs, x0, kind, nullptr,
-           x, f, qfrc, nullptr, nullptr, n_s, S, F, V, iterations, 0};
+           x, f, qfrc, nullptr, nullptr, trace, n_s, S, F, V, iterations, 0};
   return launch(p, B, stream);
 }

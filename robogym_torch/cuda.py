@@ -8,7 +8,8 @@ build happens at the first launch in a process (or at an explicit
 whose sources, headers and flags are unchanged is reused.
 
 `launch(name, *args)` calls the C entry point `robogym_<name>` with each
-tensor's data pointer and each int as a C int, on PyTorch's current stream,
+tensor's data pointer (None: a null pointer) and each int as a C int, on
+PyTorch's current stream,
 raises if the launch returns a CUDA error, and then adds one to
 `LAUNCHES[name]`. Nothing else changes the counts, so a run can show that it
 went through the kernels.
@@ -39,14 +40,14 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
 
 # C entry points `robogym_<name>`: (device pointers, ints) before the stream
-SIGNATURES = {"spd_inverse": (2, 2), "cg_full": (28, 7), "cg_full_noeuler": (23, 6),
-              "cg": (13, 4), "hull_pair": (14, 5), "hull_manifold": (13, 5),
+SIGNATURES = {"spd_inverse": (2, 2), "cg_full": (29, 7), "cg_full_noeuler": (24, 6),
+              "cg": (14, 4), "hull_pair": (14, 5), "hull_manifold": (13, 5),
               "hull_pair_world": (10, 5), "hull_manifold_world": (9, 5), "boxbox": (9, 1)}
 LAUNCHES = {name: 0 for name in SIGNATURES}
 MAX_V = 256   # dofs a CG kernel takes (eight a lane of one warp)
 # exports that describe the CG kernels' layouts: name, argument count
 _SIZES = (("max_smem_bytes", 0), ("cg_smem_bytes", 2), ("cg_scratch_floats", 2),
-          ("cg_full_smem_bytes", 3))
+          ("cg_full_smem_bytes", 3), ("cg_trace_floats", 2))
 _OCCUPANCY = (("cg_blocks_per_sm", 2), ("cg_full_blocks_per_sm", 3))
 
 _lock = threading.Lock()
@@ -154,6 +155,12 @@ def cg_scratch_floats(E: int, V: int) -> int:
     return _size("cg_scratch_floats", E, V)
 
 
+def cg_trace_floats(V: int, E: int) -> int:
+    """Floats of one slot of a CG kernel's trace (B and F) for V dofs and
+    E rows: x, jar, the search direction, g and M^-1 g, the pick and beta."""
+    return _size("cg_trace_floats", V, E)
+
+
 def cg_full_smem_bytes(E: int, V: int, euler: bool) -> int:
     """Dynamic shared memory of one env (one block) of kernel B
     (`cg_full` with `euler`, else `cg_full_noeuler`) for E rows and V
@@ -241,21 +248,24 @@ def boxbox_info() -> dict:
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel `name` with tensors (as device pointers) and ints, on
-    the current stream of the first tensor's device."""
+    """Launch kernel `name` with tensors (as device pointers; None, but not
+    the first, as a null pointer) and ints, on the current stream of the
+    first tensor's device."""
     build()
     n_ptr, n_int = SIGNATURES[name]
     tensors, ints = args[:n_ptr], args[n_ptr:]
-    if (len(ints) != n_int or not all(isinstance(a, torch.Tensor) for a in tensors)
+    if (len(ints) != n_int or not all(isinstance(a, torch.Tensor) for a in tensors[:1])
+            or not all(a is None or isinstance(a, torch.Tensor) for a in tensors)
             or not all(isinstance(a, int) for a in ints)):
-        raise TypeError(f"{name} takes {n_ptr} tensors and {n_int} ints")
+        raise TypeError(f"{name} takes {n_ptr} tensors (None for a null pointer, not the "
+                        f"first) and {n_int} ints")
     device = tensors[0].device
     for a in tensors:
-        if a.device != device or not a.is_contiguous():
+        if a is not None and (a.device != device or not a.is_contiguous()):
             raise ValueError(f"{name}: operand on {a.device} (contiguous: {a.is_contiguous()}), "
                              f"want contiguous tensors on {device}")
     fn = getattr(_lib, "robogym_" + name)
-    cargs = [a.data_ptr() for a in tensors] + list(ints)
+    cargs = [None if a is None else a.data_ptr() for a in tensors] + list(ints)
     with torch.cuda.device(device):
         rc = fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if rc:

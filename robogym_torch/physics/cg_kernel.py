@@ -103,8 +103,11 @@ class Forced:
                         for t in (self.pick, self.flip_neg, self.flip_inside)))
 
 
+STATE_FIELDS = ("x", "jar", "p", "g", "Mg")   # the state a CG iteration reads
+
+
 def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, trace=None,
-             force: Forced | None = None):
+             force: Forced | None = None, start: dict | None = None, states: list | None = None):
     """M^-1-preconditioned Polak-Ribière+ nonlinear CG on the soft-
     constraint cost with a frozen-active-set Newton line search (the JAX
     package's reference solve, `constraint._scan_cg_solve`), batched over a
@@ -119,7 +122,16 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
     (B, E) at the iteration's start with "jmag" (B, E), the magnitudes of
     the terms summed into it. `force` (`Forced`) overrides the choices of
     the envs and iterations it names; without it the result is the same
-    bit for bit."""
+    bit for bit.
+
+    `start` (a dict of `STATE_FIELDS`: x, jar, p (B, V) and (B, E), g and
+    Mg (B, V), and optionally "qs" in place of `qs`) replaces the set-up:
+    the solve runs `iterations` iterations from that state, x0 unused; the
+    state after k iterations, run one more from, gives k + 1 bit for bit.
+    A list `states` gets the state after the set-up (or `start`) and after
+    each iteration: `STATE_FIELDS` with the choice "pick" (B,) (-1 for the
+    set-up) and "beta" (B,) (0 for the set-up), the layout of the kernels'
+    trace (`split_trace`)."""
 
     def force_of(jar):
         neg = (jar < 0).to(jar.dtype)
@@ -140,14 +152,23 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
     def dot(a, b):
         return torch.sum(a * b, dim=-1)
 
-    x = x0
-    jar = mv(J, x0) - aref
+    if start is None:
+        x = x0
+        jar = mv(J, x0) - aref
+        g = grad(x0, jar)
+        Mg = mv(Minv, g)
+        p = -Mg
+    else:
+        x, jar, p, g, Mg = (start[k] for k in STATE_FIELDS)
+        qs = start.get("qs", qs)
     if trace is not None:
         Jabs = J.abs()
-        jmag = mv(Jabs, x0.abs()) + aref.abs()
-    g = grad(x0, jar)
-    Mg = mv(Minv, g)
-    p = -Mg
+        jmag = mv(Jabs, x.abs()) + aref.abs()
+    if states is not None:
+        B = x.shape[0]
+        states.append(dict(x=x, jar=jar, p=p, g=g, Mg=Mg,
+                           pick=torch.full((B,), -1, dtype=torch.long, device=x.device),
+                           beta=torch.zeros_like(x[:, 0])))
     for it in range(iterations):
         Jp = mv(J, p)
         dx0 = x - qs
@@ -177,7 +198,7 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
             take = dcost < best_cost
             best_cost = torch.where(take, dcost, best_cost)
             best_a = torch.where(take, a, best_a)
-            if trace is not None or force is not None:
+            if trace is not None or force is not None or states is not None:
                 best_i = torch.where(take, i, best_i)
                 steps.append(a)
             if trace is not None:
@@ -203,7 +224,48 @@ def cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, t
         beta = torch.clamp(num / den, min=0.0)
         p = -Mg_new + beta[:, None] * p
         g, Mg = g_new, Mg_new
+        if states is not None:
+            states.append(dict(x=x, jar=jar, p=p, g=g, Mg=Mg, pick=best_i, beta=beta))
     return x, -force_of(jar)
+
+
+def stack_states(states: list) -> dict:
+    """`cg_plain`'s `states` list as the kernels' trace gives it
+    (`split_trace`): each field (B, iterations + 1, ...), the picks in the
+    states' float dtype."""
+    out = {k: torch.stack([st[k] for st in states], 1) for k in states[0]}
+    out["pick"] = out["pick"].to(out["x"].dtype)
+    return out
+
+
+def split_trace(buf: torch.Tensor, V: int, E: int) -> dict:
+    """A CG kernel's trace (B, iterations + 1, 4 V + E + 2) as named fields:
+    `STATE_FIELDS` (B, iterations + 1, V or E), "pick" (B, iterations + 1)
+    as written (a float; -1 in slot 0) and "beta". A slot that the kernel
+    did not write is NaN in every field."""
+    at = np.cumsum([0, V, E, V, V, V])
+    out = {k: buf[..., at[i]:at[i + 1]] for i, k in enumerate(STATE_FIELDS)}
+    out["pick"] = buf[..., at[-1]]
+    out["beta"] = buf[..., at[-1] + 1]
+    return out
+
+
+def _plain_traced(plain, *args):
+    """A plain version's outputs and its solve's states as the kernels'
+    trace (`stack_states`)."""
+    states = []
+    out = plain(*args, solve=functools.partial(cg_plain, states=states))
+    return (*out, stack_states(states))
+
+
+def _trace_buffer(B, iterations, V, E, dev):
+    """A kernel's trace buffer, NaN until the kernel writes it."""
+    from robogym_torch import cuda
+
+    T = cuda.cg_trace_floats(V, E)
+    if T != 4 * V + E + 2:
+        raise RuntimeError(f"cg trace layout: {T} floats a slot, want {4 * V + E + 2}")
+    return torch.full((B, iterations + 1, T), float("nan"), dtype=torch.float32, device=dev)
 
 
 def solve_inputs(kind, nfacet, rows, maps, qvel):
@@ -293,14 +355,30 @@ def fits(E: int, V: int, euler: bool) -> bool:
     return V <= cuda.MAX_V and cuda.cg_full_smem_bytes(E, V, euler) <= cuda.max_smem_bytes()
 
 
+def _routed_solve(trace):
+    """Kernel F as the size route's solve, its trace kept in `trace["t"]`
+    where `trace` is a dict."""
+    if trace is None:
+        return cg
+
+    def solve(*a):
+        x, f, trace["t"] = cg(*a, trace=True)
+        return x, f
+
+    return solve
+
+
 def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
-            qvel, qfrc_smooth, qacc_prev, dt):
+            qvel, qfrc_smooth, qacc_prev, dt, trace: bool = False):
     """The fused constraint solve; on CUDA tensors kernel B, or for a
     system that B does not take (`fits`) its plain version with the solve
-    in kernel F (`cg`)."""
+    in kernel F (`cg`). With `trace`, one more output: the solve's state
+    after the set-up and after every iteration (`split_trace`; the plain
+    version's `states` on CPU tensors)."""
+    args = (kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp, qvel, qfrc_smooth,
+            qacc_prev, dt)
     if M.device.type == "cpu":
-        return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
-                             qvel, qfrc_smooth, qacc_prev, dt)
+        return _plain_traced(cg_full_plain, *args) if trace else cg_full_plain(*args)
     from robogym_torch import cuda
 
     row_ops, kind_t, (B, n_s, S, E, V) = _row_operands("cg_full", kind, nfacet, rows, maps)
@@ -311,8 +389,9 @@ def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
                                         ("qacc_prev", qacc_prev))]
     _check("cg_full", ops, dev)
     if not fits(E, V, True):
-        return cg_full_plain(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
-                             qvel, qfrc_smooth, qacc_prev, dt, solve=cg)
+        kept = {} if trace else None
+        out = cg_full_plain(*args, solve=_routed_solve(kept))
+        return (*out, kept["t"]) if trace else out
     dt_t = torch.as_tensor(dt, dtype=torch.float32, device=dev)
     if tuple(dt_t.shape) not in ((), (B,)):
         raise ValueError(f"cg_full: dt of shape {tuple(dt_t.shape)}, want () or ({B},)")
@@ -323,18 +402,25 @@ def cg_full(kind, iterations, nfacet, rows, maps, M, Minv, Mimp, Minv_imp,
     qfrc = torch.empty_like(x)
     qvel_new = torch.empty_like(x)
     qs = torch.empty_like(x)
+    buf = _trace_buffer(B, iterations, V, E, dev) if trace else None
     cuda.launch("cg_full", *row_ops, *[t for _, t, _ in ops], kind_t, dt_t, x, f, qfrc,
-                qvel_new, qs, B, n_s, S, nfacet, V, iterations, dt_stride)
+                qvel_new, qs, buf, B, n_s, S, nfacet, V, iterations, dt_stride)
+    if trace:
+        return x, f, qfrc, qvel_new, qs, split_trace(buf, V, E)
     return x, f, qfrc, qvel_new, qs
 
 
-def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0):
+def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0,
+                    trace: bool = False):
     """The constraint solve of `forward()`: kernel B without the Euler
     update, qacc_smooth `qs` and the warmstart `x0` given. Returns (x, f,
-    qfrc); on CUDA tensors the kernel, or `cg_full`'s route for a system
-    that B does not take."""
+    qfrc), and with `trace` the solve's states as `cg_full` does; on CUDA
+    tensors the kernel, or `cg_full`'s route for a system that B does not
+    take."""
+    args = (kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
     if M.device.type == "cpu":
-        return cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
+        return _plain_traced(cg_full_noeuler_plain, *args) if trace else \
+            cg_full_noeuler_plain(*args)
     from robogym_torch import cuda
 
     row_ops, kind_t, (B, n_s, S, E, V) = _row_operands("cg_full_noeuler", kind, nfacet, rows,
@@ -343,23 +429,31 @@ def cg_full_noeuler(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0)
            ("qs", qs, (B, V)), ("x0", x0, (B, V))]
     _check("cg_full_noeuler", ops, M.device)
     if not fits(E, V, False):
-        return cg_full_noeuler_plain(kind, iterations, nfacet, rows, maps, M, Minv, qvel, qs, x0,
-                                     solve=cg)
+        kept = {} if trace else None
+        out = cg_full_noeuler_plain(*args, solve=_routed_solve(kept))
+        return (*out, kept["t"]) if trace else out
     x = torch.empty((B, V), dtype=torch.float32, device=M.device)
     f = torch.empty((B, E), dtype=torch.float32, device=M.device)
     qfrc = torch.empty_like(x)
-    cuda.launch("cg_full_noeuler", *row_ops, *[t for _, t, _ in ops], kind_t, x, f, qfrc,
+    buf = _trace_buffer(B, iterations, V, E, M.device) if trace else None
+    cuda.launch("cg_full_noeuler", *row_ops, *[t for _, t, _ in ops], kind_t, x, f, qfrc, buf,
                 B, n_s, S, nfacet, V, iterations)
-    return x, f, qfrc
+    return (x, f, qfrc, split_trace(buf, V, E)) if trace else (x, f, qfrc)
 
 
-def cg(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
+def cg(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int, trace: bool = False):
     """The CG solve on a prebuilt J (B, E, V) with row weights Deq, Done,
-    Dfr and friction losses (B, E): `cg_plain`'s arguments and returns; the
-    CUDA kernel on CUDA tensors, for any E and V <= 256 (J in shared memory
-    where it fits, else in device memory with a scratch buffer)."""
+    Dfr and friction losses (B, E): `cg_plain`'s arguments and returns (and
+    with `trace` the solve's states as `cg_full` does); the CUDA kernel on
+    CUDA tensors, for any E and V <= 256 (J in shared memory where it fits,
+    else in device memory with a scratch buffer)."""
     if M.device.type == "cpu":
-        return cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations)
+        if not trace:
+            return cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations)
+        states = []
+        x, f = cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations,
+                        states=states)
+        return x, f, stack_states(states)
     from robogym_torch import cuda
 
     B, E, V = J.shape
@@ -371,5 +465,6 @@ def cg(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations: int):
     x = torch.empty((B, V), dtype=torch.float32, device=M.device)
     f = torch.empty((B, E), dtype=torch.float32, device=M.device)
     scratch = torch.empty((B, cuda.cg_scratch_floats(E, V)), dtype=torch.float32, device=M.device)
-    cuda.launch("cg", *[t for _, t, _ in ops], x, f, scratch, B, E, V, iterations)
-    return x, f
+    buf = _trace_buffer(B, iterations, V, E, M.device) if trace else None
+    cuda.launch("cg", *[t for _, t, _ in ops], x, f, scratch, buf, B, E, V, iterations)
+    return (x, f, split_trace(buf, V, E)) if trace else (x, f)

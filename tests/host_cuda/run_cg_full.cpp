@@ -4,11 +4,13 @@
 //
 //   run_cg_full IN OUT
 //
-// IN: 7 int32 (B, n_s, S, F, V, iterations, euler), then the 24 float
+// IN: 8 int32 (B, n_s, S, F, V, iterations, euler, trace), then the 24 float
 // arrays of the kernel's Params up to dt, each an int64 count and its
 // float32 values (count 0 for a null pointer; dt: 1 value for the batch,
 // or B, one an env), then the row kinds (int64 count, int32 values).
-// OUT: x, f, qfrc, qvel_new, qs as float32.
+// OUT: x, f, qfrc, qvel_new, qs as float32, and with trace 1 the trace
+// (B, iterations + 1, trace_floats(V, E)), NaN where the kernel wrote
+// nothing.
 #include <cstdint>
 #include <cstdio>
 #include <thread>
@@ -37,9 +39,10 @@ int main(int argc, char** argv) {
   if (argc != 3) return 2;
   FILE* f = fopen(argv[1], "rb");
   if (!f) return 2;
-  int h[7];
-  if (fread(h, 4, 7, f) != 7) return 2;
+  int h[8];
+  if (fread(h, 4, 8, f) != 8) return 2;
   const int B = h[0], n_s = h[1], S = h[2], F = h[3], V = h[4], its = h[5], euler = h[6];
+  const int traced = h[7];
   std::vector<std::vector<float>> a;
   for (int i = 0; i < 24; ++i) a.push_back(read_floats(f));
   int64_t nk = 0;
@@ -49,11 +52,13 @@ int main(int argc, char** argv) {
   fclose(f);
   const int E = n_s + S * F;
   std::vector<float> x(B * V), fo(B * E), qfrc(B * V), qvn(B * V), qs(B * V);
+  std::vector<float> tr(traced ? (size_t)B * (its + 1) * cg_common::trace_floats(V, E) : 0,
+                        std::nanf(""));
   auto P = [&](int i) -> const float* { return a[i].empty() ? nullptr : a[i].data(); };
   Params p{P(0),  P(1),  P(2),  P(3),  P(4),  P(5),  P(6),  P(7),  P(8),  P(9),  P(10), P(11),
            P(12), P(13), P(14), P(15), P(16), P(17), P(18), P(19), P(20), P(21), P(22),
            kind.data(), P(23), x.data(), fo.data(), qfrc.data(), qvn.data(), qs.data(),
-           n_s, S, F, V, its, a[23].size() > 1 ? 1 : 0};
+           traced ? tr.data() : nullptr, n_s, S, F, V, its, a[23].size() > 1 ? 1 : 0};
   KernelFn fn;
   size_t smem;
   if (configure(E, V, euler != 0, &fn, &smem) != cudaSuccess || smem > sizeof(sm)) return 3;
@@ -72,7 +77,7 @@ int main(int argc, char** argv) {
   }
   FILE* o = fopen(argv[2], "wb");
   if (!o) return 2;
-  for (const auto* v : {&x, &fo, &qfrc, &qvn, &qs}) fwrite(v->data(), 4, v->size(), o);
+  for (const auto* v : {&x, &fo, &qfrc, &qvn, &qs, &tr}) fwrite(v->data(), 4, v->size(), o);
   fclose(o);
   return 0;
 }

@@ -60,9 +60,10 @@ def host_kernel(tmp_path_factory):
     return str(exe), out
 
 
-def _run(host_kernel, args, euler):
+def _run(host_kernel, args, euler, trace=False):
     """Kernel B on the host on `chip_smoke.cg_args`-style arguments (with
-    the Euler update) or `cg_full_noeuler`'s (without): its outputs."""
+    the Euler update) or `cg_full_noeuler`'s (without): its outputs, and
+    with `trace` its trace (`cg_kernel.split_trace`) after them."""
     exe, tmp = host_kernel
     if euler:
         kind, its, nfacet, rows, maps, M, Minv, Mimp, Minv_imp, qvel, qfs, qprev, dt = args
@@ -77,7 +78,7 @@ def _run(host_kernel, args, euler):
     arrs += [maps[k] for k in ("pos", "kimp", "bref", "rcoef", "active", "floss")] + [M, Minv]
     fin, fout = str(tmp / "in.bin"), str(tmp / "out.bin")
     with open(fin, "wb") as f:
-        np.array([Bn, n_s, S, nfacet, V, its, int(euler)], np.int32).tofile(f)
+        np.array([Bn, n_s, S, nfacet, V, its, int(euler), int(trace)], np.int32).tofile(f)
         for a in arrs + tail:
             a = np.zeros(0, np.float32) if a is None else a.numpy().astype(np.float32).ravel()
             np.array([a.size], np.int64).tofile(f)
@@ -88,9 +89,13 @@ def _run(host_kernel, args, euler):
     subprocess.run([exe, fin, fout], check=True)
     o = np.fromfile(fout, np.float32)
     sizes = [Bn * V, Bn * E, Bn * V, Bn * V, Bn * V]
-    x, f, qfrc, qvel_new, qs_out = (torch.as_tensor(p) for p in np.split(o, np.cumsum(sizes)[:-1]))
+    x, f, qfrc, qvel_new, qs_out, tr = (torch.as_tensor(p)
+                                        for p in np.split(o, np.cumsum(sizes)))
     got = (x.reshape(Bn, V), f.reshape(Bn, E), qfrc.reshape(Bn, V))
-    return got + ((qvel_new.reshape(Bn, V), qs_out.reshape(Bn, V)) if euler else ())
+    got += (qvel_new.reshape(Bn, V), qs_out.reshape(Bn, V)) if euler else ()
+    if trace:
+        got += (cg_kernel.split_trace(tr.reshape(Bn, its + 1, 4 * V + E + 2), V, E),)
+    return got
 
 
 def _case(name):

@@ -56,22 +56,27 @@ def host_kernel(tmp_path_factory):
     return str(exe), out
 
 
-def _run(host_kernel, args, route):
+def _run(host_kernel, args, route, trace=False):
     """Kernel F on the host on `cg`'s arguments, J in shared memory
-    (SHARED) or device memory (DEVICE): (x, f)."""
+    (SHARED) or device memory (DEVICE): (x, f), and with `trace` its trace
+    (`cg_kernel.split_trace`)."""
     exe, tmp = host_kernel
     *arrs, its = args
     Bn, E, V = arrs[0].shape
     fin, fout = str(tmp / "in.bin"), str(tmp / "out.bin")
     with open(fin, "wb") as f:
-        np.array([Bn, E, V, its, route], np.int32).tofile(f)
+        np.array([Bn, E, V, its, route, int(trace)], np.int32).tofile(f)
         for a in arrs:
             a = a.numpy().astype(np.float32).ravel()
             np.array([a.size], np.int64).tofile(f)
             a.tofile(f)
     subprocess.run([exe, fin, fout], check=True)
-    x, f = np.split(np.fromfile(fout, np.float32), [Bn * V])
-    return torch.as_tensor(x).reshape(Bn, V), torch.as_tensor(f).reshape(Bn, E)
+    x, f, tr = np.split(np.fromfile(fout, np.float32), [Bn * V, Bn * V + Bn * E])
+    out = torch.as_tensor(x).reshape(Bn, V), torch.as_tensor(f).reshape(Bn, E)
+    if not trace:
+        return out
+    buf = torch.as_tensor(tr).reshape(Bn, its + 1, 4 * V + E + 2)
+    return (*out, cg_kernel.split_trace(buf, V, E))
 
 
 @pytest.fixture(scope="module")

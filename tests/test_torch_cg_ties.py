@@ -107,12 +107,27 @@ def _cg_plain_before(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations
     return x, -force(jar)
 
 
+def _traced(solve):
+    """A stand-in kernel F from a solve with `cg_plain`'s arguments: with
+    `trace` it also returns the solve's states as the kernel's trace gives
+    them (`cg_kernel.split_trace`'s fields), for the one-step check."""
+
+    def kernel(*a, trace=False):
+        if not trace:
+            return solve(*a)
+        states = []
+        x, f = solve(*a, states=states)
+        return x, f, cg_kernel.stack_states(states)
+
+    return kernel
+
+
 def _restarted(env, start):
     """A stand-in kernel F: `cg_plain`'s solve with the search direction of
     env `env` restarted (beta = 0) from iteration `start` on, as
     tools/cg_fault_check.py's `late_restart_few_envs` plants it."""
 
-    def kernel(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations):
+    def kernel(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations, **kw):
         clamp = torch.clamp
         it = [0]
 
@@ -128,11 +143,12 @@ def _restarted(env, start):
 
         torch.clamp = counted
         try:
-            return cg_kernel.cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations)
+            return cg_kernel.cg_plain(J, aref, Deq, Done, Dfr, floss, M, Minv, qs, x0, iterations,
+                                      **kw)
         finally:
             torch.clamp = clamp
 
-    return kernel
+    return _traced(kernel)
 
 
 @pytest.fixture
@@ -210,8 +226,7 @@ def test_engineered_tie_is_excused_with_its_witness(no_sync):
     planted = cg_kernel.Forced.free(4, ITS, 12, "cpu")
     planted.pick[2, 2] = alt
 
-    def kernel(*a):
-        return cg_kernel.cg_plain(*a, force=planted)
+    kernel = _traced(lambda *a, **kw: cg_kernel.cg_plain(*a, force=planted, **kw))
 
     report = {}
     with chip_smoke.patched([((cg_kernel, "cg"), kernel)]):
@@ -247,8 +262,7 @@ def test_engineered_ties_in_several_envs_are_excused_together(no_sync, monkeypat
         planted_force.pick[env, it - 1] = next(
             j for j in range(5) if abs(float(a[j] - a[ref])) > 1e-3 * float(a.abs().max()))
 
-    def kernel(*a):
-        return cg_kernel.cg_plain(*a, force=planted_force)
+    kernel = _traced(lambda *a, **kw: cg_kernel.cg_plain(*a, force=planted_force, **kw))
 
     report = {}
     with chip_smoke.patched([((cg_kernel, "cg"), kernel)]):

@@ -32,11 +32,14 @@ prints the readings of `chip_smoke.cg_readings`,
 `chip_smoke.boxbox_readings`, `chip_smoke.hull_readings` (for G and H
 with `chip_smoke.world_vs_local`) or `chip_smoke.spd_readings` for it and
 whether the check passes, and for A which of its checks fails; for a CG
-kernel, which of its three parts fails: an env that leaves the plain
-version (forced through float32 ties where the kernel parts from it) with
-no tie to explain it, the early check (1e-4 after 1 and 2 iterations) or
-the noise check after all of them (the kernel's error against a float64
-run at most 2 times the plain version's). The sound sources must
+kernel, which of its three held parts fails: an env that leaves the plain
+version (forced through float32 ties where the kernel parts from it)
+within the early iterations with no tie to explain it, the early check
+(1e-4 after 1 and 2 iterations) or the one-step check (each iteration
+from the kernel's own traced state, `chip_smoke.one_step_readings`: the
+field and iteration that fail), and the noise check after all of them
+(the kernel's error against a float64 run beside 2 times the plain
+version's), which is reported and holds nothing. The sound sources must
 pass every check and each fault must fail the checks of its kernels, and
 pass those that `PASSES` names for it; otherwise the script exits non-zero.
 """
@@ -73,9 +76,11 @@ B_DT = "const float dt = p.dt[(size_t)b * p.dt_stride];"
 B_JS = "J[(idx - i * V) * CS + i] = p.Js[(size_t)b * n_s * V + idx];"
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
 BETA = "const float beta = fmaxf(nd[0] / fmaxf(nd[1], 1e-12f), 0.0f);"
-B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations);"
-F_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Ms, p.iterations);"
+B_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Vs, p.iterations, tr);"
+F_SOLVE = "cg_solve<DPL>(sys, M, Minv, x, qs, p.f + bE, V, Ms, p.iterations, tr);"
+TRACE_STEP = "if (trace) trace_state(trace + (size_t)(it + 1) * T,"
 SELECT = """    float best_cost = 0.0f, best_a = 0.0f;
+    int best_k = 4;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float a = a1 * scales[k];
@@ -83,6 +88,7 @@ SELECT = """    float best_cost = 0.0f, best_a = 0.0f;
       if (dcost < best_cost) {
         best_cost = dcost;
         best_a = a;
+        best_k = k;
       }
     }"""
 # the line search prefers the larger step wherever two costs lie within 10
@@ -91,6 +97,7 @@ SELECT = """    float best_cost = 0.0f, best_a = 0.0f;
 # bound 0
 WIDE_TIE = 10 * 4 * 2.0 ** -23
 TIE_WIDENED = """    float best_cost = 0.0f, best_a = 0.0f, best_b = 0.0f;
+    int best_k = 4;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const float a = a1 * scales[k];
@@ -100,6 +107,7 @@ TIE_WIDENED = """    float best_cost = 0.0f, best_a = 0.0f, best_b = 0.0f;
         best_cost = dcost;
         best_a = a;
         best_b = b;
+        best_k = k;
       }
     }""" % WIDE_TIE
 MID = "const V3 mid{0.5f * (r.p1.x + r.p2.x), 0.5f * (r.p1.y + r.p2.y), 0.5f * (r.p1.z + r.p2.z)};"
@@ -158,8 +166,9 @@ FAULTS = {
                             ("cg_full", "cg")),
     # late and in few envs: from iteration 5 on, in one env of 128 (8 at
     # B=1024), the loop B and F share restarts its direction every
-    # iteration; the early check cannot see it, and F's hand-world solves
-    # (about two live rows) have converged by then, so F is checked wide
+    # iteration (its traced beta 0: the one-step check's beta fails); the
+    # early check cannot see it, and F's hand-world solves (about two live
+    # rows) have converged by then, so F is checked wide
     "late_restart_few_envs": ("cg_common.cuh", BETA,
                               BETA.replace("= fmaxf", "= blockIdx.x % 128 == 0 && it >= 5 "
                                            "? 0.0f : fmaxf"), ("cg_full", "cg_wide")),
@@ -168,6 +177,12 @@ FAULTS = {
     # loose enough to excuse this would excuse a fault
     "tie_widened": ("cg_common.cuh", SELECT, TIE_WIDENED,
                     ("cg_full", "cg_full@dt", "cg_full@solver")),
+    # the shared loop writes no trace slot at the last iteration: the
+    # one-step check refuses the missing trace
+    "trace_skips_last_iteration": ("cg_common.cuh", TRACE_STEP,
+                                   TRACE_STEP.replace("if (trace)",
+                                                      "if (trace && it + 1 < iterations)"),
+                                   ("cg_full", "cg")),
     "facet_sign": ("cg_full.cu", "col[k + 1] = Jn - mu * Jt;",
                    "col[k + 1] = Jn + mu * Jt;", ("cg_full",)),
     "cg_one_fewer_iteration": ("cg.cu", F_SOLVE, F_SOLVE.replace("p.iterations", "p.iterations - 1"),
@@ -352,11 +367,16 @@ def readings(chip_smoke, kernel, inputs):
                                    for k in errs))
     env_fails = any(f.startswith(("env ", "more envs")) or " more envs " in f for f in failures)
     early_fails = any(" iteration(s): rel err" in f for f in failures)
-    noise_fails = any(" err vs float64 " in f or f.startswith("non-finite") for f in failures)
+    step_fails = [f for f in failures if f.startswith("one-step")]
+    step = report["one_step"]
+    print(f"  {label}: one-step worst error / tolerance " + ", ".join(
+        f"{f} {w:.3g} (step {k})" for f, (w, k) in step["worst"].items())
+        + f"; envs excused on a pick tie at a step {len({e for e, _, _ in step['excused']})}")
     print(f"  {label}: envs leaving the forced plain version "
           f"{'FAIL' if env_fails else 'none'}, early check "
-          f"{'FAILS' if early_fails else 'passes'}, noise check "
-          f"{'FAILS' if noise_fails else 'passes'}")
+          f"{'FAILS' if early_fails else 'passes'}, one-step check "
+          + (f"FAILS ({'; '.join(step_fails[:3])})" if step_fails else "passes")
+          + "; " + chip_smoke.noise_verdict(noise))
     for its in (1, iterations):
         a = args_of(its)
         x_k = chip_smoke.wrapper(kernel)(*a)[0]
