@@ -9,7 +9,24 @@ Phases, in order; any failure ends the script with a non-zero exit:
 1. Device: needs CUDA; prints the card's name and power limit.
 2. Build: compiles the CUDA kernels from `robogym_torch/csrc/` and prints
    what `nvcc -Xptxas -v` reports per kernel.
-3. State, B=1024 from seed 0 on five worlds: the locked-like world
+3. Compile, on the host while nvcc builds the kernels (a thread beside
+   the build): the port's own compiler (`mjcf/compiler.py`) compiles each of
+   the 21 stand-in worlds (`worlds/compile.compile_world(name, "cuda")`,
+   which builds them as `tools/build_locked_like_snapshot.py` builds their
+   committed snapshots with the JAX compiler) and prints each world's
+   seconds; each world is held to its snapshot: the same keys, integer,
+   static and name fields and float fields exactly, but where the card's
+   host rounds `np.linalg.eigh` (a body's principal axes) or orders a
+   scipy hull otherwise, each body's inertia tensor rebuilt from
+   `body_iquat` and `body_inertia`, and each hull's verts and face planes
+   as sets, within `COMPILE_TOL` of their largest entry; the phase prints
+   which fields needed that rule. Then `envs/rearrange/blocks.
+   compile_worlds` compiles the rearrange env's worlds (main, solver) from
+   the stand-in's builder (`rearrange_blocks_like.world_xml_builder`).
+   The locked env (and the default wrapper stack around it) runs on the
+   compiled dactyl-shaped world, and the rearrange env (and the joint-mode
+   env of the reach_helper path, on its main world) on those worlds.
+4. State, B=1024 from seed 0 on five worlds: the locked-like world
    (`robogym_torch/worlds/locked_like.npz`) settled for 20 substeps so
    contacts are live; the rearrange goal-settle world
    (`blocks_settle_like.npz`) settled for 40 substeps so the blocks rest on
@@ -68,7 +85,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    `vision_observation_provider="dummy_vision"` built and reset at B=1024
    (its images (B, 3, 200, 200, 3) uint8 zeros, the goal images cached in
    `goal_aux`).
-4. One phase per kernel: its inputs are captured from one substep or call
+5. One phase per kernel: its inputs are captured from one substep or call
    of the path that runs it; the kernel and its plain version run on the
    same inputs on the card, and are compared and timed (CUDA events over 50
    launches, after a warm-up), with a library call beside them where one
@@ -139,7 +156,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    shared-memory kernel, `spd_inverse@wide`); and A on dense seeded SPD
    matrices at V=160 (HUGE_V, the device-memory kernel,
    `spd_inverse@huge`).
-5. Paths, each driven with every launch count set to 0 just before it and
+6. Paths, each driven with every launch count set to 0 just before it and
    read just after; every qpos, qvel and qacc finite; every kernel's count
    equal to its count per substep or call times their number:
    the locked-like world, `step_n` for 10 env steps of 10 substeps
@@ -166,7 +183,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    of envs with gripper-table contact; every obs and reward finite; the
    launches an env step are `PER_CALL["rearrange_env"]`); 2 steps of
    blocks_train (`blocks_train_env`: per env step the rearrange env's
-   launches and 200 goal-settle substeps of 2 A, 1 B and 1 E, the resample
+   launches and `GOAL_SETTLE_SUBSTEPS` goal-settle substeps of 2 A, 1 B and 1 E, the resample
    drawn and settled for every env) and 1 step of dominos (`dominos_env`,
    the rearrange env's launches), each read as the rearrange env's path
    with its construction and reset times; 10 steps of the face env
@@ -215,8 +232,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
    state; the live pairs of each round-geom group, sphere-mesh and
    cylinder-box, at every step, which must not be zero over the steps;
    per env step 160 A, 80 B, 81 C, 81 D).
-6. Whole-step agreement: one substep through the kernels against one
-   through the plain versions, at B=64 (the first 64 envs of phase 3's
+7. Whole-step agreement: one substep through the kernels against one
+   through the plain versions, at B=64 (the first 64 envs of phase 4's
    states), on the locked-like, settle, hand, table and dactyl-shaped
    worlds; every kernel routed to its plain
    version by name. Then one substep of the wrapped env's physics (each
@@ -323,14 +340,27 @@ renderer's env chunks and the peak device memory.
 
 To pay for the new paths the older ones run fewer steps (`ENV_STEPS` 2,
 `FULL_STEPS` 1, one rearrange, blocks_train, YCB, holdout and family step,
-`REAL_IMAGE_STEPS` 1, the settle and table_setting paths
+`REAL_IMAGE_STEPS` 1, `REACH_HELPER_OFFSET` 0.02 rad, the settle and table_setting paths
 `SETTLE_PATH_SUBSTEPS` 100), each kernel is timed over `REPS` launches, and the
 YCB env is built and reset once: its reset state starts the ycb_env path
 and, in a copy of the env under `stabilize_goal`, the ycb_stabilized_env
-path.
-7. Summary: a `kernels` line and a `paths` line of JSON, the card's name
+path. The dominos env, the blocks env with vision, blocks_train, the
+holdout and the mesh-family envs take `OLDER_STABILIZE_STEPS` 1: their
+resets' object settle is 40 substeps, not 200; so are blocks_train's goal
+settles and the ycb_stabilized_env path's. The YCB env keeps 200: at its
+state after 40 kernel B meets a line-search tie that the early CG check
+does not excuse.
+The dummy-vision and real-image locked envs, whose states no CG check
+reads either, take `OLDER_INITIAL_STEPS` 5: their construction's settle is
+50 substeps, not 200. The `[compile]` phase runs on the host while nvcc
+builds the kernels. Each reset's seconds are printed (`[state time]`). The
+rearrange, blocks_train, dominos, YCB, holdout and mesh-family paths, one
+env step each from their reset states, record their kernels' inputs as
+they run (`captured`: the inputs of `one_step`, the step a separate
+capture took before), and those kernels' phases run after the paths.
+8. Summary: a `kernels` line and a `paths` line of JSON, the card's name
    and power limit, and last `{"ok": true, "device": {...}}`. The kernels
-   line has an entry per phase of step 4: `k` for kernel k at the shapes
+   line has an entry per phase of step 5: `k` for kernel k at the shapes
    of its first phase, `k@w` for its phase at world w's shapes; each entry
    counts the kernel's launches on the paths it stands for (C counts all
    its launches on the table world's path at both `@table` and
@@ -356,6 +386,7 @@ substeps, with their wall time and the device's busy share, to PATH.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -365,6 +396,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -379,6 +411,19 @@ N_ACTION_BINS = 11                # the default stack's discrete actions (wrappe
 HUGE_V = 160                      # kernel A's device-memory kernel (above 128 dofs)
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
 SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
+# stabilize_steps (the env's default 5) of the older rearrange paths:
+# dominos, the blocks env with vision, blocks_train (its resets' and its
+# goals' settles), the holdout and the mesh family (not the YCB env: at its
+# state after a 40-substep object settle kernel B meets a line-search tie
+# that the early CG check does not excuse), and of the ycb_stabilized_env
+# path's goal settle: 1 x 40 substeps, which keeps the whole script within
+# its time
+OLDER_STABILIZE_STEPS = 1
+GOAL_SETTLE_SUBSTEPS = OLDER_STABILIZE_STEPS * 40   # an older path's goal settle
+# reset_initial_steps (the dactyl envs' default 20) of the dactyl envs whose
+# states no CG check reads (dummy vision, real image): their construction's
+# zero-control settle 5 x 10 substeps at B=1, not 200
+OLDER_INITIAL_STEPS = 5
 SETTLE_PATH_SUBSTEPS = 100        # substeps of the settle and table_setting paths
 SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
 FORWARD_CALLS = 5
@@ -387,17 +432,24 @@ BLOCKS_TRAIN_STEPS = 1            # env steps of the blocks_train_env path
 DOMINOS_STEPS = 1                 # env steps of the dominos_env path
 # bench.py's BENCH_ENV=blocks configuration (constants, parameters)
 REARRANGE_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
+# env-steps/s of the locked_env and rearrange_env paths on the committed
+# snapshots, before those paths ran on the port's own compiles (one run of
+# this script on an NVIDIA H100 80GB HBM3, 700.00 W)
+SNAPSHOT_RATES = {"locked_env": 1628.8, "rearrange_env": 245.2}
 # blocks_train with every option of its slice: 8 blocks, cuboids exp-uniform
 # in +-0.2 a group and axis, pick-up and stacking goals at 0.2 each, each goal
-# settled in the objects-only settle world (stabilize_steps 5 x 40
-# substeps), the soft placement mask and the masked observations
+# settled in the objects-only settle world (stabilize_steps
+# OLDER_STABILIZE_STEPS x 40 substeps), the soft placement mask and the
+# masked observations
 BLOCKS_TRAIN_CONFIG = ({"use_cuboid": True, "mask_obs_outside_placement_area": True,
+                        "stabilize_steps": OLDER_STABILIZE_STEPS,
                         "goal_args": {"pickup_proba": 0.2, "stacking_proba": 0.2,
                                       "stabilize_goal": True, "soft_mask": True}},
                        {"simulation_params": {"num_objects": 8}, "object_scale_low": 0.2,
                         "object_scale_high": 0.2})
 # dominos' default: train goals with the mod-180 rotation distance, 5 of 8
-DOMINOS_CONFIG = ({}, {"simulation_params": {"num_objects": 5}})
+DOMINOS_CONFIG = ({"stabilize_steps": OLDER_STABILIZE_STEPS},
+                  {"simulation_params": {"num_objects": 5}})
 REACH_STEPS = 5                   # env steps of the reach and randomized reach paths
 YCB_STEPS = 1                     # env steps of the ycb_env path
 # The YCB paths' bank: the stand-in candidates of 64 hull verts, not the
@@ -418,14 +470,15 @@ FAMILY_STEPS = 1                  # env steps of each mesh-family path
 # and spins)
 _LOCAL_MESH = "robogym.envs.rearrange.datasets.objects.local_mesh:create"
 FAMILY_CONFIGS = {
-    "table_setting": ({}, {}),
-    "chessboard": ({}, {}),
-    "mixture": ({"object_config": {
+    "table_setting": ({"stabilize_steps": OLDER_STABILIZE_STEPS}, {}),
+    "chessboard": ({"stabilize_steps": OLDER_STABILIZE_STEPS}, {}),
+    "mixture": ({"stabilize_steps": OLDER_STABILIZE_STEPS, "object_config": {
         "ycb": {"function": _LOCAL_MESH, "args": {"mesh_dirname": "ycb",
                                                   "mesh_names": YCB_MESHES}},
         "geom": {"function": _LOCAL_MESH, "args": {"mesh_dirname": "geom"}}}},
         {"simulation_params": {"num_objects": 5}}),
-    "composer": ({}, {"simulation_params": {"num_objects": 5}, "mesh_names": YCB_MESHES}),
+    "composer": ({"stabilize_steps": OLDER_STABILIZE_STEPS},
+                 {"simulation_params": {"num_objects": 5}, "mesh_names": YCB_MESHES}),
 }
 # the mesh-family paths driven here
 FAMILY = tuple(FAMILY_CONFIGS)
@@ -438,7 +491,8 @@ PPO_HIDDEN = 256                  # the policy's hidden units
 PPO_ROLLOUT_STEPS = 2             # steps of the ppo_train path's rollout with the policy
 RATIO_TOL = 1e-5                  # PPO's ratio at the old parameters, against 1
 REACH_HELPER_BATCH = 16           # envs of the reach_helper path
-REACH_HELPER_OFFSET = 0.05        # rad, each arm joint's target from its reset pose
+REACH_HELPER_OFFSET = 0.02        # rad, each arm joint's target from its reset pose (0.05
+                                  # took 15 env steps of 40 substeps; 0.02 takes 11)
 REACH_HELPER_STEPS = 40           # env steps the reach_helper path may take
 # the rearrange blocks env in joint control mode (robot/composite.py), the
 # reach_helper path's env
@@ -448,13 +502,14 @@ REACH_HELPER_CONFIG = ({}, {"simulation_params": {"num_objects": 5},
 # vision cameras, a pool of 16 goals, cameras and lights randomized
 LOCKED_REAL_IMAGE_CONFIG = dict(vision_image_size=200, goal_pool_size=16, camera_fovy_radius=2.0,
                                 camera_pos_radius=0.01, camera_quat_radius=0.05,
-                                light_pos_range=0.3)
+                                light_pos_range=0.3, reset_initial_steps=OLDER_INITIAL_STEPS)
 REAL_IMAGE_STEPS = 1              # env steps of the locked_real_image_env path
 # the blocks env with vision (200-pixel front and wrist cameras), vision
 # randomization, every stand-in material, block goal rotations and the
 # icp rotational distance
 REARRANGE_VISION_CONFIG = (
-    {"vision": True, "goal_args": {"randomize_goal_rot": True, "rot_randomize_type": "block",
+    {"vision": True, "stabilize_steps": OLDER_STABILIZE_STEPS,
+     "goal_args": {"randomize_goal_rot": True, "rot_randomize_type": "block",
                                    "rot_dist_type": "icp"}},
     {"simulation_params": {"num_objects": 5, "camera_fovy_radius": 2.0,
                            "camera_pos_radius": 0.01, "camera_quat_radius": 0.05,
@@ -542,10 +597,11 @@ PER_CALL["rearrange_env"] = {"spd_inverse": 2 * 40 + 2 * 40, "cg_full": 40 + 40,
                              "hull_manifold": 40 + 1 + 40, "hull_pair": 40 + 1 + 40,
                              "boxbox": 40}
 # per env step of blocks_train: the rearrange env's, and each env's goal
-# resample settled for SETTLE_SUBSTEPS substeps in the objects-only settle
-# world (2 A, 1 B, 1 E each: its blocks against the table and each other)
+# resample settled for GOAL_SETTLE_SUBSTEPS substeps in the objects-only
+# settle world (2 A, 1 B, 1 E each: its blocks against the table and each
+# other)
 PER_CALL["blocks_train_env"] = {k: PER_CALL["rearrange_env"].get(k, 0)
-                                + SETTLE_SUBSTEPS * PER_CALL["settle"].get(k, 0)
+                                + GOAL_SETTLE_SUBSTEPS * PER_CALL["settle"].get(k, 0)
                                 for k in set(PER_CALL["rearrange_env"]) | set(PER_CALL["settle"])}
 # dominos: the rearrange env's world with domino-shaped blocks, the same calls
 PER_CALL["dominos_env"] = dict(PER_CALL["rearrange_env"])
@@ -587,8 +643,8 @@ PER_CALL["ycb_env"] = {"spd_inverse": 2 * 40 + 2 * 40, "cg_full": 40 + 40,
                        "hull_manifold": 2 * 40 + 1 + 40, "hull_pair": 40 + 1 + 40}
 AT_PATH["ycb"] = "ycb_env"
 # under stabilize_goal, a step in which any env resamples adds one goal
-# settle: SETTLE_SUBSTEPS main substeps on the gathered resampling envs
-PER_CALL["ycb_stabilized_env"] = {k: v + SETTLE_SUBSTEPS * PER_CALL["ycb_main"][k]
+# settle: GOAL_SETTLE_SUBSTEPS main substeps on the gathered resampling envs
+PER_CALL["ycb_stabilized_env"] = {k: v + GOAL_SETTLE_SUBSTEPS * PER_CALL["ycb_main"][k]
                                   for k, v in PER_CALL["ycb_env"].items()}
 # the stand-in holdout: a main substep launches 2 A, 1 B, 1 C (the table
 # against the links), 1 D (the platform against the links, the fingers);
@@ -1931,6 +1987,106 @@ def load_world(snapshot=None):
     return bridge.model_from_numpy(arrays, "cuda"), arrays
 
 
+# fields that come through `np.linalg.eigh` (a body's principal axes) or
+# the order of scipy's hull verts: held by what they mean, not bit for bit
+EIGH_FIELDS = ("model.body_iquat", "model.body_inertia")
+HULL_FIELDS = ("model.mesh_convex_vert", "model.mesh_convex_center", "model.mesh_face_plane")
+COMPILE_TOL = 1e-6                # of the largest entry: inertia tensors, hull verts as sets
+
+
+def _quat2mat(q):
+    w, x, y, z = (q / np.linalg.norm(q, axis=-1, keepdims=True)).T
+    return np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                     2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                     2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+                    -1).reshape(-1, 3, 3)
+
+
+def inertia_tensors(arrays):
+    """Each body's inertia tensor, (nbody, 3, 3) in float64, rebuilt from
+    its principal frame and moments."""
+    R = _quat2mat(np.asarray(arrays["model.body_iquat"], np.float64))
+    return R @ (np.asarray(arrays["model.body_inertia"], np.float64)[:, :, None]
+                * R.transpose(0, 2, 1))
+
+
+def rows_as_sets_err(got, want, mask):
+    """The largest distance from a masked row of one side to the nearest
+    masked row of the other, over the meshes (rows of each mesh compared as
+    a set), relative to the largest entry."""
+    worst = 0.0
+    for g, w, m in zip(got, want, mask):
+        g, w = g[m > 0].astype(np.float64), w[m > 0].astype(np.float64)
+        d = np.linalg.norm(g[:, None] - w[None], axis=-1)
+        scale = max(float(np.abs(w).max()), 1e-30) if w.size else 1.0
+        worst = max(worst, float(d.min(1).max(initial=0.0)), float(d.min(0).max(initial=0.0))
+                    ) / scale if d.size else worst
+    return worst
+
+
+def hold_to_snapshot(name, model, path):
+    """Hold the port's compile `model` of world `name` to its committed
+    snapshot `path`: the same keys; integer, static and name fields, and
+    float fields, exactly; where the card's host rounds `eigh` or orders a
+    hull otherwise, the inertia tensors rebuilt from the principal frames
+    and the hulls' verts and face planes as sets, within `COMPILE_TOL` of
+    their largest entry. Returns the fields that needed that rule."""
+    from robogym_torch import bridge
+
+    got = bridge.model_to_numpy(model)
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    check(sorted(got) == sorted(want), f"compile {name}: keys differ {set(got) ^ set(want)}")
+    ruled = []
+    for k in sorted(want):
+        g, w = got[k], want[k]
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"compile {name}: {k} is {g.dtype} {g.shape}, snapshot {w.dtype} {w.shape}")
+        if np.array_equal(g, w):
+            continue
+        check(k in EIGH_FIELDS + HULL_FIELDS, f"compile {name}: {k} differs from the snapshot")
+        ruled.append(k)
+    if any(k in EIGH_FIELDS for k in ruled):
+        ig, iw = inertia_tensors(got), inertia_tensors(want)
+        err = np.abs(ig - iw).max((1, 2)) / np.maximum(np.abs(iw).max((1, 2)), 1e-30)
+        check(float(err.max()) <= COMPILE_TOL,
+              f"compile {name}: inertia tensors differ by {float(err.max()):.3g} of their largest "
+              f"entry")
+    for k, mask in (("model.mesh_convex_vert", "model.mesh_convex_mask"),
+                    ("model.mesh_face_plane", "model.mesh_face_mask")):
+        if k in ruled:
+            err = rows_as_sets_err(got[k], want[k], want[mask])
+            check(err <= COMPILE_TOL, f"compile {name}: {k} as sets differ by {err:.3g}")
+    if "model.mesh_convex_center" in ruled:
+        c, w = got["model.mesh_convex_center"], want["model.mesh_convex_center"]
+        err = float(np.abs(c - w).max()) / max(float(np.abs(w).max()), 1e-30)
+        check(err <= COMPILE_TOL, f"compile {name}: hull centres differ by {err:.3g}")
+    return ruled
+
+
+def compile_phase():
+    """The port's compile of every stand-in world (`worlds/compile.py`) on
+    the card's host, each held to its snapshot (`hold_to_snapshot`):
+    ({name: Model on the card}, {name: seconds}, {name: fields ruled})."""
+    from robogym_torch.worlds import compile as world_compile
+
+    models, seconds, ruled = {}, {}, {}
+    for name in world_compile.WORLDS:
+        t0 = time.perf_counter()
+        models[name] = world_compile.compile_world(name, "cuda")
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        ruled[name] = hold_to_snapshot(name, models[name], world_compile.snapshot_path(name))
+        c = models[name].const
+        print(f"[compile] {name}: nq={c.nq} nv={c.nv} ngeom={c.ngeom} nmesh={c.nmesh} in "
+              f"{seconds[name]:.2f} s; "
+              + (f"held by meaning: {ruled[name]}" if ruled[name] else "every field equal"),
+              flush=True)
+    print(f"[compile] {len(models)} worlds in {sum(seconds.values()):.2f} s; fields that needed "
+          f"the eigh or hull rule: {sorted({k for v in ruled.values() for k in v}) or 'none'}")
+    return models, seconds, ruled
+
+
 def capture_calls(module, name, run):
     """The arguments of every `module.<name>` call while `run()` runs
     (tensors cloned), in order."""
@@ -1995,22 +2151,24 @@ def worlds():
     return out
 
 
-def locked_env_reset(batch):
-    """The locked env on the card (`make_env`, whose construction runs the
-    zero-control settle) and its reset state at `batch` envs from seed 0:
-    (env, state). Prints the times, the retries and the share of envs
+def locked_env_reset(batch, model):
+    """The locked env on the card on the compiled dactyl-shaped world
+    `model` (the port's own compile, `[compile]`; its construction runs
+    the zero-control settle) and its reset state at `batch` envs from seed
+    0: (env, state). Prints the times, the retries and the share of envs
     with the cube on the palm; checks the state finite."""
     from robogym_torch.envs.dactyl import cube_env, locked
 
     t0 = time.perf_counter()
-    env = locked.make_env(device="cuda", seed=SEED)
+    env = locked.LockedEnv(locked.LockedEnvConstants(), model, seed=SEED)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     state, obs = env.reset(batch)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     on_palm = float(cube_env.is_on_palm(env.cube, state.physics).float().mean())
-    print(f"[state] locked env on the dactyl-shaped world: built (its settle, "
+    print(f"[state] locked env on the port's compile of the dactyl-shaped world: built (its "
+          f"settle, "
           f"{env.constants.reset_initial_steps * env.constants.mujoco_substeps} substeps at B=1) "
           f"in {t1 - t0:.2f} s; LockedEnv.reset at B={batch} in {t2 - t1:.2f} s, "
           f"{env.reset_retries} retries, on the palm {on_palm:.4f}")
@@ -2902,8 +3060,8 @@ def vision_env_reset(batch):
     from robogym_torch.envs.dactyl import locked
 
     t0 = time.perf_counter()
-    env = locked.make_env({"vision_observation_provider": "dummy_vision"}, device="cuda",
-                          seed=SEED)
+    env = locked.make_env({"vision_observation_provider": "dummy_vision",
+                           "reset_initial_steps": OLDER_INITIAL_STEPS}, device="cuda", seed=SEED)
     state, obs = env.reset(batch)
     torch.cuda.synchronize()
     check_images("locked dummy-vision reset", obs, batch)
@@ -3243,25 +3401,53 @@ def reach_agreement(env, state, n=64):
 
 
 def rearrange_env_reset(batch, module="blocks", config=REARRANGE_CONFIG,
-                        label="rearrange blocks env", draws_out=None):
+                        label="rearrange blocks env", draws_out=None, worlds=None):
     """An env of the rearrange blocks family on the card as its `make_env`
     builds it (`envs/rearrange/<module>.make_env(*config)`; by default
     bench.py's blocks env: 8 object slots, 5 blocks, the default TCP control
     through the mocap_ik dual sim; its construction runs the
-    arm-to-tabletop settle, 200 substeps at B=1) and its reset at `batch`
-    envs (`rearrange_reset`): (env, state, seconds built, seconds reset)."""
+    arm-to-tabletop settle, 200 substeps at B=1), on the compiled `worlds`
+    where given, and its reset at `batch` envs (`rearrange_reset`): (env,
+    state, seconds built, seconds reset)."""
     make_env = importlib.import_module("robogym_torch.envs.rearrange." + module).make_env
     t0 = time.perf_counter()
-    env = make_env(*config, device="cuda", seed=SEED)
+    env = make_env(*config, device="cuda", seed=SEED, worlds=worlds)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
     state, reset = rearrange_reset(env, batch, label, built, draws_out)
     return env, state, built, reset
 
 
+def compiled_rearrange_worlds(config=REARRANGE_CONFIG):
+    """The worlds of the blocks env of `config`, compiled on the card's host
+    by `blocks.compile_worlds` as the JAX env compiles them at its
+    construction, the base world from the stand-in's builder
+    (`rearrange_blocks_like.world_xml_builder`), each held to its committed
+    snapshot (`hold_to_snapshot`): ({name: Model}, seconds)."""
+    from robogym_torch.envs.rearrange import blocks
+    from robogym_torch.worlds import rearrange_blocks_like
+
+    t0 = time.perf_counter()
+    cst, par = blocks.configs(*config)
+    with tempfile.TemporaryDirectory() as tmp:
+        worlds = blocks.compile_worlds(cst, par, "cuda",
+                                       rearrange_blocks_like.world_xml_builder(tmp))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    snaps = {"model": rearrange_blocks_like.SNAPSHOT,
+             "solver_model": rearrange_blocks_like.SOLVER_SNAPSHOT}
+    check(sorted(worlds) == sorted(snaps), f"compile_worlds gave {sorted(worlds)}")
+    ruled = {k: hold_to_snapshot(f"compile_worlds {k}", worlds[k], path)
+             for k, path in snaps.items()}
+    print(f"[compile] the rearrange env's worlds by compile_worlds: {sorted(worlds)} in "
+          f"{secs:.2f} s; against the snapshots "
+          + ("every field equal" if not any(ruled.values()) else f"held by meaning: {ruled}"))
+    return worlds, secs
+
+
 def rearrange_reset(env, batch, label, built, draws_out=None):
     """The reset of a built rearrange env at `batch` envs from its seed
-    (group scan, placement, the 200-substep object settle, the first
+    (group scan, placement, the object settle of `stabilize_steps` env steps, the first
     goal): (state, seconds). Checks the state, the solver sim's and the
     observations finite. The reset's draws go into `draws_out` where
     given."""
@@ -3330,15 +3516,17 @@ def rearrange_actions(env, batch):
 
 def capture_ends(targets, run, last=1):
     """The arguments of the first and the `last` last calls of each
-    `module.<name>` of `targets` while `run()` runs (tensors cloned):
-    {name: (first, ..., last)}."""
+    `module.<name>` of `targets` while `run()` runs: {name: (first, ...,
+    last)}. The tensors are the calls' own, not copies, so that recording
+    adds nothing to a timed path: the kernels' wrappers write only tensors
+    they allocate, and no caller writes into an argument after its call
+    (the CPU tests hold this record to one of copies, bit for bit)."""
     store = {}
 
     def recorder(name, fn):
         def rec(*args):
-            c = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
-            calls = store.setdefault(name, [c] * (1 + last))
-            calls[1:] = calls[2:] + [c]
+            calls = store.setdefault(name, [args] * (1 + last))
+            calls[1:] = calls[2:] + [args]
             return fn(*args)
         return rec
 
@@ -3350,21 +3538,39 @@ def capture_ends(targets, run, last=1):
     return store
 
 
-def capture_rearrange(env, state, kernels=("hull_manifold", "hull_pair", "boxbox")):
-    """The kernels' inputs in one rearrange env step from `state`: the
-    solver sim's come first in a step (its fwd_position, then its
-    substeps), the main sim's last. Returns {"main" and "solver": (core
-    inputs, CG iterations, facets per contact), the main sim's last
-    substep's arguments of each of `kernels`, and under "<kernel>@first"
-    and "<kernel>@prev" the step's first call's (the solver's
-    fwd_position) and the last but one call's}."""
+def one_step(env, state):
+    """One env step of a rearrange env from `state`, the seeded first
+    actions (`rearrange_actions`): the step a path's first step takes."""
+    act = rearrange_actions(env, state.t.shape[0])()
+    return lambda: env.step(state, act)
+
+
+def captured(capture, run, store):
+    """`run` for `drive` that records its kernels' inputs: it returns
+    run()'s value and puts into store["cap"] what `capture(r)` records of
+    the run r (`capture_rearrange` or `capture_family_step` given `run=`).
+    The inputs a path's one step records are those of `one_step`."""
+    def go():
+        result = []
+        store["cap"] = capture(lambda: result.append(run()))
+        return result[0]
+    return go
+
+
+def capture_rearrange(env, state, kernels=("hull_manifold", "hull_pair", "boxbox"), run=None):
+    """The kernels' inputs in one rearrange env step from `state` (or in
+    `run`, a path's one step from it): the solver sim's come first in a
+    step (its fwd_position, then its substeps), the main sim's last.
+    Returns {"main" and "solver": (core inputs, CG iterations, facets per
+    contact), the main sim's last substep's arguments of each of
+    `kernels`, and under "<kernel>@first" and "<kernel>@prev" the step's
+    first call's (the solver's fwd_position) and the last but one call's}."""
     from robogym_torch.physics import constraint_batched
     from robogym_torch.physics.collision import boxbox_kernel, convex_kernel
 
-    act = rearrange_actions(env, state.t.shape[0])()
     calls = capture_ends([(constraint_batched, "fused_step_core")]
                          + [(boxbox_kernel if k == "boxbox" else convex_kernel, k)
-                            for k in kernels], lambda: env.step(state, act), last=2)
+                            for k in kernels], run or one_step(env, state), last=2)
     out = {name: calls[name][2] for name in kernels}
     out.update({name + "@first": calls[name][0] for name in kernels})
     out.update({name + "@prev": calls[name][1] for name in kernels})
@@ -3374,9 +3580,10 @@ def capture_rearrange(env, state, kernels=("hull_manifold", "hull_pair", "boxbox
     return out
 
 
-def capture_family_step(env, state):
+def capture_family_step(env, state, run=None):
     """The kernels' inputs in one env step of a rearrange family env from
-    `state`: the last `fused_step_core` and `boxbox` calls of the step (a
+    `state` (or in `run`, a path's one step from it): the last
+    `fused_step_core` and `boxbox` calls of the step (a
     blocks_train step's come from its goal settle, which runs last; a
     dominos step's from its main sim's last substep), as (core inputs, CG
     iterations, facets per contact) and the box-box arguments; and, where
@@ -3385,7 +3592,6 @@ def capture_family_step(env, state):
     from robogym_torch.physics import step as step_lib
     from robogym_torch.physics.collision import boxbox_kernel
 
-    act = rearrange_actions(env, state.t.shape[0])()
     settled, step_n = {}, step_lib.step_n
 
     def recorded(m, d, n):
@@ -3396,7 +3602,7 @@ def capture_family_step(env, state):
 
     with patched([((step_lib, "step_n"), recorded)]):
         calls = capture_ends([(constraint_batched, "fused_step_core"),
-                              (boxbox_kernel, "boxbox")], lambda: env.step(state, act))
+                              (boxbox_kernel, "boxbox")], run or one_step(env, state))
     kind_s, iterations, nfacet, *args = calls["fused_step_core"][1]
     return (constraint_batched.core_inputs(kind_s, nfacet, *args), iterations, nfacet,
             calls["boxbox"][1], settled.get("data"))
@@ -3639,13 +3845,14 @@ def ycb_stabilized_steps(env, state, out):
 def stabilized_copy(env):
     """The YCB env under `stabilize_goal` on the construction of `env` (the
     same worlds, bank and settled start: only the goal's arguments
-    differ)."""
+    differ), its goal settle `GOAL_SETTLE_SUBSTEPS` substeps
+    (`OLDER_STABILIZE_STEPS`)."""
     out = copy.copy(env)
     args = dataclasses.replace(env.goal_gen.args, stabilize_goal=True)
     out.goal_gen = copy.copy(env.goal_gen)
     out.goal_gen.args = args
     out.constants = dataclasses.replace(env.constants, goal_args=tuple(sorted(
-        dataclasses.asdict(args).items())))
+        dataclasses.asdict(args).items())), stabilize_steps=OLDER_STABILIZE_STEPS)
     out.goal_settles = out.goal_settle_envs = 0
     return out
 
@@ -3741,7 +3948,9 @@ def holdout_env_reset(batch):
     from robogym_torch.worlds import holdout_ball_like
 
     t0 = time.perf_counter()
-    env = env_utils.load_env(holdout_ball_like.CONFIG, device="cuda", seed=SEED)
+    env = env_utils.load_env(holdout_ball_like.CONFIG,
+                             constants={"stabilize_steps": OLDER_STABILIZE_STEPS},
+                             device="cuda", seed=SEED)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     state, obs = env.reset(batch)
@@ -3875,15 +4084,21 @@ def main() -> int:
     card = card_line()
     print(f"[device] {card} (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
-    # 2. build
+    # 2. build, and meanwhile on the host 3. compile: every stand-in world
+    # by the port's own compiler, each held to its committed snapshot, and
+    # the rearrange env's worlds
     t0 = time.perf_counter()
-    log = cuda.build()
-    print(f"[build] nvcc sm_90a, one process per source, {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        compiling = pool.submit(lambda: (compile_phase(), compiled_rearrange_worlds()))
+        log = cuda.build()
+        print(f"[build] nvcc sm_90a, one process per source, {time.perf_counter() - t0:.1f} s")
+        (cmodels, compile_s, compile_ruled), (rworlds, rworlds_s) = compiling.result()
     for line in log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling entry" in line) or "spill" in line:
             print("  " + line.strip())
+    print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: build and compile")
 
-    # 3. state
+    # 4. state
     B = BATCH
     world = worlds()
     state = {}
@@ -3897,24 +4112,48 @@ def main() -> int:
               f"{float(live.float().mean()):.2f}")
     for name in ("locked_like", "settle", "table", "dactyl"):
         check(bool(state[name].contact.active.any()), f"{name}: no live contact after settling")
-    env, env_state = locked_env_reset(B)
+    # every reset's seconds, since the one before it
+    t_lap = [time.perf_counter()]
+
+    def lap(label):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[state time] {label}: {now - t_lap[0]:.2f} s", flush=True)
+        t_lap[0] = now
+
+    env, env_state = locked_env_reset(B, cmodels["dactyl_locked_like"])
+    lap("locked env")
     wenv, wstate = wrapped_env_reset(env, B)
+    lap("wrapped env")
     fenv, fstate, f_read = rubik_env_reset(B)
+    lap("face env")
     wfenv, wfstate, wf_read = rubik_env_reset(B, bare=fenv)
+    lap("wrapped face env")
     uenv, ustate, u_read = rubik_env_reset(B, "full")
+    lap("full env")
     wuenv, wustate, wu_read = rubik_env_reset(B, "full", bare=uenv)
-    renv, rstate, r_build, r_reset = rearrange_env_reset(B)
+    lap("wrapped full env")
+    renv, rstate, r_build, r_reset = rearrange_env_reset(B, worlds=rworlds)
+    lap("rearrange env")
     jenv, jstate, j_build = reach_helper_reset(renv, rstate, REACH_HELPER_BATCH)
+    lap("reach helper")
     tenv, tstate, t_build, t_reset = rearrange_env_reset(B, "blocks_train", BLOCKS_TRAIN_CONFIG,
                                                          "blocks_train env")
     cuboid_spread = blocks_train_readings(tenv, tstate)
+    lap("blocks_train env")
     denv, dstate, d_build, d_reset = rearrange_env_reset(B, "dominos", DOMINOS_CONFIG,
                                                          "dominos env")
+    lap("dominos env")
     qenv, qstate, q_build, q_reset = reach_env_reset(B)
+    lap("reach env")
     qrenv, qchain, qrstate = randomized_reach_reset(qenv, B)
+    lap("randomized reach env")
     venv, vstate = vision_env_reset(B)
+    lap("dummy vision env")
     ienv, istate, i_read = real_image_env_reset(B)
+    lap("real-image env")
     xenv, xstate, x_read = rearrange_vision_reset(B)
+    lap("rearrange vision env")
     # the YCB env, built once; its own reset starts the ycb_env path, and a
     # copy under stabilize_goal (the same construction) resets for the
     # ycb_stabilized_env path, every env's first goal settled in the full
@@ -3927,7 +4166,9 @@ def main() -> int:
     ystate, y_reset = rearrange_reset(yenv, B, "YCB env", y_build)
     ysenv = stabilized_copy(yenv)
     y_read = ycb_readings(yenv, ystate, "ycb_env")
+    lap("YCB env")
     henv, hstate, h_build, h_reset = holdout_env_reset(B)
+    lap("holdout env")
     # the mesh-family envs, each built by its make_env and reset; the
     # composer's system in B or, above B's shared memory, in F
     fam = {}
@@ -3937,6 +4178,7 @@ def main() -> int:
             B, name, FAMILY_CONFIGS[name], f"{name} env", draws_out=draws)
         fam[name] = dict(env=env_k, state=state_k, build_s=built_k, reset_s=reset_k,
                          read=family_readings(name, env_k, state_k, draws))
+        lap(f"{name} env")
     cenv, cstate = fam["composer"]["env"], fam["composer"]["state"]
     n8 = {k: v[:8] for k, v in cstate.model_fields.items()}
     efc = constraint.make_efc(core.apply_model_fields(cenv.model, n8),
@@ -3950,7 +4192,7 @@ def main() -> int:
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: build and state")
 
-    # 4. one phase per kernel, on inputs captured from one substep or call
+    # 5. one phase per kernel, on inputs captured from one substep or call
     # of a path; B and A also at the settle and hand worlds' shapes
     m, d = world["locked_like"][0], state["locked_like"]
     ci, iterations, nfacet = capture_core(m, d)
@@ -4075,81 +4317,6 @@ def main() -> int:
         res[name + "@reach"] = phase_hull(name, hargs, hDX, REPS,
                                           f"{HULL_LETTER[name]} {name}@reach")
     effort = effort_check(qenv, qstate)
-    # the rearrange env's kernels on the inputs of one env step from its
-    # reset state: A at the main sim's and the solver sim's V, B on the
-    # solver sim's system (its weld, connect and joint rows) and on the main
-    # sim's, C, D and E on the main sim's last substep
-    rcap = capture_rearrange(renv, rstate)
-    for at, model in (("rearrange", renv.model), ("solver", renv.solver_model)):
-        ci_r, its_r, nfacet_r = rcap["main" if at == "rearrange" else "solver"]
-        V_r, E_r = ci_r["qM"].shape[-1], len(ci_r["kind"])
-        eq = int((np.asarray(ci_r["kind"]) == constraint.EQ).sum())
-        print(f"[{at}] kernel B's system: E={E_r} rows ({eq} equality rows), V={V_r}; "
-              f"{'kernel B' if cg_kernel.fits(E_r, V_r, True) else 'the size route (F)'} takes it")
-        check(V_r == model.const.nv, f"{at}: V={V_r}, want {model.const.nv}")
-        check(cg_kernel.fits(E_r, V_r, True),
-              f"{at}: E={E_r}, V={V_r} above kernel B's shared memory, and PER_CALL counts B")
-        check(eq == {"rearrange": 7, "solver": 13}[at], f"{at}: {eq} equality rows")
-        res["spd_inverse@" + at] = phase_spd("A spd_inverse@" + at, ci_r["qM"], REPS)
-        res["cg_full@" + at] = phase_cg_full("B cg_full@" + at, ci_r, its_r, nfacet_r, REPS)
-    for name in ("hull_manifold", "hull_pair"):
-        *hargs, hDX = rcap[name]
-        res[name + "@rearrange"] = phase_hull(name, hargs, hDX, REPS,
-                                              f"{HULL_LETTER[name]} {name}@rearrange")
-    res["boxbox@rearrange"] = phase_boxbox(rcap["boxbox"], REPS, "E boxbox@rearrange")
-    # the solver sim's C and D: its fwd_position's calls, the first of a step
-    for name in ("hull_manifold", "hull_pair"):
-        *hargs, hDX = rcap[name + "@first"]
-        print(f"[solver] {name}: K={hargs[0].shape[1]}, V1={hargs[0].shape[-1]}, "
-              f"V2={hargs[3].shape[-1]}, DX={hDX}")
-        res[name + "@solver"] = phase_hull(name, hargs, hDX, REPS,
-                                           f"{HULL_LETTER[name]} {name}@solver")
-    # the YCB env's and the holdout's kernels on the inputs of the main
-    # sim's last substep of one env step from their reset states: A and B
-    # at their V, C on the YCB env's mesh-mesh group (each env's own hulls:
-    # its verts differ across envs) and on the holdout's box-mesh group, D
-    # on the fingers (the YCB env swaps no link's hull: the same in every
-    # env) and on the holdout's platform against the links
-    for at, env_k, state_k in (("ycb", yenv, ystate), ("holdout", henv, hstate)):
-        cap = capture_rearrange(env_k, state_k, ("hull_manifold", "hull_pair"))
-        ci_k, its_k, nfacet_k = cap["main"]
-        V_k, E_k = ci_k["qM"].shape[-1], len(ci_k["kind"])
-        print(f"[{at}] kernel B's system: E={E_k} rows, V={V_k}; "
-              f"{'kernel B' if cg_kernel.fits(E_k, V_k, True) else 'the size route (F)'} takes it")
-        check(V_k == env_k.model.const.nv, f"{at}: V={V_k}, want {env_k.model.const.nv}")
-        check(cg_kernel.fits(E_k, V_k, True),
-              f"{at}: E={E_k}, V={V_k} above kernel B's shared memory, and PER_CALL counts B")
-        res["spd_inverse@" + at] = phase_spd("A spd_inverse@" + at, ci_k["qM"], REPS)
-        res["cg_full@" + at] = phase_cg_full("B cg_full@" + at, ci_k, its_k, nfacet_k, REPS)
-        for name in ("hull_manifold", "hull_pair"):
-            *hargs, hDX = cap[name]
-            per_env = [bool((v != v[:1]).any()) for v in (hargs[0], hargs[3])]
-            print(f"[{at}] {name}: K={hargs[0].shape[1]}, V1={hargs[0].shape[-1]}, "
-                  f"V2={hargs[3].shape[-1]}, DX={hDX}; local verts differ across envs "
-                  f"(side 1, side 2): {per_env}")
-            if at == "ycb" and name == "hull_manifold":
-                check(all(per_env) and hargs[0].shape[-1] == 64,
-                      "ycb: the mesh-mesh hull_manifold call's verts are not each env's own")
-            res[f"{name}@{at}"] = phase_hull(name, hargs, hDX, REPS,
-                                             f"{HULL_LETTER[name]} {name}@{at}")
-        if at == "ycb":
-            res["hull_manifold@ycb-box"] = phase_box_mesh(at, cap)
-    # blocks_train's goal settle (the objects-only settle world, nv=48) on the
-    # inputs of its last substep in one env step from the reset state; the
-    # dominos world's box-box pairs on its main sim's last substep
-    ci_t, its_t, nfacet_t, bb_t, settle_d = capture_family_step(tenv, tstate)
-    V_t, E_t = ci_t["qM"].shape[-1], len(ci_t["kind"])
-    print(f"[settle8] kernel B's system: E={E_t} rows, V={V_t}; "
-          f"{'kernel B' if cg_kernel.fits(E_t, V_t, True) else 'the size route (F)'} takes it")
-    check(V_t == tenv._settle_model.const.nv == 48, f"settle8: V={V_t}, want 48")
-    check(cg_kernel.fits(E_t, V_t, True),
-          f"settle8: E={E_t}, V={V_t} above kernel B's shared memory, and PER_CALL counts B")
-    budget = settle_budget_reading(tenv, settle_d)
-    res["spd_inverse@settle8"] = phase_spd("A spd_inverse@settle8", ci_t["qM"], REPS)
-    res["cg_full@settle8"] = phase_cg_full("B cg_full@settle8", ci_t, its_t, nfacet_t, REPS)
-    res["boxbox@settle8"] = phase_boxbox(bb_t, REPS, "E boxbox@settle8")
-    res["boxbox@dominos"] = phase_boxbox(capture_family_step(denv, dstate)[3], REPS,
-                                         "E boxbox@dominos")
     generators = goal_generator_checks(tenv, tstate, denv, B)
     # the size route: a system above kernel B's shared memory, through F,
     # and A at its V=96
@@ -4167,7 +4334,7 @@ def main() -> int:
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: kernel phases")
 
-    # 5. paths
+    # 6. paths
     paths = {}
 
     def record(name, wall, counts, batch=B, **extra):
@@ -4257,7 +4424,9 @@ def main() -> int:
            env_steps_per_s=sps, reward_sum=env_out["reward_sum"], done=env_out["done"],
            on_palm=env_out["on_palm"])
     print(f"[path locked_env] {ENV_STEPS} LockedEnv.step calls x {SUBSTEPS} substeps at B={B} on "
-          f"the dactyl-shaped world: {wall:.3f} s, {sps:.1f} env-steps/s; reward sum "
+          f"the port's compile of the dactyl-shaped world: {wall:.3f} s, {sps:.1f} env-steps/s "
+          f"(the world equal to its snapshot bit for bit; on the snapshot in an earlier run, on "
+          f"another host, {SNAPSHOT_RATES['locked_env']}); reward sum "
           f"{env_out['reward_sum']} (env, goal distance, success), episodes done "
           f"{env_out['done']}, on the palm {env_out['on_palm']:.4f}; launches {counts}")
     wrapped_out = {}
@@ -4300,37 +4469,50 @@ def main() -> int:
               f"{paths[bare]['env_steps_per_s']:.1f} in this run); launches {counts}")
     paths["full_env"]["solver_hop"] = hop
     paths["full_env"]["route"] = route_u
-    rearr_out = {}
-    out, wall, counts = drive("rearrange_env",
-                              lambda: rearrange_env_steps(renv, rstate, rearr_out,
-                                                          REARRANGE_STEPS),
-                              REARRANGE_STEPS)
+    # the paths of one step whose kernels' inputs the kernel phases below
+    # take (`captured`: as `one_step` from the reset state, no second step)
+    caps = {}
+    rearr_out, store = {}, {}
+    out, wall, counts = drive("rearrange_env", captured(
+        lambda run: capture_rearrange(renv, rstate, run=run),
+        lambda: rearrange_env_steps(renv, rstate, rearr_out, REARRANGE_STEPS), store),
+        REARRANGE_STEPS)
+    caps["rearrange_env"] = store["cap"]
     rsps = B * REARRANGE_STEPS / wall
     record("rearrange_env", wall, counts, env_steps=REARRANGE_STEPS,
            substeps=renv.constants.mujoco_substeps, env_steps_per_s=rsps, build_s=r_build,
-           reset_s=r_reset, reward_sum=rearr_out["reward_sum"], done=rearr_out["done"],
+           reset_s=r_reset, compile_s=rworlds_s, reward_sum=rearr_out["reward_sum"],
+           done=rearr_out["done"],
            off_table=rearr_out["off_table"], table_contact=rearr_out["table_contact"])
     print(f"[path rearrange_env] {REARRANGE_STEPS} BlocksRearrangeEnv.step calls at B={B} (each "
           f"{renv.constants.mujoco_substeps} main substeps, one solver fwd_position and "
-          f"{renv.constants.mujoco_substeps} solver substeps): {wall:.3f} s, {rsps:.1f} "
-          f"env-steps/s (built in {r_build:.2f} s, reset in {r_reset:.2f} s); reward sum "
+          f"{renv.constants.mujoco_substeps} solver substeps) on the worlds compile_worlds "
+          f"compiled, each equal to its snapshot bit for bit: {wall:.3f} s, {rsps:.1f} "
+          f"env-steps/s (on the snapshots in an earlier run, on another host, "
+          f"{SNAPSHOT_RATES['rearrange_env']}; built in {r_build:.2f} s, reset in {r_reset:.2f} "
+          f"s); reward sum "
           f"{rearr_out['reward_sum']} (env, goal distance, success), episodes done "
           f"{rearr_out['done']}, env-steps with a block off the table {rearr_out['off_table']}, "
           f"gripper-table contact in {rearr_out['table_contact']:.4f} of envs a step; obs and "
           f"rewards finite; launches {counts} ({PER_CALL['rearrange_env']} an env step)")
     for name, env_, state_, steps, built, reset_s, extra in (
             ("blocks_train_env", tenv, tstate, BLOCKS_TRAIN_STEPS, t_build, t_reset,
-             dict(cuboid_spread=cuboid_spread, settle_budget=budget, goal_generators=generators)),
+             dict(cuboid_spread=cuboid_spread, goal_generators=generators)),
             ("dominos_env", denv, dstate, DOMINOS_STEPS, d_build, d_reset, {})):
-        fam_out = {}
-        out, wall, counts = drive(name, lambda: rearrange_env_steps(env_, state_, fam_out, steps,
-                                                                    name), steps)
+        fam_out, store = {}, {}
+        out, wall, counts = drive(name, captured(
+            lambda run: capture_family_step(env_, state_, run=run),
+            lambda: rearrange_env_steps(env_, state_, fam_out, steps, name), store), steps)
+        caps[name] = store["cap"]
+        if name == "blocks_train_env":
+            extra = dict(extra, settle_budget=settle_budget_reading(env_, store["cap"][4]))
         fsps = B * steps / wall
         record(name, wall, counts, env_steps=steps, substeps=env_.constants.mujoco_substeps,
                env_steps_per_s=fsps, build_s=built, reset_s=reset_s,
                reward_sum=fam_out["reward_sum"], done=fam_out["done"],
                off_table=fam_out["off_table"], table_contact=fam_out["table_contact"], **extra)
-        settle = (f", {SETTLE_SUBSTEPS} goal-settle substeps for every env"
+        settle = (f", {env_.constants.stabilize_steps * env_.constants.mujoco_substeps} "
+                  f"goal-settle substeps for every env"
                   if env_._settle_model is not None else "")
         print(f"[path {name}] {steps} {type(env_).__name__}.step calls at B={B} (each "
               f"{env_.constants.mujoco_substeps} main substeps, one solver fwd_position and "
@@ -4399,12 +4581,15 @@ def main() -> int:
     record("rearrange_vision_env", wall, counts, **vision_path_line(
         "rearrange_vision_env", wall, x_out, REARRANGE_VISION_STEPS, B, x_read,
         reward_sum=x_out["reward_sum"], done=x_out["done"], off_table=x_out["off_table"]))
-    ycb_out, ycb_live = {}, []
+    ycb_out, ycb_live, store = {}, [], {}
     ygroups = mesh_groups(yenv.model)
-    out, wall, counts = drive("ycb_env", lambda: rearrange_env_steps(
-        yenv, ystate, ycb_out, YCB_STEPS, "ycb_env",
-        per_step=lambda st: ycb_live.append(live_pairs(yenv.model, st.physics, ygroups))),
-        YCB_STEPS)
+    out, wall, counts = drive("ycb_env", captured(
+        lambda run: capture_rearrange(yenv, ystate, ("hull_manifold", "hull_pair"), run),
+        lambda: rearrange_env_steps(
+            yenv, ystate, ycb_out, YCB_STEPS, "ycb_env",
+            per_step=lambda st: ycb_live.append(live_pairs(yenv.model, st.physics, ygroups))),
+        store), YCB_STEPS)
+    caps["ycb_env"] = store["cap"]
     ysps = B * YCB_STEPS / wall
     live_y = {f"{k[0]} {k[1]}-{k[2]}": [int(step[k]) for step in ycb_live] for k in ygroups}
     record("ycb_env", wall, counts, env_steps=YCB_STEPS, substeps=yenv.constants.mujoco_substeps,
@@ -4427,15 +4612,19 @@ def main() -> int:
            settled_envs=ys_out["settled_envs"])
     print(f"[path ycb_stabilized_env] one step at B={B} under stabilize_goal from the YCB env's "
           f"reset state (its construction copied): {wall:.3f} s; the goal settle "
-          f"({SETTLE_SUBSTEPS} main substeps) on exactly the {ys_out['settled_envs']} resampling "
+          f"({GOAL_SETTLE_SUBSTEPS} main substeps) on exactly the {ys_out['settled_envs']} "
+          f"resampling "
           f"envs in {ys_out['settle_s']:.3f} s; the others' goals kept; launches {counts} "
           f"({PER_CALL['ycb_stabilized_env']} a step with one settle)")
-    hold_out, hold_live = {}, []
+    hold_out, hold_live, store = {}, [], {}
     hgroups = round_groups(henv.model)
-    out, wall, counts = drive("holdout_env", lambda: rearrange_env_steps(
-        henv, hstate, hold_out, HOLDOUT_STEPS, "holdout_env",
-        per_step=lambda st: hold_live.append(live_pairs(henv.model, st.physics, hgroups))),
-        HOLDOUT_STEPS)
+    out, wall, counts = drive("holdout_env", captured(
+        lambda run: capture_rearrange(henv, hstate, ("hull_manifold", "hull_pair"), run),
+        lambda: rearrange_env_steps(
+            henv, hstate, hold_out, HOLDOUT_STEPS, "holdout_env",
+            per_step=lambda st: hold_live.append(live_pairs(henv.model, st.physics, hgroups))),
+        store), HOLDOUT_STEPS)
+    caps["holdout_env"] = store["cap"]
     hsps = B * HOLDOUT_STEPS / wall
     live_h = {f"{k[0]} {k[1]}-{k[2]}": [int(step[k]) for step in hold_live] for k in hgroups}
     record("holdout_env", wall, counts, env_steps=HOLDOUT_STEPS,
@@ -4453,9 +4642,13 @@ def main() -> int:
           f"holdout_env: a round-geom group had no live pair over the steps {live_h}")
     for name in FAMILY:
         f = fam[name]
-        env_k, out_k, live_k = f["env"], {}, []
-        out, wall, counts = drive(name + "_env", lambda e=env_k, st=f["state"], o=out_k, lv=live_k,
-                                  n=name: family_path(n, e, st, o, lv), FAMILY_STEPS)
+        env_k, out_k, live_k, store = f["env"], {}, [], {}
+        out, wall, counts = drive(name + "_env", captured(
+            lambda run, e=env_k, st=f["state"]: capture_rearrange(
+                e, st, ("hull_manifold", "hull_pair"), run),
+            lambda e=env_k, st=f["state"], o=out_k, lv=live_k, n=name: family_path(n, e, st, o, lv),
+            store), FAMILY_STEPS)
+        caps[name + "_env"] = store["cap"]
         fsps = B * FAMILY_STEPS / wall
         live = {k: [int(v[k]) for v in live_k] for k in live_k[0]}
         record(name + "_env", wall, counts, env_steps=FAMILY_STEPS,
@@ -4479,14 +4672,87 @@ def main() -> int:
         check(out_k["off_table"] == 0, f"{name}_env: an object off the table")
         f.update(out=out_k)
 
+    # the rearrange env's kernels on the inputs of the rearrange_env path's step
+    # from its reset state: A at the main sim's and the solver sim's V, B on the
+    # solver sim's system (its weld, connect and joint rows) and on the main
+    # sim's, C, D and E on the main sim's last substep
+    rcap = caps["rearrange_env"]
+    for at, model in (("rearrange", renv.model), ("solver", renv.solver_model)):
+        ci_r, its_r, nfacet_r = rcap["main" if at == "rearrange" else "solver"]
+        V_r, E_r = ci_r["qM"].shape[-1], len(ci_r["kind"])
+        eq = int((np.asarray(ci_r["kind"]) == constraint.EQ).sum())
+        print(f"[{at}] kernel B's system: E={E_r} rows ({eq} equality rows), V={V_r}; "
+              f"{'kernel B' if cg_kernel.fits(E_r, V_r, True) else 'the size route (F)'} takes it")
+        check(V_r == model.const.nv, f"{at}: V={V_r}, want {model.const.nv}")
+        check(cg_kernel.fits(E_r, V_r, True),
+              f"{at}: E={E_r}, V={V_r} above kernel B's shared memory, and PER_CALL counts B")
+        check(eq == {"rearrange": 7, "solver": 13}[at], f"{at}: {eq} equality rows")
+        res["spd_inverse@" + at] = phase_spd("A spd_inverse@" + at, ci_r["qM"], REPS)
+        res["cg_full@" + at] = phase_cg_full("B cg_full@" + at, ci_r, its_r, nfacet_r, REPS)
+    for name in ("hull_manifold", "hull_pair"):
+        *hargs, hDX = rcap[name]
+        res[name + "@rearrange"] = phase_hull(name, hargs, hDX, REPS,
+                                              f"{HULL_LETTER[name]} {name}@rearrange")
+    res["boxbox@rearrange"] = phase_boxbox(rcap["boxbox"], REPS, "E boxbox@rearrange")
+    # the solver sim's C and D: its fwd_position's calls, the first of a step
+    for name in ("hull_manifold", "hull_pair"):
+        *hargs, hDX = rcap[name + "@first"]
+        print(f"[solver] {name}: K={hargs[0].shape[1]}, V1={hargs[0].shape[-1]}, "
+              f"V2={hargs[3].shape[-1]}, DX={hDX}")
+        res[name + "@solver"] = phase_hull(name, hargs, hDX, REPS,
+                                           f"{HULL_LETTER[name]} {name}@solver")
+    # the YCB env's and the holdout's kernels on the inputs of the main
+    # sim's last substep of their paths' step from their reset states: A and B
+    # at their V, C on the YCB env's mesh-mesh group (each env's own hulls:
+    # its verts differ across envs) and on the holdout's box-mesh group, D
+    # on the fingers (the YCB env swaps no link's hull: the same in every
+    # env) and on the holdout's platform against the links
+    for at, env_k in (("ycb", yenv), ("holdout", henv)):
+        cap = caps[at + "_env"]
+        ci_k, its_k, nfacet_k = cap["main"]
+        V_k, E_k = ci_k["qM"].shape[-1], len(ci_k["kind"])
+        print(f"[{at}] kernel B's system: E={E_k} rows, V={V_k}; "
+              f"{'kernel B' if cg_kernel.fits(E_k, V_k, True) else 'the size route (F)'} takes it")
+        check(V_k == env_k.model.const.nv, f"{at}: V={V_k}, want {env_k.model.const.nv}")
+        check(cg_kernel.fits(E_k, V_k, True),
+              f"{at}: E={E_k}, V={V_k} above kernel B's shared memory, and PER_CALL counts B")
+        res["spd_inverse@" + at] = phase_spd("A spd_inverse@" + at, ci_k["qM"], REPS)
+        res["cg_full@" + at] = phase_cg_full("B cg_full@" + at, ci_k, its_k, nfacet_k, REPS)
+        for name in ("hull_manifold", "hull_pair"):
+            *hargs, hDX = cap[name]
+            per_env = [bool((v != v[:1]).any()) for v in (hargs[0], hargs[3])]
+            print(f"[{at}] {name}: K={hargs[0].shape[1]}, V1={hargs[0].shape[-1]}, "
+                  f"V2={hargs[3].shape[-1]}, DX={hDX}; local verts differ across envs "
+                  f"(side 1, side 2): {per_env}")
+            if at == "ycb" and name == "hull_manifold":
+                check(all(per_env) and hargs[0].shape[-1] == 64,
+                      "ycb: the mesh-mesh hull_manifold call's verts are not each env's own")
+            res[f"{name}@{at}"] = phase_hull(name, hargs, hDX, REPS,
+                                             f"{HULL_LETTER[name]} {name}@{at}")
+        if at == "ycb":
+            res["hull_manifold@ycb-box"] = phase_box_mesh(at, cap)
+    # blocks_train's goal settle (the objects-only settle world, nv=48) on the
+    # inputs of its last substep in its path's step from the reset state; the
+    # dominos world's box-box pairs on its main sim's last substep
+    ci_t, its_t, nfacet_t, bb_t, _ = caps["blocks_train_env"]
+    V_t, E_t = ci_t["qM"].shape[-1], len(ci_t["kind"])
+    print(f"[settle8] kernel B's system: E={E_t} rows, V={V_t}; "
+          f"{'kernel B' if cg_kernel.fits(E_t, V_t, True) else 'the size route (F)'} takes it")
+    check(V_t == tenv._settle_model.const.nv == 48, f"settle8: V={V_t}, want 48")
+    check(cg_kernel.fits(E_t, V_t, True),
+          f"settle8: E={E_t}, V={V_t} above kernel B's shared memory, and PER_CALL counts B")
+    res["spd_inverse@settle8"] = phase_spd("A spd_inverse@settle8", ci_t["qM"], REPS)
+    res["cg_full@settle8"] = phase_cg_full("B cg_full@settle8", ci_t, its_t, nfacet_t, REPS)
+    res["boxbox@settle8"] = phase_boxbox(bb_t, REPS, "E boxbox@settle8")
+    res["boxbox@dominos"] = phase_boxbox(caps["dominos_env"][3], REPS, "E boxbox@dominos")
     # the mesh-family worlds' kernels on the inputs of the main sim's last
-    # substep of one env step from their reset states (as the YCB env's):
+    # substep of their paths' step from their reset states (as the YCB env's):
     # A and B at their V and E, C on the mesh-mesh group of free bodies
     # (each env's own hulls; the composer's sub-geoms at each env's own
     # offsets)
     for name in FAMILY:
         at, env_k = FAMILY_AT[name], fam[name]["env"]
-        cap = capture_rearrange(env_k, fam[name]["state"], ("hull_manifold", "hull_pair"))
+        cap = caps[name + "_env"]
         ci_k, its_k, nfacet_k = cap["main"]
         V_k, E_k = ci_k["qM"].shape[-1], len(ci_k["kind"])
         fits_k = cg_kernel.fits(E_k, V_k, True)
@@ -4523,7 +4789,7 @@ def main() -> int:
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: paths")
 
-    # 6. whole-step agreement at B=64: one substep through the kernels
+    # 7. whole-step agreement at B=64: one substep through the kernels
     # against one through the plain versions; qpos to 1e-4 abs, qvel to
     # 1e-3 of its largest value (the CG's float32 noise, phase B)
     for name, (mw, arrays, kw) in world.items():
@@ -4562,7 +4828,7 @@ def main() -> int:
     if opts.profile:
         profile_substeps(m, dm, opts.profile)
 
-    # 7. summary
+    # 8. summary
     kernels = []
     for entry, r in res.items():
         k = KERNELS[entry.partition("@")[0]]
@@ -4572,7 +4838,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"paths": paths, "card": card}))
+    print(json.dumps({"paths": paths, "compile": {"seconds": compile_s, "held_by_meaning":
+                                                  compile_ruled}, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

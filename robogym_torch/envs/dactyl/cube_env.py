@@ -7,9 +7,12 @@ Counterpart of `robogym_tpu/envs/dactyl/cube_env.py`. Every random
 function comes as a draw (from the env's `torch.Generator`: standard
 normal or uniform [0, 1) variates, and integers) and an apply that takes
 the draws, so that a caller can feed the draws of another generator. The
-env takes a compiled Model (a world snapshot through
-`robogym_torch.bridge.model_from_numpy`); composing the world's XML needs
-the assets and the compiler, which the port does not have.
+env takes a compiled Model: a world snapshot through
+`robogym_torch.bridge.model_from_numpy`, or the port's own compile of a
+world's XML (`robogym_torch.mjcf.compiler.compile_xml`;
+`robogym_torch.worlds.compile` for the stand-ins). Composing the real
+dactyl world's XML (`build_cube_world_xml`) needs robogym's assets, which
+this repository does not carry.
 """
 
 from __future__ import annotations

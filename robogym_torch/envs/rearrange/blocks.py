@@ -52,6 +52,7 @@ from robogym_torch.envs import core
 from robogym_torch.envs.rearrange import goals as goals_lib
 from robogym_torch.envs.rearrange import materials as materials_lib
 from robogym_torch.envs.rearrange import simulation as sim_lib
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Data, GeomType, Model, make_data
 from robogym_torch.observation import vision as vision_lib
 from robogym_torch.physics import step as physics
@@ -237,6 +238,19 @@ class BlocksRearrangeEnv:
                 relative_action=True))
         d0 = physics.step_n(self.model, d0, 5 * constants.mujoco_substeps)
         self._initial_data = d0.replace(time=torch.zeros_like(d0.time))
+
+    @staticmethod
+    def _compile_world(constants: "RearrangeEnvConstants", parameters: "RearrangeEnvParameters",
+                       device, build_world_xml=sim_lib.build_blocks_world_xml) -> Model:
+        """The blocks env's main world (blocks.py `_compile_world`):
+        `max_num_objects` blocks of half-size `object_size` on the world of
+        `build_world_xml`, with the contact budgets of that many objects
+        (`compile_worlds` calls it as the env class's)."""
+        sp = parameters.simulation_params
+        model, _ = sim_lib.compile_blocks_world(
+            sp.max_num_objects, sp.object_size, parameters.robot_control_params,
+            constants.mujoco_timestep, device=device, build_world_xml=build_world_xml)
+        return sim_lib.scale_contact_budgets(model, sp.max_num_objects)
 
     @property
     def block_half_size(self) -> np.ndarray:
@@ -769,6 +783,42 @@ def load_worlds(constants: RearrangeEnvConstants, parameters: RearrangeEnvParame
     return out
 
 
+def _object_geoms(model: Model) -> np.ndarray:
+    """The geom ids of the object slots `object0`, `object1`, ... ."""
+    names, out = model.const.names["geom"], []
+    while f"object{len(out)}" in names:
+        out.append(names[f"object{len(out)}"])
+    return np.asarray(out, np.int64)
+
+
+def compile_worlds(constants: RearrangeEnvConstants, parameters: RearrangeEnvParameters, device,
+                   build_world_xml=sim_lib.build_blocks_world_xml,
+                   env_class: type = BlocksRearrangeEnv, **world_args) -> Dict[str, Model]:
+    """The compiled worlds an env takes, compiled on the host as the JAX
+    env compiles them at its construction, each on `device`: the main
+    world by `env_class._compile_world` (the blocks env's, or the dominos,
+    mesh, composer or holdout env's, with `world_args`: the mesh envs'
+    `mesh_files`, the holdout's `task_object_configs` and
+    `scene_object_configs`), the solver world (`compile_solver_world`) where the control
+    needs the mocap_ik dual sim, and under `stabilize_goal`, where the
+    objects are not meshes, the objects-only settle world of the main
+    world's XML (blocks.py:216-226). Every world's XML comes from
+    `build_world_xml` (`simulation.build_blocks_world_xml`'s signature; by
+    default robogym's assets)."""
+    out = {"model": env_class._compile_world(constants, parameters, device, build_world_xml,
+                                             **world_args)}
+    rcp = parameters.robot_control_params
+    if rcp.requires_solver_sim():
+        out["solver_model"] = sim_lib.compile_solver_world(
+            rcp, constants.mujoco_timestep, device=device, build_world_xml=build_world_xml)
+    model = out["model"]
+    meshes = model.const.geom_type[_object_geoms(model)] == GeomType.MESH
+    if goals_lib.GoalArgs(**dict(constants.goal_args)).stabilize_goal and not meshes.any():
+        out["settle_model"] = compile_xml(sim_lib.build_settle_world_xml(model.const._source_xml),
+                                          device=device)
+    return out
+
+
 def make_env(constants: Optional[dict] = None, parameters: Optional[dict] = None,
              device="cuda", seed: int = 0, worlds: Optional[Dict[str, Model]] = None
              ) -> BlocksRearrangeEnv:
@@ -777,6 +827,6 @@ def make_env(constants: Optional[dict] = None, parameters: Optional[dict] = None
     its draws seeded by `seed`; on the compiled `worlds` ({"model",
     "solver_model", "settle_model"}, each where the env needs it; by
     default `load_worlds`' snapshots, whose main world has 8 object slots
-    of half-size 0.0254)."""
+    of half-size 0.0254; `compile_worlds` compiles them)."""
     cst, par = configs(constants, parameters)
     return BlocksRearrangeEnv(cst, par, seed=seed, **(worlds or load_worlds(cst, par, device)))

@@ -23,6 +23,7 @@ colour its slot's.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -30,7 +31,11 @@ import torch
 
 from robogym_torch.envs.rearrange import blocks as blocks_lib
 from robogym_torch.envs.rearrange import mesh as mesh_lib
+from robogym_torch.envs.rearrange import simulation as sim_lib
+from robogym_torch.mjcf import xml_tools
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Model
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.worlds import rearrange_mesh_family_like, rearrange_ycb_like
 
 
@@ -56,6 +61,44 @@ def _tiny_row(bank: mesh_lib.MeshObjectBank) -> Dict[str, np.ndarray]:
 class ComposerRearrangeEnv(mesh_lib.MeshRearrangeEnv):
     """Composed objects (module docstring); `tiny_idx` is the placeholder's
     bank row, after the C real candidates."""
+
+    @staticmethod
+    def _compile_world(constants: "ComposerEnvConstants", parameters, device,
+                       build_world_xml=sim_lib.build_blocks_world_xml,
+                       mesh_files: Optional[Dict[str, List[str]]] = None) -> Model:
+        """The composer's main world (composer.py `_compile_world`): the world
+        with no blocks plus `max_num_objects` slots of `max_geoms_per_object`
+        mesh sub-geoms each (`object{i}`, `object{i}:g{k}`), every sub-geom the
+        first STL of the first candidate by name in `mesh_files`, with the
+        contact budgets of the slots and their extra sub-geoms; for
+        `blocks.compile_worlds`."""
+        sp = parameters.simulation_params
+        first = sorted(mesh_files)[0]
+        rel = os.path.relpath(mesh_files[first][0],
+                              os.path.join(xml_tools.assets_dir(mesh_files[first][0]), "stls"))
+        K = constants.max_geoms_per_object
+        xml = build_world_xml(0, robot_control_params=parameters.robot_control_params,
+                              mujoco_timestep=constants.mujoco_timestep)
+        for i in range(sp.max_num_objects):
+            geoms = "\n".join(
+                f'<geom name="object{i}{"" if k == 0 else f":g{k}"}" type="mesh" '
+                f'mesh="object{i}:mesh{k}" rgba="0.8 0.4 0.1 1.0" density="1000"/>'
+                for k in range(K))
+            assets = "\n".join(f'<mesh name="object{i}:mesh{k}" file="{rel}"/>' for k in range(K))
+            xml.append(MjcfXML.from_string(f"""
+            <mujoco>
+              <asset>{assets}</asset>
+              <worldbody>
+                <body name="object{i}" pos="0.0 0.0 0.0">
+                  {geoms}
+                  <joint name="object{i}:joint" type="free"/>
+                </body>
+              </worldbody>
+            </mujoco>
+            """))
+        model = compile_xml(xml, device=device)
+        return sim_lib.scale_contact_budgets(model, sp.max_num_objects,
+                                             sp.max_num_objects * (K - 1))
 
     def __init__(self, constants: ComposerEnvConstants,
                  parameters: blocks_lib.RearrangeEnvParameters, model: Model,

@@ -13,6 +13,8 @@ import numpy as np
 
 from robogym_torch.envs.rearrange import blocks as blocks_lib
 from robogym_torch.envs.rearrange import goals as goals_lib
+from robogym_torch.envs.rearrange import simulation as sim_lib
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Model
 from robogym_torch.worlds import rearrange_blocks_like
 
@@ -28,6 +30,22 @@ class DominosRearrangeEnv(blocks_lib.BlocksRearrangeEnv):
     def block_half_size(self) -> np.ndarray:
         return self.parameters.simulation_params.object_size * \
             rearrange_blocks_like.DOMINO_PROPORTIONS
+
+    @staticmethod
+    def _compile_world(constants, parameters, device,
+                       build_world_xml=sim_lib.build_blocks_world_xml) -> Model:
+        """The dominos env's main world (dominos.py `_compile_world`): the
+        world with no blocks plus `max_num_objects` blocks of half-size
+        `object_size * DOMINO_PROPORTIONS`, with that many objects' contact
+        budgets."""
+        sp = parameters.simulation_params
+        xml = build_world_xml(0, robot_control_params=parameters.robot_control_params,
+                              mujoco_timestep=constants.mujoco_timestep)
+        for i in range(sp.max_num_objects):
+            xml.append(sim_lib.make_block_xml(
+                f"object{i}", sp.object_size * rearrange_blocks_like.DOMINO_PROPORTIONS))
+        model = compile_xml(xml, device=device)
+        return sim_lib.scale_contact_budgets(model, sp.max_num_objects)
 
 
 def make_env(constants: Optional[dict] = None, parameters: Optional[dict] = None,

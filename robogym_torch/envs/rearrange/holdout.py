@@ -7,19 +7,21 @@ Counterpart of `robogym_tpu/envs/rearrange/holdout.py`. A holdout config
 (`task_object_configs`, each an object XML expanded `count` times into the
 object slots), its fixed scene objects (`scene_object_configs`), the saved
 initial state (`initial_state_path`: `obj_pos` (O, 3), `obj_quat` (O, 4))
-and the saved goal states (`goal_args.goal_state_paths`). The port compiles
-no XML: the env runs on a world compiled from that config (`worlds=`, by
-default the stand-in `worlds/holdout_ball_like`), whose object slots and
-scene bodies must be the config's. Each reset places and settles the
+and the saved goal states (`goal_args.goal_state_paths`). The env runs on a
+world compiled from that config (`worlds=`, by default the snapshot of the
+stand-in `worlds/holdout_ball_like`), whose object slots and scene bodies
+must be the config's. Each reset places and settles the
 objects as the blocks env does, then teleports them to the saved initial
 state, positions the model and draws a goal from the saved goal states
-(`HoldoutObjectStateGoal`).
+(`HoldoutObjectStateGoal`). `_compile_world` (with `blocks.compile_worlds`)
+compiles such a world from the config's object XMLs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import xml.etree.ElementTree as et
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,9 +30,15 @@ import torch
 from robogym_torch.envs.rearrange import blocks as blocks_lib
 from robogym_torch.envs.rearrange import goals as goals_lib
 from robogym_torch.envs.rearrange import simulation as sim_lib
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Data, Model
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.physics import step as physics
 from robogym_torch.worlds import holdout_ball_like
+
+# the holdout object XMLs' assets (their `xmls/`): robogym's own are not in
+# this repository, so the stand-in's
+ASSETS_DIR = holdout_ball_like.DIR
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +48,31 @@ class HoldoutEnvConstants(blocks_lib.RearrangeEnvConstants):
     initial_state_path: Optional[str] = None
     randomize_target: bool = False
     goal_state_paths: Tuple[str, ...] = ()
+
+
+def _load_object_xml(xml_path: str, name: str, tag_args: Dict, material_args: Dict) -> MjcfXML:
+    """A holdout object's XML (`ASSETS_DIR`'s `xmls/<xml_path>`), its bodies,
+    geoms and joints named after `name` and its `material_args` and
+    `tag_args` ({tag: {attr: value}}) written into it (simulation/holdout.py
+    task-object construction)."""
+    full = os.path.join(ASSETS_DIR, "xmls", xml_path)
+    root = et.parse(full).getroot()
+    bodies = list(root.find("worldbody").findall("body"))
+    if not bodies:
+        raise ValueError(f"no body in {xml_path}")
+    for b_i, body in enumerate(bodies):
+        body.set("name", name if b_i == 0 else f"{name}:b{b_i}")
+        for g_i, geom in enumerate(body.iter("geom")):
+            geom.set("name", name if g_i == 0 else f"{name}:g{g_i}")
+        for j_i, joint in enumerate(body.iter("joint")):
+            joint.set("name", f"{name}:joint" if j_i == 0 else f"{name}:joint{j_i}")
+    for args in (material_args or {}), (tag_args or {}):
+        for tag, attrs in args.items():
+            for el in root.iter(tag):
+                for k, v in attrs.items():
+                    el.set(k, str(v))
+    return MjcfXML.from_string(et.tostring(root, encoding="unicode"),
+                               base_dir=os.path.dirname(full))
 
 
 class HoldoutObjectStateGoal(goals_lib.ObjectStateGoal):
@@ -94,6 +127,34 @@ class HoldoutRearrangeEnv(blocks_lib.BlocksRearrangeEnv):
                 np.stack([g["obj_quat"] for g in goal_states]),
                 goals_lib.GoalArgs(**dict(constants.goal_args)), dtype=self.dtype,
                 device=self.device)
+
+    @staticmethod
+    def _compile_world(constants, parameters, device,
+                       build_world_xml=sim_lib.build_blocks_world_xml,
+                       task_object_configs: Sequence[dict] = (),
+                       scene_object_configs: Sequence[dict] = ()) -> Model:
+        """The holdout env's main world (holdout.py `_compile_world`): the world
+        with no blocks plus each task object config's XML `count` times (the
+        slots `object{i}`) and each scene object config's (`scene{s}_{c}`),
+        with the contact budgets of the task objects and the scene's geoms;
+        for `blocks.compile_worlds`."""
+        xml = build_world_xml(0, robot_control_params=parameters.robot_control_params,
+                              mujoco_timestep=constants.mujoco_timestep)
+        i = 0
+        for cfg in task_object_configs:
+            for _ in range(int(cfg.get("count", 1))):
+                xml.append(_load_object_xml(cfg["xml_path"], f"object{i}", cfg.get("tag_args", {}),
+                                            cfg.get("material_args", {})))
+                i += 1
+        for s_i, cfg in enumerate(scene_object_configs):
+            for c_i in range(int(cfg.get("count", 1))):
+                xml.append(_load_object_xml(cfg["xml_path"], f"scene{s_i}_{c_i}",
+                                            cfg.get("tag_args", {}), cfg.get("material_args", {})))
+        model = compile_xml(xml, device=device)
+        # scene GEOMS, not scene objects: a composed scene body holds several
+        # contact geoms, each of which can hold support contacts
+        n_scene = sum(1 for nm in model.const.names["geom"] if nm.startswith("scene"))
+        return sim_lib.scale_contact_budgets(model, i, n_scene)
 
     def _check_objects(self) -> None:
         names = self.model.const.names["body"]

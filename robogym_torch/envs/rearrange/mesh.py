@@ -18,7 +18,8 @@ placement read the model with those fields, so no episode recompiles.
 
 `make_env` builds the bank from STL files (by default the YCB-like
 stand-ins of `worlds/rearrange_ycb_like.py`) on the compiled world
-`worlds=` (by default its snapshot).
+`worlds=` (by default its snapshot; `_compile_world` with
+`blocks.compile_worlds` compiles it).
 """
 
 from __future__ import annotations
@@ -34,7 +35,11 @@ import torch
 from scipy.spatial import ConvexHull
 
 from robogym_torch.envs.rearrange import blocks as blocks_lib
+from robogym_torch.envs.rearrange import simulation as sim_lib
 from robogym_torch.mjcf import mesh as mesh_lib
+from robogym_torch.mjcf import xml_tools
+from robogym_torch.mjcf.compiler import compile_xml
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.mjcf.model import GeomType, Model
 from robogym_torch.utils.rotation import _np_mat2quat
 from robogym_torch.worlds import rearrange_ycb_like
@@ -118,6 +123,28 @@ class MeshObjectBank:
                                             for f in dataclasses.fields(self) if f.name != "names"})
 
 
+def make_mesh_object_xml(name: str, stl_path: str, scale: float) -> MjcfXML:
+    """One mesh-object slot body, one collision hull per object (robogym's
+    common/utils.py make_mesh_object); the mesh file relative to
+    `xml_tools.ASSETS_DIR`'s `stls`."""
+    rel = os.path.relpath(stl_path, os.path.join(xml_tools.assets_dir(stl_path), "stls"))
+    src = f"""
+    <mujoco>
+      <asset>
+        <mesh name="{name}:mesh" file="{rel}" scale="{scale} {scale} {scale}"/>
+      </asset>
+      <worldbody>
+        <body name="{name}" pos="0.0 0.0 0.0">
+          <geom name="{name}" type="mesh" mesh="{name}:mesh"
+                rgba="0.8 0.4 0.1 1.0" density="1000"/>
+          <joint name="{name}:joint" type="free"/>
+        </body>
+      </worldbody>
+    </mujoco>
+    """
+    return MjcfXML.from_string(src)
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshRearrangeEnvConstants(blocks_lib.RearrangeEnvConstants):
     """(common/mesh.py:31-41)."""
@@ -146,6 +173,23 @@ class MeshRearrangeEnv(blocks_lib.BlocksRearrangeEnv):
         if not constants.sample_with_replacement and bank.num_candidates < self.max_num_objects:
             raise ValueError(f"{bank.num_candidates} candidates cannot fill "
                              f"{self.max_num_objects} slots without replacement")
+
+    @staticmethod
+    def _compile_world(constants, parameters, device,
+                       build_world_xml=sim_lib.build_blocks_world_xml,
+                       mesh_files: Optional[Dict[str, List[str]]] = None) -> Model:
+        """The mesh env's main world (mesh.py `_compile_world`): the world with
+        no blocks plus `max_num_objects` mesh slots, each the first STL of the
+        first candidate by name in `mesh_files`, with that many objects'
+        contact budgets."""
+        sp = parameters.simulation_params
+        first = sorted(mesh_files)[0]
+        xml = build_world_xml(0, robot_control_params=parameters.robot_control_params,
+                              mujoco_timestep=constants.mujoco_timestep)
+        for i in range(sp.max_num_objects):
+            xml.append(make_mesh_object_xml(f"object{i}", mesh_files[first][0], 1.0))
+        model = compile_xml(xml, device=device)
+        return sim_lib.scale_contact_budgets(model, sp.max_num_objects)
 
     def _check_objects(self) -> None:
         types = np.asarray(self.model.const.geom_type)[self.idx.object_geom_ids]

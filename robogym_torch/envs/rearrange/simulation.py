@@ -2,9 +2,10 @@
 (objects, table, gripper geoms), the placement area, object state access,
 and the contact readings the env observes and rewards.
 
-Counterpart of the part of `robogym_tpu/envs/rearrange/simulation.py` that
-the blocks env runs; the world's XML builders stay host code of the JAX
-package, and the port loads compiled snapshots. Every state tensor carries
+Counterpart of `robogym_tpu/envs/rearrange/simulation.py`, with the
+world's composition (`make_block_xml`, `build_blocks_world_xml`,
+`compile_blocks_world`, `compile_solver_world`, `scale_contact_budgets`,
+`build_settle_world_xml`) on the host. Every state tensor carries
 a leading env axis `(B, ...)`; the active-object mask is `(O,)`, shared by
 the batch (`num_objects` is a constant of the env).
 """
@@ -12,12 +13,15 @@ the batch (`num_objects` is a constant of the env).
 from __future__ import annotations
 
 import dataclasses
+import xml.etree.ElementTree as et
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Data, GeomType, Model
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.utils import rotation as rot
 
 # unused object slots rest on the floor here, far from the table
@@ -250,3 +254,118 @@ def goal_qpos(idx: RearrangeIndex, d: Data, goal_pos: torch.Tensor,
     qpos[:, _cols(idx.object_qpos_adr, 3, qpos)] = goal_pos.to(qpos.dtype)
     qpos[:, _cols(idx.object_qpos_adr + 3, 4, qpos)] = goal_quat.to(qpos.dtype)
     return qpos
+
+
+# -- world composition (host) ------------------------------------------------
+
+def make_block_xml(name: str, size) -> MjcfXML:
+    """One free box object slot (common/utils.py:195-216 make_block)."""
+    size = np.asarray(size, np.float64)
+    if size.size == 1:
+        size = np.tile(size, 3)
+    src = f"""
+    <mujoco>
+      <worldbody>
+        <body name="{name}" pos="0.0 0.0 0.0">
+          <geom name="{name}" type="box" rgba="0.8 0.4 0.1 1.0"
+                size="{size[0]} {size[1]} {size[2]}" density="1000"/>
+          <joint name="{name}:joint" type="free"/>
+        </body>
+      </worldbody>
+    </mujoco>
+    """
+    return MjcfXML.from_string(src)
+
+
+def build_blocks_world_xml(max_num_objects: int, block_size: float = 0.0254,
+                           robot_control_params=None, mujoco_timestep: float = 0.001) -> MjcfXML:
+    """The UR16e world with `max_num_objects` blocks
+    (ur16e/mujoco/simulation/base.py:62-115, simulation/base.py:281-306),
+    composed from robogym's assets under `xml_tools.XML_DIR`."""
+    from robogym_torch.robot.composite import RobotControlParameters
+
+    params = robot_control_params or RobotControlParameters()
+    xml = (MjcfXML.parse("robot/ur16e/base.xml")
+           .set_objects_attr(tag="option", timestep=mujoco_timestep)
+           .add_default_compiler_directive())
+    if params.is_joint_actuated():
+        xml.remove_objects_by_name("mocap_weld")
+        sub = params.arm_joint_calibration_path
+        xml.append(MjcfXML.parse(f"robot/ur16e/jointspec/calibrations/{sub}/ur16e_ik_class.xml"))
+        xml.append(MjcfXML.parse(
+            f"robot/ur16e/jointspec/calibrations/{sub}/joint_actuations.xml"))
+    else:
+        xml.append(MjcfXML.parse("robot/ur16e/jointspec/ur16e_mocap_class.xml"))
+    xml.append(MjcfXML.parse("robot/ur16e/gripper_actuators.xml"))
+    for i in range(max_num_objects):
+        xml.append(make_block_xml(f"object{i}", block_size))
+    return xml
+
+
+def compile_blocks_world(max_num_objects: int, block_size: float = 0.0254,
+                         robot_control_params=None, mujoco_timestep: float = 0.001,
+                         dtype=torch.float32, device="cuda",
+                         build_world_xml=build_blocks_world_xml
+                         ) -> Tuple[Model, RearrangeIndex]:
+    """The compiled blocks world on `device` and its index; the world's XML
+    from `build_world_xml` (`build_blocks_world_xml`'s signature)."""
+    xml = build_world_xml(max_num_objects, block_size, robot_control_params, mujoco_timestep)
+    model = compile_xml(xml, dtype=dtype, device=device)
+    return model, RearrangeIndex.build(model, max_num_objects)
+
+
+def compile_solver_world(robot_control_params, mujoco_timestep: float = 0.001,
+                         dtype=torch.float32, device="cuda",
+                         build_world_xml=build_blocks_world_xml) -> Model:
+    """The mocap_ik solver simulation: the same arm, gripper and table in
+    mocap mode with no task objects, the second sim of robogym's dual-sim
+    TCP control (ur_gripper_arm.py:146-160 build_solver_sim); it shares
+    the main sim's timestep and substeps."""
+    solver_params = dataclasses.replace(robot_control_params, tcp_solver_mode="mocap")
+    xml = build_world_xml(0, robot_control_params=solver_params,
+                          mujoco_timestep=mujoco_timestep)
+    return compile_xml(xml, dtype=dtype, device=device)
+
+
+def scale_contact_budgets(model: Model, n_objects: int, n_extra_bodies: int = 0) -> Model:
+    """Raise the static contact budgets for dense multi-object scenes.
+
+    The Option defaults (ncon_active=32, group_cap=48) are tuned for the
+    dactyl hand worlds; a scene with O resting objects needs about 4 rows
+    per object-table manifold plus object-object stacks (the static-shape
+    analogue of robogym's per-env nconmax sizing, cube_env.py:229-243).
+    Returns `model` unchanged when the defaults already suffice."""
+    n = n_objects + n_extra_bodies
+    ncon = max(model.opt.ncon_active, ((16 + 5 * n + 7) // 8) * 8)
+    cap = max(model.opt.group_cap, ((32 + 4 * n + 7) // 8) * 8)
+    if (ncon, cap) == (model.opt.ncon_active, model.opt.group_cap):
+        return model
+    return model.replace(opt=dataclasses.replace(model.opt, ncon_active=ncon, group_cap=cap))
+
+
+def build_settle_world_xml(world_xml_string: str) -> MjcfXML:
+    """Objects-only copy of a composed rearrange world for the goal settle:
+    every `robot0:`-prefixed body, the backdrop and the mocap bodies,
+    actuators, tendons, equalities, sensors and contact sections removed;
+    the floor, table and objects kept. Objects falling onto the table need
+    no arm dofs, arm pairs or actuation, so the settle runs on this small
+    world (robogym steps the full sim on the host where a goal is
+    resampled, goals/object_state.py:292-330)."""
+    root = et.fromstring(world_xml_string)
+
+    def is_robot_body(el) -> bool:
+        name = el.get("name", "")
+        return (name.startswith("robot0:") or name == "backdrop"
+                or el.get("mocap", "false") == "true")
+
+    def scrub(parent):
+        for child in list(parent):
+            if child.tag in ("actuator", "tendon", "equality", "sensor", "contact"):
+                parent.remove(child)
+            elif child.tag == "body" and is_robot_body(child):
+                parent.remove(child)
+            else:
+                scrub(child)
+
+    scrub(root)
+    return MjcfXML.from_string(et.tostring(root, encoding="unicode"))

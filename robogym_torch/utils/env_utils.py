@@ -1,10 +1,12 @@
-"""Env loading from a config: the part of `robogym_tpu/utils/env_utils.py`
-that the holdout envs need.
+"""Env resolution and loading.
 
-`load_env(path, constants=..., parameters=...)` evaluates a `.jsonnet`
-config, resolves its `make_env` entry (`{"function":
-"module:fn", "args": {...}}`) with `get_function`, merges the caller's
-`constants` / `parameters` into the config's, and calls the factory.
+Counterpart of `robogym_tpu/utils/env_utils.py` (robogym's
+utils/env_utils.py): `MakeEnvFinder.find` resolves an env factory from a
+`.py` file path, a `.json` or `.jsonnet` config (`{"make_env": {"function":
+"module:fn", "args": {...}}}`, resolved by `get_function`), or a name
+fragment matched against the port's env zoo (`robogym_torch/envs/`);
+`load_env(pattern, constants=..., parameters=...)` calls the factory it
+finds, the caller's `constants` / `parameters` merged into the config's.
 Module paths under `robogym.` (robogym's own configs) resolve under
 `robogym_torch.`.
 """
@@ -12,11 +14,22 @@ Module paths under `robogym.` (robogym's own configs) resolve under
 from __future__ import annotations
 
 import functools
+import glob
 import importlib
 import inspect
+import json
+import os
+import runpy
 from typing import Any, Callable, Dict, Optional
 
 from robogym_torch.utils import jsonnet
+
+PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENVS_ROOT = os.path.join(PACKAGE_ROOT, "envs")
+
+
+class InvalidSimulationError(Exception):
+    """(env_utils.py:13-16): unrecoverable invalid simulation state."""
 
 
 def get_function(fn_data: Dict[str, Any]) -> Callable:
@@ -30,6 +43,46 @@ def get_function(fn_data: Dict[str, Any]) -> Callable:
     return functools.partial(fn, **extra_args) if extra_args else fn
 
 
+def gym_space_from_arrays(arrays):
+    """The observation space of an observation tree (env_utils.py:17-28):
+    {key: shape}; the port has no gym dependency, so shapes serve the same
+    introspection."""
+    if isinstance(arrays, dict):
+        return {k: gym_space_from_arrays(v) for k, v in arrays.items()}
+    return tuple(getattr(arrays, "shape", ()))
+
+
+def _module_attr(path: str, name: str):
+    """Attribute `name` of the Python file `path`: imported as its module
+    where the file is in this package, run with `runpy` elsewhere."""
+    path = os.path.abspath(path)
+    if path.startswith(PACKAGE_ROOT + os.sep):
+        rel = os.path.relpath(path, os.path.dirname(PACKAGE_ROOT))
+        return getattr(importlib.import_module(rel[:-3].replace(os.sep, ".")), name, None)
+    return runpy.run_path(path).get(name)
+
+
+class MakeEnvFinder:
+    """(env_utils.py:64-134)."""
+
+    @classmethod
+    def find(cls, pattern: str, arg_filter: Optional[str] = "make_env"):
+        """The env factory `pattern` names, or None."""
+        name = arg_filter or "make_env"
+        if pattern.endswith(".py") and os.path.exists(pattern):
+            return _module_attr(pattern, name)
+        if pattern.endswith(".json") and os.path.exists(pattern):
+            with open(pattern) as f:
+                return get_function(json.load(f)["make_env"])
+        if pattern.endswith((".jsonnet", ".libsonnet")) and os.path.exists(pattern):
+            return get_function(jsonnet.evaluate_file(pattern)["make_env"])
+        matches = [path for path in sorted(glob.glob(os.path.join(ENVS_ROOT, "**", "*.py"),
+                                                     recursive=True))
+                   if pattern in os.path.relpath(path, ENVS_ROOT)
+                   and not os.path.basename(path).startswith("_")]
+        return _module_attr(matches[0], name) if matches else None
+
+
 def _recursive_update(base: dict, update: dict) -> dict:
     out = dict(base)
     for k, v in update.items():
@@ -40,13 +93,15 @@ def _recursive_update(base: dict, update: dict) -> dict:
     return out
 
 
-def load_env(path: str, constants: Optional[dict] = None, parameters: Optional[dict] = None,
+def load_env(pattern: str, constants: Optional[dict] = None, parameters: Optional[dict] = None,
              **kwargs):
-    """The env of the config at `path`: its `make_env` factory called with
-    the config's constants and parameters, the caller's `constants` /
-    `parameters` merged into them recursively, and those of `kwargs` the
-    factory takes (`device`, `seed`, `worlds`, ...)."""
-    make_env = get_function(jsonnet.evaluate_file(path)["make_env"])
+    """The env that `MakeEnvFinder.find(pattern)` names: its factory called
+    with the caller's `constants` / `parameters` merged recursively into
+    those a config binds, and those of `kwargs` the factory takes
+    (`device`, `seed`, `worlds`, ...)."""
+    make_env = MakeEnvFinder.find(pattern)
+    if make_env is None:
+        raise ValueError(f"no env found for pattern {pattern!r}")
     bound = make_env.keywords if isinstance(make_env, functools.partial) else {}
     call_kwargs = {}
     if constants is not None:
@@ -56,4 +111,6 @@ def load_env(path: str, constants: Optional[dict] = None, parameters: Optional[d
                                                       parameters)
     sig = inspect.signature(make_env)
     call_kwargs.update({k: v for k, v in kwargs.items() if k in sig.parameters})
+    if "parameters" in call_kwargs and "parameters" not in sig.parameters:
+        del call_kwargs["parameters"]
     return make_env(**call_kwargs)

@@ -17,6 +17,7 @@ file, and the hand-only variant (`write(directory, hand_only=True)`) as
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Dict, List, Tuple
 
@@ -97,31 +98,44 @@ def _palm() -> np.ndarray:
     return np.asarray([(x + hx, y, z) for z in (-hz, hz) for x, y in outline])
 
 
+def _face_candidates(verts: np.ndarray, slack: float = 1e-12):
+    """The triples (i < j < k, in lexicographic order) whose plane may have
+    every point on one side: all of them screened in one batch, with a
+    margin of `slack` over the face test's 1e-9 for the batch's rounding."""
+    i, j, k = np.array(list(itertools.combinations(range(len(verts)), 3)), np.int64).T
+    a = verts[i]
+    nrm = np.cross(verts[j] - a, verts[k] - a)
+    norm = np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm = nrm / np.where(norm > 0, norm, 1.0)
+    side = np.einsum("tpd,td->tp", verts[None, :, :] - a[:, None, :], nrm)
+    keep = ~((side.max(1) > 1e-9 + slack) & (side.min(1) < -1e-9 - slack))
+    return zip(i[keep].tolist(), j[keep].tolist(), k[keep].tolist())
+
+
 def _stl(verts: np.ndarray) -> str:
     """Convex point set -> outward-wound ASCII STL of its hull.
 
     Hull faces are found by brute force (every triple whose plane has all
     points on one side, grouped by the coplanar points it touches); each
-    face is written once as a fan of triangles. 32 points make that a few
-    thousand planes, cheap enough at world-writing time."""
-    n = len(verts)
+    face is written once as a fan of triangles. The triples are screened
+    at once (`_face_candidates`) and each one that passes is tested again
+    on its own, in order, so the faces are those of the triple loop.
+    """
     center = verts.mean(axis=0)
     faces: Dict[Tuple[int, ...], np.ndarray] = {}
-    for i in range(n):
-        for j in range(i + 1, n):
-            for k in range(j + 1, n):
-                a, b, c = verts[i], verts[j], verts[k]
-                nrm = np.cross(b - a, c - a)
-                norm = np.linalg.norm(nrm)
-                if norm < 1e-12:
-                    continue
-                nrm = nrm / norm
-                side = (verts - a) @ nrm
-                if side.max() > 1e-9 and side.min() < -1e-9:
-                    continue
-                key = tuple(np.nonzero(np.abs(side) <= 1e-9)[0])
-                if key not in faces:
-                    faces[key] = nrm if (a - center) @ nrm > 0 else -nrm
+    for i, j, k in _face_candidates(verts):
+        a, b, c = verts[i], verts[j], verts[k]
+        nrm = np.cross(b - a, c - a)
+        norm = np.linalg.norm(nrm)
+        if norm < 1e-12:
+            continue
+        nrm = nrm / norm
+        side = (verts - a) @ nrm
+        if side.max() > 1e-9 and side.min() < -1e-9:
+            continue
+        key = tuple(np.nonzero(np.abs(side) <= 1e-9)[0])
+        if key not in faces:
+            faces[key] = nrm if (a - center) @ nrm > 0 else -nrm
     lines = ["solid hull"]
     for key, nrm in faces.items():
         pts = verts[list(key)]

@@ -49,7 +49,9 @@ no objects; `rearrange_settle_like.npz`, the objects-only goal-settle world
 floor, table and 8 blocks, nv = 48) with the default contact budgets;
 `rearrange_dominos_like.npz`, the main world with 8 blocks of half-size
 `BLOCK_HALF * DOMINO_PROPORTIONS`; and `rearrange_wordblocks_like.npz`, the
-main world at 6 blocks.
+main world at 6 blocks. `world_xml_builder(directory)` is the stand-in's
+`build_blocks_world_xml`, from which the port's `compile_worlds` compiles
+the rearrange envs' worlds itself.
 """
 
 from __future__ import annotations
@@ -249,6 +251,25 @@ def write(directory: str, max_num_objects: int = MAX_NUM_OBJECTS,
         "  </actuator>",
         "</mujoco>",
     ]) + "\n"
+
+
+def world_xml_builder(directory: str):
+    """The stand-in's `build_blocks_world_xml`: a function of its signature,
+    `(max_num_objects, block_size, robot_control_params, mujoco_timestep)
+    -> MjcfXML`, that writes this world's STLs into `directory` (the
+    joint-actuated world where the control is joint-actuated, else the
+    mocap world). `envs/rearrange/blocks.compile_worlds` takes it."""
+
+    def build(max_num_objects, block_size=BLOCK_HALF, robot_control_params=None,
+              mujoco_timestep=0.001):
+        from robogym_torch.mjcf.xml_tools import MjcfXML
+        from robogym_torch.robot.composite import RobotControlParameters
+
+        rcp = robot_control_params or RobotControlParameters()
+        return MjcfXML.from_string(write(directory, max_num_objects, block_size,
+                                         rcp.is_joint_actuated(), mujoco_timestep))
+
+    return build
 
 
 def _gripper(pad: str, mesh) -> List[str]:

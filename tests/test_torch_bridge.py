@@ -196,6 +196,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import robogym_torch.envs.dactyl.full_perpendicular, robogym_torch.wrappers.parametric\n"
         "import robogym_torch.envs.dactyl.cube_manipulator, robogym_torch.envs.dactyl.goals_solver\n"
         "import robogym_torch.utils.rubik_utils, robogym_torch.worlds.rubik_full_like\n"
+        "import robogym_torch.mjcf.compiler, robogym_torch.mjcf.xml_tools\n"
+        "import robogym_torch.mjcf.modifiers, robogym_torch.mjcf.mesh\n"
+        "import robogym_torch.worldgen.parser, robogym_torch.worlds.compile\n"
+        "import robogym_torch.utils.env_utils, robogym_torch.envs.rearrange.dominos\n"
+        "import robogym_torch.envs.rearrange.mesh, robogym_torch.envs.rearrange.composer\n"
+        "import robogym_torch.envs.rearrange.holdout\n"
+        "from robogym_torch.worlds.compile import compile_world\n"
+        "compile_world('rearrange_composer_like', 'cpu')\n"
+        "compile_world('holdout_ball_like', 'cpu')\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'robogym_tpu'))]\n"
         "assert not bad, bad\n"
     )
