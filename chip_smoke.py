@@ -11,7 +11,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    what `nvcc -Xptxas -v` reports per kernel.
 3. Compile, on the host while nvcc builds the kernels (a thread beside
    the build): the port's own compiler (`mjcf/compiler.py`) compiles each of
-   the 21 stand-in worlds (`worlds/compile.compile_world(name, "cuda")`,
+   the 25 stand-in worlds (`worlds/compile.compile_world(name, "cuda")`,
    which builds them as `tools/build_locked_like_snapshot.py` builds their
    committed snapshots with the JAX compiler) and prints each world's
    seconds; each world is held to its snapshot: the same keys, integer,
@@ -350,10 +350,38 @@ resets' object settle is 40 substeps, not 200; so are blocks_train's goal
 settles and the ycb_stabilized_env path's. The YCB env keeps 200: at its
 state after 40 kernel B meets a line-search tie that the early CG check
 does not excuse.
-The dummy-vision and real-image locked envs, whose states no CG check
-reads either, take `OLDER_INITIAL_STEPS` 5: their construction's settle is
-50 substeps, not 200. The `[compile]` phase runs on the host while nvcc
-builds the kernels. Each reset's seconds are printed (`[state time]`). The
+The real-image locked env, whose state no CG check reads either, takes
+`OLDER_INITIAL_STEPS` 5: its construction's settle is 50 substeps, not
+200. Every env construction prints its seconds (`[construction]`), and a
+B=1 settle runs once for all the constructions whose settle reads an
+equal model, start state and substep count (`SettleMemo`): blocks_train
+and the reach helper take the rearrange env's, the dummy-vision env (now
+at the default 200 substeps) and examine's env the locked env's,
+create_holdout's env the holdout env's. The settles of the other worlds
+run ahead in a second process, started when the kernels are built (this
+script with `--settles DIR`: the constructions of
+`prefetch_constructions` in the state phase's order, each settle written
+into DIR with its inputs); a construction takes the one its label names
+there where model, start state and substeps equal its own field by field,
+else runs its own. A B=1 settle is paced by the host, so the two
+processes overlap; the second one ends before the kernel phases, and its
+log is printed (`[prefetch]`). The `[compile]` phase runs on the
+host while nvcc builds the kernels; it covers 25 worlds, the four dactyl
+worlds that the port's builders (`cube_env.build_cube_world_xml`, the
+face, full and reach builders) compose from the stand-in asset tree
+(`worlds/dactyl_assets_like.write_assets`) among them. The locked env on
+the composed dactyl world (`composed_locked_env`: built, reset at B=1024
+and 2 steps, the locked env's launches a substep, its env-steps/s beside
+`locked_env`'s) records its kernels' inputs as it runs, and A, B, C, D
+and E are held on them (`@composed`). The scripts run on the card:
+`examine.main` (the locked env by its path, `EXAMINE_STEPS` steps, its
+random warmup cut to one env step, the trajectory recorded), then
+`viewer.replay_npz` of the record through the raycaster at
+`REPLAY_SIZE` (every frame checked: uint8, not black; ms a frame) and
+`EnvReplayViewer(env).run(VIEWER_STEPS)`; `create_holdout.main` on the
+stand-in holdout's config (one settle step; the saved npz has the
+reference state's keys and shapes, finite values); each checks that the
+kernels of its env were launched. Each reset's seconds are printed (`[state time]`). The
 rearrange, blocks_train, dominos, YCB, holdout and mesh-family paths, one
 env step each from their reset states, record their kernels' inputs as
 they run (`captured`: the inputs of `one_step`, the step a separate
@@ -394,6 +422,7 @@ import functools
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -420,10 +449,21 @@ SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 subs
 # its time
 OLDER_STABILIZE_STEPS = 1
 GOAL_SETTLE_SUBSTEPS = OLDER_STABILIZE_STEPS * 40   # an older path's goal settle
-# reset_initial_steps (the dactyl envs' default 20) of the dactyl envs whose
-# states no CG check reads (dummy vision, real image): their construction's
-# zero-control settle 5 x 10 substeps at B=1, not 200
+# reset_initial_steps (the dactyl envs' default 20) of the real-image env,
+# whose state no CG check reads: its construction's zero-control settle
+# 5 x 10 substeps at B=1, not 200 (its world has the vision cameras, so it
+# shares no settle)
 OLDER_INITIAL_STEPS = 5
+# seconds a construction waits for its settle from the prefetch process,
+# and the state phase for that process to end
+PREFETCH_WAIT_S = 300
+# the examine path: env steps of `scripts/examine.py` (its random warmup
+# cut to one env step: its state is read by no CG check), the replay's
+# frame size and the EnvReplayViewer's steps
+EXAMINE_STEPS = 5
+EXAMINE_CONSTANTS = "@{'n_random_initial_steps': 1}"
+REPLAY_SIZE = (320, 240)
+VIEWER_STEPS = 2
 SETTLE_PATH_SUBSTEPS = 100        # substeps of the settle and table_setting paths
 SETTLE_START = 40                 # substeps that settle the goal-settle worlds' start states
 FORWARD_CALLS = 5
@@ -589,6 +629,9 @@ PER_CALL = {
                    "boxbox": 1},
 }
 PER_CALL["wrapped_env"] = dict(PER_CALL["locked_env"])
+# the locked env on the world its builder composes from the stand-in asset
+# tree: the locked env's launches a substep
+PER_CALL["composed_locked_env"] = dict(PER_CALL["locked_env"])
 # per env step of the rearrange env: 40 main substeps (2 A, 1 B, 1 C, 1 D,
 # 1 E each: the blocks against the table and each other are box-box), one
 # fwd_position of the solver sim (its collision: 1 C, 1 D) and its 40
@@ -608,7 +651,8 @@ PER_CALL["dominos_env"] = dict(PER_CALL["rearrange_env"])
 # the path that steps the world named after `@` in a kernels-line entry
 AT_PATH = {"table": "table_setting", "table-box": "table_setting", "dactyl": "locked_env",
            "dt": "wrapped_env", "rearrange": "rearrange_env", "solver": "rearrange_env",
-           "settle8": "blocks_train_env", "dominos": "dominos_env"}
+           "settle8": "blocks_train_env", "dominos": "dominos_env",
+           "composed": "composed_locked_env"}
 # the face-perpendicular env on the cubelet world: the locked env's
 # launches a substep (2 A, 1 B; C on the cubelets' and the palm's box-mesh
 # pairs, D on the hand's mesh-mesh pairs, E on the palm's box-box pairs
@@ -801,6 +845,245 @@ def plain_versions():
     """Route the paths through every kernel's plain version."""
     return patched([((importlib.import_module(k["module"]), name), wrapper(name, plain=True))
                     for name, k in KERNELS.items()])
+
+
+def _same_arrays(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and np.array_equal(a[k], b[k])
+        for k in a)
+
+
+def _settle_file(directory, label):
+    return os.path.join(directory, label.replace(" ", "_") + ".npz")
+
+
+def _prefixed(arrays, prefix):
+    return {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+
+class SettleMemo:
+    """The B=1 settles of the env constructions, each run once: inside
+    `construction`, a `step.step_n` call on a batch of one env whose
+    model, start state and substep count equal, field by field, those of
+    a settle already run takes a copy of that settle's result instead of
+    running again (constructions of one env class on one world share their
+    settle; so do classes whose settle reads the same model and start).
+
+    The settles of the other worlds run ahead in a second process
+    (`start_prefetch`: this script with `--settles DIR`, the constructions
+    of `prefetch_constructions` one after another), which writes each
+    settle's model, start state, substep count and result into DIR
+    (`publish`); a construction here that finds no equal settle of its own
+    takes the one its label names there when model, start and substeps are
+    equal field by field (waiting for it while that process runs, at most
+    PREFETCH_WAIT_S), and else runs its own. The host paces a B=1 settle,
+    so the two processes overlap. Prints each construction's seconds and
+    where its settle came from."""
+
+    def __init__(self):
+        self.entries = []                 # (label, model, start, substeps, result)
+        self.seconds = {}
+        self.active = None                # (label, notes) of the construction running
+        self.publish = None               # the directory a prefetch process writes into
+        self.source = None                # (directory, process, labels) of a prefetch
+        self.directory = None             # the prefetch's directory, removed by `close`
+
+    def _prefetched(self, label, n, m_arr, d_arr, device):
+        """The prefetch process's settle for `label`, where its inputs
+        equal these: (Data on `device`, seconds waited, seconds it ran
+        there), or None."""
+        from robogym_torch import bridge
+
+        if self.source is None or label not in self.source[2]:
+            return None
+        directory, proc, _ = self.source
+        path = _settle_file(directory, label)
+        t0 = time.perf_counter()
+        while (not os.path.exists(path) and proc.poll() is None
+               and time.perf_counter() - t0 < PREFETCH_WAIT_S):
+            time.sleep(0.05)
+        if not os.path.exists(path):
+            return None
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        if int(arrays["n"]) != n or not (_same_arrays(_prefixed(arrays, "M:"), m_arr)
+                                         and _same_arrays(_prefixed(arrays, "S:"), d_arr)):
+            return None
+        return (bridge.data_from_numpy(_prefixed(arrays, "R:"), device),
+                time.perf_counter() - t0, float(arrays["seconds"]))
+
+    def _write(self, label, n, m_arr, d_arr, out, seconds):
+        from robogym_torch import bridge
+
+        path = _settle_file(self.publish, label)
+        tmp = path[:-4] + ".tmp.npz"
+        np.savez(tmp, n=np.asarray(n), seconds=np.asarray(seconds),
+                 **{"M:" + k: v for k, v in m_arr.items()},
+                 **{"S:" + k: v for k, v in d_arr.items()},
+                 **{"R:" + k: v for k, v in bridge.data_to_numpy(out).items()})
+        os.replace(tmp, path)
+
+    def _step_n(self, orig):
+        from robogym_torch import bridge
+        from robogym_torch.envs import core
+
+        def step_n(m, d, n):
+            if self.active is None or d.qpos.shape[0] != 1:
+                return orig(m, d, n)
+            label, notes = self.active
+            m_arr, d_arr = bridge.model_to_numpy(m), bridge.data_to_numpy(d)
+            for owner, m0, d0, n0, out in self.entries:
+                if n0 == n and _same_arrays(m0, m_arr) and _same_arrays(d0, d_arr):
+                    notes.append(f"{n} substeps shared with the {owner}")
+                    return core.data_map(torch.clone, out)
+            got = self._prefetched(label, n, m_arr, d_arr, d.qpos.device)
+            if got is not None:
+                out, waited, ran = got
+                notes.append(f"{n} substeps from the prefetch process (run there in {ran:.2f} "
+                             f"s; waited {waited:.2f} s)")
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(m, d, n)
+                torch.cuda.synchronize()
+                ran = time.perf_counter() - t0
+                notes.append(f"{n} substeps run in {ran:.2f} s")
+                if self.publish:
+                    self._write(label, n, m_arr, d_arr, out, ran)
+            self.entries.append((label, m_arr, d_arr, n, core.data_map(torch.clone, out)))
+            return out
+        return step_n
+
+    def start_prefetch(self):
+        """Start the prefetch process (this script with `--settles DIR`, DIR
+        a new temporary directory), its output into DIR/prefetch.log."""
+        labels = [label for label, _ in prefetch_constructions()]
+        directory = self.directory = tempfile.mkdtemp(prefix="chip_smoke_settles_")
+        log = open(os.path.join(directory, "prefetch.log"), "w")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--settles",
+                                 directory], stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
+        log.close()
+        self.source = (directory, proc, labels)
+
+    def stop_prefetch(self):
+        """Wait for the prefetch process (at most PREFETCH_WAIT_S; then end
+        it), print its log and drop it."""
+        if self.source is None:
+            return
+        directory, proc, _ = self.source
+        try:
+            rc = proc.wait(timeout=PREFETCH_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        with open(os.path.join(directory, "prefetch.log")) as f:
+            for line in f:
+                print("[prefetch] " + line.rstrip())
+        print(f"[prefetch] the process ended with code {rc}")
+        self.source = None
+
+    def close(self):
+        """End the prefetch process if it runs, and remove its directory."""
+        if self.source is not None:
+            self.source[1].kill()
+            self.source[1].wait()
+            self.source = None
+        if self.directory:
+            shutil.rmtree(self.directory, ignore_errors=True)
+
+    @contextlib.contextmanager
+    def construction(self, label):
+        from robogym_torch.physics import step
+
+        notes = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.active = (label, notes)
+        try:
+            with patched([((step, "step_n"), self._step_n(step.step_n))]):
+                yield
+            torch.cuda.synchronize()
+        finally:
+            self.active = None
+        self.seconds[label] = time.perf_counter() - t0
+        print(f"[construction] {label}: {self.seconds[label]:.2f} s; its B=1 settle: "
+              f"{'; '.join(notes) or 'none'}", flush=True)
+
+
+MEMO = SettleMemo()
+
+
+def prefetch_constructions():
+    """(label, build) of the constructions whose B=1 settles the prefetch
+    process runs, in the order the state phase builds them, each as the
+    state phase builds it (on the committed snapshots where the state
+    phase takes the port's compiles: the same arrays)."""
+    from robogym_torch import bridge
+    from robogym_torch.envs.dactyl import face_perpendicular, full_perpendicular, locked
+    from robogym_torch.envs.dactyl import locked_real_image, reach
+    from robogym_torch.utils import env_utils
+    from robogym_torch.worlds import compile as world_compile
+    from robogym_torch.worlds import holdout_ball_like
+
+    def rearrange(module, config):
+        return lambda: importlib.import_module("robogym_torch.envs.rearrange." + module).make_env(
+            *config, device="cuda", seed=SEED)
+
+    def composed():
+        with np.load(world_compile.snapshot_path("dactyl_locked_composed")) as z:
+            model = bridge.model_from_numpy({k: z[k] for k in z.files}, "cuda")
+        return locked.make_env(device="cuda", seed=SEED, model=model)
+
+    return ([("locked env", lambda: locked.make_env(device="cuda", seed=SEED)),
+             ("composed locked env", composed),
+             ("face env", lambda: face_perpendicular.make_env(device="cuda", seed=SEED)),
+             ("full env", lambda: full_perpendicular.make_env(device="cuda", seed=SEED)),
+             ("rearrange blocks env", rearrange("blocks", REARRANGE_CONFIG)),
+             ("dominos env", rearrange("dominos", DOMINOS_CONFIG)),
+             ("reach env", lambda: reach.make_env(device="cuda", seed=SEED)),
+             ("real-image env", lambda: locked_real_image.make_env(
+                 LOCKED_REAL_IMAGE_CONFIG, device="cuda", seed=SEED)),
+             ("rearrange vision env", rearrange("blocks", REARRANGE_VISION_CONFIG)),
+             ("YCB env", rearrange("ycb", YCB_CONFIG)),
+             ("holdout env", lambda: env_utils.load_env(
+                 holdout_ball_like.CONFIG, constants={"stabilize_steps": OLDER_STABILIZE_STEPS},
+                 device="cuda", seed=SEED))]
+            + [(f"{name} env", rearrange(name, FAMILY_CONFIGS[name])) for name in FAMILY])
+
+
+def prefetch_settles(directory) -> int:
+    """The prefetch process (`--settles DIR`): each construction of
+    `prefetch_constructions` with its B=1 settle written into DIR."""
+    from robogym_torch import cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda.build()
+    MEMO.publish = directory
+    for label, build in prefetch_constructions():
+        with MEMO.construction(label):
+            build()
+    return 0
+
+
+def constructing(module, name, label):
+    """`module.<name>` (an env factory) patched to build inside
+    `MEMO.construction(label)`, recording the env it returns in the
+    yielded dict: for entry points that build their env themselves."""
+    made = {}
+    fn = getattr(module, name)
+
+    def build(*args, **kwargs):
+        with MEMO.construction(label):
+            made["env"] = fn(*args, **kwargs)
+        return made["env"]
+
+    @contextlib.contextmanager
+    def ctx():
+        with patched([((module, name), build)]):
+            yield made
+
+    return ctx()
 
 
 def cg_flops(E: int, V: int, iterations: int, build: int = 0, aref: bool = True,
@@ -2151,35 +2434,35 @@ def worlds():
     return out
 
 
-def locked_env_reset(batch, model):
-    """The locked env on the card on the compiled dactyl-shaped world
-    `model` (the port's own compile, `[compile]`; its construction runs
-    the zero-control settle) and its reset state at `batch` envs from seed
-    0: (env, state). Prints the times, the retries and the share of envs
-    with the cube on the palm; checks the state finite."""
+def locked_env_reset(batch, model, label="locked env",
+                     world="the port's compile of the dactyl-shaped world"):
+    """The locked env on the card on the compiled `world` `model` (the
+    port's own compile, `[compile]`; its construction runs the
+    zero-control settle) and its reset state at `batch` envs from seed 0:
+    (env, state). Prints the times, the retries and the share of envs with
+    the cube on the palm; checks the state finite."""
     from robogym_torch.envs.dactyl import cube_env, locked
 
     t0 = time.perf_counter()
-    env = locked.LockedEnv(locked.LockedEnvConstants(), model, seed=SEED)
-    torch.cuda.synchronize()
+    with MEMO.construction(label):
+        env = locked.LockedEnv(locked.LockedEnvConstants(), model, seed=SEED)
     t1 = time.perf_counter()
     state, obs = env.reset(batch)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     on_palm = float(cube_env.is_on_palm(env.cube, state.physics).float().mean())
-    print(f"[state] locked env on the port's compile of the dactyl-shaped world: built (its "
-          f"settle, "
+    print(f"[state] {label} on {world}: built (its settle, "
           f"{env.constants.reset_initial_steps * env.constants.mujoco_substeps} substeps at B=1) "
           f"in {t1 - t0:.2f} s; LockedEnv.reset at B={batch} in {t2 - t1:.2f} s, "
           f"{env.reset_retries} retries, on the palm {on_palm:.4f}")
     for k in ("qpos", "qvel", "qacc"):
-        check(bool(torch.isfinite(getattr(state.physics, k)).all()), f"locked env reset: non-finite {k}")
+        check(bool(torch.isfinite(getattr(state.physics, k)).all()), f"{label} reset: non-finite {k}")
     for k, v in obs.items():
-        check(bool(torch.isfinite(v).all()), f"locked env reset: non-finite obs {k}")
+        check(bool(torch.isfinite(v).all()), f"{label} reset: non-finite obs {k}")
     return env, state
 
 
-def locked_env_steps(env, state, out):
+def locked_env_steps(env, state, out, label="locked_env"):
     """ENV_STEPS of `LockedEnv.step` from `state`, actions uniform in [-1, 1]
     from a seeded generator on the card (bench.py:77-88); checks every obs
     and reward finite, and puts the reward sum, the episodes done and the
@@ -2199,7 +2482,7 @@ def locked_env_steps(env, state, out):
         rewards = rewards + reward.sum(0)
         done = done + dn.sum()
     for k, ok in finite.items():
-        check(bool(ok), f"locked_env path: non-finite {k}")
+        check(bool(ok), f"{label} path: non-finite {k}")
     out.update(reward_sum=[float(x) for x in rewards], done=int(done),
                on_palm=float(cube_env.is_on_palm(env.cube, state.physics).float().mean()))
     return state.physics
@@ -2405,7 +2688,8 @@ def rubik_env_reset(batch, kind="face", bare=None):
         env.generator.manual_seed(SEED)
     else:
         module = importlib.import_module("robogym_torch.envs.dactyl." + spec["module"])
-        env = module.make_env(device="cuda", seed=SEED)
+        with MEMO.construction(label.replace("_", " ")):
+            env = module.make_env(device="cuda", seed=SEED)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     wenv = getattr(wrappers, spec["wrap"])(env, randomize=True) if wrapped else env
@@ -2696,8 +2980,8 @@ def reach_env_reset(batch):
     from robogym_torch.envs.dactyl import reach
 
     t0 = time.perf_counter()
-    env = reach.make_env(device="cuda", seed=SEED)
-    torch.cuda.synchronize()
+    with MEMO.construction("reach env"):
+        env = reach.make_env(device="cuda", seed=SEED)
     t1 = time.perf_counter()
     state, obs = env.reset(batch)
     torch.cuda.synchronize()
@@ -2872,8 +3156,8 @@ def reach_helper_reset(renv, rstate, batch):
     from robogym_torch.envs.rearrange import blocks
 
     t0 = time.perf_counter()
-    env = blocks.make_env(*REACH_HELPER_CONFIG, seed=SEED, worlds={"model": renv.model})
-    torch.cuda.synchronize()
+    with MEMO.construction("reach helper env"):
+        env = blocks.make_env(*REACH_HELPER_CONFIG, seed=SEED, worlds={"model": renv.model})
     built = time.perf_counter() - t0
     check(REACH_HELPER_CONFIG[1]["simulation_params"] == REARRANGE_CONFIG[1]["simulation_params"]
           and env.solver_model is None, "reach_helper: not the rearrange env's configuration")
@@ -3060,8 +3344,9 @@ def vision_env_reset(batch):
     from robogym_torch.envs.dactyl import locked
 
     t0 = time.perf_counter()
-    env = locked.make_env({"vision_observation_provider": "dummy_vision",
-                           "reset_initial_steps": OLDER_INITIAL_STEPS}, device="cuda", seed=SEED)
+    with MEMO.construction("dummy vision env"):
+        env = locked.make_env({"vision_observation_provider": "dummy_vision"}, device="cuda",
+                              seed=SEED)
     state, obs = env.reset(batch)
     torch.cuda.synchronize()
     check_images("locked dummy-vision reset", obs, batch)
@@ -3242,8 +3527,8 @@ def real_image_env_reset(batch):
     cams = dummy_vision.DEFAULT_CAMERA_NAMES
     size = LOCKED_REAL_IMAGE_CONFIG["vision_image_size"]
     t0 = time.perf_counter()
-    env = locked_real_image.make_env(LOCKED_REAL_IMAGE_CONFIG, device="cuda", seed=SEED)
-    torch.cuda.synchronize()
+    with MEMO.construction("real-image env"):
+        env = locked_real_image.make_env(LOCKED_REAL_IMAGE_CONFIG, device="cuda", seed=SEED)
     build_s = time.perf_counter() - t0
     rend = {}
     torch.cuda.reset_peak_memory_stats()
@@ -3328,8 +3613,8 @@ def rearrange_vision_reset(batch):
     cst, par = REARRANGE_VISION_CONFIG
     size = cst.get("vision_image_size", 200)
     t0 = time.perf_counter()
-    env = blocks.make_env(cst, par, device="cuda", seed=SEED)
-    torch.cuda.synchronize()
+    with MEMO.construction("rearrange vision env"):
+        env = blocks.make_env(cst, par, device="cuda", seed=SEED)
     build_s = time.perf_counter() - t0
     rend = {}
     torch.cuda.reset_peak_memory_stats()
@@ -3411,8 +3696,8 @@ def rearrange_env_reset(batch, module="blocks", config=REARRANGE_CONFIG,
     state, seconds built, seconds reset)."""
     make_env = importlib.import_module("robogym_torch.envs.rearrange." + module).make_env
     t0 = time.perf_counter()
-    env = make_env(*config, device="cuda", seed=SEED, worlds=worlds)
-    torch.cuda.synchronize()
+    with MEMO.construction(label):
+        env = make_env(*config, device="cuda", seed=SEED, worlds=worlds)
     built = time.perf_counter() - t0
     state, reset = rearrange_reset(env, batch, label, built, draws_out)
     return env, state, built, reset
@@ -3948,10 +4233,10 @@ def holdout_env_reset(batch):
     from robogym_torch.worlds import holdout_ball_like
 
     t0 = time.perf_counter()
-    env = env_utils.load_env(holdout_ball_like.CONFIG,
-                             constants={"stabilize_steps": OLDER_STABILIZE_STEPS},
-                             device="cuda", seed=SEED)
-    torch.cuda.synchronize()
+    with MEMO.construction("holdout env"):
+        env = env_utils.load_env(holdout_ball_like.CONFIG,
+                                 constants={"stabilize_steps": OLDER_STABILIZE_STEPS},
+                                 device="cuda", seed=SEED)
     t1 = time.perf_counter()
     state, obs = env.reset(batch)
     torch.cuda.synchronize()
@@ -3986,6 +4271,117 @@ def round_groups(model):
     have = group_slots(model)
     check(all(k in have for k in want), f"holdout: round-geom groups {want} not all in {list(have)}")
     return want
+
+
+def script_launches(name, run, kernels):
+    """Run an entry point with every launch count set to 0 just before it
+    and read just after; check that each of `kernels` was launched.
+    Returns (run's value, seconds, launches)."""
+    from robogym_torch import cuda
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    value = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    for k in kernels:
+        check(launches.get(k, 0) > 0, f"{name}: {k} was not launched {launches}")
+    return value, wall, launches
+
+
+def frames_readings(label, frames, n):
+    """Check replayed frames: (n, H, W, 3) uint8 at REPLAY_SIZE, no frame
+    black or of one colour."""
+    w, h = REPLAY_SIZE
+    check(frames.shape == (n, h, w, 3) and frames.dtype == np.uint8,
+          f"{label}: frames {frames.shape} {frames.dtype}, want ({n}, {h}, {w}, 3) uint8")
+    flat = frames.reshape(n, -1).astype(np.float64)
+    check(bool((flat.max(1) > 0).all() and (flat.std(1) > 0).all()),
+          f"{label}: a frame black or of one colour")
+
+
+def examine_path(tmp):
+    """`scripts/examine.py` on the card (`examine.main`, the locked env
+    found by its path, EXAMINE_STEPS steps, the trajectory recorded), its
+    env's construction shared through `MEMO` with the locked env's (the
+    same world and settle); then `viewer.replay_npz` of the record through
+    the raycaster, every frame at REPLAY_SIZE, and `EnvReplayViewer(env).run
+    (VIEWER_STEPS)` on the same env: readings."""
+    from robogym_torch import viewer
+    from robogym_torch.envs.dactyl import locked
+    from robogym_torch.scripts import examine
+
+    record = os.path.join(tmp, "traj.npz")
+    argv = ["dactyl/locked.py", f"num_steps={EXAMINE_STEPS}", f"record={record}",
+            f"constants={EXAMINE_CONSTANTS}"]
+
+    def run():
+        with constructing(locked, "make_env", "examine env") as made:
+            examine.main(argv)
+        return made["env"]
+
+    env, wall, launches = script_launches("examine", run, PER_CALL["locked_env"])
+    with np.load(record) as z:
+        check(sorted(z.files) == ["qpos"] and z["qpos"].shape == (EXAMINE_STEPS + 1,
+                                                                   env.model.const.nq),
+              f"examine: the record holds {[(k, z[k].shape) for k in z.files]}")
+    w, h = REPLAY_SIZE
+    t0 = time.perf_counter()
+    frames = viewer.replay.replay_npz(env, record, backend="raycast", width=w, height=h)
+    replay_s = time.perf_counter() - t0
+    frames_readings("replay_npz", frames, EXAMINE_STEPS + 1)
+    t0 = time.perf_counter()
+    seen = viewer.EnvReplayViewer(env, width=w, height=h).run(VIEWER_STEPS)
+    viewer_s = time.perf_counter() - t0
+    frames_readings("EnvReplayViewer", seen, VIEWER_STEPS + 1)
+    ms = replay_s / frames.shape[0] * 1e3
+    print(f"[path examine] examine.main({argv}) on the card: {wall:.2f} s with its construction "
+          f"({MEMO.seconds['examine env']:.2f} s), its reset and {EXAMINE_STEPS} steps at B=1; "
+          f"launches {launches}; replay_npz of the record through the raycaster: "
+          f"{frames.shape[0]} frames {frames.shape[1:]} in {replay_s:.3f} s, {ms:.1f} ms a "
+          f"frame; EnvReplayViewer.run({VIEWER_STEPS}): {seen.shape[0]} frames in "
+          f"{viewer_s:.2f} s; no frame black")
+    return dict(seconds=wall, batch=1, launches=launches, env_steps=EXAMINE_STEPS,
+                construction_s=MEMO.seconds["examine env"], replay_ms_a_frame=ms,
+                replay_frames=int(frames.shape[0]), viewer_s=viewer_s)
+
+
+def create_holdout_path(tmp):
+    """`scripts/create_holdout.py` on the card (`create_holdout.main` on the
+    stand-in holdout's config, one settle step, the objects' settle at
+    reset `OLDER_STABILIZE_STEPS` env steps), its env's construction shared
+    through `MEMO` with the holdout env's; the saved npz holds the keys,
+    shapes of the stand-in's saved initial state, its values finite:
+    readings."""
+    from robogym_torch.envs.rearrange import holdout
+    from robogym_torch.scripts import create_holdout
+    from robogym_torch.worlds import holdout_ball_like
+
+    out_dir = os.path.join(tmp, "holdout")
+    argv = [holdout_ball_like.CONFIG, f"out_dir={out_dir}", "kind=initial", "settle_steps=1",
+            f"constants=@{{'stabilize_steps': {OLDER_STABILIZE_STEPS}}}"]
+
+    def run():
+        with constructing(holdout, "make_env", "create_holdout env"):
+            create_holdout.main(argv)
+
+    _, wall, launches = script_launches("create_holdout", run,
+                                        ("spd_inverse", "cg_full", "hull_manifold", "hull_pair"))
+    (path,) = [os.path.join(out_dir, f) for f in os.listdir(out_dir)]
+    ref = os.path.join(holdout_ball_like.STATE_DIR, "initial_state_ball_like.npz")
+    with np.load(path) as got, np.load(ref) as want:
+        shapes = {k: got[k].shape for k in got.files}
+        check(shapes == {k: want[k].shape for k in want.files},
+              f"create_holdout: saved {shapes}, the reference {[(k, want[k].shape) for k in want]}")
+        check(all(bool(np.isfinite(got[k]).all()) for k in got.files),
+              "create_holdout: a saved value is not finite")
+    print(f"[path create_holdout] create_holdout.main on the card: {wall:.2f} s with its "
+          f"construction ({MEMO.seconds['create_holdout env']:.2f} s), its reset at B=1 and one "
+          f"settle step; saved {os.path.basename(path)}: {shapes}; launches {launches}")
+    return dict(seconds=wall, batch=1, launches=launches,
+                construction_s=MEMO.seconds["create_holdout env"], saved=sorted(shapes))
 
 
 def drive(name, run, calls):
@@ -4063,7 +4459,13 @@ def main() -> int:
     ap.add_argument("--parent-csrc", metavar="DIR",
                     help="also hold each CG phase's outputs to the kernels built from DIR (another "
                          "checkout's robogym_torch/csrc) and time both builds in turns")
+    ap.add_argument("--settles", metavar="DIR", help=argparse.SUPPRESS)
     opts = ap.parse_args()
+    if opts.settles:
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, REPO)
+        return prefetch_settles(opts.settles)
     if opts.parent_csrc:
         PARENT.update(csrc=os.path.abspath(opts.parent_csrc),
                       build_dir=os.path.join(REPO, "build", "parent_kernels"))
@@ -4092,6 +4494,7 @@ def main() -> int:
         compiling = pool.submit(lambda: (compile_phase(), compiled_rearrange_worlds()))
         log = cuda.build()
         print(f"[build] nvcc sm_90a, one process per source, {time.perf_counter() - t0:.1f} s")
+        MEMO.start_prefetch()
         (cmodels, compile_s, compile_ruled), (rworlds, rworlds_s) = compiling.result()
     for line in log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling entry" in line) or "spill" in line:
@@ -4123,6 +4526,9 @@ def main() -> int:
 
     env, env_state = locked_env_reset(B, cmodels["dactyl_locked_like"])
     lap("locked env")
+    kenv, kstate = locked_env_reset(B, cmodels["dactyl_locked_composed"], "composed locked env",
+                                    "the world its builder composes from the stand-in asset tree")
+    lap("composed locked env")
     wenv, wstate = wrapped_env_reset(env, B)
     lap("wrapped env")
     fenv, fstate, f_read = rubik_env_reset(B)
@@ -4159,9 +4565,9 @@ def main() -> int:
     # ycb_stabilized_env path, every env's first goal settled in the full
     # model
     t0 = time.perf_counter()
-    yenv = importlib.import_module("robogym_torch.envs.rearrange.ycb").make_env(
-        *YCB_CONFIG, device="cuda", seed=SEED)
-    torch.cuda.synchronize()
+    with MEMO.construction("YCB env"):
+        yenv = importlib.import_module("robogym_torch.envs.rearrange.ycb").make_env(
+            *YCB_CONFIG, device="cuda", seed=SEED)
     y_build = time.perf_counter() - t0
     ystate, y_reset = rearrange_reset(yenv, B, "YCB env", y_build)
     ysenv = stabilized_copy(yenv)
@@ -4190,6 +4596,7 @@ def main() -> int:
           f"{cuda.cg_full_smem_bytes(E_c, V_c, True)} B, limit {cuda.max_smem_bytes()} B: "
           f"{'kernel B' if route_c == 'cg_full' else 'the size route (F)'} takes it")
 
+    MEMO.stop_prefetch()
     print(f"[time] {time.perf_counter() - t_start:.1f} s since the start: build and state")
 
     # 5. one phase per kernel, on inputs captured from one substep or call
@@ -4429,6 +4836,24 @@ def main() -> int:
           f"another host, {SNAPSHOT_RATES['locked_env']}); reward sum "
           f"{env_out['reward_sum']} (env, goal distance, success), episodes done "
           f"{env_out['done']}, on the palm {env_out['on_palm']:.4f}; launches {counts}")
+    composed_out, store = {}, {}
+    out, wall, counts = drive("composed_locked_env", captured(
+        lambda run: capture_ends([(constraint_batched, "fused_step_core"),
+                                  (convex_kernel, "hull_manifold"), (convex_kernel, "hull_pair"),
+                                  (boxbox_kernel, "boxbox")], run),
+        lambda: locked_env_steps(kenv, kstate, composed_out, "composed_locked_env"), store),
+        ENV_STEPS * SUBSTEPS)
+    caps = {"composed_locked_env": store["cap"]}
+    csps = B * ENV_STEPS / wall
+    record("composed_locked_env", wall, counts, env_steps=ENV_STEPS, substeps=SUBSTEPS,
+           env_steps_per_s=csps, reward_sum=composed_out["reward_sum"],
+           done=composed_out["done"], on_palm=composed_out["on_palm"])
+    print(f"[path composed_locked_env] {ENV_STEPS} LockedEnv.step calls x {SUBSTEPS} substeps "
+          f"at B={B} on the world cube_env.build_cube_world_xml composes from the stand-in "
+          f"asset tree: {wall:.3f} s, {csps:.1f} env-steps/s (locked_env {sps:.1f} in this "
+          f"run); reward sum {composed_out['reward_sum']} (env, goal distance, success), "
+          f"episodes done {composed_out['done']}, on the palm {composed_out['on_palm']:.4f}; "
+          f"launches {counts}")
     wrapped_out = {}
     out, wall, counts = drive("wrapped_env", lambda: wrapped_env_steps(wenv, wstate, wrapped_out),
                               ENV_STEPS * SUBSTEPS)
@@ -4471,7 +4896,6 @@ def main() -> int:
     paths["full_env"]["route"] = route_u
     # the paths of one step whose kernels' inputs the kernel phases below
     # take (`captured`: as `one_step` from the reset state, no second step)
-    caps = {}
     rearr_out, store = {}, {}
     out, wall, counts = drive("rearrange_env", captured(
         lambda run: capture_rearrange(renv, rstate, run=run),
@@ -4640,6 +5064,11 @@ def main() -> int:
           f"({PER_CALL['holdout_env']} an env step)")
     check(all(sum(v) > 0 for v in live_h.values()),
           f"holdout_env: a round-geom group had no live pair over the steps {live_h}")
+    # the scripts on the card, their constructions shared with the locked
+    # and holdout envs'
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["examine"] = examine_path(tmp)
+        paths["create_holdout"] = create_holdout_path(tmp)
     for name in FAMILY:
         f = fam[name]
         env_k, out_k, live_k, store = f["env"], {}, [], {}
@@ -4672,6 +5101,26 @@ def main() -> int:
         check(out_k["off_table"] == 0, f"{name}_env: an object off the table")
         f.update(out=out_k)
 
+    # the composed locked env's kernels on the inputs of the last substep of
+    # its path: A and B at its V=36, C on the palm's and the cube's box-mesh
+    # pairs with the fingers, D on the fingers' mesh-mesh pairs, E on the
+    # palm's box-box pair with the cube
+    ccap = caps["composed_locked_env"]
+    kind_k2, its_k2, nfacet_k2, *args_k2 = ccap["fused_step_core"][1]
+    ci_k2 = constraint_batched.core_inputs(kind_k2, nfacet_k2, *args_k2)
+    V_k2, E_k2 = ci_k2["qM"].shape[-1], len(ci_k2["kind"])
+    print(f"[composed] kernel B's system: E={E_k2} rows, V={V_k2}; "
+          f"{'kernel B' if cg_kernel.fits(E_k2, V_k2, True) else 'the size route (F)'} takes it")
+    check(V_k2 == kenv.model.const.nv == 36, f"composed: V={V_k2}, want 36")
+    check(cg_kernel.fits(E_k2, V_k2, True),
+          f"composed: E={E_k2}, V={V_k2} above kernel B's shared memory, and PER_CALL counts B")
+    res["spd_inverse@composed"] = phase_spd("A spd_inverse@composed", ci_k2["qM"], REPS)
+    res["cg_full@composed"] = phase_cg_full("B cg_full@composed", ci_k2, its_k2, nfacet_k2, REPS)
+    for name in ("hull_manifold", "hull_pair"):
+        *hargs, hDX = ccap[name][1]
+        res[name + "@composed"] = phase_hull(name, hargs, hDX, REPS,
+                                             f"{HULL_LETTER[name]} {name}@composed")
+    res["boxbox@composed"] = phase_boxbox(ccap["boxbox"][1], REPS, "E boxbox@composed")
     # the rearrange env's kernels on the inputs of the rearrange_env path's step
     # from its reset state: A at the main sim's and the solver sim's V, B on the
     # solver sim's system (its weld, connect and joint rows) and on the main
@@ -4848,4 +5297,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        MEMO.close()

@@ -10,9 +10,12 @@ the draws, so that a caller can feed the draws of another generator. The
 env takes a compiled Model: a world snapshot through
 `robogym_torch.bridge.model_from_numpy`, or the port's own compile of a
 world's XML (`robogym_torch.mjcf.compiler.compile_xml`;
-`robogym_torch.worlds.compile` for the stand-ins). Composing the real
-dactyl world's XML (`build_cube_world_xml`) needs robogym's assets, which
-this repository does not carry.
+`robogym_torch.worlds.compile` for the stand-ins). `compile_world`
+composes the dactyl world from robogym's asset XMLs (`build_cube_world_xml`:
+hand, cube, target cube, floor and light) and compiles it, as the JAX
+constructor does; the assets are read from `xml_tools.ASSETS_DIR`
+(`ROBOGYM_TPU_ASSETS`; `robogym_torch/worlds/dactyl_assets_like.py` writes
+a stand-in tree).
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ import numpy as np
 import torch
 
 from robogym_torch.envs import core
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Data, Model, make_data
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.physics import step as physics
 from robogym_torch.robot import shadow_hand as hand
 from robogym_torch.utils import rotation as rot
@@ -50,6 +55,69 @@ class DactylCubeEnvConstants(core.EnvConstants):
 
 
 REFERENCE_SITE_NAMES = ["phasespace_ref0", "phasespace_ref1", "phasespace_ref2"]
+
+
+# Three fixed cameras looking at the on-palm cube from above, right and
+# left (the JAX package's placements: the reference's vision rig is not in
+# the public assets); a camera looks along its local -Z, so zaxis points
+# from the cube to the camera.
+DACTYL_VISION_CAMERA_XML = """
+<mujoco>
+  <worldbody>
+    <camera name="vision_cam_top" pos="1.0 0.87 0.75" zaxis="0 0 1"
+            fovy="45"/>
+    <camera name="vision_cam_right" pos="1.4 0.5 0.55"
+            zaxis="0.4 -0.37 0.3" fovy="45"/>
+    <camera name="vision_cam_left" pos="0.6 0.5 0.55"
+            zaxis="-0.4 -0.37 0.3" fovy="45"/>
+  </worldbody>
+</mujoco>
+"""
+
+
+def build_cube_world_xml(cube_xml_path: str, cube_density: float = 421.0,
+                         with_vision_cams: bool = False) -> MjcfXML:
+    """The world every cube env composes (cube_env.py:172-218,
+    locked.py:79-96): the cube file parsed twice, as the cube `cube:` and
+    the collision-free target `target:`, the floor, the hand `robot0:` on
+    its mount, the light, and where asked the three vision cameras."""
+    xml = MjcfXML()
+    xml.add_default_compiler_directive()
+    if with_vision_cams:
+        xml.append(MjcfXML.from_string(DACTYL_VISION_CAMERA_XML))
+    xml.append(
+        MjcfXML.parse(cube_xml_path)
+        .remove_objects_by_name("annotation:outer_bound")
+        .add_name_prefix("cube:")
+        .set_named_objects_attr("cube:middle", tag="body", pos=[1.0, 0.87, 0.2])
+        .set_named_objects_attr("cube:middle", tag="geom", density=cube_density)
+    )
+    xml.append(
+        MjcfXML.parse(cube_xml_path)
+        .remove_objects_by_name("annotation:outer_bound")
+        .add_name_prefix("target:")
+        .set_named_objects_attr("target:middle", tag="body", pos=[1.0, 0.87, 0.2])
+        .set_objects_attr(tag="geom", group="2", conaffinity="0", contype="0")
+    )
+    xml.append(
+        MjcfXML.parse("floor/basic_floor.xml").set_named_objects_attr(
+            "floor", tag="body", pos=[1, 1, 0]
+        )
+    )
+    xml.append(hand_xml())
+    xml.append(MjcfXML.parse("light/default.xml"))
+    return xml
+
+
+def hand_xml() -> MjcfXML:
+    """The Shadow Hand `robot0:` on its mount, its outer bound and base
+    removed (as each dactyl world places it)."""
+    return (MjcfXML.parse("robot/shadowhand/main.xml")
+            .add_name_prefix("robot0:")
+            .set_named_objects_attr("robot0:hand_mount", tag="body", pos=[1.0, 1.25, 0.15],
+                                    euler=[np.pi / 2, 0, np.pi])
+            .remove_objects_by_name("robot0:annotation:outer_bound")
+            .remove_objects_by_name("robot0:hand_base"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +293,8 @@ class CubeEnvBase:
     `reset_initial_steps x mujoco_substeps` substeps does not depend on any
     draw, so it runs once here."""
 
+    CUBE_XML: str = "rubik/rubik_locked.xml"
+
     def __init__(self, constants: DactylCubeEnvConstants, model: Model, seed: int = 0):
         self.constants = constants
         dev, dtype = model.device, model.dtype
@@ -319,3 +389,14 @@ class CubeEnvBase:
             d = data_put(d, idx, self._attempt(data_take(base, idx), draws))
             self.reset_retries += 1
         return d
+
+
+def compile_world(constants, device="cuda", cube_xml: str = CubeEnvBase.CUBE_XML,
+                  build_world_xml=build_cube_world_xml) -> Model:
+    """The cube env's world composed from the assets by `build_world_xml`
+    and compiled on `device` (the card unless the caller asks for the CPU),
+    as the JAX constructor compiles it (cube_env.py:252-262), with the
+    vision cameras where `constants` render images ("raycast"). The env
+    sets its timestep from `constants` at construction."""
+    cams = getattr(constants, "vision_observation_provider", "") == "raycast"
+    return compile_xml(build_world_xml(cube_xml, with_vision_cams=cams), device=device)

@@ -40,7 +40,9 @@ import torch
 from robogym_torch import bridge
 from robogym_torch.envs import core
 from robogym_torch.envs.dactyl import cube_env
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Data, Model
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.physics import step as physics
 from robogym_torch.robot import shadow_hand as hand
 from robogym_torch.utils import rotation as rot
@@ -73,6 +75,49 @@ BOTTOM_FACE_JOINTS = [
     "cubelet:rotz:neg_y_neg_z", "cubelet:rotz:pos_y_neg_z",
 ]
 GOAL_TYPES = ("flip", "rotation")
+
+
+def _face_cube_edits(xml: MjcfXML) -> MjcfXML:
+    """The perpendicular cube with every joint but the two z faces' removed
+    (face_perpendicular.py:77-101)."""
+    xml = (
+        xml
+        .remove_objects_by_prefix(prefix="cubelet:rotx:", tag="joint")
+        .remove_objects_by_prefix(prefix="cubelet:roty:", tag="joint")
+        .remove_objects_by_prefix(prefix="cubelet:spring:", tag="joint")
+        .remove_objects_by_name(names=_REMOVED_ROTZ, tag="joint")
+    )
+    for n in _REMOVED_DRIVERS:
+        xml = xml.remove_objects_by_name(n, tag="joint")
+    return xml
+
+
+def build_face_world_xml() -> MjcfXML:
+    """The face env's world from the assets: the edited perpendicular cube
+    `cube:`, the floor, the hand and the light; no target cube (the
+    reference's is for rendering; goals are data here)."""
+    xml = MjcfXML()
+    xml.add_default_compiler_directive()
+    cube = _face_cube_edits(MjcfXML.parse("rubik/rubik_perpendicular.xml"))
+    cube.add_name_prefix("cube:")
+    cube.set_named_objects_attr("cube:middle", tag="body", pos=[1.0, 0.87, 0.2])
+    xml.append(cube)
+    xml.append(
+        MjcfXML.parse("floor/basic_floor.xml").set_named_objects_attr(
+            "floor", tag="body", pos=[1, 1, 0]
+        )
+    )
+    xml.append(cube_env.hand_xml())
+    xml.append(MjcfXML.parse("light/default.xml"))
+    return xml
+
+
+def compile_world(constants=None, device="cuda") -> Model:
+    """The face env's world composed from the assets and compiled on
+    `device` (the card unless the caller asks for the CPU), as the JAX
+    constructor compiles it (face_perpendicular.py:123); the env sets its
+    timestep from its constants."""
+    return compile_xml(build_face_world_xml(), device=device)
 
 
 @dataclasses.dataclass(frozen=True)

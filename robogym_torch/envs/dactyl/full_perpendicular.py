@@ -53,7 +53,9 @@ from robogym_torch import bridge
 from robogym_torch.envs import core
 from robogym_torch.envs.dactyl import cube_env, goals_solver
 from robogym_torch.envs.dactyl import cube_manipulator as manip
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Data, Model
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.physics import step as physics
 from robogym_torch.robot import shadow_hand as hand
 from robogym_torch.utils import rotation as rot
@@ -69,6 +71,37 @@ GOAL_GENERATIONS = ("face_free", "face_curr", "full_unconstrained") + SOLVER_MOD
 # the WCA "fair scramble" (goals/fixed_fair_scramble.py:17-19); its half
 # turns become two quarter-turn goals (rubik_cube_solver.py:86-120)
 FIXED_FAIR_SCRAMBLE = "L2 U2 R2 B D2 B2 D2 L2 F' D' R B F L U' F D' L2"
+
+
+def build_full_world_xml() -> MjcfXML:
+    """The full env's world from the assets (full_perpendicular.py:97-117):
+    the perpendicular cube `cube:` with its springs removed, the floor, the
+    hand and the light; no target cube (goals are data here)."""
+    xml = MjcfXML()
+    xml.add_default_compiler_directive()
+    cube = (
+        MjcfXML.parse("rubik/rubik_perpendicular.xml")
+        .remove_objects_by_prefix(prefix="cubelet:spring:", tag="joint")
+    )
+    cube.add_name_prefix("cube:")
+    cube.set_named_objects_attr("cube:middle", tag="body", pos=[1.0, 0.87, 0.2])
+    xml.append(cube)
+    xml.append(
+        MjcfXML.parse("floor/basic_floor.xml").set_named_objects_attr(
+            "floor", tag="body", pos=[1, 1, 0]
+        )
+    )
+    xml.append(cube_env.hand_xml())
+    xml.append(MjcfXML.parse("light/default.xml"))
+    return xml
+
+
+def compile_world(constants=None, device="cuda") -> Model:
+    """The full env's world composed from the assets and compiled on
+    `device` (the card unless the caller asks for the CPU), as the JAX
+    constructor compiles it (full_perpendicular.py:94); the env sets its
+    timestep from its constants."""
+    return compile_xml(build_full_world_xml(), device=device)
 
 
 @dataclasses.dataclass(frozen=True)

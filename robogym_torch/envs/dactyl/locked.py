@@ -295,10 +295,13 @@ class LockedEnv(cube_env.CubeEnvBase):
 
 
 def make_env(constants: Optional[dict] = None, device="cuda", seed: int = 0,
+             model: Optional[Model] = None,
              snapshot: str = dactyl_locked_like.SNAPSHOT) -> LockedEnv:
     """The locked env on `device` (the card unless the caller asks for the
-    CPU), on the compiled world `snapshot` (the dactyl-shaped stand-in by
-    default), its draws seeded by `seed`."""
-    with np.load(snapshot) as z:
-        model = bridge.model_from_numpy({k: z[k] for k in z.files}, device)
+    CPU), on `model` (for example `cube_env.compile_world`'s composed
+    world) or else the compiled world `snapshot` (the dactyl-shaped
+    stand-in by default), its draws seeded by `seed`."""
+    if model is None:
+        with np.load(snapshot) as z:
+            model = bridge.model_from_numpy({k: z[k] for k in z.files}, device)
     return LockedEnv(LockedEnvConstants(**(constants or {})), model, seed=seed)

@@ -108,11 +108,14 @@ class LockedRealImageEnv(LockedEnv):
 
 
 def make_env(constants: Optional[dict] = None, device="cuda", seed: int = 0,
+             model: Optional[Model] = None,
              snapshot: str = vision_like.DACTYL_SNAPSHOT) -> LockedRealImageEnv:
     """The real-image locked env on `device` (the card unless the caller
-    asks for the CPU), on the compiled world `snapshot` (the dactyl-shaped
-    stand-in with the vision cameras by default), its draws seeded by
-    `seed`."""
-    with np.load(snapshot) as z:
-        model = bridge.model_from_numpy({k: z[k] for k in z.files}, device)
+    asks for the CPU), on `model` (for example `cube_env.compile_world`'s
+    composed world, which carries the vision cameras under "raycast") or
+    else the compiled world `snapshot` (the dactyl-shaped stand-in with the
+    vision cameras by default), its draws seeded by `seed`."""
+    if model is None:
+        with np.load(snapshot) as z:
+            model = bridge.model_from_numpy({k: z[k] for k in z.files}, device)
     return LockedRealImageEnv(LockedRealImageEnvConstants(**(constants or {})), model, seed=seed)

@@ -29,7 +29,10 @@ import torch
 
 from robogym_torch import bridge
 from robogym_torch.envs import core
+from robogym_torch.envs.dactyl import cube_env
+from robogym_torch.mjcf.compiler import compile_xml
 from robogym_torch.mjcf.model import Data, Model, make_data
+from robogym_torch.mjcf.xml_tools import MjcfXML
 from robogym_torch.physics import step as physics
 from robogym_torch.robot import shadow_hand as hand
 from robogym_torch.worlds import dactyl_reach_like
@@ -47,6 +50,30 @@ class ReachEnvConstants(core.EnvConstants):
     # kinematics only
     goal_stabilize_steps: int = 2
     success_pause_range_s: Tuple[float, float] = (0.0, 0.5)
+
+
+def build_reach_xml() -> MjcfXML:
+    """The reach world from the assets (reference reach.py:86-135): the
+    floor, the target sites, the hand and the light."""
+    xml = MjcfXML()
+    xml.add_default_compiler_directive()
+    xml.append(
+        MjcfXML.parse("floor/basic_floor.xml").set_named_objects_attr(
+            "floor", tag="body", pos=[1, 1, 0]
+        )
+    )
+    xml.append(MjcfXML.parse("shadowhand_reach/target.xml"))
+    xml.append(cube_env.hand_xml())
+    xml.append(MjcfXML.parse("light/default.xml"))
+    return xml
+
+
+def compile_world(constants=None, device="cuda") -> Model:
+    """The reach world composed from the assets and compiled on `device`
+    (the card unless the caller asks for the CPU), as the JAX constructor
+    compiles it (reach.py:80); the env sets its timestep from its
+    constants."""
+    return compile_xml(build_reach_xml(), device=device)
 
 
 class ReachEnv:
@@ -225,10 +252,13 @@ class ReachEnv:
 
 
 def make_env(constants: Optional[dict] = None, device="cuda", seed: int = 0,
+             model: Optional[Model] = None,
              snapshot: str = dactyl_reach_like.SNAPSHOT) -> ReachEnv:
     """The reach env on `device` (the card unless the caller asks for the
-    CPU), on the compiled world `snapshot` (the reach stand-in by default),
-    its draws seeded by `seed`."""
-    with np.load(snapshot) as z:
-        model = bridge.model_from_numpy({k: z[k] for k in z.files}, device)
+    CPU), on `model` (for example `compile_world`'s composed world) or else
+    the compiled world `snapshot` (the reach stand-in by default), its
+    draws seeded by `seed`."""
+    if model is None:
+        with np.load(snapshot) as z:
+            model = bridge.model_from_numpy({k: z[k] for k in z.files}, device)
     return ReachEnv(ReachEnvConstants(**(constants or {})), model, seed=seed)

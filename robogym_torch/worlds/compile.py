@@ -1,6 +1,6 @@
 """Compile the stand-in worlds with the port's own compiler.
 
-`compile_world(world, device)` builds each of the 21 worlds whose
+`compile_world(world, device)` builds each of the 25 worlds whose
 snapshots ship in this directory (`WORLDS`), step by step as
 `tools/build_locked_like_snapshot.py` builds them with the JAX package's
 compiler, but with this package's modules only: the worlds' writers, the
@@ -14,7 +14,11 @@ candidate STLs copied under a temporary assets directory's `stls`, which
 `xml_tools.ASSETS_DIR` names while the world compiles (`_stand_in`), and
 the world's base XML from `rearrange_blocks_like.world_xml_builder` of that
 `stls`. The holdout stand-in is compiled with the pair table keyed in
-ascending type order (`sorted_pair_table`).
+ascending type order (`sorted_pair_table`). The four composed dactyl
+worlds (`COMPOSED`) are built by the envs' own builders from the stand-in
+asset tree of `dactyl_assets_like.write_assets`, written into a temporary
+directory that `xml_tools.ASSETS_DIR` names while the world compiles
+(`assets_tree`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,11 @@ WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_settin
           "rubik_face_like", "rubik_full_like", "dactyl_reach_like", "rearrange_ycb_like",
           "holdout_ball_like", "rearrange_table_setting_like", "rearrange_chessboard_like",
           "rearrange_mixture_like", "rearrange_composer_like", "dactyl_vision_like",
-          "rearrange_vision_like")
+          "rearrange_vision_like", "dactyl_locked_composed", "rubik_face_composed",
+          "rubik_full_composed", "dactyl_reach_composed")
+# the composed dactyl worlds: the env module whose `compile_world` builds each
+COMPOSED = {"dactyl_locked_composed": "cube_env", "rubik_face_composed": "face_perpendicular",
+            "rubik_full_composed": "full_perpendicular", "dactyl_reach_composed": "reach"}
 MESH_FAMILY = {"rearrange_table_setting_like": "table_setting",
                "rearrange_chessboard_like": "chessboard", "rearrange_mixture_like": "mixture",
                "rearrange_composer_like": "composer"}
@@ -55,6 +63,38 @@ def sorted_pair_table():
         yield
     finally:
         compiler._PAIR_NCON = orig
+
+
+@contextlib.contextmanager
+def assets_tree():
+    """Inside, `xml_tools.ASSETS_DIR` (and `XML_DIR`) name a temporary
+    directory holding the stand-in asset tree (`dactyl_assets_like`).
+    Yields the directory."""
+    from robogym_torch.worlds import dactyl_assets_like
+
+    orig = xml_tools.ASSETS_DIR, xml_tools.XML_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        dactyl_assets_like.write_assets(tmp)
+        xml_tools.ASSETS_DIR, xml_tools.XML_DIR = tmp, os.path.join(tmp, "xmls")
+        try:
+            yield tmp
+        finally:
+            xml_tools.ASSETS_DIR, xml_tools.XML_DIR = orig
+
+
+def _composed_world(world: str, device) -> Model:
+    """A composed dactyl world: its env module's `compile_world` on the
+    stand-in asset tree (the locked env's default constants: no vision
+    cameras)."""
+    import importlib
+
+    module = importlib.import_module("robogym_torch.envs.dactyl." + COMPOSED[world])
+    with assets_tree():
+        if world == "dactyl_locked_composed":
+            from robogym_torch.envs.dactyl.locked import LockedEnvConstants
+
+            return module.compile_world(LockedEnvConstants(), device)
+        return module.compile_world(None, device)
 
 
 @contextlib.contextmanager
@@ -169,6 +209,8 @@ def compile_world(world: str, device="cuda", dtype=torch.float32) -> Model:
         raise ValueError(f"unknown world {world!r}; want one of {WORLDS}")
     if world in MESH_FAMILY:
         return _family_world(MESH_FAMILY[world], device)
+    if world in COMPOSED:
+        return _composed_world(world, device)
     if world == "holdout_ball_like":
         return _holdout_world(device)
     if world == "rearrange_ycb_like":
@@ -232,6 +274,8 @@ def snapshot_path(world: str) -> str:
 
     if world in MESH_FAMILY:
         return rearrange_mesh_family_like.SNAPSHOTS[MESH_FAMILY[world]]
+    if world in COMPOSED:
+        return os.path.join(os.path.dirname(os.path.abspath(__file__)), world + ".npz")
     return {"locked_like": locked_like.SNAPSHOT, "locked_like_hand": locked_like.HAND_SNAPSHOT,
             "blocks_settle_like": blocks_settle_like.SNAPSHOT,
             "table_setting_like": table_setting_like.SNAPSHOT,

@@ -75,11 +75,12 @@ def _cube(prefix: str, pos, target: bool) -> List[str]:
     return out
 
 
-def hand_parts(directory: str) -> Dict[str, List[str]]:
+def hand_parts(directory: str, prefix: str = PREFIX) -> Dict[str, List[str]]:
     """Write the link hulls as ASCII STL into `directory` and return the
     hand's MJCF pieces, each a list of lines: its mesh `assets`, its
     `bodies` (under the worldbody), the `excludes` of each link and its
-    grandparent, its `tendons` and its `actuators`."""
+    grandparent, its `tendons` and its `actuators`, every name under
+    `prefix`."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     links = locked_like._links()
@@ -87,7 +88,7 @@ def hand_parts(directory: str) -> Dict[str, List[str]]:
     for link in links:
         children.setdefault(link[1], []).append(link)
     assets = []
-    P = PREFIX
+    P = prefix
 
     def body_xml(link, indent):
         name, _, pos, axis, rng, hull_axis, length, radius = link

@@ -84,24 +84,26 @@ def _hinge(name: str, axis: str, damping: float = 0.0) -> str:
             f'frictionloss="{FRICTIONLOSS}" armature="{ARMATURE}"{damp}/>')
 
 
-def cube_lines(pos) -> List[str]:
-    """The cube's bodies, joints, geoms and site under the worldbody."""
-    out = [f'    <body name="cube:middle" pos="{pos[0]} {pos[1]} {pos[2]}">']
+def cube_lines(pos, prefix: str = "cube:") -> List[str]:
+    """The cube's bodies, joints, geoms and site under the worldbody, every
+    name under `prefix`."""
+    P = prefix
+    out = [f'    <body name="{P}middle" pos="{pos[0]} {pos[1]} {pos[2]}">']
     for ax, axis in zip("xyz", _AXES):
-        out.append(f'      <joint name="cube:cube:t{ax}" type="slide" axis="{axis}"/>')
-    out.append('      <joint name="cube:cube:rot" type="ball"/>')
-    out.append('      <site name="cube:center" pos="0 0 0"/>')
+        out.append(f'      <joint name="{P}cube:t{ax}" type="slide" axis="{axis}"/>')
+    out.append(f'      <joint name="{P}cube:rot" type="ball"/>')
+    out.append(f'      <site name="{P}center" pos="0 0 0"/>')
     for i, (driver, xyz) in enumerate(zip(cube_manipulator.DRIVER_NAMES,
                                           cube_manipulator.DRIVER_COORDS)):
         face = driver.rsplit(":", 1)[1]
-        out += [f'      <body name="cube:cubelet:{face}" pos="0 0 0">',
-                _hinge(f"cube:{driver}", _AXES[i // 2], DRIVER_DAMPING),
-                _box(f"cube:cubelet:{face}", xyz, "        "),
+        out += [f'      <body name="{P}cubelet:{face}" pos="0 0 0">',
+                _hinge(f"{P}{driver}", _AXES[i // 2], DRIVER_DAMPING),
+                _box(f"{P}cubelet:{face}", xyz, "        "),
                 "      </body>"]
     for name, xyz in cube_manipulator._cubelet_names():
-        out.append(f'      <body name="cube:cubelet:{name}" pos="0 0 0">')
-        out += [_hinge(f"cube:cubelet:rot{a}:{name}", axis) for a, axis in zip("xyz", _AXES)]
-        out += [_box(f"cube:cubelet:{name}", xyz, "        "), "      </body>"]
+        out.append(f'      <body name="{P}cubelet:{name}" pos="0 0 0">')
+        out += [_hinge(f"{P}cubelet:rot{a}:{name}", axis) for a, axis in zip("xyz", _AXES)]
+        out += [_box(f"{P}cubelet:{name}", xyz, "        "), "      </body>"]
     out.append("    </body>")
     return out
 

@@ -54,7 +54,17 @@ snapshots next to their modules in `robogym_torch/worlds/`:
     JAX env's own `_compile_world` (`mesh_family_world`);
   * `dactyl_vision_like.npz` and `rearrange_vision_like.npz`, the
     dactyl-shaped and the UR16e-shaped blocks worlds with vision cameras
-    and a light (`vision_like`), compiled as their camera-less twins are.
+    and a light (`vision_like`), compiled as their camera-less twins are;
+  * `dactyl_locked_composed.npz`, `rubik_face_composed.npz`,
+    `rubik_full_composed.npz` and `dactyl_reach_composed.npz`, the worlds
+    the JAX dactyl envs compose themselves (`cube_env.build_cube_world_xml`
+    of `rubik/rubik_locked.xml`, `face_perpendicular.build_face_world_xml`,
+    `full_perpendicular.build_full_world_xml`, `reach.build_reach_xml`),
+    compiled by the JAX compiler in float32 as their constructors compile
+    them, from the stand-in asset tree that
+    `robogym_torch/worlds/dactyl_assets_like.write_assets` writes into a
+    temporary directory, to which the JAX `xml_tools` module's directories
+    are pointed while the world composes (`jax_assets_tree`).
 
     JAX_PLATFORMS=cpu python tools/build_locked_like_snapshot.py [WORLD ...]
 
@@ -79,10 +89,47 @@ WORLDS = ("locked_like", "locked_like_hand", "blocks_settle_like", "table_settin
           "rubik_face_like", "rubik_full_like", "dactyl_reach_like", "rearrange_ycb_like",
           "holdout_ball_like", "rearrange_table_setting_like", "rearrange_chessboard_like",
           "rearrange_mixture_like", "rearrange_composer_like", "dactyl_vision_like",
-          "rearrange_vision_like")
+          "rearrange_vision_like", "dactyl_locked_composed", "rubik_face_composed",
+          "rubik_full_composed", "dactyl_reach_composed")
+COMPOSED = ("dactyl_locked_composed", "rubik_face_composed", "rubik_full_composed",
+            "dactyl_reach_composed")
 MESH_FAMILY = {"rearrange_table_setting_like": "table_setting",
                "rearrange_chessboard_like": "chessboard", "rearrange_mixture_like": "mixture",
                "rearrange_composer_like": "composer"}
+
+
+@contextlib.contextmanager
+def jax_assets_tree():
+    """Inside, the JAX package's `xml_tools` reads robogym's assets from a
+    temporary directory holding the stand-in asset tree
+    (`dactyl_assets_like.write_assets`): its `ASSETS_DIR` and `XML_DIR`,
+    and `MjcfXML.meshdir` and `texturedir`, which it fixes when it is
+    imported. Yields the directory."""
+    from robogym_torch.worlds import dactyl_assets_like
+    from robogym_tpu.mjcf import xml_tools
+
+    cls = xml_tools.MjcfXML
+    orig = xml_tools.ASSETS_DIR, xml_tools.XML_DIR, cls.meshdir, cls.texturedir
+    with tempfile.TemporaryDirectory() as tmp:
+        dactyl_assets_like.write_assets(tmp)
+        xml_tools.ASSETS_DIR, xml_tools.XML_DIR = tmp, os.path.join(tmp, "xmls")
+        cls.meshdir, cls.texturedir = os.path.join(tmp, "stls"), os.path.join(tmp, "textures")
+        try:
+            yield tmp
+        finally:
+            xml_tools.ASSETS_DIR, xml_tools.XML_DIR, cls.meshdir, cls.texturedir = orig
+
+
+def composed_xml(world: str):
+    """The JAX builder's document of a composed dactyl world (inside
+    `jax_assets_tree`)."""
+    from robogym_tpu.envs.dactyl import cube_env, face_perpendicular, full_perpendicular, reach
+
+    return {"dactyl_locked_composed": lambda: cube_env.build_cube_world_xml(
+                cube_env.CubeEnvBase.CUBE_XML),
+            "rubik_face_composed": face_perpendicular.build_face_world_xml,
+            "rubik_full_composed": full_perpendicular.build_full_world_xml,
+            "dactyl_reach_composed": reach.build_reach_xml}[world]()
 
 
 @contextlib.contextmanager
@@ -246,7 +293,10 @@ def compile_snapshot(world: str = "locked_like"):
     from robogym_tpu.mjcf.compiler import compile_xml
     from robogym_tpu.mjcf.xml_tools import MjcfXML
 
-    if world in MESH_FAMILY:
+    if world in COMPOSED:
+        with jax_assets_tree():
+            model = compile_xml(composed_xml(world), dtype=jnp.float32)
+    elif world in MESH_FAMILY:
         from robogym_torch.worlds import rearrange_mesh_family_like as family
 
         env = MESH_FAMILY[world]
@@ -346,6 +396,8 @@ def snapshot_path(world: str) -> str:
 
     if world in MESH_FAMILY:
         return rearrange_mesh_family_like.SNAPSHOTS[MESH_FAMILY[world]]
+    if world in COMPOSED:
+        return os.path.join(os.path.dirname(rearrange_mesh_family_like.__file__), world + ".npz")
     if world in ("dactyl_vision_like", "rearrange_vision_like"):
         from robogym_torch.worlds import vision_like
 
