@@ -131,7 +131,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
    the palm's box-mesh pairs (K=32, V1=8, DX=6) and E on the palm's
    box-box pairs with the cubelets (K=26);
    on the inputs of the last substep of one full env step from its reset
-   state, A at V=96 (`@full`: its 65-128-dof shared-memory kernel, with the
+   state, A at V=96 (`@full`: one env a block of 8 warps, with the
    linalg.inv and cholesky_inverse times beside it), the solve (E=218: the
    66 friction-loss rows of the piece hinges, the hand's 24 limits, 32 x 4
    contact rows) in B where `cg_kernel.fits` says so (`cg_full@full`, with
@@ -152,10 +152,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
    last the size route (`cg@wide`): a seeded synthetic system at V=96,
    E=408 (`wide_core_inputs`), above kernel B's shared memory, where
    `cg_full` takes the plain version's route with its solve in kernel F,
-   and F keeps J in device memory; A on that system's M (V=96, the
-   shared-memory kernel, `spd_inverse@wide`); and A on dense seeded SPD
-   matrices at V=160 (HUGE_V, the device-memory kernel,
-   `spd_inverse@huge`).
+   and F keeps J in device memory; A on that system's M (V=96, one env a
+   block of 8 warps, `spd_inverse@wide`); and A on dense seeded SPD
+   matrices at V=160 (HUGE_V, one env a block of 16 warps,
+   `spd_inverse@huge`) and at V=256 (DEV_V, above the largest V the
+   kernel holds in shared memory: one env a block of 32 warps, the matrix
+   in device memory, `spd_inverse@dev`); above 64 dofs each A phase checks
+   that layout (the matrix in shared memory up to the largest V the build
+   reports, `cuda.spd_inverse_info`, in device memory above).
 6. Paths, each driven with every launch count set to 0 just before it and
    read just after; every qpos, qvel and qacc finite; every kernel's count
    equal to its count per substep or call times their number:
@@ -306,8 +310,9 @@ version's) is printed, and holds nothing. Each CG phase prints the excused
 envs with their witnesses, for every field of the one-step check its
 worst error over its tolerance, and the envs excused at a step.
 `--parent-csrc DIR` also holds each CG phase's outputs (the trace pointer
-null) to the kernels built from DIR, another checkout's
-`robogym_torch/csrc`, with `torch.equal`, and times both in turns.
+null) and each of A's phases' outputs to the kernels built from DIR,
+another checkout's `robogym_torch/csrc`, with `torch.equal`, and times
+both in turns.
 
 The training path (B=1024): `ppo_train`, the reach env from its reset
 state with a policy of PPO_HIDDEN hidden units through a one-rank
@@ -404,8 +409,8 @@ capture took before), and those kernels' phases run after the paths.
    holdout_env path; `cg@wide` counts F's
    launches in the
    routed `cg_full` call of its phase, read the same way as a path's, and
-   `spd_inverse@wide` and `spd_inverse@huge` A's launches in one call on
-   their matrices).
+   `spd_inverse@wide`, `spd_inverse@huge` and `spd_inverse@dev` A's
+   launches in one call on their matrices).
 
 `--profile PATH` also writes a device-time breakdown of three locked-like
 substeps, with their wall time and the device's busy share, to PATH.
@@ -437,7 +442,8 @@ ENV_STEPS = 2                     # env steps of the locked-like, locked, wrappe
 FULL_STEPS = 1                    # env steps of the full and wrapped full paths
 SOLVER_HOP_ENVS = 16              # envs of the full env's solver hop
 N_ACTION_BINS = 11                # the default stack's discrete actions (wrappers/__init__.py)
-HUGE_V = 160                      # kernel A's device-memory kernel (above 128 dofs)
+HUGE_V = 160                      # kernel A's dense phase at 16 warps an env (161 to 240: 32)
+DEV_V = 256                       # kernel A's dense phase in device memory (above 240 dofs)
 SUBSTEPS = 10                     # substeps per env step (envs/core.py)
 SETTLE_SUBSTEPS = 200             # one goal settle: stabilize_steps 5 x 40 substeps (blocks.py)
 # stabilize_steps (the env's default 5) of the older rearrange paths:
@@ -1162,20 +1168,26 @@ def spd_readings(A):
 
 
 def spd_layout(label, B, V):
-    """Print kernel A's layout at V dofs and B envs."""
+    """Print kernel A's layout at V dofs and B envs: its route, warps a
+    block, envs an SM and waves. A build that reports no warps a block
+    (before the block kernel) ran one warp an env."""
     from robogym_torch import cuda
 
     lay = cuda.spd_inverse_info(V)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    warps = lay["blocks_per_sm"] * lay["envs_per_block"]
-    check(warps > 0, f"{label}: no block fits on an SM")
-    rows = (f"{lay['rows_per_lane']} row(s) a lane in registers" if lay["rows_per_lane"] > 0
-            else "the matrix in device memory" if lay["rows_per_lane"] == 0 and not lay["smem_bytes"]
-            else "the matrix in shared memory" if lay["rows_per_lane"] == 0
-            else "rows a lane not reported")
-    print(f"[{label}] layout: {rows}, {lay['envs_per_block']} envs (warps) a block, "
-          f"{lay['smem_bytes']} B of shared memory a block, {lay['registers']} registers, "
-          f"{warps} warps an SM, {B / (warps * sms):.2f} waves")
+    per_block = lay["warps_per_block"] if lay["warps_per_block"] > 0 else lay["envs_per_block"]
+    envs = lay["blocks_per_sm"] * lay["envs_per_block"]
+    check(envs > 0, f"{label}: no block fits on an SM")
+    route = lay["route"] or ("registers" if lay["rows_per_lane"] > 0 else
+                             "device" if not lay["smem_bytes"] else "shared")
+    where = {"registers": f"{lay['rows_per_lane']} row(s) a lane in registers, one warp an env",
+             "shared": "the matrix in shared memory, one env a block",
+             "device": "the matrix in device memory, one env a block"}[route]
+    print(f"[{label}] layout: {where}, {per_block} warps a block, {lay['envs_per_block']} "
+          f"env(s) a block, {lay['smem_bytes']} B of shared memory a block, {lay['registers']} "
+          f"registers, {lay['blocks_per_sm']} blocks an SM ({envs} envs, "
+          f"{lay['blocks_per_sm'] * per_block} warps an SM), {B / (envs * sms):.2f} waves")
+    return lay
 
 
 def dense_spd(B, V, device, seed=SEED):
@@ -1204,7 +1216,11 @@ def phase_spd(label, A, reps):
     print(f"[{label}] dense seeded SPD matrices, B={B} V={V}: rel err {rd['max_err']:.3g}, "
           f"per-column err vs float64 {rd['column']:.3g}, plain version's "
           f"{rd['plain_column']:.3g}; bit-symmetric")
-    spd_layout(label, B, V)
+    lay = spd_layout(label, B, V)
+    check(V <= 64 or (lay["warps_per_block"] >= 2 and lay["envs_per_block"] == 1
+                      and lay["route"] == ("shared" if V <= lay["max_smem_v"] else "device")),
+          f"{label}: above 64 dofs kernel A runs one env a block of warps, the matrix in shared "
+          f"memory up to {lay['max_smem_v']} dofs, not {lay}")
     ms = timed_ms(lambda: fk.spd_inverse(A), reps)
     plain_ms = timed_ms(lambda: fk.spd_inverse_plain(A), reps)
     lib_ms = timed_ms(lambda: torch.linalg.inv(A), reps)
@@ -1215,6 +1231,8 @@ def phase_spd(label, A, reps):
           f"{r['plain_column']:.3g} (at most {SPD_COLUMN_RATIO} x); bit-symmetric; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms (cholesky_ex, solve_triangular, matmul), "
           f"linalg.inv {lib_ms:.4f} ms, cholesky_inverse {chol_ms:.4f} ms, bound {b_ms:.5f} ms")
+    if PARENT:
+        parent_readings(label, lambda x: (fk.spd_inverse(x),), (A,), reps)
     return dict(max_abs_err=r["max_abs_err"], max_err=r["max_err"], ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, cholesky_inverse_ms=chol_ms,
                 bound_ms=b_ms, bound_by=b_by, tol=SPD_TOL, column_err=r["column"],
@@ -1477,7 +1495,7 @@ def plain_beta(tr, k):
     return beta, TIE_ULPS * F32_EPS * ((m0 + b * m1) / den.double() + b)
 
 
-PARENT = {}   # the parent build to compare the CG kernels with (`--parent-csrc`)
+PARENT = {}   # the parent build to compare kernels A, B and F with (`--parent-csrc`)
 CG_ENTRIES = ("cg_full", "cg_full_noeuler", "cg")
 
 
@@ -1520,13 +1538,34 @@ def build_of(csrc, build_dir):
         cuda._size.cache_clear()
 
 
+@contextlib.contextmanager
+def unwritten_nan():
+    """Within: `torch.empty` and `torch.empty_like` fill the floating
+    tensors they return with NaN, so that an output a kernel leaves
+    unwritten reads as NaN (never `torch.equal`), not as the bytes a freed
+    allocation of an earlier call left there."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def nan(t):
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    torch.empty = lambda *a, **k: nan(empty(*a, **k))
+    torch.empty_like = lambda *a, **k: nan(empty_like(*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
 def parent_readings(label, fn, args, reps):
-    """Kernel wrapper `fn` on `args` with its trace pointer null, against
-    the parent build (`PARENT`): whether every output is `torch.equal`,
+    """Kernel wrapper `fn` on `args` (a CG kernel's with its trace pointer
+    null), against the parent build (`PARENT`): whether every output is
+    `torch.equal`, each build's outputs allocated NaN (`unwritten_nan`),
     and both builds' times in turns (this, parent, parent, this)."""
-    ours = [o.clone() for o in fn(*args)]
-    with build_of(**PARENT):
-        same = all(torch.equal(a, b) for a, b in zip(ours, fn(*args)))
+    with unwritten_nan():
+        ours = [o.clone() for o in fn(*args)]
+        with build_of(**PARENT):
+            same = all(torch.equal(a, b) for a, b in zip(ours, fn(*args)))
     t = []
     for parent in (False, True, True, False):
         with build_of(**PARENT) if parent else contextlib.nullcontext():
@@ -2010,9 +2049,9 @@ def phase_cg_routed(at, ci, its, nfacet, reps):
 
 
 def phase_spd_one_call(label, qM, reps):
-    """Kernel A on matrices no path gives it (the wide system's M at V=96,
-    the shared-memory kernel; dense matrices at HUGE_V, the device-memory
-    kernel): `phase_spd`, with its launches counted in one call."""
+    """Kernel A on matrices no path gives it (the wide system's M at V=96;
+    dense matrices at HUGE_V and DEV_V): `phase_spd`, with its launches
+    counted in one call."""
     from robogym_torch import cuda
     from robogym_torch.physics import factor_kernel as fk
 
@@ -4457,8 +4496,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", help="write a profile of 3 substeps here")
     ap.add_argument("--parent-csrc", metavar="DIR",
-                    help="also hold each CG phase's outputs to the kernels built from DIR (another "
-                         "checkout's robogym_torch/csrc) and time both builds in turns")
+                    help="also hold each CG and SPD phase's outputs to the kernels built from DIR "
+                         "(another checkout's robogym_torch/csrc) and time both builds in turns")
     ap.add_argument("--settles", metavar="DIR", help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if opts.settles:
@@ -4733,6 +4772,8 @@ def main() -> int:
     res["spd_inverse@wide"] = phase_spd_one_call("A spd_inverse@wide", wide_qM, REPS)
     res["spd_inverse@huge"] = phase_spd_one_call("A spd_inverse@huge",
                                                  dense_spd(B, HUGE_V, m.device), REPS // 5)
+    res["spd_inverse@dev"] = phase_spd_one_call("A spd_inverse@dev",
+                                                dense_spd(B, DEV_V, m.device), REPS // 5)
     # the Newton path's A on the last matrix of one substep (euler's M_imp)
     mn = m.replace(opt=dataclasses.replace(m.opt, solver="newton"))
     res["spd_inverse@newton"] = phase_spd(

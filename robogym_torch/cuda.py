@@ -193,20 +193,26 @@ def cg_full_blocks_per_sm(E: int, V: int, euler: bool) -> int:
 def spd_inverse_info(V: int) -> dict:
     """The layout of kernel A (`spd_inverse`) at V dofs: shared memory a
     block, registers a thread, blocks an SM (the occupancy calculator),
-    envs (warps) a block and rows a lane (0 for the shared-memory kernel
-    above 64 dofs, -1 from an older build that does not report it); raises
-    on a CUDA error."""
+    envs a block, rows a lane (0 above 64 dofs), warps a block and the
+    route: "registers" (one warp an env up to 64 dofs), "shared" (one env a
+    block of warps, the matrix in shared memory) or "device" (the same in
+    device memory), and the largest V whose matrix the build holds in
+    shared memory ("max_smem_v"). A field that an older build does not
+    report is -1 (the route None); raises on a CUDA error."""
     build()
     fn = _lib.robogym_spd_inverse_info
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)(*[-1] * 5)  # a build that reports four leaves -1
+    out = (ctypes.c_int * 8)(*[-1] * 8)  # an older build leaves the fields it lacks at -1
     rc = fn(V, out)
     if rc:
         raise RuntimeError(f"spd_inverse_info: CUDA error {rc} "
                            f"({_lib.robogym_error_string(rc).decode()})")
-    return dict(zip(("smem_bytes", "registers", "blocks_per_sm", "envs_per_block",
-                     "rows_per_lane"), out))
+    info = dict(zip(("smem_bytes", "registers", "blocks_per_sm", "envs_per_block",
+                     "rows_per_lane", "warps_per_block"), out))
+    info["route"] = {0: "registers", 1: "shared", 2: "device"}.get(out[6])
+    info["max_smem_v"] = out[7]
+    return info
 
 
 HULL_KINDS = ("hull_manifold", "hull_manifold_world", "hull_pair", "hull_pair_world")

@@ -5,10 +5,11 @@ the wrapper: on a CUDA tensor it launches the hand-written kernel in
 `robogym_torch/csrc/spd_inverse.cu` (one warp per env, one or two rows or
 columns a lane in registers up to V = 64: right-looking Cholesky, forward
 substitution for L^-1, A^-1 = L^-T L^-1, with identity on the dofs padded
-up to a multiple of 8; from 65 to 128 dofs the same arithmetic with the
-matrix in shared memory, and above that in a scratch in device memory,
-so that it takes any V, as the JAX package's kernel does); on a CPU
-tensor it runs `spd_inverse_plain`,
+up to a multiple of 8; above 64 dofs the same arithmetic per element on
+one env a block of 8 to 32 warps, the matrix in shared memory up to 240
+dofs and in a scratch in device memory above, so that it takes any V, as
+the JAX package's kernel does); on a CPU tensor it runs
+`spd_inverse_plain`,
 the PyTorch transcription of the JAX reference `_spd_inverse_ref`. Both
 read only the lower triangle.
 """

@@ -18,11 +18,6 @@
 #include "boxbox_host.cpp"
 
 thread_local uint3 threadIdx, blockIdx;
-namespace host_warp {
-std::barrier<>* bar;
-float xf[32];
-int xi[32];
-}  // namespace host_warp
 
 static std::vector<float> read_floats(FILE* f) {
   int64_t n = 0;

@@ -1,6 +1,6 @@
 // Runs kernel F on the host, block after block, each block as 32 threads
-// (cuda_runtime.h here). `cg_host.cpp` is cg.cu with its launch and its
-// `extern __shared__` line taken out, written by the test.
+// (`host_launch` of cuda_runtime.h here). `cg_host.cpp` is cg.cu with its
+// launch and its `extern __shared__` line taken out, written by the test.
 //
 //   run_cg IN OUT
 //
@@ -11,18 +11,12 @@
 // trace_floats(V, E)), NaN where the kernel wrote nothing.
 #include <cstdint>
 #include <cstdio>
-#include <thread>
 #include <vector>
 
 extern float sm[];
 #include "cg_host.cpp"
 
 thread_local uint3 threadIdx, blockIdx;
-namespace host_warp {
-std::barrier<>* bar;
-float xf[32];
-int xi[32];
-}  // namespace host_warp
 float sm[1 << 16];
 
 static std::vector<float> read_floats(FILE* f) {
@@ -53,18 +47,7 @@ int main(int argc, char** argv) {
            a[6].data(), a[7].data(), a[8].data(), a[9].data(), x.data(), fo.data(),
            scratch.data(), traced ? tr.data() : nullptr, E, V, its};
   for (size_t i = 0; i < pl.smem / 4; ++i) sm[i] = std::nanf("");  // no read before a write
-  std::barrier<> bar(32);
-  host_warp::bar = &bar;
-  for (int b = 0; b < B; ++b) {
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
-      lanes.emplace_back([&, l, b] {
-        threadIdx = {(unsigned)l, 0, 0};
-        blockIdx = {(unsigned)b, 0, 0};
-        pl.fn(p);
-      });
-    for (auto& t : lanes) t.join();
-  }
+  host_launch(pl.fn, B, 32, pl.smem, nullptr, p);
   FILE* o = fopen(argv[2], "wb");
   if (!o) return 2;
   for (const auto* v : {&x, &fo, &tr}) fwrite(v->data(), 4, v->size(), o);

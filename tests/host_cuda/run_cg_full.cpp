@@ -1,6 +1,7 @@
 // Runs kernel B on the host, block after block, each block as 32 threads
-// (cuda_runtime.h here). `cg_full_host.cpp` is cg_full.cu with its launch
-// and its `extern __shared__` line taken out, written by the test.
+// (`host_launch` of cuda_runtime.h here). `cg_full_host.cpp` is cg_full.cu
+// with its launch and its `extern __shared__` line taken out, written by
+// the test.
 //
 //   run_cg_full IN OUT
 //
@@ -13,18 +14,12 @@
 // nothing.
 #include <cstdint>
 #include <cstdio>
-#include <thread>
 #include <vector>
 
 extern float sm[];
 #include "cg_full_host.cpp"
 
 thread_local uint3 threadIdx, blockIdx;
-namespace host_warp {
-std::barrier<>* bar;
-float xf[32];
-int xi[32];
-}  // namespace host_warp
 float sm[1 << 16];
 
 static std::vector<float> read_floats(FILE* f) {
@@ -63,18 +58,7 @@ int main(int argc, char** argv) {
   size_t smem;
   if (configure(E, V, euler != 0, &fn, &smem) != cudaSuccess || smem > sizeof(sm)) return 3;
   for (size_t i = 0; i < smem / 4; ++i) sm[i] = std::nanf("");  // no read before a write
-  std::barrier<> bar(32);
-  host_warp::bar = &bar;
-  for (int b = 0; b < B; ++b) {
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < 32; ++l)
-      lanes.emplace_back([&, l, b] {
-        threadIdx = {(unsigned)l, 0, 0};
-        blockIdx = {(unsigned)b, 0, 0};
-        fn(p);
-      });
-    for (auto& t : lanes) t.join();
-  }
+  host_launch(fn, B, 32, smem, nullptr, p);
   FILE* o = fopen(argv[2], "wb");
   if (!o) return 2;
   for (const auto* v : {&x, &fo, &qfrc, &qvn, &qs, &tr}) fwrite(v->data(), 4, v->size(), o);

@@ -22,11 +22,6 @@ extern float4 cvs[];
 #include "hull_host.cpp"
 
 thread_local uint3 threadIdx, blockIdx;
-namespace host_warp {
-std::barrier<>* bar;
-float xf[32];
-int xi[32];
-}  // namespace host_warp
 float4 cvs[kPairsPerBlock * (2 * kMaxVerts + 1)];
 
 static std::vector<float> read_floats(FILE* f) {

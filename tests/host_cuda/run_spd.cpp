@@ -1,5 +1,5 @@
-// Runs kernel A on the host through its C entry point, block after block
-// and warp after warp (cuda_runtime.h here). `spd_host.cpp` is
+// Runs kernel A on the host through its C entry point, block after block,
+// each block's threads all at once (cuda_runtime.h here). `spd_host.cpp` is
 // spd_inverse.cu with its `<<<...>>>` launch turned into a call of
 // `host_launch` and its `extern __shared__` line taken out, written by the
 // test.
@@ -8,7 +8,7 @@
 //
 // IN: 3 int32 (B, V, dev), then B*V*V float32. OUT: the B inverses as
 // float32, through `robogym_spd_inverse`, or with dev = 1 through
-// `robogym_spd_inverse_dev` (the device-memory kernel at any V).
+// `robogym_spd_inverse_dev` (the block kernel in device memory at any V).
 #include <cstdint>
 #include <cstdio>
 #include <vector>
@@ -18,12 +18,8 @@ extern float4 smem[];
 #include "spd_host.cpp"
 
 thread_local uint3 threadIdx, blockIdx;
-namespace host_warp {
-std::barrier<>* bar;
-float xf[32];
-int xi[32];
-}  // namespace host_warp
-// the largest block: two warps at Vp = 64, or the shared-memory kernel at V = 128
+// the largest block: two warps at Vp = 64, or the block kernel in shared
+// memory at kMaxSmemV = 240 dofs
 float4 smem[(smem_bytes(64) > smem_bytes(kMaxSmemV) ? smem_bytes(64) : smem_bytes(kMaxSmemV)) / 16];
 
 int main(int argc, char** argv) {

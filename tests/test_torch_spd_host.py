@@ -1,9 +1,10 @@
 """Kernel A's CUDA source (`robogym_torch/csrc/spd_inverse.cu`) run on the
 CPU and held against its plain version, as tests/test_torch_cg_host.py
 holds kernel F: compiled by the host's C++ compiler against the stand-in
-CUDA runtime of `tests/host_cuda/`, each launch block after block and warp
-after warp, each warp as 32 threads that meet at a barrier for every
-shuffle and __syncwarp, in IEEE single precision without contracted
+CUDA runtime of `tests/host_cuda/`, each launch block after block, each
+block's threads all running together (a block barrier for
+__syncthreads, each warp's own barrier and exchange arrays for its
+shuffles and __syncwarp), in IEEE single precision without contracted
 multiply-adds, through the library's own C entry point
 (`tests/host_cuda/run_spd.cpp`).
 
@@ -11,19 +12,25 @@ Inputs: the locked-like world's M and M + dt*diag(damping) from one
 substep (V=30, B=3), the hand world's M (V=24), and seeded random SPD
 matrices at V in {1, 5, 8, 24, 30, 32, 33, 36, 40, 48, 64, 65, 96, 128,
 129, 160, 200}, which cover the padding and every instance of the kernel
-(Vp = 8 to 32, a row a lane; 40 to 64, two rows a lane; 65 to 128 dofs,
-the shared-memory kernel; above 128, the device-memory kernel, also held
-to a float64 inverse at 1e-3 of its largest entry), the device-memory
-kernel at V=96 bit for bit against the shared-memory one, and the
-dactyl-shaped world's M (V=36). Tolerances, chip_smoke.py's:
-1e-5 relative to the plain version's largest entry (`SPD_TOL`), and each
+(Vp = 8 to 32, a row a lane; 40 to 64, two rows a lane; above 64 dofs one
+env a block of 8, 16 or 32 warps, the matrix in shared memory; above 128
+also held to a float64 inverse at 1e-3 of its largest entry), and the
+dactyl-shaped world's M (V=36). Tolerances, chip_smoke.py's: 1e-5
+relative to the plain version's largest entry (`SPD_TOL`), and each
 column's error against a float64 inverse, over that column's largest
 entry, at most 4 times the plain version's in the batch's worst column
-(`SPD_COLUMN_RATIO`); the output bit-symmetric. On the input of tests/test_factor_kernel.py (V=30)
-the host build and the JAX package's Pallas kernel in interpret mode are
-held to `np.linalg.inv` with that file's tolerances and to each other at
-1e-5 relative, and so they are on the dactyl-shaped world's M (V=36, the
-kernel's Vp = 40 instance)."""
+(`SPD_COLUMN_RATIO`); the output bit-symmetric. On the input of
+tests/test_factor_kernel.py (V=30) the host build and the JAX package's
+Pallas kernel in interpret mode are held to `np.linalg.inv` with that
+file's tolerances and to each other at 1e-5 relative, and so they are on
+the dactyl-shaped world's M (V=36, the kernel's Vp = 40 instance).
+
+Above 64 dofs the host build is held bit for bit (`np.array_equal`) to
+`_transcription`, the kernel's arithmetic per element written out in
+float32 numpy, at V in {65, 96, 128, 129, 160, 200, 240, 256} (240 the
+largest V in shared memory, 256 through device memory); the device-memory
+entry to the shared-memory one bit for bit at V=96 and V=160; and neither
+route reads the strict upper triangle."""
 
 import os
 import re
@@ -74,7 +81,8 @@ def host_kernel(tmp_path_factory):
 
 def _run(host_kernel, A, dev=False):
     """Kernel A of the host build on (B, V, V) float32 matrices, through
-    its entry point, or with `dev` through the device-memory kernel's."""
+    its entry point, or with `dev` through the block kernel's in device
+    memory (`robogym_spd_inverse_dev`, any V)."""
     exe, tmp = host_kernel
     A = np.ascontiguousarray(np.asarray(A, np.float32))
     Bn, V, _ = A.shape
@@ -165,10 +173,59 @@ def test_spd_source_on_host_matches_plain_random(host_kernel, V):
 
 
 def test_spd_source_on_host_device_memory_matches_shared_memory(host_kernel):
-    """The device-memory kernel at V=96 gives the shared-memory kernel's
-    outputs bit for bit: the same arithmetic, in device memory."""
-    A = torch.as_tensor(_spd(np.random.default_rng(96), B, 96))
-    assert torch.equal(_run(host_kernel, A, dev=True), _run(host_kernel, A))
+    """The device-memory entry at V=96 and V=160 gives the shared-memory
+    kernel's outputs bit for bit: the same block body in device memory,
+    at 32 warps a block against 8 and 16 in shared memory."""
+    for V in (96, 160):
+        A = torch.as_tensor(_spd(np.random.default_rng(V), B, V))
+        assert torch.equal(_run(host_kernel, A, dev=True), _run(host_kernel, A)), V
+
+
+def _transcription(A):
+    """Kernel A's arithmetic above 64 dofs, element by element, in float32
+    numpy on (B, V, V) matrices: the Cholesky's rank-1 updates as a
+    multiply and then a subtraction in ascending j after the clamped square
+    root and the division; the substitution's updates in ascending i (from
+    0.0 below the diagonal), then the division (1 / d on the diagonal); the
+    product's sums over i >= max(r, c) in ascending i from 0.0."""
+    A = np.asarray(A, np.float32)
+    Bn, V, _ = A.shape
+    a = np.tril(A)
+    L = np.zeros_like(A)
+    d = np.zeros((Bn, V), np.float32)
+    for j in range(V):
+        d[:, j] = np.sqrt(np.maximum(a[:, j, j], np.float32(1e-20)))
+        L[:, j + 1:, j] = a[:, j + 1:, j] / d[:, j, None]
+        l = L[:, j + 1:, j]
+        a[:, j + 1:, j + 1:] -= np.tril(l[:, :, None] * l[:, None, :])
+    X = np.zeros_like(A)
+    X[:, np.arange(V), np.arange(V)] = np.float32(1.0) / d
+    for i in range(V - 1):
+        X[:, i + 1:, :i + 1] -= L[:, i + 1:, i, None] * X[:, i, None, :i + 1]
+        X[:, i + 1, :i + 1] /= d[:, i + 1, None]
+    out = np.zeros_like(A)
+    k = np.arange(V)
+    first = np.maximum(k[:, None], k[None, :])
+    for i in range(V):
+        out = np.where(i >= first, out + X[:, i, :, None] * X[:, i, None, :], out)
+    return out
+
+
+@pytest.mark.parametrize("V", [65, 96, 128, 129, 160, 200, 240, 256])
+def test_spd_source_on_host_matches_transcription(host_kernel, V):
+    """Above 64 dofs the host build gives `_transcription`'s outputs bit for
+    bit, through shared memory up to V=240 and device memory at 256."""
+    A = _spd(np.random.default_rng(V), B, V)
+    assert np.array_equal(_run(host_kernel, A).numpy(), _transcription(A))
+
+
+@pytest.mark.parametrize("V", [96, 241])
+def test_spd_source_on_host_wide_reads_lower_triangle(host_kernel, V):
+    """Above 64 dofs, in shared memory (V=96) and in device memory (V=241),
+    the strict upper triangle is never read either."""
+    A = torch.as_tensor(_spd(np.random.default_rng(V), B, V))
+    junk = A + torch.triu(torch.full_like(A, 1e3), diagonal=1)
+    assert torch.equal(_run(host_kernel, junk), _run(host_kernel, A))
 
 
 def test_spd_source_on_host_reads_lower_triangle(host_kernel):

@@ -13,8 +13,9 @@ whether the checks that `chip_smoke.py` holds each kernel to catch them.
 Runs on an NVIDIA GPU. It captures each kernel's inputs as `chip_smoke.py`
 does, at B=1024: A's from one substep of the locked-like world (M, V=30),
 of the hand-only world (V=24) and of the dactyl-shaped world (V=36), dense
-seeded SPD matrices (V=36 and, for the device-memory kernel, V=160) and
-the wide system's M (V=96), B's from one substep of the locked-like
+seeded SPD matrices (V=36; V=160, one env a block with the matrix in
+shared memory; V=256, the same block body in device memory) and the wide
+system's M (V=96), B's from one substep of the locked-like
 world and, with each env's own timestep, from one step of the default
 dactyl wrapper stack around the locked env (`cg_full@dt`), and from the
 rearrange env's solver sim in one env step from its reset state, with its
@@ -60,9 +61,11 @@ MANIFOLD = ("hull_manifold", "hull_manifold@table-box", "hull_manifold@table",
             "hull_manifold_world")
 # A's register instances (V=30, the hand's V=24, the locked env's V=36 at
 # two rows a lane and dense seeded SPD matrices at V=36,
-# `chip_smoke.dense_spd`), then its shared-memory kernel (V=96)
+# `chip_smoke.dense_spd`), then its block kernel above 64 dofs: in shared
+# memory at V=96 and V=160, in device memory at V=256
 SPD_REG = ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl", "spd_inverse@dense36")
-SPD = SPD_REG + ("spd_inverse@wide", "spd_inverse@huge")
+SPD_BLOCK = ("spd_inverse@wide", "spd_inverse@huge", "spd_inverse@dev")
+SPD = SPD_REG + SPD_BLOCK
 PAIR = ("hull_pair", "hull_pair_world")
 CHECKED = SPD + ("cg_full", "cg_full@dt", "cg_full@solver", "cg", "cg_wide", "boxbox") + PAIR \
     + MANIFOLD
@@ -70,8 +73,11 @@ RANK1 = "if (c4 + m > j) a[k][c4 + m] -= l[k] * lc[m];"
 DIAG = "__shfl_sync(kFull, a[j / 32][j], j % 32)"
 PAD = "a[k][c] = (c == i) ? 1.0f : 0.0f;  // identity on the padded dofs"
 SLOT = "if (c4 >= 32 * (k + 1)) continue;"
-SMEM_DIAG = "const float dj = sqrt_rn(fmaxf(T[j * S + j], 1e-20f));"
-DEV_SCRATCH = "float* T = scratch + (size_t)b * warp_matrix_floats(V);"
+SMEM_DIAG = "const float dj = sqrt_rn(fmaxf(Lj[j], 1e-20f));"
+DEV_SCRATCH = "float* T = scratch + (size_t)b * matrix_floats(V);"
+PANEL = """      for (int j = j0; j < j1; ++j) {
+        const float* Lj = T + j * S;
+        const float lc = Lj[c];"""
 B_DT = "const float dt = p.dt[(size_t)b * p.dt_stride];"
 B_JS = "J[(idx - i * V) * CS + i] = p.Js[(size_t)b * n_s * V + idx];"
 SCALES = "const float scales[4] = {2.0f, 1.0f, 0.5f, 0.125f};"
@@ -121,7 +127,7 @@ FAULTS = {
                                     RANK1.replace("c4 + m > j)", "c4 + m > j && c4 + m < Vp - 1)"),
                                     ("spd_inverse@hand",)),
     # step 3 of A's Cholesky takes its diagonal from lane 4 (an entry below
-    # it); the shared-memory kernel has no shuffle (PASSES)
+    # it); the block kernel above 64 dofs has no shuffle (PASSES)
     "spd_diagonal_from_wrong_lane": ("spd_inverse.cu", DIAG, DIAG.replace("j % 32)",
                                                                           "j == 3 ? 4 : j % 32)"),
                                      SPD_REG),
@@ -139,16 +145,21 @@ FAULTS = {
                                    SLOT.replace("continue;", "continue;\n        if (k == 1 && j == 33) continue;"),
                                    ("spd_inverse@dense36",)),
     # the diagonal at step 70 off by 1e-4 relative in the arithmetic of
-    # the kernels above 64 dofs (shared and device memory); the register
-    # instances do not run it (PASSES)
+    # the block kernel above 64 dofs (shared and device memory); the
+    # register instances do not run it (PASSES)
     "spd_smem_diagonal_scaled": ("spd_inverse.cu", SMEM_DIAG,
                                  SMEM_DIAG.replace("1e-20f));", "1e-20f)) * (j == 70 ? 1.0001f : 1.0f);"),
-                                 ("spd_inverse@wide", "spd_inverse@huge")),
-    # the device-memory kernel gives two envs one scratch slice: they
-    # overwrite each other's factors (in bounds)
+                                 SPD_BLOCK),
+    # the block kernel in device memory gives two envs one scratch slice:
+    # they overwrite each other's factors (in bounds); at V=160 the matrix
+    # is in shared memory, which the fault does not reach (PASSES)
     "spd_dev_scratch_shared": ("spd_inverse.cu", DEV_SCRATCH,
                                DEV_SCRATCH.replace("(size_t)b *", "(size_t)(b / 2) *"),
-                               ("spd_inverse@huge",)),
+                               ("spd_inverse@dev",)),
+    # the block kernel's panel update of the trailing triangle leaves out
+    # the panel's last column
+    "spd_panel_skips_last_column": ("spd_inverse.cu", PANEL, PANEL.replace("j < j1;", "j < j1 - 1;"),
+                                    SPD_BLOCK),
     "one_fewer_iteration": ("cg_full.cu", B_SOLVE, B_SOLVE.replace("p.iterations", "p.iterations - 1"),
                             ("cg_full",)),
     # B's Euler update reads the first env's timestep in every env; with one
@@ -227,7 +238,8 @@ FAULTS = {
 PASSES = {"spd_rank1_skips_last_column": ("spd_inverse", "spd_inverse@dactyl"),
           "spd_diagonal_from_wrong_lane": ("spd_inverse@wide",), "spd_padding_zero": SPD,
           "spd_second_slot_skips_step": ("spd_inverse", "spd_inverse@hand", "spd_inverse@dactyl"),
-          "spd_smem_diagonal_scaled": ("spd_inverse@dactyl",), "dt_first_env": ("cg_full",),
+          "spd_smem_diagonal_scaled": ("spd_inverse@dactyl",),
+          "spd_dev_scratch_shared": ("spd_inverse@huge",), "dt_first_env": ("cg_full",),
           "weld_rotation_rows_dropped": ("cg_full",),
           # on the wide synthetic system the sound build and this one pass
           # alike: its late line-search choices stay inside float32's noise
@@ -258,8 +270,9 @@ def capture(chip_smoke):
     """Each checked kernel's inputs at B=1024: {"spd_inverse": M,
     "spd_inverse@hand": M, "spd_inverse@dactyl": M of the dactyl-shaped
     world (V=36), "spd_inverse@dense36": dense seeded SPD matrices (V=36),
-    "spd_inverse@wide": M of the wide system (V=96), "spd_inverse@huge":
-    dense seeded SPD matrices (V=160), "cg_full" and "cg_full@dt": (args_of,
+    "spd_inverse@wide": M of the wide system (V=96), "spd_inverse@huge"
+    and "spd_inverse@dev": dense seeded SPD matrices (V=160, V=256),
+    "cg_full" and "cg_full@dt": (args_of,
     iterations), "cg": (args_of, iterations), "cg_wide": (args_of,
     iterations), "boxbox": args, and (local operands, DX) for
     "hull_pair", "hull_pair_world", "hull_manifold", "hull_manifold_world",
@@ -306,6 +319,7 @@ def capture(chip_smoke):
         "spd_inverse@dense36": chip_smoke.dense_spd(chip_smoke.BATCH, 36, m.device),
         "spd_inverse@wide": ci_w["qM"],
         "spd_inverse@huge": chip_smoke.dense_spd(chip_smoke.BATCH, chip_smoke.HUGE_V, m.device),
+        "spd_inverse@dev": chip_smoke.dense_spd(chip_smoke.BATCH, chip_smoke.DEV_V, m.device),
         "spd_inverse@hand": chip_smoke.capture_call(factor_kernel, "spd_inverse",
                                                     lambda: step.step(mh, dh))[0],
         **{name: (args[:-1], args[-1]) for name, args in hull.items()},

@@ -109,8 +109,9 @@ def opcode(ins: str) -> str:
 
 def sass(lib_path: str, dump: str, key: str = "hull"):
     """Per kernel of the library whose name holds `key`: instructions,
-    opcode classes and loops (a backward branch and its body), from
-    `cuobjdump -sass`; their listing is written to `dump`."""
+    opcode classes, loops (a backward branch and its body) and its
+    instructions as text ("listing"), from `cuobjdump -sass`; their
+    listing is written to `dump`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           check=True).stdout
@@ -143,7 +144,8 @@ def sass(lib_path: str, dump: str, key: str = "hull"):
                          sts=ops.count("STS"), ldg=ops.count("LDG"), stg=ops.count("STG"),
                          bar=ops.count("BAR"), fp=sum(o in ("FMUL", "FADD", "FFMA", "FMNMX")
                                                       for o in ops),
-                         cvt=sum(o.startswith("F2F") for o in ops), loops=loops)
+                         cvt=sum(o.startswith("F2F") for o in ops), loops=loops,
+                         listing=[i for _, i in ins])
     return out
 
 

@@ -5,7 +5,8 @@
 
 Runs on an NVIDIA GPU. Prints what `nvcc -Xptxas -v` reports for each
 instance of kernel A (registers, spills), then holds the kernel at every V
-from 1 to 128 and at the device-memory kernel's V in `ABOVE` to
+from 1 to 256 (the register instances up to 64, the block kernel with the
+matrix in shared memory up to 240, in device memory above) to
 `chip_smoke.spd_readings` (1e-5 of the plain version's largest entry; per
 column against a float64 inverse at most `SPD_COLUMN_RATIO` times the
 plain version's; bit-symmetric) on seeded SPD matrices X X^T / V + I at
@@ -24,8 +25,9 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHOWN = (1, 8, 9, 30, 32, 33, 36, 40, 41, 48, 56, 64, 65, 96, 128)
-ABOVE = (129, 160, 200, 256)   # the device-memory kernel
+SHOWN = (1, 8, 9, 30, 32, 33, 36, 40, 41, 48, 56, 64, 65, 96, 128, 129, 160, 161, 200, 240,
+         241, 256)
+MAX_V = 256
 
 
 def main() -> int:
@@ -44,20 +46,19 @@ def main() -> int:
         elif name and ("registers" in line or "spill" in line):
             print(f"[ptxas] {name}: {line.strip()}")
     bad = []
-    sizes = [*range(1, 129), *ABOVE]
-    for V in sizes:
+    for V in range(1, MAX_V + 1):
         rng = np.random.default_rng(V)
         X = rng.standard_normal((64, V, V))
         A = torch.as_tensor((X @ X.transpose(0, 2, 1) / V + np.eye(V)).astype(np.float32),
                             device="cuda")
         r, failures = chip_smoke.spd_readings(A)
         bad += [f"V={V}: {f}" for f in failures]
-        if V in SHOWN + ABOVE or failures:
+        if V in SHOWN or failures:
             print(f"[V={V}] rel err {r['max_err']:.3g} (tol {chip_smoke.SPD_TOL}); per-column err "
                   f"{r['column']:.3g}, plain version's {r['plain_column']:.3g}; bit-symmetric "
                   f"{r['symmetric']}; layout {cuda.spd_inverse_info(V)}")
     print("spd_sizes: " + (f"readings fail: {bad}" if bad else
-                           f"every V from 1 to 128 and {ABOVE} passes"))
+                           f"every V from 1 to {MAX_V} passes"))
     return 1 if bad else 0
 
 
